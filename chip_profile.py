@@ -1,16 +1,21 @@
-"""Where one block of the port's main path spends its time, on one CUDA card.
+"""Where one block of each of the port's main paths spends its time, on one
+CUDA card.
 
-    python3 chip_profile.py [--trace PATH]
+    python3 chip_profile.py [--trace PREFIX]
 
 Builds the north-star configuration of chip_smoke.py (4x4 Hubbard (7, 7),
-U=4, free-electron trial, complex64, dt=0.01, re-orthogonalisation every
-10 steps, comb population control and the mixed energy every step), runs
-one warm-up block, then one block under torch.profiler (CPU and CUDA
-activity). Prints the card (nvidia-smi), the block's wall time, the summed
-device time of its kernels, the device's idle share (1 - device time /
-wall time; kernels run on one stream, so they do not overlap), the kernel
-launch count, and the kernels by device time. With --trace the Chrome
-trace is written there too. Needs the card; there is no CPU fallback.
+U=4, free-electron trial, complex64, 1024 walkers, dt=0.01,
+re-orthogonalisation every 10 steps, comb population control and the mixed
+energy every step) twice: with the continuous HS propagator (the lanes
+block) and with the discrete Hirsch propagator (the generic block and the
+sweep kernel). For each it runs one warm-up block, then one block under
+torch.profiler (CPU and CUDA activity), and prints the block's wall time,
+the summed device time of its kernels, the device's idle share (1 - device
+time / wall time; kernels run on one stream, so they do not overlap), the
+kernel launch count, and the kernels by device time. The card's name and
+power limit (nvidia-smi) come first. With --trace the Chrome traces are
+written to PREFIX.continuous.json and PREFIX.discrete.json. Needs the card;
+there is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -25,32 +30,9 @@ import time
 import torch
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--trace", default=None)
-    args = ap.parse_args()
-    nwalkers, nsteps = 1024, 10
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_profile: no CUDA device")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+def profile_block(af, name: str, trace: str | None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
-    from pauxy_tpu_torch.models import free_electron_trial, make_hubbard
-    from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
-    ham = make_hubbard(7, 7, U=4.0, nx=4, ny=4, device="cuda",
-                       dtype="single")
-    trial = free_electron_trial(ham, device="cuda", dtype="single")
-    af = AFQMC(ham, trial,
-               QMCOpts(nwalkers=nwalkers, dt=0.01, nsteps=nsteps,
-                       nblocks=2, nstblz=10, npop_control=1, rng_seed=8),
-               estimator_options={"mixed": {"energy_eval_freq": 1}},
-               device="cuda")
     af.run_block()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -66,18 +48,47 @@ def main() -> None:
         by_name.setdefault(e.name, []).append(e.device_time_total)
     device_us = sum(sum(v) for v in by_name.values())
     rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
-    print(card)
+    nwalkers, nsteps = af.qmc.nwalkers, af.qmc.nsteps
     print(json.dumps({
-        "nwalkers": nwalkers, "nsteps": nsteps,
+        "path": name, "nwalkers": nwalkers, "nsteps": nsteps,
         "block_wall_ms": wall * 1e3, "device_ms": device_us / 1e3,
         "device_idle_share": 1.0 - device_us / 1e6 / wall,
         "kernel_launches": len(kernels),
         "walker_steps_per_s": nwalkers * nsteps / wall,
     }))
-    for name, times in rows[:25]:
-        print(f"{sum(times) / 1e3:10.4f} ms {len(times):6d} x  {name[:100]}")
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
+    for kname, times in rows[:25]:
+        print(f"{sum(times) / 1e3:10.4f} ms {len(times):6d} x  "
+              f"{kname[:100]}")
+    if trace:
+        prof.export_chrome_trace(f"{trace}.{name}.json")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--trace", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_profile: no CUDA device")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pauxy_tpu_torch.models import free_electron_trial, make_hubbard
+    from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip())
+    ham = make_hubbard(7, 7, U=4.0, nx=4, ny=4, device="cuda",
+                       dtype="single")
+    trial = free_electron_trial(ham, device="cuda", dtype="single")
+    qmc = QMCOpts(nwalkers=1024, dt=0.01, nsteps=10, nblocks=2, nstblz=10,
+                  npop_control=1, rng_seed=8)
+    eopts = {"mixed": {"energy_eval_freq": 1}}
+    for name, popts in (("continuous", None),
+                        ("discrete", {"hubbard_stratonovich": "discrete"})):
+        af = AFQMC(ham, trial, qmc, propagator_options=popts,
+                   estimator_options=eopts, device="cuda")
+        profile_block(af, name, args.trace)
 
 
 if __name__ == "__main__":

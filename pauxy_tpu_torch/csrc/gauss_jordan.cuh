@@ -1,7 +1,7 @@
 // Partial-pivot Gauss-Jordan on one walker's augmented matrix in shared
 // memory, shared by greens.cu (kernel A) and batchla.cu (kernel B) just as
 // pauxy_tpu/ops/batchla_pallas.py:gauss_jordan_lanes is shared by the two
-// TPU kernels.
+// TPU kernels, and the shared-memory sizing of every lanes kernel.
 //
 // Layout: one thread per walker. A block's shared memory holds the
 // augmented matrices of its walkers as [row][col][lane], so element (i, j)
@@ -101,17 +101,58 @@ __device__ void gauss_jordan(cplx<T>* a, int n, int ncol, int stride,
   }
 }
 
+// Real counterpart of gauss_jordan, same pivot rule: on return
+// log |det S| = ldr and sign(det S) = sgn (+1 or -1). The TPU kernel runs
+// real input through its complex elimination with zero imaginary parts;
+// this is the same arithmetic with the zeros left out.
+template <typename T>
+__device__ void gauss_jordan_real(T* a, int n, int ncol, int stride, T& ldr,
+                                  T& sgn) {
+  ldr = T(0);
+  sgn = T(1);
+  for (int k = 0; k < n; ++k) {
+    int piv = k;
+    T best = T(-1);
+    for (int i = k; i < n; ++i) {
+      const T v = a[(i * ncol + k) * stride];
+      if (v * v > best) {
+        best = v * v;
+        piv = i;
+      }
+    }
+    if (piv != k) {
+      for (int j = k; j < ncol; ++j) {
+        const T t = a[(k * ncol + j) * stride];
+        a[(k * ncol + j) * stride] = a[(piv * ncol + j) * stride];
+        a[(piv * ncol + j) * stride] = t;
+      }
+      sgn = -sgn;
+    }
+    const T p = a[(k * ncol + k) * stride];
+    const T den = p * p;
+    ldr += T(0.5) * dlog(den);
+    if (p < T(0)) sgn = -sgn;
+    const T ip = p / den;
+    for (int j = k; j < ncol; ++j) a[(k * ncol + j) * stride] *= ip;
+    for (int i = 0; i < n; ++i) {
+      if (i == k) continue;
+      const T f = a[(i * ncol + k) * stride];
+      for (int j = k; j < ncol; ++j) {
+        a[(i * ncol + j) * stride] -= f * a[(k * ncol + j) * stride];
+      }
+    }
+  }
+}
+
 // Shared memory a block may use on sm_90 (227 KB, dynamic above 48 KB).
 constexpr size_t kSmemMax = 232448;
 constexpr size_t kSmemStatic = 48 * 1024;
 constexpr int kMaxWalkersPerBlock = 128;
 
-// Walkers per block for an n x ncol working matrix: the largest power of
-// two up to 128 whose matrices fit in shared memory; 0 when not even one
-// fits. `bytes` receives the dynamic shared memory of one block.
-template <typename T>
-inline int walkers_per_block(int n, int ncol, size_t* bytes) {
-  const size_t per = (size_t)n * (size_t)ncol * sizeof(cplx<T>);
+// Walkers per block when each walker keeps `per` bytes in shared memory:
+// the largest power of two up to 128 whose walkers fit; 0 when not even
+// one fits. `bytes` receives the dynamic shared memory of one block.
+inline int walkers_per_block(size_t per, size_t* bytes) {
   int wpb = kMaxWalkersPerBlock;
   while (wpb > 1 && (size_t)wpb * per > kSmemMax) wpb /= 2;
   *bytes = (size_t)wpb * per;

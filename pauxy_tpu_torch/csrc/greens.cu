@@ -99,7 +99,8 @@ static int launch_greens(const void* psi, const void* phi, void* logdet,
                          void* stream) {
   const int ncol = want_gh ? 2 * n : n;
   size_t bytes = 0;
-  const int wpb = pauxy::walkers_per_block<T>(n, ncol, &bytes);
+  const int wpb = pauxy::walkers_per_block(
+      (size_t)n * ncol * sizeof(cplx<T>), &bytes);
   if (wpb == 0 || w <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = pauxy::allow_smem(greens_lanes_kernel<T>, bytes);
   if (err != cudaSuccess) return (int)err;

@@ -1,9 +1,11 @@
-"""Mixed estimator: host-side block reporting.
+"""Mixed estimator: per-step accumulation and host-side block reporting.
 
-Counterpart of the header, accumulator layout and ``MixedReporter`` of
-``pauxy_tpu/estimators/mixed.py``. The per-step accumulation of the main
-path is inside ``qmc/hubbard_fast.py``; this module turns a block's sums
-into an output row, prints it and pushes it to the HDF5 file.
+Counterpart of the header, accumulator layout, ``energy_estimator``,
+``update`` and ``MixedReporter`` of ``pauxy_tpu/estimators/mixed.py``.
+``update`` is the generic block's per-step accumulation (single-determinant
+trial, phaseless, Hubbard, no density matrices); the lanes block of
+``qmc/hubbard_fast.py`` keeps its own. ``MixedReporter`` turns a block's
+sums into an output row, prints it and pushes it to the HDF5 file.
 """
 
 from __future__ import annotations
@@ -11,6 +13,10 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import torch
+
+from pauxy_tpu_torch.estimators import local_energy as le
+from pauxy_tpu_torch.ops import greens
 
 # Accumulator column indices.
 UWEIGHT, WEIGHT, ENUMER, EDENOM, E1B, E2B, EHYB, OVLP = range(8)
@@ -29,6 +35,48 @@ HEADER = [
     "Overlap",
     "Time",
 ]
+
+
+def energy_estimator(ham, trial):
+    """Batched ``(ga, gb) -> (etot, e1b, e2b)`` local energy from the two
+    spins' ``SpinGreens``; Hubbard only so far."""
+    if ham.name != "Hubbard":
+        raise NotImplementedError(
+            f"no ported local energy for system {ham.name!r}")
+    return lambda ga, gb: le.local_energy_hubbard(ham, ga.G, gb.G)
+
+
+def update(ham, trial, state, eval_energy: bool,
+           free_projection: bool = False) -> torch.Tensor:
+    """One step's contribution to the block accumulator, [NACC] complex, in
+    the order UWEIGHT, WEIGHT, ENUMER, EDENOM, E1B, E2B, EHYB, OVLP. The
+    energy terms are zero unless ``eval_energy``."""
+    if free_projection:
+        raise NotImplementedError(
+            "the free-projection mixed estimator is not ported yet")
+    cdtype = state.log_ovlp.dtype
+    wfac = state.weight.to(cdtype)
+    zero = torch.zeros((), dtype=cdtype, device=wfac.device)
+    enumer = edenom = e1b = e2b = zero
+    if eval_energy:
+        ga = greens.greens_function(state.phia, trial.psia)
+        gb = greens.greens_function(state.phib, trial.psib)
+        etot, ke, pe = energy_estimator(ham, trial)(ga, gb)
+        enumer = torch.sum(wfac * etot.real)
+        edenom = torch.sum(wfac)
+        e1b = torch.sum(wfac * ke.real)
+        e2b = torch.sum(wfac * pe.real)
+    acc = [None] * NACC
+    acc[UWEIGHT] = torch.sum(state.unscaled_weight).to(cdtype)
+    acc[WEIGHT] = torch.sum(wfac)
+    acc[ENUMER] = enumer
+    acc[EDENOM] = edenom
+    acc[E1B] = e1b
+    acc[E2B] = e2b
+    acc[EHYB] = torch.sum(wfac * state.hybrid_energy)
+    acc[OVLP] = torch.sum(state.weight * torch.exp(state.log_ovlp.real)
+                          ).to(cdtype)
+    return torch.stack(acc)
 
 
 class MixedReporter:

@@ -5,7 +5,8 @@ from pauxy_tpu_torch.models.trial import (
     SingleDetTrial,
     free_electron_trial,
     trial_from_orbitals,
+    uhf_trial,
 )
 
 __all__ = ["Hubbard", "make_hubbard", "SingleDetTrial", "free_electron_trial",
-           "trial_from_orbitals"]
+           "trial_from_orbitals", "uhf_trial"]

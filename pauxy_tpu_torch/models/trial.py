@@ -78,3 +78,85 @@ def free_electron_trial(ham, *, device=None, dtype=None) -> SingleDetTrial:
     _, vb = np.linalg.eigh(h1[1])
     return _finalize(ham, va[:, : ham.nup], vb[:, : ham.ndown], prec,
                      "free_electron", device)
+
+
+def checkerboard_guess(nbasis: int, nup: int, ndown: int, nx: int, ny: int
+                       ) -> np.ndarray:
+    """Antiferromagnetic checkerboard determinant [M, nup + ndown]."""
+    wfn = np.zeros((nbasis, nup + ndown), dtype=np.complex128)
+    na = nb = 0
+    for i in range(nbasis):
+        x, y = i % nx, i // nx
+        if (x + y) % 2 == 0 and na < nup:
+            wfn[i, na] = 1.0
+            na += 1
+        elif nb < ndown:
+            wfn[i, nup + nb] = -1.0
+            nb += 1
+    return wfn
+
+
+def _eigh_lowest(h: np.ndarray, n: int) -> np.ndarray:
+    """Eigenvectors of the lowest n eigenvalues of a hermitian matrix."""
+    return np.linalg.eigh(h)[1][:, :n]
+
+
+def uhf_trial(ham, ueff: float = 0.4, ninitial: int = 10, nconv: int = 5000,
+              alpha: float = 0.5, deps: float = 1e-8, seed: int | None = None,
+              initial: str = "random", *, device=None, dtype=None
+              ) -> SingleDetTrial:
+    """Self-consistent UHF trial for the Hubbard model, host-side.
+
+    Mean-field decoupling H^s = T + U_eff diag(<n_{-s}>), solved with density
+    mixing from ``ninitial`` random starts (numpy's ``default_rng(seed)``)
+    or from the checkerboard; the JAX package's ``uhf_trial`` step by step,
+    so the same seed gives the same orbitals.
+    """
+    prec = config.get_precision(dtype)
+    device = config.resolve_device(device)
+    t = ham.T.cpu().numpy()
+    m, nup, ndown = ham.nbasis, ham.nup, ham.ndown
+    if initial == "checkerboard":
+        wfn = checkerboard_guess(m, nup, ndown, ham.nx, ham.ny)
+        return _finalize(ham, wfn[:, :nup], wfn[:, nup:], prec, "uhf",
+                         device)
+    rng = np.random.default_rng(seed)
+    depsn = deps ** 0.5
+
+    def density(v):
+        return np.einsum("mi,mi->m", v, v.conj()).real
+
+    def energy(va, vb):
+        g = trial_density_matrix(va.astype(np.complex128),
+                                 vb.astype(np.complex128))
+        ke = np.sum(t[0] * g[0] + t[1] * g[1])
+        pe = ham.U * np.dot(np.diagonal(g[0]), np.diagonal(g[1]))
+        return (ke + pe).real
+
+    best_e, best = np.inf, None
+    for _ in range(ninitial):
+        ra = rng.random((m, m))
+        rb = rng.random((m, m))
+        va = _eigh_lowest(0.5 * (ra + ra.T), nup)
+        vb = _eigh_lowest(0.5 * (rb + rb.T), ndown)
+        niup, nidown = density(va), density(vb)
+        niup_old, nidown_old = niup.copy(), nidown.copy()
+        eold = np.inf
+        for _it in range(nconv):
+            va = _eigh_lowest(t[0] + np.diag(ueff * nidown), nup)
+            vb = _eigh_lowest(t[1] + np.diag(ueff * niup), ndown)
+            niup, nidown = density(va), density(vb)
+            enew = energy(va, vb)
+            if (abs(enew - eold) < deps
+                    and np.abs(niup - niup_old).sum() / m < depsn
+                    and np.abs(nidown - nidown_old).sum() / m < depsn):
+                break
+            niup_mixed = (1 - alpha) * niup + alpha * niup_old
+            nidown_mixed = (1 - alpha) * nidown + alpha * nidown_old
+            niup_old, nidown_old = niup, nidown
+            niup, nidown = niup_mixed, nidown_mixed
+            eold = enew
+        if enew < best_e - deps:
+            best_e, best = enew, (va, vb)
+    va, vb = best
+    return _finalize(ham, va, vb, prec, "uhf", device)

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``pauxy_tpu_torch/csrc``.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the
-build takes seconds). The build happens at first use, never at import,
+Each ``.cu`` source is compiled by its own ``nvcc`` for ``sm_90a``, all of
+them at once, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the build
+takes seconds). The build happens at first use, never at import,
 into ``build/pauxy_tpu_torch/`` at the root of the checkout, keyed on a hash
 of the sources and flags so that an edited source is rebuilt.
 """
@@ -19,9 +20,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pauxy_tpu_torch"
-SOURCES = ("gauss_jordan.cuh", "greens.cu", "batchla.cu")
-FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("gauss_jordan.cuh", "greens.cu", "batchla.cu", "chol_inv.cu",
+           "sweep.cu")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,6 +33,12 @@ SIGNATURES = {
     "pauxy_greens_lanes_c128": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pauxy_inv_logdet_lanes_c64": (_P, _P, _P, _I, _I, _I, _P),
     "pauxy_inv_logdet_lanes_c128": (_P, _P, _P, _I, _I, _I, _P),
+    "pauxy_inv_logdet_lanes_f32": (_P, _P, _P, _I, _I, _I, _P),
+    "pauxy_inv_logdet_lanes_f64": (_P, _P, _P, _I, _I, _I, _P),
+    "pauxy_chol_inv_lanes_c64": (_P, _P, _P, _I, _I, _P),
+    "pauxy_chol_inv_lanes_c128": (_P, _P, _P, _I, _I, _P),
+    "pauxy_hirsch_sweep_f32": (_P,) * 11 + (_I,) * 4 + (_P,),
+    "pauxy_hirsch_sweep_f64": (_P,) * 11 + (_I,) * 4 + (_P,),
 }
 
 _lib = None
@@ -58,21 +66,42 @@ def library_path() -> Path:
 
 def build() -> tuple[Path, float]:
     """Compile the library unless a build of these sources exists.
-    Returns (path, seconds spent compiling). The compiler's report
-    (registers, shared memory, spills) is kept beside it as ``.log``."""
+    Returns (path, seconds spent compiling). One ``nvcc -c`` per source,
+    started together, then one link. The compilers' reports (registers,
+    shared memory, spills) are kept beside the library as ``.log``."""
     out = library_path()
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES if s.endswith(".cu"))]
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in (s for s in SOURCES if s.endswith(".cu")):
+        obj = BUILD_DIR / f"{tag}.{src}.o"
+        cmd = [nvcc(), *FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    reports = []
+    failed = []
+    for src, _, proc in jobs:
+        text, _ = proc.communicate()
+        reports.append(f"== {src}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{src} ({proc.returncode}):\n{text}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = out.with_name(f"{tag}.so.tmp")
+    res = subprocess.run([nvcc(), *ARCH, "-shared", "-o", str(tmp),
+                          *(str(obj) for _, obj, _ in jobs)],
+                         capture_output=True, text=True)
     seconds = time.perf_counter() - t0
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
+    out.with_suffix(".log").write_text("".join(reports))
     os.replace(tmp, out)
     return out, seconds
 

@@ -1,15 +1,28 @@
-"""Batched Slater-determinant overlaps on the [w, M, n] layout.
+"""Batched Slater-determinant overlaps and Green's functions, [w, M, n].
 
-Counterpart of ``overlap_matrix`` / ``log_overlap`` in
-``pauxy_tpu/ops/greens.py``. ``phi`` is [w, M, n], ``psi`` [M, n]; the
-overlap is S = phi^T conj(psi), kept in log space.
+Counterpart of ``overlap_matrix``, ``log_overlap``, ``SpinGreens``,
+``greens_function`` and ``reortho`` in ``pauxy_tpu/ops/greens.py``.
+``phi`` is [w, M, n], ``psi`` [M, n]; the overlap is S = phi^T conj(psi),
+kept in log space. The inverse and log-determinant of S come from kernel B
+in one pass; the two products around it are plain batched matmuls, as they
+are plain XLA products outside any Pallas kernel in the JAX package.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from pauxy_tpu_torch.ops import clinalg
+
+
+class SpinGreens(NamedTuple):
+    """Green's function of one spin sector, batched over walkers."""
+
+    G: torch.Tensor         # [w, M, M] full Green's function
+    Ghalf: torch.Tensor     # [w, n, M] half-rotated Green's function
+    log_ovlp: torch.Tensor  # [w] complex log det(phi^T conj(psi))
 
 
 def overlap_matrix(phi: torch.Tensor, psi: torch.Tensor) -> torch.Tensor:
@@ -20,3 +33,18 @@ def overlap_matrix(phi: torch.Tensor, psi: torch.Tensor) -> torch.Tensor:
 def log_overlap(phi: torch.Tensor, psi: torch.Tensor) -> torch.Tensor:
     """Batched complex log det(phi^T conj(psi)), shape [w]."""
     return clinalg.slogdet(overlap_matrix(phi, psi)).to(phi.dtype)
+
+
+def greens_function(phi: torch.Tensor, psi: torch.Tensor) -> SpinGreens:
+    """G = conj(psi) S^-1 phi^T and Ghalf = S^-1 phi^T with their log
+    overlap; S^-1 and log det S from one launch of kernel B."""
+    log_det, inv = clinalg.inv_logdet(overlap_matrix(phi, psi))
+    ghalf = torch.matmul(inv, phi.transpose(-1, -2))      # [w, n, M]
+    g = torch.einsum("mi,win->wmn", psi.conj(), ghalf)
+    return SpinGreens(G=g, Ghalf=ghalf, log_ovlp=log_det.to(phi.dtype))
+
+
+def reortho(phi: torch.Tensor):
+    """Re-orthogonalised ``phi`` and log det R (real, [w]) by CholeskyQR2,
+    det R real positive by construction."""
+    return clinalg.cholesky_qr2(phi)

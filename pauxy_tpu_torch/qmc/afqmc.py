@@ -1,14 +1,21 @@
 """Zero-temperature AFQMC driver (the supported subset).
 
-Counterpart of ``pauxy_tpu/qmc/afqmc.py`` for the configurations its lanes
-fast block covers (``qmc/hubbard_fast.eligible``): every block runs
-``hubbard_fast.run_block_lanes``; block boundaries touch the host for the
-output row, the HDF5 push and the eshift update. Any other configuration
-raises ``NotImplementedError``.
+Counterpart of ``pauxy_tpu/qmc/afqmc.py``. Two blocks, each the JAX
+package's counterpart:
+
+* ``hubbard_fast.run_block_lanes``, the lanes fast block, for the
+  configurations ``hubbard_fast.eligible`` covers (Hubbard continuous-HS
+  hybrid phaseless);
+* ``run_block`` below, the generic [w, M, n] block, for the discrete-HS
+  (Hirsch) propagator: constrained-path CPMC.
+
+Block boundaries touch the host for the output row, the HDF5 push and the
+eshift update. Any other configuration raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import platform
 import sys
 import time
@@ -20,11 +27,14 @@ import torch
 from pauxy_tpu_torch import config
 from pauxy_tpu_torch.estimators import mixed
 from pauxy_tpu_torch.propagation.continuous import Continuous
+from pauxy_tpu_torch.propagation.hirsch import Hirsch, make_hirsch
 from pauxy_tpu_torch.propagation.hubbard import make_hubbard_continuous
 from pauxy_tpu_torch.qmc import hubbard_fast
+from pauxy_tpu_torch.qmc.hubbard_fast import BlockNoise
 from pauxy_tpu_torch.qmc.options import QMCOpts
 from pauxy_tpu_torch.utils.io import H5EstimatorHelper, create_estimates_file
-from pauxy_tpu_torch.walkers.state import init_walkers
+from pauxy_tpu_torch.walkers import pop_control as pc
+from pauxy_tpu_torch.walkers.state import init_walkers, orthogonalise
 
 # Full float32 products everywhere (no TF32), as in the JAX driver.
 config.set_matmul_precision()
@@ -40,8 +50,47 @@ def check_population_alive(weight: torch.Tensor, hint: str):
         )
 
 
+def run_block(ham, trial, prop, state, generator, eshift: float,
+              step0: int, *, nsteps: int, nstblz: int, npop_control: int,
+              pop_method: str, target_weight: float, energy_eval_freq: int,
+              noise: BlockNoise | None = None):
+    """Advance ``state`` by one phaseless block of ``nsteps`` steps in the
+    [w, M, n] layout, in the JAX step order
+    (``pauxy_tpu/qmc/afqmc.py:117-156``): re-orthogonalise on
+    ``step % nstblz == 0`` before propagating; propagate; cap weights at
+    10% of the total weight from step 2 on;
+    population control on ``step % npop_control == 0``; the mixed
+    estimator, with energies on ``step % energy_eval_freq == 0``.
+
+    Returns (state, accumulator [2, NACC] real: the block sums' real and
+    imaginary parts). Draws come from ``generator`` unless ``noise`` is
+    given (``noise.xi[i]`` is step i's [M, w] propagator draw).
+    """
+    accs = []
+    for i in range(nsteps):
+        step = step0 + 1 + i
+        if step % nstblz == 0:
+            state = orthogonalise(state)
+        state = prop.propagate(trial, state, generator, eshift,
+                               None if noise is None else noise.xi[i])
+        if step > 1:
+            cap = 0.10 * state.total_weight
+            state = dataclasses.replace(
+                state, weight=torch.where(state.weight.abs() > cap, cap,
+                                          state.weight))
+        if step % npop_control == 0:
+            state = pc.pop_control(
+                state, target_weight, pop_method,
+                uniforms=None if noise is None else noise.pop[i],
+                generator=generator)
+        accs.append(mixed.update(ham, trial, state,
+                                 step % energy_eval_freq == 0))
+    s = torch.stack(accs).sum(dim=0)
+    return state, torch.stack([s.real, s.imag])
+
+
 class AFQMC:
-    """Zero-temperature phaseless AFQMC simulation on ``device``.
+    """Zero-temperature AFQMC simulation on ``device``.
 
     The trial fixes the precision; ``ham`` and ``trial`` are moved to
     ``device``. With ``filename`` the block rows go to an HDF5 file in the
@@ -64,22 +113,32 @@ class AFQMC:
         self.free_projection = popts.get("free_projection", False)
         self.hybrid = popts.get("hybrid", True)
         self.prop = self._build_propagator(popts)
+        # The discrete propagator reports the projected energy as the
+        # shift during equilibration (its hybrid is False), as in JAX.
+        self.hybrid = getattr(self.prop, "hybrid", self.hybrid)
         mixed_opts = eopts.get("mixed", {})
         self.energy_eval_freq = mixed_opts.get("energy_eval_freq", qmc.nsteps)
-        bp = eopts.get("back_propagation", eopts.get("back_propagated"))
-        if not hubbard_fast.eligible(
-            self.ham, self.trial, self.prop,
-            free_projection=self.free_projection,
-            nbp=bp is not None, nitcf=eopts.get("itcf") is not None,
+        extras = dict(
+            nbp=eopts.get("back_propagation",
+                          eopts.get("back_propagated")) is not None,
+            nitcf=eopts.get("itcf") is not None,
             calc_one_rdm=bool(mixed_opts.get("one_rdm", False)),
             calc_two_rdm=mixed_opts.get("two_rdm") is not None,
-            pop_method=qmc.pop_control_method,
-        ):
+        )
+        self.use_fast_block = hubbard_fast.eligible(
+            self.ham, self.trial, self.prop,
+            free_projection=self.free_projection,
+            pop_method=qmc.pop_control_method, **extras,
+        )
+        generic = (isinstance(self.prop, Hirsch) and not any(extras.values())
+                   and qmc.pop_control_method in ("comb", "pair_branch"))
+        if not (self.use_fast_block or generic):
             raise NotImplementedError(
                 "this configuration is not ported yet: the port runs Hubbard "
-                "continuous-HS hybrid phaseless AFQMC with a single-"
-                "determinant trial, comb or pair_branch population control "
-                "and the mixed energy estimator"
+                "continuous-HS hybrid phaseless AFQMC and discrete-HS "
+                "constrained-path CPMC, with a single-determinant trial, "
+                "comb or pair_branch population control and the mixed "
+                "energy estimator"
             )
 
         self.state = init_walkers(self.trial, qmc.nwalkers,
@@ -100,11 +159,27 @@ class AFQMC:
         # Wall-clock seconds of each block, ending with its host readback.
         self.block_seconds: list[float] = []
 
-    def _build_propagator(self, popts: dict) -> Continuous:
+    def _build_propagator(self, popts: dict) -> Continuous | Hirsch:
         hs = popts.get("hubbard_stratonovich", "continuous")
-        if self.ham.name != "Hubbard" or "discrete" in hs:
+        if self.ham.name != "Hubbard":
             raise NotImplementedError(
                 f"no ported propagator for {self.ham.name!r} with {hs!r} HS"
+            )
+        if "discrete" in hs:
+            return make_hirsch(
+                self.ham, self.trial, self.qmc.dt,
+                charge_decomposition=popts.get("charge_decomposition",
+                                               False),
+                free_projection=self.free_projection,
+                # 'single_site_update': false is the reference's spelling
+                # of the whole-lattice update.
+                two_body_mode=popts.get(
+                    "two_body_update",
+                    "single_site" if popts.get("single_site_update", True)
+                    else "direct"),
+                kinetic_kspace=popts.get("kinetic_kspace", False),
+                mesh=popts.get("mesh"),
+                device=self.device, dtype=self.trial.psia.dtype,
             )
         inner = make_hubbard_continuous(
             self.ham, self.trial, self.qmc.dt,
@@ -149,7 +224,9 @@ class AFQMC:
     def run_block(self) -> np.ndarray:
         """Advance one block (nsteps), report, and update eshift."""
         t0 = time.perf_counter()
-        self.state, acc = hubbard_fast.run_block_lanes(
+        block = (hubbard_fast.run_block_lanes if self.use_fast_block
+                 else run_block)
+        self.state, acc = block(
             self.ham, self.trial, self.prop, self.state, self.generator,
             self.eshift, self.step,
             nsteps=self.qmc.nsteps,

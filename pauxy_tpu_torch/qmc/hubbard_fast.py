@@ -29,9 +29,11 @@ from pauxy_tpu_torch.walkers import pop_control as pc
 
 
 class BlockNoise(NamedTuple):
-    """Random draws of one block, for tests: ``xi`` [nsteps, M, W] HS
-    fields; ``pop`` [nsteps, k] population-control uniforms (k = 1 for
-    comb, W // 2 for pair_branch), read on population-control steps."""
+    """Random draws of one block, for tests: ``xi`` [nsteps, M, W] the
+    propagator's draws (normal HS fields here, the site sweep's uniforms in
+    the generic block of ``qmc/afqmc.py``); ``pop`` [nsteps, k]
+    population-control uniforms (k = 1 for comb, W // 2 for pair_branch),
+    read on population-control steps."""
 
     xi: torch.Tensor
     pop: torch.Tensor

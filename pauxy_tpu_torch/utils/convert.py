@@ -2,7 +2,8 @@
 
 The parity tests hand both packages identical inputs: they read the JAX
 objects' fields with ``np.asarray`` and pass them here. Nothing here
-imports jax.
+imports jax. Like every constructor of the port, ``device=None`` means the
+CUDA card (``config.resolve_device``); the CPU must be asked for.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 from pauxy_tpu_torch import config
 from pauxy_tpu_torch.models.hubbard import Hubbard, band_energies
 from pauxy_tpu_torch.models.trial import SingleDetTrial, trial_density_matrix
+from pauxy_tpu_torch.propagation.hirsch import Hirsch
 from pauxy_tpu_torch.propagation.hubbard import HubbardContinuous
 from pauxy_tpu_torch.walkers.state import WalkerState
 
@@ -22,9 +24,10 @@ def _t(x, device) -> torch.Tensor:
 
 
 def hubbard(T, U: float, symmetric: bool, *, nx: int, ny: int, nup: int,
-            ndown: int, t: float = 1.0, device="cpu") -> Hubbard:
+            ndown: int, t: float = 1.0, device=None) -> Hubbard:
     """Hubbard from its hopping matrix T [2, M, M]; h1e_mod = T - U/2
     unless symmetric, as in ``make_hubbard``."""
+    device = config.resolve_device(device)
     T = np.asarray(T)
     h1e_mod = T if symmetric else (T - 0.5 * U * np.eye(T.shape[-1])[None]
                                    ).astype(T.dtype)
@@ -35,8 +38,9 @@ def hubbard(T, U: float, symmetric: bool, *, nx: int, ny: int, nup: int,
 
 
 def trial(psia, psib, etrial: float, *, name: str = "single_det",
-          device="cpu") -> SingleDetTrial:
-    """Single-determinant trial from its orbitals psia [M, na], psib [M, nb]."""
+          device=None) -> SingleDetTrial:
+    """Single-determinant trial from orbitals psia [M, na], psib [M, nb]."""
+    device = config.resolve_device(device)
     psia = np.asarray(psia)
     psib = np.asarray(psib)
     return SingleDetTrial(_t(psia, device), _t(psib, device),
@@ -45,15 +49,27 @@ def trial(psia, psib, etrial: float, *, name: str = "single_det",
 
 
 def hubbard_continuous(BH1, mf_shift, *, dt: float, U: float, charge: bool,
-                       device="cpu") -> HubbardContinuous:
+                       device=None) -> HubbardContinuous:
+    device = config.resolve_device(device)
     return HubbardContinuous(_t(BH1, device), _t(mf_shift, device), dt=dt,
                              U=U, charge=charge)
 
 
+def hirsch(BT2, auxf, aux_wfac, *, dt: float, charge: bool, gamma: complex,
+           sweep_kernel: str, device=None) -> Hirsch:
+    """Hirsch propagator from the JAX one's tables BT2 [2, M, M],
+    auxf [2, 2] and aux_wfac [2]."""
+    device = config.resolve_device(device)
+    return Hirsch(_t(BT2, device), _t(auxf, device), _t(aux_wfac, device),
+                  dt=dt, charge=charge, gamma=gamma,
+                  sweep_kernel=sweep_kernel)
+
+
 def walker_state(*, phia, phib, weight, unscaled_weight, log_ovlp,
-                 hybrid_energy, log_detr, total_weight, device="cpu"
+                 hybrid_energy, log_detr, total_weight, device=None
                  ) -> WalkerState:
     """WalkerState from the JAX state's fields ([w, M, n] layout)."""
+    device = config.resolve_device(device)
     rdtype = config.real_dtype(_t(log_ovlp, "cpu").dtype)
     return WalkerState(
         phia=_t(phia, device),

@@ -1,5 +1,6 @@
 """Walker state and population control."""
 
-from pauxy_tpu_torch.walkers.state import WalkerState, init_walkers
+from pauxy_tpu_torch.walkers.state import (WalkerState, init_walkers,
+                                          orthogonalise)
 
-__all__ = ["WalkerState", "init_walkers"]
+__all__ = ["WalkerState", "init_walkers", "orthogonalise"]

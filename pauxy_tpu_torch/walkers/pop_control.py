@@ -1,12 +1,16 @@
 """Population control as parent indices for a gather.
 
-Counterpart of ``comb_parents`` and ``pair_branch_parents`` in
-``pauxy_tpu/walkers/pop_control.py``. Each returns a parent slot per walker;
-the caller gathers every per-walker tensor with it. The uniforms are drawn
-from ``generator`` unless given (tests inject the JAX draws).
+Counterpart of ``pauxy_tpu/walkers/pop_control.py``. ``comb_parents`` and
+``pair_branch_parents`` return a parent slot per walker; ``comb``,
+``pair_branch`` and ``pop_control`` gather every per-walker field of a
+[w, ...] ``WalkerState`` with it (the lanes block gathers its own layout).
+The uniforms are drawn from ``generator`` unless given (tests inject the
+JAX draws).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -77,3 +81,54 @@ def pair_branch_parents(weight: torch.Tensor, target_weight: float,
     new_w[small_idx] = torch.where(active, 0.5 * pair_w, small)
     new_w[large_idx] = torch.where(active, 0.5 * pair_w, large)
     return parents, new_w, total
+
+
+def _gather_walkers(state, parents: torch.Tensor):
+    """Replace walker i by a copy of walker parents[i]: every field whose
+    leading axis is the walker axis moves with its parent; scalars such as
+    total_weight stay (weights are the caller's)."""
+    nw = parents.shape[0]
+    moved = {}
+    for f in dataclasses.fields(state):
+        x = getattr(state, f.name)
+        if isinstance(x, torch.Tensor) and x.dim() >= 1 and x.shape[0] == nw:
+            moved[f.name] = x[parents]
+    return dataclasses.replace(state, **moved)
+
+
+def comb(state, target_weight: float, uniform: torch.Tensor | None = None,
+         generator: torch.Generator | None = None):
+    """Comb resampling of the population; weights reset to 1 (0 if the
+    whole population is dead), the old ones kept in unscaled_weight."""
+    parents, total = comb_parents(state.weight, target_weight, uniform,
+                                  generator)
+    new = _gather_walkers(state, parents)
+    alive = (total > 0).to(state.weight.dtype)
+    return dataclasses.replace(
+        new, weight=alive * torch.ones_like(state.weight),
+        unscaled_weight=state.weight, total_weight=total)
+
+
+def pair_branch(state, target_weight: float,
+                uniforms: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
+    """Pair-branch population control of the population."""
+    parents, new_w, total = pair_branch_parents(state.weight, target_weight,
+                                                uniforms, generator)
+    new = _gather_walkers(state, parents)
+    return dataclasses.replace(new, weight=new_w,
+                               unscaled_weight=state.weight,
+                               total_weight=total)
+
+
+def pop_control(state, target_weight: float, method: str = "comb",
+                uniforms: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
+    """``uniforms``: one draw for comb, nw // 2 for pair_branch."""
+    if method == "comb":
+        return comb(state, target_weight,
+                    None if uniforms is None else uniforms.reshape(()),
+                    generator)
+    if method == "pair_branch":
+        return pair_branch(state, target_weight, uniforms, generator)
+    raise ValueError(f"unknown population control method {method!r}")

@@ -65,3 +65,23 @@ def init_walkers(trial, nwalkers: int, total_weight: float | None = None
         total_weight=torch.tensor(float(total_weight), dtype=rdtype,
                                   device=dev),
     )
+
+
+def orthogonalise(state: WalkerState, free_projection: bool = False
+                  ) -> WalkerState:
+    """CholeskyQR2 re-orthogonalisation of the whole population; the
+    overlap absorbs det R (phaseless). Free projection, which moves |det R|
+    into the weight and needs the walkers' phase, is not ported yet."""
+    if free_projection:
+        raise NotImplementedError(
+            "orthogonalise with free projection is not ported yet")
+    phia, log_ra = greens.reortho(state.phia)
+    phib, log_rb = greens.reortho(state.phib)
+    log_r = log_ra + log_rb
+    return dataclasses.replace(
+        state,
+        phia=phia,
+        phib=phib,
+        log_ovlp=state.log_ovlp - log_r.to(state.log_ovlp.dtype),
+        log_detr=state.log_detr + log_r,
+    )

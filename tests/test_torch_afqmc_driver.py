@@ -95,7 +95,7 @@ def test_no_file_without_filename(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("popts,eopts", [
-    ({"hubbard_stratonovich": "discrete"}, None),
+    ({"hubbard_stratonovich": "discrete", "free_projection": True}, None),
     ({"free_projection": True}, None),
     ({"hybrid": False}, None),
     (None, {"back_propagation": {"tau_bp": 0.05}}),
@@ -124,7 +124,8 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, pauxy_tpu_torch, pauxy_tpu_torch.qmc, "
         "pauxy_tpu_torch.utils.convert, pauxy_tpu_torch.ops.greens_cuda, "
-        "pauxy_tpu_torch.ops.batchla_cuda\n"
+        "pauxy_tpu_torch.ops.batchla_cuda, pauxy_tpu_torch.ops.sweep_cuda, "
+        "pauxy_tpu_torch.propagation.hirsch\n"
         "bad = [m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pauxy_tpu', "
         "'h5py', 'pandas')]\n"

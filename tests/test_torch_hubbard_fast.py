@@ -50,7 +50,7 @@ def jax_noise(block_key, nsteps, nw, m, pop_method):
 
 def port_state(js):
     return convert.walker_state(**{f: np.asarray(getattr(js, f))
-                                   for f in STATE_FIELDS})
+                                   for f in STATE_FIELDS}, device="cpu")
 
 
 CASES = {
@@ -82,13 +82,13 @@ def test_block_trajectory_matches_jax(case):
 
     tham = convert.hubbard(np.asarray(ham.T), ham.U, ham.symmetric,
                            nx=ham.nx, ny=ham.ny, nup=ham.nup,
-                           ndown=ham.ndown)
+                           ndown=ham.ndown, device="cpu")
     ttrial = convert.trial(np.asarray(trial.psia), np.asarray(trial.psib),
-                           trial.etrial)
+                           trial.etrial, device="cpu")
     tinner = convert.hubbard_continuous(np.asarray(inner.BH1),
                                         np.asarray(inner.mf_shift),
                                         dt=inner.dt, U=inner.U,
-                                        charge=inner.charge)
+                                        charge=inner.charge, device="cpu")
     tprop = tcont.Continuous(inner=tinner, dt=0.01,
                              force_bias=jprop.force_bias)
     assert thf.eligible(tham, ttrial, tprop, free_projection=False, nbp=0,
@@ -123,9 +123,9 @@ def test_block_trajectory_matches_jax(case):
 
 def test_generator_draws_reproducible_and_finite():
     ham = convert.hubbard(np.stack([np.eye(4) * 0.0] * 2), 2.0, False,
-                          nx=4, ny=1, nup=1, ndown=1)
+                          nx=4, ny=1, nup=1, ndown=1, device="cpu")
     psi = np.eye(4, 1, dtype=np.complex128)
-    trial = convert.trial(psi, psi, 0.0)
+    trial = convert.trial(psi, psi, 0.0, device="cpu")
     inner = HubbardContinuous(torch.eye(4, dtype=torch.complex128)[None]
                               .repeat(2, 1, 1),
                               torch.zeros(4, dtype=torch.complex128),

@@ -120,8 +120,9 @@ def test_make_hubbard_continuous_matches_jax(charge, kw):
     assert (ti.dt, ti.U, ti.charge) == (ji.dt, ji.U, ji.charge)
     # The same from JAX objects carried across.
     ch = convert.hubbard(np.asarray(jh.T), jh.U, jh.symmetric, nx=jh.nx,
-                         ny=jh.ny, nup=jh.nup, ndown=jh.ndown)
-    ct = convert.trial(np.asarray(jt.psia), np.asarray(jt.psib), jt.etrial)
+                         ny=jh.ny, nup=jh.nup, ndown=jh.ndown, device="cpu")
+    ct = convert.trial(np.asarray(jt.psia), np.asarray(jt.psib), jt.etrial,
+                       device="cpu")
     close(ch.h1e_mod.numpy(), jh.h1e_mod)
     close(ch.eks.numpy(), jh.eks)
     close(ct.G_host, np.asarray(jt.G_host.arr))
@@ -131,7 +132,7 @@ def test_make_hubbard_continuous_matches_jax(charge, kw):
     close(ci.mf_shift.numpy(), ji.mf_shift)
     cc = convert.hubbard_continuous(np.asarray(ji.BH1),
                                     np.asarray(ji.mf_shift), dt=ji.dt,
-                                    U=ji.U, charge=ji.charge)
+                                    U=ji.U, charge=ji.charge, device="cpu")
     close(cc.BH1.numpy(), ji.BH1)
     assert cc.sqrt_dt == pytest.approx(ji.sqrt_dt)
 
