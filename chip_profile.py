@@ -8,14 +8,16 @@ U=4, free-electron trial, complex64, 1024 walkers, dt=0.01,
 re-orthogonalisation every 10 steps, comb population control and the mixed
 energy every step) twice: with the continuous HS propagator (the lanes
 block) and with the discrete Hirsch propagator (the generic block and the
-sweep kernel). For each it runs one warm-up block, then one block under
+sweep kernel); then the Generic path at chip_smoke.py's bench shape
+(nmo=128, naux=512, (16, 16), RHF trial, 1024 walkers, dt=0.005,
+re-orthogonalisation every 5 steps, taylor_impl="pallas", energy every
+step). For each it runs one warm-up block, then one block under
 torch.profiler (CPU and CUDA activity), and prints the block's wall time,
 the summed device time of its kernels, the device's idle share (1 - device
 time / wall time; kernels run on one stream, so they do not overlap), the
 kernel launch count, and the kernels by device time. The card's name and
 power limit (nvidia-smi) come first. With --trace the Chrome traces are
-written to PREFIX.continuous.json and PREFIX.discrete.json. Needs the card;
-there is no CPU fallback.
+written to PREFIX.<path>.json. Needs the card; there is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -70,7 +72,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from pauxy_tpu_torch.models import free_electron_trial, make_hubbard
+    from chip_smoke import generic_model
+    from pauxy_tpu_torch.models import (free_electron_trial, make_generic,
+                                        make_hubbard, rhf_identity_trial)
     from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
 
     print(subprocess.run(
@@ -89,6 +93,13 @@ def main() -> None:
         af = AFQMC(ham, trial, qmc, propagator_options=popts,
                    estimator_options=eopts, device="cuda")
         profile_block(af, name, args.trace)
+    ham = generic_model(128, 512, 16, make_generic)
+    trial = rhf_identity_trial(ham, device="cuda", dtype="single")
+    qmc = QMCOpts(nwalkers=1024, dt=0.005, nsteps=10, nblocks=2, nstblz=5,
+                  npop_control=1, rng_seed=8)
+    af = AFQMC(ham, trial, qmc, propagator_options={"taylor_impl": "pallas"},
+               estimator_options=eopts, device="cuda")
+    profile_block(af, "generic", args.trace)
 
 
 if __name__ == "__main__":

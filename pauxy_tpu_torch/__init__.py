@@ -1,9 +1,11 @@
-"""PyTorch/CUDA port of pauxy-tpu's zero-temperature Hubbard AFQMC main path.
+"""PyTorch/CUDA port of pauxy-tpu's zero-temperature AFQMC: the Hubbard
+continuous and discrete paths and the Generic (Cholesky ab-initio) phaseless
+path.
 
 The JAX package ``pauxy_tpu`` stays the reference; this package mirrors its
 module paths (``models/hubbard.py`` here is ``pauxy_tpu/models/hubbard.py``
-there) and never imports jax. Plain tensor code is PyTorch; the two Pallas
-kernels on the main path are CUDA C++ kernels for Hopper (``csrc/``), each
+there) and never imports jax. Plain tensor code is PyTorch; the Pallas
+kernels on these paths are CUDA C++ kernels for Hopper (``csrc/``), each
 with a plain PyTorch version beside it for CPU tensors.
 
 Entry point::

@@ -1,14 +1,18 @@
-"""Hubbard local energies: walker-batched and host-side.
+"""Hubbard and Generic local energies: walker-batched and host-side.
 
-Counterpart of ``local_energy_hubbard`` and the Hubbard branch of
-``local_energy_G_host`` in ``pauxy_tpu/estimators/local_energy.py``. The
-lanes block of ``qmc/hubbard_fast.py`` keeps its own fused energy.
+Counterpart of ``local_energy_hubbard``, ``local_energy_generic_opt``,
+``_exx`` and the Hubbard and Generic branches of ``local_energy_G_host`` in
+``pauxy_tpu/estimators/local_energy.py``. The lanes block of
+``qmc/hubbard_fast.py`` keeps its own fused energy.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from pauxy_tpu_torch.ops import exx_cuda
+from pauxy_tpu_torch.ops.contract import cr_einsum
 
 
 def local_energy_hubbard(ham, Ga: torch.Tensor, Gb: torch.Tensor):
@@ -27,8 +31,68 @@ def local_energy_hubbard(ham, Ga: torch.Tensor, Gb: torch.Tensor):
     return ke + pe, ke, pe
 
 
+def local_energy_generic_opt(trial, Ghalfa: torch.Tensor,
+                             Ghalfb: torch.Tensor, ecore: float):
+    """(etot, e1b, e2b), each [w], from the half-rotated Green's functions
+    Ghalf_s [w, n_s, M] and the trial's half-rotated tensors:
+      e1b = sum_{i m} rh1_s[i, m] Ghalf_s[w, i, m] + ecore,
+      X_s[w, x] = sum_{i m} rchol_s[x, i, m] Ghalf_s[w, i, m],
+      e2b = 0.5 ((Xa + Xb).(Xa + Xb) - exx_a - exx_b)."""
+    e1b = (cr_einsum("im,wim->w", trial.rh1a, Ghalfa)
+           + cr_einsum("im,wim->w", trial.rh1b, Ghalfb))
+    x = (cr_einsum("xim,wim->wx", trial.rchola, Ghalfa)
+         + cr_einsum("xim,wim->wx", trial.rcholb, Ghalfb))
+    ecoul = torch.sum(x * x, dim=-1)
+    exx = (_exx(trial.rchola, Ghalfa, trial.exx_supera)
+           + _exx(trial.rcholb, Ghalfb, trial.exx_superb))
+    e2b = 0.5 * (ecoul - exx)
+    return e1b + e2b + ecore, e1b + ecore, e2b
+
+
+def _exx(rchol: torch.Tensor, ghalf: torch.Tensor,
+         exx_super: torch.Tensor | None = None) -> torch.Tensor:
+    """exx[w] = sum_x tr(T_x(w) T_x(w)), T_x(w) = rchol_x Ghalf_w^T, by
+    JAX's three routes in JAX's order: the exchange supermatrix (one GEMM,
+    exx_w = vec(Ghalf_w)^T C vec(Ghalf_w)); the exchange kernel for a real
+    rchol and complex ghalf (``ops/exx_cuda``; its plain version on a CPU
+    tensor); else the einsum route, chunked over the Cholesky axis
+    (``exx_cuda.exx_plain``)."""
+    w = ghalf.shape[0]
+    if exx_super is not None:
+        gv = ghalf.reshape(w, -1)
+        return torch.sum(gv * cr_einsum("pq,wq->wp", exx_super, gv), dim=-1)
+    if not rchol.is_complex() and ghalf.is_complex():
+        return exx_cuda.exx(rchol, ghalf.contiguous())
+    return exx_cuda.exx_plain(rchol, ghalf)
+
+
+def _exx_host(chol: np.ndarray, g: np.ndarray, max_elems: int = 1 << 22):
+    """sum_x sum_ij t_ijx t_jix with t[:, :, x] = L_x g^T, as batched
+    [M, M] products over chunks of the Cholesky axis (no [M, M, X]
+    intermediate)."""
+    m, _, nx = chol.shape
+    chunk = max(1, max_elems // (m * m))
+    total = 0.0
+    for x0 in range(0, nx, chunk):
+        t = np.moveaxis(chol[:, :, x0:x0 + chunk], 2, 0) @ g.T
+        total = total + np.sum(t * np.swapaxes(t, 1, 2))
+    return total
+
+
 def local_energy_G_host(ham, G: np.ndarray):
     """(etot, e1b, e2b) of one Green's function G [2, M, M], host-side."""
+    if ham.name == "Generic":
+        # Dense contraction from the Cholesky factors,
+        # (ik|jl) = sum_x L[i,k,x] L[j,l,x].
+        h1 = ham.H1.cpu().numpy()
+        chol = ham.chol.cpu().numpy()                     # [M, M, X]
+        m = chol.shape[0]
+        e1b = np.sum(h1[0] * G[0]) + np.sum(h1[1] * G[1])
+        xv = (G[0] + G[1]).reshape(-1) @ chol.reshape(m * m, -1)
+        ecoul = 0.5 * np.dot(xv, xv)
+        exx = 0.5 * (_exx_host(chol, G[0]) + _exx_host(chol, G[1]))
+        e2b = ecoul - exx
+        return e1b + e2b + ham.ecore, e1b + ham.ecore, e2b
     if ham.name != "Hubbard":
         raise NotImplementedError(f"no host local energy for {ham.name!r}")
     t = ham.T.cpu().numpy()

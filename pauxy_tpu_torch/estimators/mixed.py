@@ -3,7 +3,7 @@
 Counterpart of the header, accumulator layout, ``energy_estimator``,
 ``update`` and ``MixedReporter`` of ``pauxy_tpu/estimators/mixed.py``.
 ``update`` is the generic block's per-step accumulation (single-determinant
-trial, phaseless, Hubbard, no density matrices); the lanes block of
+trial, phaseless, Hubbard or Generic, no density matrices); the lanes block of
 ``qmc/hubbard_fast.py`` keeps its own. ``MixedReporter`` turns a block's
 sums into an output row, prints it and pushes it to the HDF5 file.
 """
@@ -39,11 +39,16 @@ HEADER = [
 
 def energy_estimator(ham, trial):
     """Batched ``(ga, gb) -> (etot, e1b, e2b)`` local energy from the two
-    spins' ``SpinGreens``; Hubbard only so far."""
-    if ham.name != "Hubbard":
-        raise NotImplementedError(
-            f"no ported local energy for system {ham.name!r}")
-    return lambda ga, gb: le.local_energy_hubbard(ham, ga.G, gb.G)
+    spins' ``SpinGreens``: Hubbard from G, Generic from Ghalf (the
+    half-rotated Cholesky energy; its exact-ERI, PNO, stochastic-RI and
+    multi-determinant variants are not ported)."""
+    if ham.name == "Hubbard":
+        return lambda ga, gb: le.local_energy_hubbard(ham, ga.G, gb.G)
+    if ham.name == "Generic":
+        return lambda ga, gb: le.local_energy_generic_opt(
+            trial, ga.Ghalf, gb.Ghalf, ham.ecore)
+    raise NotImplementedError(
+        f"no ported local energy for system {ham.name!r}")
 
 
 def update(ham, trial, state, eval_energy: bool,
@@ -59,8 +64,9 @@ def update(ham, trial, state, eval_energy: bool,
     zero = torch.zeros((), dtype=cdtype, device=wfac.device)
     enumer = edenom = e1b = e2b = zero
     if eval_energy:
-        ga = greens.greens_function(state.phia, trial.psia)
-        gb = greens.greens_function(state.phib, trial.psib)
+        want_g = ham.name != "Generic"
+        ga = greens.greens_function(state.phia, trial.psia, want_g)
+        gb = greens.greens_function(state.phib, trial.psib, want_g)
         etot, ke, pe = energy_estimator(ham, trial)(ga, gb)
         enumer = torch.sum(wfac * etot.real)
         edenom = torch.sum(wfac)

@@ -1,12 +1,15 @@
-"""Lattice models and trial wavefunctions."""
+"""Lattice and ab-initio models and trial wavefunctions."""
 
+from pauxy_tpu_torch.models.generic import Generic, make_generic
 from pauxy_tpu_torch.models.hubbard import Hubbard, make_hubbard
 from pauxy_tpu_torch.models.trial import (
     SingleDetTrial,
     free_electron_trial,
+    rhf_identity_trial,
     trial_from_orbitals,
     uhf_trial,
 )
 
-__all__ = ["Hubbard", "make_hubbard", "SingleDetTrial", "free_electron_trial",
+__all__ = ["Generic", "make_generic", "Hubbard", "make_hubbard",
+           "SingleDetTrial", "free_electron_trial", "rhf_identity_trial",
            "trial_from_orbitals", "uhf_trial"]

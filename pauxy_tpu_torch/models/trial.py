@@ -1,8 +1,9 @@
-"""Single-determinant (UHF-style) trial wavefunctions for lattice models.
+"""Single-determinant (UHF-style) trial wavefunctions.
 
-Counterpart of the lattice part of ``pauxy_tpu/models/trial.py``. Trials
-are built host-side (numpy; setup, not the hot path) and hold their orbitals
-as module buffers.
+Counterpart of the single-determinant part of ``pauxy_tpu/models/trial.py``
+for the Hubbard and Generic models. Trials are built host-side (numpy;
+setup, not the hot path) and hold their orbitals, and for Generic systems
+the half-rotated tensors, as module buffers.
 
 The trial's Green's function is G_s = conj(psi) (psi^T conj(psi))^{-1} psi^T.
 """
@@ -17,6 +18,18 @@ from pauxy_tpu_torch import config
 from pauxy_tpu_torch.estimators import local_energy as le
 
 
+# Generic precomputes, None for lattice models: the half-rotated Cholesky
+# tensors rchol_s [X, n_s, M], the half-rotated one-body rh1_s [n_s, M] and
+# the exchange supermatrices [n_s M, n_s M] (absent past the size cap).
+GENERIC_BUFFERS = ("rchola", "rcholb", "rh1a", "rh1b", "exx_supera",
+                   "exx_superb")
+
+# Elements cap of one exchange supermatrix: (n M)^2 <= 2^26, as in
+# pauxy_tpu/models/trial.py:159. Past it the energy takes the exchange
+# kernel (real rchol) or the chunked einsum.
+EXX_SUPER_MAX_ELEMS = 2 ** 26
+
+
 class SingleDetTrial(nn.Module):
     """|psi_T> = |psi_a> x |psi_b>; ``inita``/``initb`` seed the walkers.
 
@@ -25,12 +38,17 @@ class SingleDetTrial(nn.Module):
     """
 
     def __init__(self, psia, psib, *, G_host: np.ndarray, etrial: float,
-                 name: str = "single_det"):
+                 name: str = "single_det", **generic):
         super().__init__()
+        unknown = set(generic) - set(GENERIC_BUFFERS)
+        if unknown:
+            raise TypeError(f"unknown trial tensors {sorted(unknown)}")
         self.register_buffer("psia", psia)
         self.register_buffer("psib", psib)
         self.register_buffer("inita", psia.clone())
         self.register_buffer("initb", psib.clone())
+        for key in GENERIC_BUFFERS:
+            self.register_buffer(key, generic.get(key))
         self.G_host = G_host
         self.etrial = float(etrial)
         self.name = name
@@ -48,15 +66,70 @@ def trial_density_matrix(psia: np.ndarray, psib: np.ndarray) -> np.ndarray:
     return np.stack(out)
 
 
+def _exx_supermatrix(rc: np.ndarray) -> np.ndarray | None:
+    """C[(j m), (i m')] = sum_x rchol[x, i, m] rchol[x, j, m'], so that
+    exx_w = vec(Ghalf_w)^T C vec(Ghalf_w); None past the size cap."""
+    x, n, m = rc.shape
+    if (n * m) ** 2 > EXX_SUPER_MAX_ELEMS or n == 0:
+        return None
+    rcf = rc.reshape(x, n * m).astype(
+        np.complex128 if np.iscomplexobj(rc) else np.float64)
+    gram = rcf.T @ rcf                                    # [(i m), (j m')]
+    c4 = gram.reshape(n, m, n, m).transpose(2, 1, 0, 3)
+    return np.ascontiguousarray(c4.reshape(n * m, n * m))
+
+
+def _half_rotate(psi: np.ndarray, chol: np.ndarray) -> np.ndarray:
+    """rchol[x, a, m] = sum_p conj(psi[p, a]) L[p, m, x], as one
+    [n, M] x [M, M X] product (two real ones for real L)."""
+    m, _, nx = chol.shape
+    flat = chol.reshape(m, -1)
+    left = psi.conj().T
+    if np.iscomplexobj(chol):
+        out = left @ flat
+    else:
+        out = (left.real @ flat) + 1j * (left.imag @ flat)
+    return out.reshape(-1, m, nx).transpose(2, 0, 1)
+
+
+def _generic_precomputes(ham, psia, psib, prec) -> dict:
+    """The half-rotated tensors of pauxy_tpu/models/trial.py:108-140, each
+    stored real when it is genuinely real (molecular data)."""
+    chol = ham.chol.cpu().numpy()
+    h1 = ham.H1.cpu().numpy()
+
+    def natural(arr):
+        if np.iscomplexobj(arr) and np.abs(arr.imag).max(initial=0.0) == 0:
+            arr = arr.real
+        return arr.astype(prec.np_cplx if np.iscomplexobj(arr)
+                          else prec.np_real)
+
+    rca = natural(_half_rotate(psia, chol).astype(prec.np_cplx))
+    rcb = natural(_half_rotate(psib, chol).astype(prec.np_cplx))
+    host = {"rchola": rca, "rcholb": rcb,
+            "rh1a": natural(psia.conj().T @ h1[0]),
+            "rh1b": natural(psib.conj().T @ h1[1])}
+    for key, rc in (("exx_supera", rca), ("exx_superb", rcb)):
+        sup = _exx_supermatrix(rc)
+        if sup is not None:
+            host[key] = natural(sup)
+    return host
+
+
 def _finalize(ham, psia, psib, prec, name: str, device) -> SingleDetTrial:
     psia = np.asarray(psia, dtype=prec.np_cplx)
     psib = np.asarray(psib, dtype=prec.np_cplx)
     g = trial_density_matrix(psia, psib)
     etrial = float(np.real(le.local_energy_G_host(ham, g)[0]))
+    generic = {}
+    if ham.name == "Generic":
+        generic = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                   for k, v in _generic_precomputes(ham, psia, psib,
+                                                    prec).items()}
     return SingleDetTrial(
         torch.from_numpy(np.ascontiguousarray(psia)).to(device),
         torch.from_numpy(np.ascontiguousarray(psib)).to(device),
-        G_host=g.astype(prec.np_cplx), etrial=etrial, name=name,
+        G_host=g.astype(prec.np_cplx), etrial=etrial, name=name, **generic,
     )
 
 
@@ -70,14 +143,25 @@ def trial_from_orbitals(ham, psi: np.ndarray, name: str = "file", *,
 
 
 def free_electron_trial(ham, *, device=None, dtype=None) -> SingleDetTrial:
-    """Occupy the lowest eigenvectors of the one-body Hamiltonian."""
+    """Occupy the lowest eigenvectors of the one-body Hamiltonian (the
+    hopping matrix T, or H1 for a Generic system)."""
     prec = config.get_precision(dtype)
     device = config.resolve_device(device)
-    h1 = ham.T.cpu().numpy()
+    h1 = (ham.H1 if ham.name == "Generic" else ham.T).cpu().numpy()
     _, va = np.linalg.eigh(h1[0])
     _, vb = np.linalg.eigh(h1[1])
     return _finalize(ham, va[:, : ham.nup], vb[:, : ham.ndown], prec,
                      "free_electron", device)
+
+
+def rhf_identity_trial(ham, *, device=None, dtype=None) -> SingleDetTrial:
+    """Identity (MO-basis RHF) trial: occupy the first nup / ndown
+    orbitals."""
+    prec = config.get_precision(dtype)
+    device = config.resolve_device(device)
+    eye = np.eye(ham.nbasis)
+    return _finalize(ham, eye[:, : ham.nup], eye[:, : ham.ndown], prec,
+                     "hartree_fock", device)
 
 
 def checkerboard_guess(nbasis: int, nup: int, ndown: int, nx: int, ny: int

@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pauxy_tpu_torch"
 SOURCES = ("gauss_jordan.cuh", "greens.cu", "batchla.cu", "chol_inv.cu",
-           "sweep.cu")
+           "sweep.cu", "taylor.cu", "exx.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +39,10 @@ SIGNATURES = {
     "pauxy_chol_inv_lanes_c128": (_P, _P, _P, _I, _I, _P),
     "pauxy_hirsch_sweep_f32": (_P,) * 11 + (_I,) * 4 + (_P,),
     "pauxy_hirsch_sweep_f64": (_P,) * 11 + (_I,) * 4 + (_P,),
+    "pauxy_taylor_c64": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "pauxy_taylor_c128": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "pauxy_exx_c64": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "pauxy_exx_c128": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib = None

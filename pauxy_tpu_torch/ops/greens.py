@@ -20,7 +20,7 @@ from pauxy_tpu_torch.ops import clinalg
 class SpinGreens(NamedTuple):
     """Green's function of one spin sector, batched over walkers."""
 
-    G: torch.Tensor         # [w, M, M] full Green's function
+    G: torch.Tensor | None  # [w, M, M] full Green's function
     Ghalf: torch.Tensor     # [w, n, M] half-rotated Green's function
     log_ovlp: torch.Tensor  # [w] complex log det(phi^T conj(psi))
 
@@ -35,12 +35,16 @@ def log_overlap(phi: torch.Tensor, psi: torch.Tensor) -> torch.Tensor:
     return clinalg.slogdet(overlap_matrix(phi, psi)).to(phi.dtype)
 
 
-def greens_function(phi: torch.Tensor, psi: torch.Tensor) -> SpinGreens:
+def greens_function(phi: torch.Tensor, psi: torch.Tensor,
+                    want_g: bool = True) -> SpinGreens:
     """G = conj(psi) S^-1 phi^T and Ghalf = S^-1 phi^T with their log
-    overlap; S^-1 and log det S from one launch of kernel B."""
+    overlap; S^-1 and log det S from one launch of kernel B. With
+    ``want_g=False`` only Ghalf is formed (G is None), for the
+    half-rotated Generic energy and force bias."""
     log_det, inv = clinalg.inv_logdet(overlap_matrix(phi, psi))
     ghalf = torch.matmul(inv, phi.transpose(-1, -2))      # [w, n, M]
-    g = torch.einsum("mi,win->wmn", psi.conj(), ghalf)
+    g = (torch.einsum("mi,win->wmn", psi.conj(), ghalf) if want_g
+         else None)
     return SpinGreens(G=g, Ghalf=ghalf, log_ovlp=log_det.to(phi.dtype))
 
 

@@ -18,8 +18,10 @@ from pauxy_tpu_torch import config
 
 
 def to_lanes(x: torch.Tensor) -> torch.Tensor:
-    """[w, ...] -> [..., w] (walker axis last), contiguous."""
-    return torch.movedim(x, 0, -1).contiguous()
+    """[w, ...] -> [..., w] (walker axis last), a contiguous copy: callers
+    update it in place (with one walker the moved view would already be
+    contiguous and still share the caller's storage)."""
+    return torch.movedim(x, 0, -1).clone(memory_format=torch.contiguous_format)
 
 
 def from_lanes(x: torch.Tensor) -> torch.Tensor:

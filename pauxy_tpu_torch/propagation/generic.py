@@ -1,0 +1,130 @@
+"""Continuous Hubbard-Stratonovich propagator for the Generic Hamiltonian.
+
+Counterpart of ``pauxy_tpu/propagation/generic.py``. The one-body half-step
+``BH1`` and the mean-field shift are built host-side (scipy's expm, as in
+JAX); the two-body step builds VHS = i sqrt(dt) sum_x L_x (x - xbar)_x as
+one [w, X] x [X, M^2] product and applies exp(VHS) by its order-6 Taylor
+series to both spins' columns at once.
+
+``taylor_impl`` selects the series, with the JAX package's values:
+``"xla"`` (the default) six batched matmuls, ``"pallas"`` the fused kernel
+(``ops/taylor_cuda``: the CUDA kernel on the card, its plain version on a
+CPU tensor). ``"pallas_interpret"`` (JAX's CPU test mode) is refused: here
+``"pallas"`` on a CPU tensor already takes the plain version.
+``"pallas_bf16"`` and ``"xla_3m"`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import scipy.linalg
+import torch
+from torch import nn
+
+from pauxy_tpu_torch import config
+from pauxy_tpu_torch.ops import taylor_cuda
+from pauxy_tpu_torch.ops.contract import cr_einsum
+
+TAYLOR_IMPLS = ("xla", "pallas")
+
+# The "xla" route: the series as batched matmuls, which is the fused
+# kernel's plain version.
+apply_exponential_taylor = taylor_cuda.apply_taylor_plain
+
+
+def _check_taylor_impl(taylor_impl: str | None) -> str:
+    if taylor_impl is None:
+        return "xla"
+    if taylor_impl == "pallas_interpret":
+        raise ValueError(
+            "taylor_impl 'pallas_interpret' is JAX's CPU test mode; use "
+            "'pallas', which takes the plain version on a CPU tensor")
+    if taylor_impl in ("pallas_bf16", "xla_3m"):
+        raise NotImplementedError(
+            f"taylor_impl {taylor_impl!r} is not ported yet")
+    if taylor_impl not in TAYLOR_IMPLS:
+        raise ValueError(f"taylor_impl {taylor_impl!r}, want one of "
+                         f"{TAYLOR_IMPLS}")
+    return taylor_impl
+
+
+class GenericContinuous(nn.Module):
+    """Inner propagator for the ab-initio Hamiltonian. Buffers: ``BH1``
+    [2, M, M], ``mf_shift`` [X] complex, ``chol`` [M, M, X] (the
+    Hamiltonian's, at its natural type)."""
+
+    def __init__(self, BH1, mf_shift, chol, *, dt: float, exp_order: int = 6,
+                 taylor_impl: str | None = None):
+        super().__init__()
+        self.register_buffer("BH1", BH1)
+        self.register_buffer("mf_shift", mf_shift)
+        self.register_buffer("chol", chol)
+        self.dt = float(dt)
+        self.exp_order = int(exp_order)
+        self.taylor_impl = _check_taylor_impl(taylor_impl)
+
+    @property
+    def sqrt_dt(self) -> float:
+        return self.dt ** 0.5
+
+    def force_bias(self, trial, ga, gb) -> torch.Tensor:
+        """xbar = -sqrt(dt) (i vbias - mf_shift), vbias [w, X] from the
+        half-rotated Cholesky tensors of a single-determinant trial."""
+        if getattr(trial, "rchola", None) is None or ga.Ghalf.dim() != 3:
+            raise NotImplementedError(
+                "the Generic force bias is ported for single-determinant "
+                "trials with half-rotated Cholesky tensors only")
+        vbias = (cr_einsum("xim,wim->wx", trial.rchola, ga.Ghalf)
+                 + cr_einsum("xim,wim->wx", trial.rcholb, gb.Ghalf))
+        return -self.sqrt_dt * (1j * vbias - self.mf_shift)
+
+    def apply_vhs(self, phia: torch.Tensor, phib: torch.Tensor,
+                  xshifted: torch.Tensor):
+        """VHS = i sqrt(dt) sum_x L_x xshifted_x, then exp(VHS) applied to
+        [phia | phib] by one Taylor series."""
+        vhs = cr_einsum("pqx,wx->wpq", self.chol,
+                        (1j * self.sqrt_dt) * xshifted).contiguous()
+        na = phia.shape[-1]
+        phi_in = torch.cat([phia, phib], dim=-1)
+        if self.taylor_impl == "pallas":
+            phi = taylor_cuda.apply_taylor(vhs, phi_in, self.exp_order)
+        else:
+            phi = apply_exponential_taylor(vhs, phi_in, self.exp_order)
+        return phi[..., :na], phi[..., na:]
+
+    def bp_dagger_fields(self, x: torch.Tensor) -> torch.Tensor:
+        """Fields y with exp(VHS(y)) = exp(VHS(x))^dagger: y = -conj(x)."""
+        return -x.conj()
+
+
+def construct_mean_field_shift(ham, trial) -> np.ndarray:
+    """mf_shift_x = i sum_ik L[i,k,x] (G_T0 + G_T1)[i,k]."""
+    g = np.asarray(trial.G_host)
+    chol = ham.chol.cpu().numpy()
+    m = chol.shape[0]
+    return 1j * ((g[0] + g[1]).reshape(-1) @ chol.reshape(m * m, -1))
+
+
+def make_generic_continuous(ham, trial, dt: float, exp_order: int = 6,
+                            taylor_impl: str | None = None, *, device=None,
+                            dtype=None) -> GenericContinuous:
+    """Host-side set-up: BH1_s = expm(-dt/2 (h1e_mod_s - i sum_x mf_x
+    L_x)); ``chol`` keeps its natural type."""
+    prec = config.get_precision(dtype)
+    device = config.resolve_device(device)
+    mf_shift = construct_mean_field_shift(ham, trial)
+    chol = ham.chol.cpu().numpy()
+    m = chol.shape[0]
+    shift = 1j * (chol.reshape(m * m, -1) @ mf_shift).reshape(m, m)
+    h1 = ham.h1e_mod.cpu().numpy() - shift[None]
+    bh1 = np.stack([scipy.linalg.expm(-0.5 * dt * h1[0]),
+                    scipy.linalg.expm(-0.5 * dt * h1[1])])
+    chol_dtype = prec.cplx if ham.chol.is_complex() else prec.real
+    return GenericContinuous(
+        torch.from_numpy(np.ascontiguousarray(bh1.astype(prec.np_cplx))
+                         ).to(device),
+        torch.from_numpy(np.ascontiguousarray(mf_shift.astype(prec.np_cplx))
+                         ).to(device),
+        ham.chol.to(device=device, dtype=chol_dtype),
+        dt=dt, exp_order=exp_order, taylor_impl=taylor_impl,
+    )

@@ -7,7 +7,8 @@ package's counterpart:
   configurations ``hubbard_fast.eligible`` covers (Hubbard continuous-HS
   hybrid phaseless);
 * ``run_block`` below, the generic [w, M, n] block, for the discrete-HS
-  (Hirsch) propagator: constrained-path CPMC.
+  (Hirsch) propagator (constrained-path CPMC) and for the Generic
+  ab-initio continuous-HS hybrid phaseless propagator.
 
 Block boundaries touch the host for the output row, the HDF5 push and the
 eshift update. Any other configuration raises ``NotImplementedError``.
@@ -26,7 +27,9 @@ import torch
 
 from pauxy_tpu_torch import config
 from pauxy_tpu_torch.estimators import mixed
-from pauxy_tpu_torch.propagation.continuous import Continuous
+from pauxy_tpu_torch.propagation.continuous import Continuous, is_single_det
+from pauxy_tpu_torch.propagation.generic import (GenericContinuous,
+                                                 make_generic_continuous)
 from pauxy_tpu_torch.propagation.hirsch import Hirsch, make_hirsch
 from pauxy_tpu_torch.propagation.hubbard import make_hubbard_continuous
 from pauxy_tpu_torch.qmc import hubbard_fast
@@ -64,7 +67,8 @@ def run_block(ham, trial, prop, state, generator, eshift: float,
 
     Returns (state, accumulator [2, NACC] real: the block sums' real and
     imaginary parts). Draws come from ``generator`` unless ``noise`` is
-    given (``noise.xi[i]`` is step i's [M, w] propagator draw).
+    given (``noise.xi[i]`` is step i's propagator draw: the site sweep's
+    uniforms [M, w], or the Generic HS fields [w, X]).
     """
     accs = []
     for i in range(nsteps):
@@ -130,15 +134,21 @@ class AFQMC:
             free_projection=self.free_projection,
             pop_method=qmc.pop_control_method, **extras,
         )
-        generic = (isinstance(self.prop, Hirsch) and not any(extras.values())
+        generic_prop = isinstance(self.prop, Hirsch) or (
+            isinstance(self.prop, Continuous)
+            and isinstance(self.prop.inner, GenericContinuous)
+            and self.prop.hybrid and not self.prop.free_projection
+            and not self.prop.stochastic_ri and is_single_det(self.trial))
+        generic = (generic_prop and not any(extras.values())
                    and qmc.pop_control_method in ("comb", "pair_branch"))
         if not (self.use_fast_block or generic):
             raise NotImplementedError(
                 "this configuration is not ported yet: the port runs Hubbard "
-                "continuous-HS hybrid phaseless AFQMC and discrete-HS "
-                "constrained-path CPMC, with a single-determinant trial, "
-                "comb or pair_branch population control and the mixed "
-                "energy estimator"
+                "continuous-HS hybrid phaseless AFQMC, discrete-HS "
+                "constrained-path CPMC and Generic (Cholesky ab-initio) "
+                "continuous-HS hybrid phaseless AFQMC, with a "
+                "single-determinant trial, comb or pair_branch population "
+                "control and the mixed energy estimator"
             )
 
         self.state = init_walkers(self.trial, qmc.nwalkers,
@@ -161,7 +171,8 @@ class AFQMC:
 
     def _build_propagator(self, popts: dict) -> Continuous | Hirsch:
         hs = popts.get("hubbard_stratonovich", "continuous")
-        if self.ham.name != "Hubbard":
+        if self.ham.name not in ("Hubbard", "Generic") or (
+                self.ham.name == "Generic" and "discrete" in hs):
             raise NotImplementedError(
                 f"no ported propagator for {self.ham.name!r} with {hs!r} HS"
             )
@@ -181,11 +192,18 @@ class AFQMC:
                 mesh=popts.get("mesh"),
                 device=self.device, dtype=self.trial.psia.dtype,
             )
-        inner = make_hubbard_continuous(
-            self.ham, self.trial, self.qmc.dt,
-            charge_decomposition=popts.get("charge_decomposition", True),
-            device=self.device, dtype=self.trial.psia.dtype,
-        )
+        if self.ham.name == "Generic":
+            inner = make_generic_continuous(
+                self.ham, self.trial, self.qmc.dt,
+                taylor_impl=popts.get("taylor_impl"),
+                device=self.device, dtype=self.trial.psia.dtype,
+            )
+        else:
+            inner = make_hubbard_continuous(
+                self.ham, self.trial, self.qmc.dt,
+                charge_decomposition=popts.get("charge_decomposition", True),
+                device=self.device, dtype=self.trial.psia.dtype,
+            )
         return Continuous(
             inner=inner,
             dt=self.qmc.dt,

@@ -29,9 +29,10 @@ from pauxy_tpu_torch.walkers import pop_control as pc
 
 
 class BlockNoise(NamedTuple):
-    """Random draws of one block, for tests: ``xi`` [nsteps, M, W] the
-    propagator's draws (normal HS fields here, the site sweep's uniforms in
-    the generic block of ``qmc/afqmc.py``); ``pop`` [nsteps, k]
+    """Random draws of one block, for tests: ``xi`` [nsteps, ...] the
+    propagator's draws (normal HS fields [M, W] here; in the generic block
+    of ``qmc/afqmc.py`` the site sweep's uniforms [M, w] or the Generic HS
+    fields [w, X]); ``pop`` [nsteps, k]
     population-control uniforms (k = 1 for comb, W // 2 for pair_branch),
     read on population-control steps."""
 

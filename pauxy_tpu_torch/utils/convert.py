@@ -12,8 +12,10 @@ import numpy as np
 import torch
 
 from pauxy_tpu_torch import config
+from pauxy_tpu_torch.models.generic import Generic
 from pauxy_tpu_torch.models.hubbard import Hubbard, band_energies
 from pauxy_tpu_torch.models.trial import SingleDetTrial, trial_density_matrix
+from pauxy_tpu_torch.propagation.generic import GenericContinuous
 from pauxy_tpu_torch.propagation.hirsch import Hirsch
 from pauxy_tpu_torch.propagation.hubbard import HubbardContinuous
 from pauxy_tpu_torch.walkers.state import WalkerState
@@ -37,15 +39,39 @@ def hubbard(T, U: float, symmetric: bool, *, nx: int, ny: int, nup: int,
                    symmetric=symmetric)
 
 
+def generic(H1, h1e_mod, chol, *, ecore: float, nup: int, ndown: int,
+            device=None) -> Generic:
+    """Generic Hamiltonian from H1, h1e_mod [2, M, M] and chol [M, M, X]."""
+    device = config.resolve_device(device)
+    return Generic(_t(H1, device), _t(h1e_mod, device), _t(chol, device),
+                   ecore=ecore, nup=nup, ndown=ndown)
+
+
 def trial(psia, psib, etrial: float, *, name: str = "single_det",
-          device=None) -> SingleDetTrial:
-    """Single-determinant trial from orbitals psia [M, na], psib [M, nb]."""
+          device=None, **generic) -> SingleDetTrial:
+    """Single-determinant trial from orbitals psia [M, na], psib [M, nb];
+    for a Generic system also its half-rotated tensors (``rchola``,
+    ``rcholb``, ``rh1a``, ``rh1b`` and, when the trial has them,
+    ``exx_supera``/``exx_superb``; None entries are skipped)."""
     device = config.resolve_device(device)
     psia = np.asarray(psia)
     psib = np.asarray(psib)
+    tensors = {k: _t(v, device) for k, v in generic.items()
+               if v is not None}
     return SingleDetTrial(_t(psia, device), _t(psib, device),
                           G_host=trial_density_matrix(psia, psib),
-                          etrial=etrial, name=name)
+                          etrial=etrial, name=name, **tensors)
+
+
+def generic_continuous(BH1, mf_shift, chol, *, dt: float, exp_order: int = 6,
+                       taylor_impl: str | None = None,
+                       device=None) -> GenericContinuous:
+    """Generic propagator from the JAX one's BH1 [2, M, M], mf_shift [X]
+    and chol [M, M, X]."""
+    device = config.resolve_device(device)
+    return GenericContinuous(_t(BH1, device), _t(mf_shift, device),
+                             _t(chol, device), dt=dt, exp_order=exp_order,
+                             taylor_impl=taylor_impl)
 
 
 def hubbard_continuous(BH1, mf_shift, *, dt: float, U: float, charge: bool,

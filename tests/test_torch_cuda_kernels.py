@@ -13,15 +13,25 @@ sweep's fields are identical. The blocks on the card (kernels) and on the
 CPU (plain versions) with the same injected draws agree at rtol 1e-8,
 atol 1e-10 in complex128. On ill-conditioned real input kernel B's inverse
 is held, matrix by matrix, to max(tol, 2 n eps kappa) max|S^-1|, against
-its plain version and against the float64 inverse.
+its plain version and against the float64 inverse. The Taylor kernel is
+held to max|d| <= tol max|out|, the exchange kernel per walker against its
+plain version in float64 to |d_w| <= tol S_w, S_w = sum_x sum_ij
+|T_ij||T_ji| (exx sums X n^2 products that may cancel), with tol 5e-6 in
+complex64 and 1e-13 in complex128 (the float32 plain version's long sums
+err by up to ~1e-5 S_w on coherent inputs, the kernel's short ones by
+~2e-7 S_w; a kernel that drops one of X Cholesky vectors misses by about
+S_w / X on the coherent inputs, which the check must catch); a Generic
+block on the card (both kernels)
+and on the CPU with the same injected draws agree at rtol 1e-8 in
+complex128.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from pauxy_tpu_torch.ops import (batchla_cuda, cuda_build, greens_cuda,
-                                 sweep_cuda)
+from pauxy_tpu_torch.ops import (batchla_cuda, cuda_build, exx_cuda,
+                                 greens_cuda, sweep_cuda, taylor_cuda)
 
 torch.set_num_threads(1)
 
@@ -75,12 +85,13 @@ def test_greens_kernel_matches_plain(dtype, m, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", [2, 3, 7, 18, 24])
+@pytest.mark.parametrize("n", [2, 3, 7, 16, 18, 24, 42])
 def test_inv_logdet_kernel_matches_plain(dtype, n):
+    """Up to the Generic paths' n = 16 (1024 walkers) and n = 42 (256)."""
     need_cuda()
     tol = TOL[dtype]
     rng = np.random.default_rng(n)
-    w = 1024
+    w = 256 if n == 42 else 1024
     s = 2.0 * np.eye(n) + 0.3 / np.sqrt(n) * (
         rng.normal(size=(w, n, n)) + 1j * rng.normal(size=(w, n, n)))
     s[0] = np.eye(n)[::-1]                 # zero leading minors: pivoting
@@ -243,15 +254,17 @@ def hpd(rng, w, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", [1, 3, 7, 16, 24, 48, "cap"])
+@pytest.mark.parametrize("n", [1, 3, 7, 16, 24, 42, 48, "cap"])
 def test_chol_inv_kernel_matches_plain(dtype, n):
-    """Up to the largest n the kernel launches (one walker per block)."""
+    """Up to the largest n the kernel launches (one walker per block), and
+    at the Generic paths' shapes (n = 16, 1024 walkers; n = 42, 256)."""
     need_cuda()
     tol = TOL[dtype]
     if n == "cap":
         n = batchla_cuda.chol_max_n(dtype)
     rng = np.random.default_rng(n + 2)
-    for w in (1, 37 if n > 48 else 1031):
+    ws = {16: (1, 1024), 42: (1, 256)}.get(n, (1, 37 if n > 48 else 1031))
+    for w in ws:
         s = torch.from_numpy(hpd(rng, w, n)).to("cuda", dtype)
         before = batchla_cuda.chol_launches
         ld_k, l_k = batchla_cuda.chol_inv_lanes(s)
@@ -370,6 +383,178 @@ def test_discrete_block_on_card_matches_plain_block_on_cpu():
     # and 8 a step.
     assert tuple(a - b for a, b in zip(after, before)) == (10, 82, 8, 0)
     s_cpu, a_cpu = _discrete_block("cpu", noise("cpu"))
+    np.testing.assert_allclose(a_gpu.cpu().numpy()[0], a_cpu.numpy()[0],
+                               rtol=1e-8, atol=1e-10)
+    np.testing.assert_allclose(s_gpu.weight.cpu().numpy(),
+                               s_cpu.weight.numpy(), rtol=1e-8, atol=1e-10)
+
+
+TAYLOR_SHAPES = [(16, 14), (128, 32), (228, 84)]
+EXX_SHAPES = [(30, 3, 12), (512, 16, 128), (1024, 42, 228)]
+
+
+def card_gen(seed):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,ncol", TAYLOR_SHAPES)
+def test_taylor_kernel_matches_plain(dtype, m, ncol):
+    need_cuda()
+    gen = card_gen(m + ncol)
+    for w in (1, 37, 1024):
+        vhs = (0.3 / m ** 0.5) * torch.randn((w, m, m), generator=gen,
+                                             dtype=dtype, device="cuda")
+        phi = torch.randn((w, m, ncol), generator=gen, dtype=dtype,
+                          device="cuda")
+        before = taylor_cuda.launches
+        out_k = taylor_cuda.apply_taylor(vhs, phi)
+        assert taylor_cuda.launches == before + 1
+        out_p = taylor_cuda.apply_taylor_plain(vhs, phi)
+        torch.cuda.synchronize()
+        assert out_k.shape == out_p.shape and out_k.dtype == dtype
+        err = (out_k - out_p).abs().max().item()
+        assert err <= TOL[dtype] * out_p.abs().max().item()
+
+
+EXX_TOL = {torch.complex64: 5e-6, torch.complex128: 1e-13}
+# The phase-3 shapes, and two whose walker exceeds a block's shared memory
+# (the kernel stages column chunks; n = 130 also takes the pair tiles in
+# several rounds).
+EXX_CARD_SHAPES = EXX_SHAPES + [(8, 60, 500), (4, 130, 200)]
+
+
+def exx_card_inputs(gen, x, n, m, w, dtype, coherent):
+    """Random phases (exx cancels: |exx_w| << S_w) or coherent ones (real
+    positive rchol, Ghalf near real positive: |exx_w| ~ S_w)."""
+    rdtype = torch.float32 if dtype == torch.complex64 else torch.float64
+    rc = torch.randn((x, n, m), generator=gen, dtype=rdtype,
+                     device="cuda") / m ** 0.5
+    gh = torch.randn((w, n, m), generator=gen, dtype=dtype, device="cuda")
+    if coherent:
+        rc = rc.abs()
+        gh = (gh.real.abs() + 0.1j * gh.imag).to(dtype)
+    return rc, gh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("x,n,m", EXX_CARD_SHAPES)
+def test_exx_kernel_matches_plain(dtype, x, n, m):
+    need_cuda()
+    gen = card_gen(x + n + m)
+    for coherent in (False, True):
+        for w in (1, 37, 256):
+            rc, gh = exx_card_inputs(gen, x, n, m, w, dtype, coherent)
+            before = exx_cuda.launches
+            out_k = exx_cuda.exx(rc, gh)
+            assert exx_cuda.launches == before + 1
+            out_p = exx_cuda.exx_plain(rc.double(), gh.to(torch.complex128))
+            scale = exx_cuda.exx_magnitude(rc, gh)
+            torch.cuda.synchronize()
+            assert out_k.shape == (w,) and out_k.dtype == dtype
+            err = (out_k - out_p).abs()
+            assert bool((err <= EXX_TOL[dtype] * scale).all())
+            # No atomics: the same bits on every launch.
+            assert torch.equal(exx_cuda.exx(rc, gh), out_k)
+            if coherent:
+                # The criterion catches a kernel that drops one vector.
+                drop = (exx_cuda.exx(rc[1:].contiguous(), gh) - out_p).abs()
+                assert bool((drop.double() > EXX_TOL[dtype] * scale).all())
+
+
+@pytest.mark.cuda
+def test_generic_kernels_refuse_instead_of_falling_back(monkeypatch):
+    need_cuda()
+    c64 = torch.complex64
+    vhs = torch.ones(2, 4, 4, dtype=c64, device="cuda")
+    phi = torch.ones(2, 4, 3, dtype=c64, device="cuda")
+    with pytest.raises(TypeError):
+        taylor_cuda.apply_taylor(vhs, phi.to(torch.complex128))
+    with pytest.raises(ValueError):
+        taylor_cuda.apply_taylor(vhs.transpose(1, 2), phi)
+    m = taylor_cuda.MAX_M + 1
+    with pytest.raises(ValueError):
+        taylor_cuda.apply_taylor(torch.ones(1, m, m, dtype=c64, device="cuda"),
+                                 torch.ones(1, m, 2, dtype=c64, device="cuda"))
+    rc = torch.ones(5, 3, 4, device="cuda")
+    gh = torch.ones(2, 3, 4, dtype=c64, device="cuda")
+    with pytest.raises(TypeError):
+        exx_cuda.exx(rc.to(c64), gh)
+    with pytest.raises(ValueError):
+        exx_cuda.exx(rc, torch.ones(2, 3, 5, dtype=c64, device="cuda"))
+    with pytest.raises(ValueError):
+        exx_cuda.exx(rc, gh.transpose(1, 2).contiguous().transpose(1, 2))
+
+    class FailingLibrary:
+        def __getattr__(self, name):
+            return lambda *args: 700      # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(cuda_build, "library", lambda: FailingLibrary())
+    before = (taylor_cuda.launches, exx_cuda.launches)
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        taylor_cuda.apply_taylor(vhs, phi)
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        exx_cuda.exx(rc, gh)
+    assert (taylor_cuda.launches, exx_cuda.launches) == before
+
+
+def _generic_block(device, noise, cap):
+    """10 steps of a small Generic system with the fused Taylor kernel and,
+    past a lowered supermatrix cap, the exchange kernel."""
+    from pauxy_tpu_torch.models import make_generic, rhf_identity_trial
+    from pauxy_tpu_torch.models import trial as ttrial
+    from pauxy_tpu_torch.propagation.continuous import Continuous
+    from pauxy_tpu_torch.propagation.generic import make_generic_continuous
+    from pauxy_tpu_torch.qmc.afqmc import run_block
+    from pauxy_tpu_torch.walkers import init_walkers
+
+    rng = np.random.default_rng(7)
+    chol = rng.normal(scale=0.05, size=(12, 12, 30))
+    chol = 0.5 * (chol + chol.transpose(1, 0, 2))
+    h1 = rng.normal(scale=0.3, size=(12, 12))
+    kw = dict(device=device, dtype="double")
+    ham = make_generic((4, 3), 0.5 * (h1 + h1.T), chol, **kw)
+    old = ttrial.EXX_SUPER_MAX_ELEMS
+    ttrial.EXX_SUPER_MAX_ELEMS = cap
+    try:
+        trial = rhf_identity_trial(ham, **kw)
+    finally:
+        ttrial.EXX_SUPER_MAX_ELEMS = old
+    prop = Continuous(inner=make_generic_continuous(
+        ham, trial, 0.01, taylor_impl="pallas", **kw), dt=0.01)
+    return run_block(ham, trial, prop, init_walkers(trial, 64), None, 0.0, 0,
+                     nsteps=10, nstblz=5, npop_control=1, pop_method="comb",
+                     target_weight=64.0, energy_eval_freq=1, noise=noise)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [2 ** 26, 1])
+def test_generic_block_on_card_matches_plain_block_on_cpu(cap):
+    need_cuda()
+    from pauxy_tpu_torch.qmc.hubbard_fast import BlockNoise
+
+    rng = np.random.default_rng(9)
+    xi = rng.normal(size=(10, 64, 30))
+    pop = rng.uniform(size=(10, 1))
+
+    def noise(device):
+        return BlockNoise(torch.from_numpy(xi).to(device),
+                          torch.from_numpy(pop).to(device))
+
+    before = (taylor_cuda.launches, exx_cuda.launches, batchla_cuda.launches,
+              batchla_cuda.chol_launches)
+    s_gpu, a_gpu = _generic_block("cuda", noise("cuda"), cap)
+    after = (taylor_cuda.launches, exx_cuda.launches, batchla_cuda.launches,
+             batchla_cuda.chol_launches)
+    # Taylor once a step; exx 2 per energy (every step) past the cap;
+    # kernel B 2 at set-up and 6 a step; Cholesky 2 x 2 spins x 2 passes.
+    want = (10, 0 if cap > 1 else 20, 62, 8)
+    assert tuple(a - b for a, b in zip(after, before)) == want
+    s_cpu, a_cpu = _generic_block("cpu", noise("cpu"), cap)
     np.testing.assert_allclose(a_gpu.cpu().numpy()[0], a_cpu.numpy()[0],
                                rtol=1e-8, atol=1e-10)
     np.testing.assert_allclose(s_gpu.weight.cpu().numpy(),

@@ -117,3 +117,34 @@ def test_matmul_left_and_overlap_lanes_match_jax():
         np.asarray(jll.to_lanes(jnp.asarray(y))))
     np.testing.assert_array_equal(
         tll.from_lanes(torch.from_numpy(x)).numpy(), y)
+
+
+@pytest.mark.parametrize("w", [1, 3])
+def test_lane_updates_leave_their_inputs_alone(w):
+    """to_lanes copies even for one walker (whose moved view is already
+    contiguous), so the plain Cholesky-inverse and sweep versions, which
+    update their lanes in place, never write into their inputs."""
+    from pauxy_tpu_torch.ops import batchla_cuda, sweep_cuda
+
+    rng = np.random.default_rng(w)
+    x = torch.from_numpy(rng.normal(size=(w, 4, 4)))
+    lanes = tll.to_lanes(x)
+    lanes += 1.0
+    assert not torch.equal(lanes.movedim(-1, 0), x)
+    phi = rng.normal(size=(w, 8, 4)) + 1j * rng.normal(size=(w, 8, 4))
+    s = torch.from_numpy(np.conj(np.swapaxes(phi, 1, 2)) @ phi)
+    s0 = s.clone()
+    batchla_cuda.chol_inv_lanes_plain(s)
+    assert torch.equal(s, s0)
+    m, n = 6, 2
+    psi = np.linalg.qr(rng.normal(size=(m, n)))[0]
+    phia = psi[None] + 0.1 * rng.normal(size=(w, m, n))
+    inv = np.linalg.inv(np.einsum("mi,wmj->wij", psi, phia))
+    delta = np.array([[0.5, -0.3], [-0.3, 0.5]])
+    args = [torch.from_numpy(np.asarray(a, dtype=np.float64)) for a in (
+        psi, psi, delta, np.ones(2), phia, phia.copy(), inv, inv.copy(),
+        rng.uniform(size=(m, w)), np.ones(w))]
+    before = [a.clone() for a in args]
+    sweep_cuda.hirsch_sweep_real_plain(*args)
+    for a, b in zip(args, before):
+        assert torch.equal(a, b)

@@ -1,0 +1,129 @@
+"""The Taylor and exchange kernels' plain versions against the JAX package.
+
+  * Taylor: ``taylor_cuda.apply_taylor_plain`` against the Pallas kernel in
+    interpret mode (which computes in float32) at complex64 inputs,
+    max|d| <= 1e-4 max|out|, and against JAX's XLA route in float64 at
+    rtol 1e-10;
+  * exx: ``exx_cuda.exx_plain`` against the Pallas kernel in interpret mode
+    (float32), per walker |d_w| <= 1e-4 S_w with S_w = sum_x sum_ij
+    |T_ij||T_ji| (exx sums X n^2 products that may cancel), and against
+    JAX's ``_exx`` without a supermatrix (its einsum route on the CPU) in
+    float64 at rtol 1e-10;
+  * both wrappers take the plain version on a CPU tensor and launch nothing;
+  * ``_exx`` sends every real rchol to the exchange kernel's wrapper,
+    whatever its shape, and a complex one to the einsum route.
+Walker counts 1, 5 and 37 (the Pallas kernels' blocks are 8 walkers), odd
+M and n.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pauxy_tpu.estimators import local_energy as jle
+from pauxy_tpu.ops.exx_pallas import exx_pallas
+from pauxy_tpu.ops.taylor_pallas import apply_taylor_pallas
+from pauxy_tpu.propagation.generic import apply_exponential_taylor
+from pauxy_tpu_torch.ops import exx_cuda, taylor_cuda
+
+torch.set_num_threads(1)
+
+WALKERS = [1, 5, 37]
+TAYLOR_SHAPES = [(7, 5), (12, 9), (16, 14)]
+EXX_SHAPES = [(30, 3, 12), (17, 5, 9), (11, 4, 13)]
+
+
+def taylor_inputs(w, m, ncol, seed):
+    rng = np.random.default_rng(seed)
+    vhs = 0.15 * (rng.normal(size=(w, m, m)) + 1j * rng.normal(size=(w, m, m)))
+    phi = rng.normal(size=(w, m, ncol)) + 1j * rng.normal(size=(w, m, ncol))
+    return vhs, phi
+
+
+def exx_inputs(x, n, m, w, seed):
+    rng = np.random.default_rng(seed)
+    rc = rng.normal(size=(x, n, m)) / np.sqrt(m)
+    gh = rng.normal(size=(w, n, m)) + 1j * rng.normal(size=(w, n, m))
+    return rc, gh
+
+
+@pytest.mark.parametrize("w", WALKERS)
+@pytest.mark.parametrize("m,ncol", TAYLOR_SHAPES)
+def test_taylor_plain_matches_pallas_interpret(w, m, ncol):
+    vhs, phi = taylor_inputs(w, m, ncol, seed=w * m + ncol)
+    vhs, phi = vhs.astype(np.complex64), phi.astype(np.complex64)
+    ref = np.asarray(apply_taylor_pallas(jnp.asarray(vhs), jnp.asarray(phi),
+                                         interpret=True))
+    out = taylor_cuda.apply_taylor_plain(torch.from_numpy(vhs),
+                                         torch.from_numpy(phi)).numpy()
+    assert out.dtype == np.complex64 and out.shape == (w, m, ncol)
+    assert np.abs(out - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("w", WALKERS)
+@pytest.mark.parametrize("m,ncol", TAYLOR_SHAPES)
+def test_taylor_plain_matches_xla_route(w, m, ncol):
+    vhs, phi = taylor_inputs(w, m, ncol, seed=w + m * ncol)
+    ref = apply_exponential_taylor(jnp.asarray(vhs), jnp.asarray(phi))
+    before = taylor_cuda.launches
+    out = taylor_cuda.apply_taylor(torch.from_numpy(vhs),
+                                   torch.from_numpy(phi))
+    assert taylor_cuda.launches == before
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-10,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("w", WALKERS)
+@pytest.mark.parametrize("x,n,m", EXX_SHAPES)
+def test_exx_plain_matches_pallas_interpret(w, x, n, m):
+    rc, gh = exx_inputs(x, n, m, w, seed=x + n + m + w)
+    rc, gh = rc.astype(np.float32), gh.astype(np.complex64)
+    ref = np.asarray(exx_pallas(jnp.asarray(rc), jnp.asarray(gh),
+                                interpret=True))
+    trc, tgh = torch.from_numpy(rc), torch.from_numpy(gh)
+    out = exx_cuda.exx_plain(trc, tgh).numpy()
+    scale = exx_cuda.exx_magnitude(trc, tgh).numpy()
+    assert out.dtype == np.complex64 and out.shape == (w,)
+    assert np.all(np.abs(out - ref) <= 1e-4 * scale)
+    assert np.all(np.abs(out) <= scale * (1 + 1e-6))
+
+
+@pytest.mark.parametrize("w", WALKERS)
+@pytest.mark.parametrize("x,n,m", EXX_SHAPES)
+def test_exx_plain_matches_jax_einsum_route(w, x, n, m):
+    rc, gh = exx_inputs(x, n, m, w, seed=3 * x + n + w)
+    ref = jle._exx(jnp.asarray(rc), jnp.asarray(gh), exx_super=None)
+    before = exx_cuda.launches
+    out = exx_cuda.exx(torch.from_numpy(rc), torch.from_numpy(gh))
+    assert exx_cuda.launches == before
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-10,
+                               atol=1e-12)
+
+
+def test_exx_kernel_shapes(monkeypatch):
+    """A real rchol takes the kernel's route at every shape, including one
+    whose walker exceeds a block's shared memory (the kernel stages column
+    chunks); a complex rchol takes the einsum route. Both agree with JAX's
+    ``_exx`` at rtol 1e-10."""
+    from pauxy_tpu_torch.estimators import local_energy as tle
+
+    calls = []
+    kernel_route = exx_cuda.exx
+
+    def spy(rchol, ghalf):
+        calls.append(tuple(rchol.shape))
+        return kernel_route(rchol, ghalf)
+
+    monkeypatch.setattr(exx_cuda, "exx", spy)
+    for x, n, m in ((3, 128, 400), (2, 130, 9), (30, 3, 12)):
+        rc, gh = exx_inputs(x, n, m, 2, seed=x + n + m)
+        ref = np.asarray(jle._exx(jnp.asarray(rc), jnp.asarray(gh)))
+        out = tle._exx(torch.from_numpy(rc), torch.from_numpy(gh))
+        assert calls[-1] == (x, n, m)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-10, atol=1e-12)
+        crc = rc + 0.5j * rc[::-1]
+        ref = np.asarray(jle._exx(jnp.asarray(crc), jnp.asarray(gh)))
+        out = tle._exx(torch.from_numpy(crc), torch.from_numpy(gh))
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-10, atol=1e-12)
+    assert len(calls) == 3
