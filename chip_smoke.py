@@ -46,6 +46,21 @@ non-zero and prints no result line:
      are strongly autocorrelated (the JAX package misses its naive se at
      two of three seeds), so se combines the spread of 8 independent runs'
      means with the reference series' reblocked se.
+ 11. the finite-temperature UEG path at the bench shape (bench.py:692-716:
+     make_ueg(7, 7, rs=1, ecut=4), M=93, 1500 fields; the one-body trial at
+     beta=2, dt=0.05, mu=0.9, 40 slices in 4 bins of 10), complex64, 256
+     walkers, population control every slice, through
+     ThermalAFQMC(...).run(): every row finite, Nav > 0, the cpqr kernel
+     and kernel B launched as often as the slice schedule says, and
+     walker-slice-steps/s over the paths after a warm-up path; then one
+     path of 16 walkers at M=93 with injected draws, complex64 on the card
+     against complex128 on the host (ETotal and Nav within float32
+     rounding);
+ 12. the finite-temperature Hubbard path: 3x3, U=4, mu=0.9, beta=0.5,
+     dt=0.05, 32 walkers, population control every 2 slices, complex64:
+     paths with injected draws on the card against the host's complex128
+     run, then the golden anchor tests/data/thermal_hubbard3x3.npz over 60
+     paths, |dE| < max(4 se, 0.05) and |dNav| < max(4 se, 0.02).
 Each phase line ends with its seconds. Then the card's name and power limit
 (nvidia-smi), one JSON line about the kernels, and last
 {"ok": true, "device": {...}}.
@@ -66,11 +81,12 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = {torch.complex64: 1e-4, torch.complex128: 1e-10, torch.float32: 1e-4,
        torch.float64: 1e-10}
-# One H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, and FLOP/s outside the
-# tensor cores by element type.
+# One H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, and the fastest FLOP/s
+# of each element type at its own precision: float32 outside the tensor
+# cores, float64 on the FP64 tensor cores (DMMA; 34e12 outside them).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.complex64: 67e12,
-              torch.float64: 34e12, torch.complex128: 34e12}
+              torch.float64: 67e12, torch.complex128: 67e12}
 
 
 def say(phase: str, msg: str) -> None:
@@ -168,6 +184,268 @@ def exx_work(x: int, n: int, m: int, w: int):
     (real x complex: 4 FLOPs a multiply-add) and the products."""
     return (x * n * m * F4 + w * n * m * C8 + w * C8,
             w * x * (4 * n * n * m + 8 * n * n), torch.complex64)
+
+
+def cpqr_work(m: int, b: int, dtype=torch.complex64):
+    """The pivoted QR: a read once, q and r written once (and perm); per
+    matrix the factor pass's trailing dot products and updates (8 FLOPs a
+    complex multiply-add), the norms downdated by |r_kj|^2 (4 a column, as
+    LAPACK and the plain version do; the kernel's exact recompute is its
+    own choice, not the function's work), the Householder vectors, and the
+    form-Q pass's reflector applications that touch each column
+    (16 (m - k) for reflector k <= column j)."""
+    c = 16 if dtype == torch.complex128 else C8
+    flops = 0
+    for k in range(m):
+        t = m - k
+        flops += 16 * t * (t - 1) + 4 * (t - 1) + 4 * t + 6 * (t - 1)
+    flops += sum(16 * (m - k) for j in range(m) for k in range(j + 1))
+    return (3 * b * m * m * c + b * m * 8, b * flops, dtype)
+
+
+CPQR_EPS = {torch.complex64: 2.0 ** -24, torch.float32: 2.0 ** -24,
+            torch.complex128: 2.0 ** -53, torch.float64: 2.0 ** -53}
+
+
+def cpqr_identities(a, q, r, perm):
+    """(max reconstruction ||A[:, perm] - QR||_F / ||A||_F, max |Q^H Q - I|,
+    max |below R's diagonal|, worst rise of |r_kk| over |r_00|)."""
+    b, m, _ = a.shape
+    ap = torch.gather(a, 2, perm[:, None, :].expand(b, m, m))
+    rec = (torch.linalg.matrix_norm(ap - q @ r)
+           / torch.linalg.matrix_norm(a)).max().item()
+    eye = torch.eye(m, dtype=q.dtype, device=q.device)
+    orth = (q.conj().transpose(1, 2) @ q - eye).abs().max().item()
+    low = torch.tril(r, -1).abs().max().item()
+    d = torch.diagonal(r, dim1=-2, dim2=-1).abs()
+    rise = ((d[:, 1:] - d[:, :-1]).clamp_min(0).amax(-1)
+            / d[:, 0].clamp_min(1e-300)).max().item()
+    return rec, orth, low, rise
+
+
+def separated_norms(rng, b, m, cplx):
+    """(W D)[:, shuffle]: W = I + 0.05 N / sqrt(m) (cond(W) ~ 1.1), D a
+    geometric column scaling from 1 down to 1e-4, the columns then
+    shuffled. Consecutive scales differ by 1e4^(1/(m-1)) (10% at m = 93),
+    far more than W moves a column's residual norm (~0.3%), so the pivots
+    are unambiguous; and the k-th pivot column's dominant entry sits in
+    row k, so its x_k is not small against ||x||: the LAPACK phase choice
+    beta = -(x_k/|x_k|) ||x|| makes Q as sensitive as x_k's phase, and
+    only then are Q and R well determined in float32 (~1e-6 from float64
+    up to m = 162, tools/thermal_precision.py)."""
+    w = np.eye(m) + 0.05 / np.sqrt(m) * rng.normal(size=(b, m, m))
+    if cplx:
+        w = w + 0.05j / np.sqrt(m) * rng.normal(size=(b, m, m))
+    scale = 1e-4 ** (np.arange(m) / max(m - 1, 1))
+    return (w * scale[None, None, :])[:, :, rng.permutation(m)]
+
+
+def gaussian_separated(rng, b, m, cplx):
+    """(G D)[:, shuffle]: G Gaussian, D the geometric column scaling of
+    separated_norms. A pivot column's k-th entry is as small against its
+    norm as a Gaussian entry happens to be, so the phase that the LAPACK
+    choice gives q_k and row k of R is ill-determined in float32 on a few
+    columns: the plain version in float32 misses float64 there by up to
+    1.021e-3 in Q (B=128, m=162, tools/thermal_precision.py), a quarter of
+    what a planted phase error of 2^-8 reads. R, weighted by |r_kk|, and Q
+    with each column's phase aligned to float64 stay within 6.5e-6."""
+    g = rng.normal(size=(b, m, m))
+    if cplx:
+        g = g + 1j * rng.normal(size=(b, m, m))
+    scale = 1e-4 ** (np.arange(m) / max(m - 1, 1))
+    return (g * scale[None, None, :])[:, :, rng.permutation(m)]
+
+
+def against_double(q64, r64, q, r):
+    """Float32 factors q, r against the double-precision ones q64, r64 of
+    the same (float32) input with the same pivots: (max |R - R64| over each
+    matrix's max |R64|, max |Q D - Q64| with D the column phases that align
+    Q to Q64, max |Q - Q64|)."""
+    q, r = q.to(q64.dtype), r.to(r64.dtype)
+    rmax = r64.abs().amax((-2, -1), keepdim=True)
+    d_r = ((r - r64).abs() / rmax).max().item()
+    d = (q64.conj() * q).sum(-2)
+    d = d / d.abs()
+    d_qa = (q * d.conj()[:, None, :] - q64).abs().max().item()
+    return d_r, d_qa, (q - q64).abs().max().item()
+
+
+def check_cpqr(cpqr_cuda, rng) -> tuple[float, str]:
+    """The pivoted QR kernel against its plain version at m in {9, 16, 36,
+    48, 93, cap} x B in {1, 37, 512}, complex64 and complex128, and real
+    float32 at (512, 93): on Gaussian input (one zero column) the
+    identities within 10 m eps, exact zeros below R's diagonal, |r_kk|
+    non-increasing within 10 m eps of |r_00|, the same bits on a second
+    launch; on separated-norm input the plain version's pivots and Q
+    within tol, R within tol max|R|; in complex64 and float32 on Gaussian
+    separated-norm input, the factors against the plain version in double
+    precision with the kernel's pivots: R within 1e-4 of each matrix's
+    max|R| and Q, its column phases aligned, within 1e-4, a limit above the
+    plain float32 version's own reading and below that of the kernel's
+    factors with a planted phase error of 2^-8 on every column; a rank-7
+    input finite with a vanishing trailing diagonal. Returns (largest
+    |R - R_plain| at (512, 93) complex64 on separated norms, the largest
+    readings)."""
+    main_err, worst = None, {}
+    wide = {"kernel": [0.0] * 3, "plain": [0.0] * 3, "planted": np.inf}
+    cases = [(dt, m, b) for dt in (torch.complex64, torch.complex128)
+             for m in (9, 16, 36, 48, 93, cpqr_cuda.max_m(dt))
+             for b in (1, 37, 512)] + [(torch.float32, 93, 512)]
+    for dtype, m, b in cases:
+        tol, allow = TOL[dtype], 10 * m * CPQR_EPS[dtype]
+        cplx = dtype.is_complex
+        a = rng.normal(size=(b, m, m))
+        if cplx:
+            a = a + 1j * rng.normal(size=(b, m, m))
+        a[0, :, m // 2] = 0.0
+        a = torch.from_numpy(a).to("cuda", dtype)
+        q, r, p = cpqr_cuda.cpqr_lanes(a)
+        q2, r2, p2 = cpqr_cuda.cpqr_lanes(a)
+        torch.cuda.synchronize()
+        where = f"{dtype} m={m} B={b}"
+        if not (torch.equal(q, q2) and torch.equal(r, r2)
+                and torch.equal(p, p2)):
+            raise AssertionError(f"cpqr not reproducible at {where}")
+        rec, orth, low, rise = cpqr_identities(a, q, r, p)
+        if not (rec <= allow and orth <= allow and low == 0.0
+                and rise <= allow):
+            raise AssertionError(f"cpqr identities at {where}: rec {rec:.3e} "
+                                 f"orth {orth:.3e} below-diagonal {low} "
+                                 f"rise {rise:.3e} (allowance {allow:.3e})")
+        sep = torch.from_numpy(separated_norms(rng, b, m, cplx)).to(
+            "cuda", dtype)
+        qk, rk, pk = cpqr_cuda.cpqr_lanes(sep)
+        qp, rp, pp = cpqr_cuda.cpqr_lanes_plain(sep)
+        torch.cuda.synchronize()
+        dq = (qk - qp).abs().max().item()
+        dr = (rk - rp).abs().max().item()
+        rmax = rp.abs().max().item()
+        if not (torch.equal(pk, pp) and dq <= tol and dr <= tol * rmax):
+            raise AssertionError(f"cpqr disagrees with its plain version at "
+                                 f"{where}: same pivots "
+                                 f"{bool(torch.equal(pk, pp))}, dQ {dq:.3e}, "
+                                 f"dR/max {dr / rmax:.3e} (tol {tol})")
+        if dtype in (torch.complex64, torch.float32):
+            g = torch.from_numpy(gaussian_separated(rng, b, m, cplx)).to(
+                "cuda", dtype)
+            qk, rk, pk = cpqr_cuda.cpqr_lanes(g)
+            gp = torch.gather(g, 2, pk[:, None, :].expand(b, m, m))
+            qp, rp, _ = cpqr_cuda.cpqr_lanes_plain(gp, pivot=False)
+            q64, r64, _ = cpqr_cuda.cpqr_lanes_plain(
+                gp.to(torch.complex128 if cplx else torch.float64),
+                pivot=False)
+            kern = against_double(q64, r64, qk, rk)
+            plain = against_double(q64, r64, qp, rp)
+            planted = np.inf
+            if cplx:
+                turn = complex(np.exp(1j * 2.0 ** -8))
+                planted = against_double(q64, r64, qk * turn, rk / turn)[0]
+            del q64, r64
+            if not (kern[0] <= tol and kern[1] <= tol and plain[0] <= tol
+                    and plain[1] <= tol and planted > tol):
+                raise AssertionError(
+                    f"cpqr against double precision on Gaussian separated "
+                    f"norms at {where}: kernel dR {kern[0]:.3e}, aligned dQ "
+                    f"{kern[1]:.3e}; plain version {plain[0]:.3e}, "
+                    f"{plain[1]:.3e}; planted phase error dR {planted:.3e} "
+                    f"(limit {tol})")
+            wide["kernel"] = [max(x, y) for x, y in zip(wide["kernel"], kern)]
+            wide["plain"] = [max(x, y) for x, y in zip(wide["plain"], plain)]
+            wide["planted"] = min(wide["planted"], planted)
+        key = str(dtype).split(".")[-1]
+        w = worst.setdefault(key, [0.0] * 4)
+        worst[key] = [max(w[0], rec / allow), max(w[1], orth / allow),
+                      max(w[2], dq / tol), max(w[3], dr / rmax / tol)]
+        if (dtype, m, b) == (torch.complex64, 93, 512):
+            main_err = dr
+    for dtype in (torch.complex64, torch.complex128):
+        m, k = 93, 7
+        a = (rng.normal(size=(37, m, k)) + 1j * rng.normal(size=(37, m, k))
+             ) @ rng.normal(size=(37, k, m))
+        a = torch.from_numpy(a).to("cuda", dtype)
+        q, r, p = cpqr_cuda.cpqr_lanes(a)
+        torch.cuda.synchronize()
+        rec, orth, low, _ = cpqr_identities(a, q, r, p)
+        d = torch.diagonal(r, dim1=-2, dim2=-1).abs()
+        allow = 10 * m * CPQR_EPS[dtype]
+        if not (torch.isfinite(q).all() and torch.isfinite(r).all()
+                and rec <= allow and orth <= allow and low == 0.0
+                and bool((d[:, k:] <= 10 * allow * d[:, :1]).all())):
+            raise AssertionError(f"cpqr on rank-7 input at {dtype}: rec "
+                                 f"{rec:.3e} orth {orth:.3e}")
+    kern, plain = wide["kernel"], wide["plain"]
+    return main_err, "; ".join(
+        f"{k} rec {v[0]:.3f}, orth {v[1]:.3f} of 10 m eps, dQ {v[2]:.3f}, "
+        f"dR {v[3]:.3f} of tol" for k, v in worst.items()) + (
+        f"; Gaussian separated norms against double precision (complex64 "
+        f"and float32, limit 1e-4): kernel dR {kern[0]:.3e}, aligned dQ "
+        f"{kern[1]:.3e} (raw dQ {kern[2]:.3e}, not held); plain version "
+        f"dR {plain[0]:.3e}, aligned dQ {plain[1]:.3e} (raw dQ "
+        f"{plain[2]:.3e}); planted phase error 2^-8 dR >= "
+        f"{wide['planted']:.3e}")
+
+
+def check_batchla_thermal(batchla_cuda, clinalg, rng) -> str:
+    """Kernel B at the thermal shape n=93 with 512 matrices, in every type
+    and mode it launches, against its plain version; complex128 with the
+    inverse (past its cap of 85) goes to torch.linalg by shape and agrees
+    with it."""
+    out = []
+    for dtype in (torch.complex64, torch.complex128, torch.float32,
+                  torch.float64):
+        n, w, tol = 93, 512, TOL[dtype]
+        s = 2.0 * np.eye(n) + 0.3 / np.sqrt(n) * rng.normal(size=(w, n, n))
+        if dtype.is_complex:
+            s = s + 0.3j / np.sqrt(n) * rng.normal(size=(w, n, n))
+        s = torch.from_numpy(s).to("cuda", dtype)
+        for want_inv in (True, False):
+            if n > batchla_cuda.inv_max_n(dtype, want_inv):
+                before = batchla_cuda.launches
+                ld, inv = clinalg.inv_logdet(s)
+                want = torch.linalg.inv(s)
+                torch.cuda.synchronize()
+                d = ((inv - want).abs().max() / want.abs().max()).item()
+                if batchla_cuda.launches != before or d > tol:
+                    raise AssertionError(f"kernel B route at {dtype} n={n}")
+                out.append(f"{dtype} inverse -> torch.linalg")
+                continue
+            ld_k, inv_k = batchla_cuda.inv_logdet_lanes(s, want_inv)
+            ld_p, inv_p = batchla_cuda.inv_logdet_lanes_plain(s, want_inv)
+            torch.cuda.synchronize()
+            dd = (ld_k - ld_p).cpu().numpy()
+            dre = float(np.abs(dd.real).max())
+            dim = float(phase_diff(dd.imag).max())
+            rel = 0.0
+            if want_inv:
+                rel = float((inv_k - inv_p).abs().max() / inv_p.abs().max())
+            if dre > tol * n or dim > tol * n or rel > tol:
+                raise AssertionError(
+                    f"inv_logdet_lanes disagrees at {dtype} n={n} w={w} "
+                    f"want_inv={want_inv}: dRe={dre:.3e} dIm={dim:.3e} "
+                    f"dinv/max={rel:.3e}")
+    return ", ".join(out)
+
+
+def thermal_launches(nbins: int, stack_size: int, nslices: int,
+                     npaths: int) -> tuple[int, int]:
+    """(cpqr, kernel B) launches of ThermalAFQMC.run() over npaths paths:
+    each walker initialisation (the driver's and the reset after every
+    path) folds all nbins bins and assembles G once (5 kernel B launches:
+    two inverses, three log-dets); each slice ts folds bins
+    ts // stack_size .. nbins - 1, plus one prefix fold on entering bins
+    1.., and assembles G once."""
+    per_path = sum(nbins - ts // stack_size
+                   + (ts % stack_size == 0 and ts >= stack_size)
+                   for ts in range(nslices))
+    return ((npaths + 1) * nbins + npaths * per_path,
+            5 * (npaths + 1) + 5 * nslices * npaths)
+
+
+def thermal_injected(af, xi: np.ndarray, pop: np.ndarray, PathNoise):
+    """One path of ``af`` with injected draws; its row."""
+    dev, rdt = af.state.weight.device, af.state.weight.dtype
+    return af.run_block(PathNoise(torch.from_numpy(xi).to(dev, rdt),
+                                  torch.from_numpy(pop).to(dev, rdt)))
 
 
 def phase_diff(a: np.ndarray) -> np.ndarray:
@@ -619,12 +897,16 @@ def main() -> None:
                                         make_hubbard, rhf_identity_trial,
                                         trial_from_orbitals)
     from pauxy_tpu_torch.models import trial as trial_module
-    from pauxy_tpu_torch.ops import (batchla_cuda, cuda_build, exx_cuda,
-                                     greens_cuda, sweep_cuda, taylor_cuda)
+    from pauxy_tpu_torch.models.thermal_trial import make_one_body_trial
+    from pauxy_tpu_torch.models.ueg import make_ueg
+    from pauxy_tpu_torch.ops import (batchla_cuda, clinalg, cpqr_cuda,
+                                     cuda_build, exx_cuda, greens_cuda,
+                                     sweep_cuda, taylor_cuda)
     from pauxy_tpu_torch.propagation.generic import apply_exponential_taylor
     from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
     from pauxy_tpu_torch.qmc.afqmc import run_block
     from pauxy_tpu_torch.qmc.hubbard_fast import BlockNoise
+    from pauxy_tpu_torch.qmc.thermal_afqmc import PathNoise, ThermalAFQMC
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "pauxy_tpu")]
@@ -642,7 +924,8 @@ def main() -> None:
                 "chol_inv_lanes": batchla_cuda.chol_launches,
                 "hirsch_sweep": sweep_cuda.launches,
                 "taylor_exp": taylor_cuda.launches,
-                "exx": exx_cuda.launches}
+                "exx": exx_cuda.launches,
+                "cpqr": cpqr_cuda.launches}
 
     def zero_counts() -> None:
         greens_cuda.launches = 0
@@ -651,6 +934,7 @@ def main() -> None:
         sweep_cuda.launches = 0
         taylor_cuda.launches = 0
         exx_cuda.launches = 0
+        cpqr_cuda.launches = 0
 
     def only(**nonzero) -> dict:
         want = dict.fromkeys(counts(), 0)
@@ -679,6 +963,8 @@ def main() -> None:
            "hirsch_sweep": check_sweep(sweep_cuda, rng),
            "taylor_exp": check_taylor(taylor_cuda, gen),
            "exx": exx_err}
+    err["cpqr"], cpqr_readings = check_cpqr(cpqr_cuda, rng)
+    b93_route = check_batchla_thermal(batchla_cuda, clinalg, rng)
     ill = check_batchla_ill(batchla_cuda, rng)
     m, n, w = 16, 7, 1024
     c64, f32 = torch.complex64, torch.float32
@@ -720,6 +1006,13 @@ def main() -> None:
         "kernel": lambda: exx_cuda.exx(rce, ghe),
         "library": lambda: exx_cuda.exx_plain(rce, ghe)}, reps=5)
     del rce, ghe
+    # The pivoted QR at the thermal UEG shape (B = 2 x 256 walkers, M=93);
+    # PyTorch has no pivoted QR, so no library call.
+    qa = torch.randn(512, 93, 93, dtype=c64, device="cuda", generator=gen)
+    times["cpqr"] = median_ms({
+        "plain": lambda: cpqr_cuda.cpqr_lanes_plain(qa),
+        "kernel": lambda: cpqr_cuda.cpqr_lanes(qa)}, reps=10)
+    del qa
     work = {
         "greens_lanes": greens_work(m, n, w),
         "inv_logdet_lanes": batchla_work(n, w, False),
@@ -727,6 +1020,7 @@ def main() -> None:
         "hirsch_sweep": sweep_work(m, n, n, w),
         "taylor_exp": taylor_work(tm, tc, tw),
         "exx": exx_work(ex, en, em, ew),
+        "cpqr": cpqr_work(93, 512),
     }
     bounds = {k: bound_ms(*v) for k, v in work.items()}
 
@@ -786,6 +1080,34 @@ def main() -> None:
                      - exx_cuda.exx(rcs, ghs)).abs().max()
                     / exx_cuda.exx_magnitude(rcs, ghs).max())
     del rcs, ghs, sup
+    # The thermal shapes: kernel B at n=93 with 512 matrices (the QDT
+    # assembly; the library calls torch.linalg.inv and slogdet), the
+    # pivoted QR at the Hubbard thermal shape (2 x 32 walkers, m=9).
+    st = torch.from_numpy(2.0 * np.eye(93) + 0.3 / np.sqrt(93) * (
+        rng.normal(size=(512, 93, 93))
+        + 1j * rng.normal(size=(512, 93, 93)))).to("cuda", c64)
+    for want_inv in (True, False):
+        fns = {"plain": lambda: batchla_cuda.inv_logdet_lanes_plain(
+                   st, want_inv),
+               "kernel": lambda: batchla_cuda.inv_logdet_lanes(st, want_inv),
+               "library": ((lambda: torch.linalg.inv(st)) if want_inv
+                           else (lambda: torch.linalg.slogdet(st)))}
+        at_shape("inv_logdet_lanes",
+                 "n=93 w=512 c64 " + ("inverse+log-det" if want_inv
+                                      else "log-det only"),
+                 fns, batchla_work(93, 512, want_inv), reps=5)
+    del st
+    qh = torch.randn(64, 9, 9, dtype=c64, device="cuda", generator=gen)
+    at_shape("cpqr", "(B,m)=(64,9) c64",
+             {"plain": lambda: cpqr_cuda.cpqr_lanes_plain(qh),
+              "kernel": lambda: cpqr_cuda.cpqr_lanes(qh)}, cpqr_work(9, 64))
+    qd = torch.randn(512, 93, 93, dtype=torch.complex128, device="cuda",
+                     generator=gen)
+    at_shape("cpqr", "(B,m)=(512,93) c128",
+             {"plain": lambda: cpqr_cuda.cpqr_lanes_plain(qd),
+              "kernel": lambda: cpqr_cuda.cpqr_lanes(qd)},
+             cpqr_work(93, 512, torch.complex128), reps=5)
+    del qd
     say("3 kernels", "greens_lanes, inv_logdet_lanes (complex and real), "
         "chol_inv_lanes and hirsch_sweep agree with their plain versions at "
         "every shape (complex64/float32 1e-4, complex128/float64 1e-10, "
@@ -793,7 +1115,8 @@ def main() -> None:
         "(greens (16,7) W=1024 c64; inv_logdet n=7 w=1024 c64 log-det only; "
         "chol n=7 w=1024 c64; sweep (16,7,7) W=1024 f32; taylor (128,32) "
         "w=1024 c64 with the xla route as library call; exx (1024,42,228) "
-        "w=256 c64 with the einsum route as library call): " + "; ".join(
+        "w=256 c64 with the einsum route as library call; cpqr (512,93) "
+        "c64, no library call): " + "; ".join(
             f"{k} kernel {t['kernel']:.4f} ms vs plain {t['plain']:.4f} ms"
             + (f" vs library {t['library']:.4f} ms" if "library" in t
                else "")
@@ -822,6 +1145,16 @@ def main() -> None:
         "coherent phases): " + "; ".join(
             f"{k} {a:.3e}, {p:.3e} vs {b[0]:.3e} / {b[1]:.3e}"
             for k, (a, p, b) in exx_readings.items()))
+    say("3 kernels", "cpqr at m in {9,16,36,48,93,cap} x B in {1,37,512} "
+        "complex64 and complex128, and float32 at (512,93): identities "
+        "within 10 m eps, exact zeros below R's diagonal, |r_kk| "
+        "non-increasing, the same bits on a second launch, on separated "
+        "norms the plain version's pivots and factors within tol, on "
+        "Gaussian separated norms the factors against double precision, "
+        "rank-7 "
+        f"input finite; largest readings: {cpqr_readings}; kernel B at "
+        f"n=93 w=512 agrees with its plain version in every type and mode "
+        f"it launches ({b93_route})")
     say("3 kernels", "inv_logdet_lanes on ill-conditioned real input "
         "(2 I + 0.5 N, 1031 matrices) within max(tol, 2 n eps kappa) of its "
         "plain version and of the float64 inverse, matrix by matrix; "
@@ -1063,6 +1396,136 @@ def main() -> None:
         f"{se:.6f} (run spread and reference reblocked); seed 8 alone "
         f"{first:.6f}, |diff| {abs(first - theirs.mean()):.6f} against "
         f"4 x naive se {4 * naive:.6f}" + lap("10"))
+
+    # ---- 11. thermal UEG at the bench shape ------------------------------
+    def thermal_ueg(device, dtype, nwalkers, nblocks):
+        ham = make_ueg(7, 7, rs=1.0, ecut=4.0, device=device, dtype=dtype)
+        trial = make_one_body_trial(ham, 2.0, 0.05, mu=0.9, device=device,
+                                    dtype=dtype)
+        return ThermalAFQMC(ham, trial, QMCOpts(
+            nwalkers=nwalkers, dt=0.05, nsteps=1, nblocks=nblocks, beta=2.0,
+            npop_control=1, rng_seed=8), device=device)
+
+    zero_counts()
+    af = thermal_ueg("cuda", "single", 256, 2)
+    shape = (af.ham.nbasis, af.ham.nfields, af.ntime_slices, af.trial.nbins,
+             af.trial.stack_size)
+    if shape != (93, 1500, 40, 4, 10):
+        raise AssertionError(f"thermal UEG bench shape {shape}")
+    rows = af.run()
+    torch.cuda.synchronize()
+    ueg_counts = counts()
+    if not (np.isfinite(rows).all() and (rows[:, 10].real > 0).all()):
+        raise AssertionError(f"thermal UEG rows {rows}")
+    ncpqr, nkb = thermal_launches(4, 10, 40, af.qmc.nblocks)
+    want = only(cpqr=ncpqr, inv_logdet_lanes=nkb)
+    if ueg_counts != want:
+        raise AssertionError(f"thermal UEG launches {ueg_counts}, want "
+                             f"{want}")
+    timed = af.block_seconds[1:]
+    rate_t = af.qmc.nwalkers * af.ntime_slices * len(timed) / sum(timed)
+    say("11 thermal UEG", f"rs=1 ecut=4 M=93 (7,7) beta=2 dt=0.05 mu=0.9 "
+        f"(40 slices, 4 bins of 10) complex64 256 walkers, pop control "
+        f"every slice: ETotal per row "
+        f"{np.array2string(rows[:, 5].real, precision=5)}, Nav "
+        f"{np.array2string(rows[:, 10].real, precision=5)}; launches "
+        f"{ueg_counts}; {rate_t:.1f} walker-slice-steps/s over "
+        f"{len(timed)} path(s) after a warm-up path (path seconds "
+        f"{', '.join(f'{t:.4f}' for t in af.block_seconds)})")
+    del af
+    # The card's complex64 path against the host's complex128 path, one
+    # path of 16 walkers with the same injected draws. Limit: float32's
+    # unit roundoff 6e-8 times the 40 slices of ~40 chained rounding steps
+    # of a walker (cpqr folds, inverses, log-dets at M=93), 1e-4 of the
+    # values (the port's complex64 against complex128 on a host reads
+    # 3.0e-6 for ETotal and 1.9e-6 for Nav, tools/thermal_precision.py).
+    draws = np.random.default_rng(11)
+    xi = draws.normal(size=(40, 16, 1500))
+    pop = draws.uniform(size=(40, 1))
+    card = thermal_injected(thermal_ueg("cuda", "single", 16, 1), xi, pop,
+                            PathNoise)
+    host = thermal_injected(thermal_ueg("cpu", "double", 16, 1), xi, pop,
+                            PathNoise)
+    d_e = abs(card[5] - host[5]) / abs(host[5])
+    d_n = abs(card[10] - host[10]) / abs(host[10])
+    if not (np.isfinite(card).all() and d_e <= 1e-4 and d_n <= 1e-4):
+        raise AssertionError(f"thermal UEG: complex64 on the card {card} vs "
+                             f"complex128 on the host {host}: dE {d_e:.3e}, "
+                             f"dNav {d_n:.3e} > 1e-4")
+    say("11 thermal UEG", f"16 walkers, one path with injected draws: "
+        f"complex64 on the card ETotal {card[5].real:.6f} Nav "
+        f"{card[10].real:.6f} vs complex128 on the host "
+        f"{host[5].real:.6f} / {host[10].real:.6f}: relative "
+        f"{d_e:.3e} / {d_n:.3e} <= 1e-4" + lap("11"))
+
+    # ---- 12. thermal Hubbard and its golden anchor -----------------------
+    g = np.load(os.path.join(ROOT, "tests", "data", "thermal_hubbard3x3.npz"))
+    tnw, tbeta, tdt = int(g["nwalkers"]), float(g["beta"]), float(g["dt"])
+
+    def thermal_hubbard(device, dtype, nblocks, rng_seed=8):
+        ham = make_hubbard(3, 3, U=4.0, nx=3, ny=3, device=device,
+                           dtype=dtype)
+        trial = make_one_body_trial(ham, tbeta, tdt, mu=float(g["mu"]),
+                                    device=device, dtype=dtype)
+        return ThermalAFQMC(ham, trial, QMCOpts(
+            nwalkers=tnw, dt=tdt, nsteps=1, nblocks=nblocks, beta=tbeta,
+            npop_control=2, rng_seed=rng_seed), device=device)
+
+    # Limit: 6e-8 times the 10 slices of ~100 chained rounding steps, 1e-4
+    # of the values' scale (the port's complex64 against complex128 on a
+    # host reads 1.5e-6, tools/thermal_precision.py).
+    npaths = 5
+    card_af = thermal_hubbard("cuda", "single", npaths)
+    host_af = thermal_hubbard("cpu", "double", npaths)
+    ns = card_af.ntime_slices
+    xi = draws.normal(size=(npaths * ns, tnw, card_af.prop.nfields))
+    pop = draws.uniform(size=(npaths * ns, 1))
+    pairs = []
+    for i in range(npaths):
+        sl = slice(i * ns, (i + 1) * ns)
+        c = thermal_injected(card_af, xi[sl], pop[sl], PathNoise)
+        h = thermal_injected(host_af, xi[sl], pop[sl], PathNoise)
+        pairs.append([c[5].real, h[5].real, c[10].real, h[10].real])
+    pairs = np.array(pairs)
+    tight = max(np.abs(pairs[:, 0] - pairs[:, 1]).max()
+                / np.abs(pairs[:, 1]).max(),
+                np.abs(pairs[:, 2] - pairs[:, 3]).max()
+                / np.abs(pairs[:, 3]).max())
+    if not (np.isfinite(pairs).all() and tight <= 1e-4):
+        raise AssertionError(f"thermal Hubbard: card vs host {pairs}")
+    zero_counts()
+    gaf = thermal_hubbard("cuda", "single", 60)
+    rows = gaf.run()
+    torch.cuda.synchronize()
+    hub_counts = counts()
+    ncpqr, nkb = thermal_launches(gaf.trial.nbins, gaf.trial.stack_size,
+                                  gaf.ntime_slices, 60)
+    want = only(cpqr=ncpqr, inv_logdet_lanes=nkb)
+    if hub_counts != want:
+        raise AssertionError(f"thermal Hubbard launches {hub_counts}, want "
+                             f"{want}")
+    et, nav = rows[1:, 5].real, rows[1:, 10].real
+    ref_e, ref_n = np.asarray(g["etotal"])[1:], np.asarray(g["nav"])[1:]
+    se_e = float(np.hypot(et.std(ddof=1) / np.sqrt(len(et)),
+                          ref_e.std(ddof=1) / np.sqrt(len(ref_e))))
+    se_n = float(np.hypot(nav.std(ddof=1) / np.sqrt(len(nav)),
+                          ref_n.std(ddof=1) / np.sqrt(len(ref_n))))
+    de = abs(et.mean() - ref_e.mean())
+    dn = abs(nav.mean() - ref_n.mean())
+    if not (np.isfinite(rows).all() and de < max(4 * se_e, 0.05)
+            and dn < max(4 * se_n, 0.02)):
+        raise AssertionError(f"thermal golden missed: E {et.mean()} vs "
+                             f"{ref_e.mean()} (se {se_e}), Nav {nav.mean()} "
+                             f"vs {ref_n.mean()} (se {se_n})")
+    say("12 thermal Hubbard", f"3x3 U=4 mu={float(g['mu'])} beta={tbeta} "
+        f"dt={tdt} {tnw} walkers: {npaths} paths with injected draws, "
+        f"complex64 on the card vs complex128 on the host, (ETotal, Nav) "
+        f"per path {pairs.round(6).tolist()}: max |d| over the scale "
+        f"{tight:.3e} <= 1e-4; golden anchor over 60 paths, complex64: "
+        f"E {et.mean():.6f} vs reference {ref_e.mean():.6f}, |d| {de:.6f} "
+        f"< max(4 se, 0.05) with se {se_e:.6f}; Nav {nav.mean():.6f} vs "
+        f"{ref_n.mean():.6f}, |d| {dn:.6f} < max(4 se, 0.02) with se "
+        f"{se_n:.6f}; launches {hub_counts}" + lap("12"))
     say("seconds", json.dumps(seconds))
 
     # ---- result ----------------------------------------------------------
@@ -1080,9 +1543,12 @@ def main() -> None:
                        "pauxy_tpu/ops/taylor_pallas.py:47"),
         "exx": ("pauxy_tpu_torch/csrc/exx.cu",
                 "pauxy_tpu/ops/exx_pallas.py:36"),
+        "cpqr": ("pauxy_tpu_torch/csrc/cpqr.cu",
+                 "pauxy_tpu/ops/cpqr_pallas.py:89"),
     }
     by_path = {"continuous": cont, "discrete": disc, "generic": gen_counts,
-               "generic_exx": exx_counts}
+               "generic_exx": exx_counts, "thermal_ueg": ueg_counts,
+               "thermal_hubbard": hub_counts}
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[k] for c in by_path.values()),

@@ -1,6 +1,7 @@
-"""PyTorch/CUDA port of pauxy-tpu's zero-temperature AFQMC: the Hubbard
+"""PyTorch/CUDA port of pauxy-tpu's AFQMC: at zero temperature the Hubbard
 continuous and discrete paths and the Generic (Cholesky ab-initio) phaseless
-path.
+path; at finite temperature the Hubbard and UEG continuous paths on the
+full-rank QDT stack (``qmc.ThermalAFQMC``).
 
 The JAX package ``pauxy_tpu`` stays the reference; this package mirrors its
 module paths (``models/hubbard.py`` here is ``pauxy_tpu/models/hubbard.py``

@@ -1,7 +1,9 @@
-"""Hubbard and Generic local energies: walker-batched and host-side.
+"""Hubbard, Generic and UEG local energies: walker-batched and host-side.
 
 Counterpart of ``local_energy_hubbard``, ``local_energy_generic_opt``,
-``_exx`` and the Hubbard and Generic branches of ``local_energy_G_host`` in
+``_exx``, the UEG gather kernels (``coulomb_greens_function_ueg``,
+``exchange_greens_function_ueg``, ``local_energy_ueg``) and the Hubbard
+and Generic branches of ``local_energy_G_host`` in
 ``pauxy_tpu/estimators/local_energy.py``. The lanes block of
 ``qmc/hubbard_fast.py`` keeps its own fused energy.
 """
@@ -64,6 +66,66 @@ def _exx(rchol: torch.Tensor, ghalf: torch.Tensor,
     if not rchol.is_complex() and ghalf.is_complex():
         return exx_cuda.exx(rchol, ghalf.contiguous())
     return exx_cuda.exx_plain(rchol, ghalf)
+
+
+def coulomb_greens_function_ueg(ham, G: torch.Tensor):
+    """(Gkpq, Gpmq) [w, nq]: sum_i G[i, idx(k_i +/- q)] over valid pairs,
+    as one masked gather and reduction each."""
+    m = G.shape[-1]
+    rows = torch.arange(m, device=G.device)[None, :]
+    gkpq = torch.sum(G[:, rows, ham.kpq_idx] * ham.kpq_mask[None], dim=-1)
+    gpmq = torch.sum(G[:, rows, ham.pmq_idx] * ham.pmq_mask[None], dim=-1)
+    return gkpq, gpmq
+
+
+def exchange_greens_function_ueg(ham, G: torch.Tensor,
+                                 q_chunk: int | None = None,
+                                 max_elems: int = 2 ** 26) -> torch.Tensor:
+    """Gprod[w, q] = sum_{ij} G[j, idx(k_i + q)] G[i, idx(k_j - q)]: per q an
+    elementwise trace of two gathered matrices, in chunks of q (and, when
+    one q exceeds the budget, of walkers) so that the [w, M, qc, M]
+    intermediates stay under ``max_elems``, as in JAX."""
+    m = G.shape[-1]
+    w = G.shape[0]
+    if q_chunk is None:
+        q_chunk = max(1, max_elems // max(1, 2 * w * m * m))
+    if w * m * m * 2 > max_elems and w > 1:
+        half = w // 2
+        return torch.cat([
+            exchange_greens_function_ueg(ham, G[:half], None, max_elems),
+            exchange_greens_function_ueg(ham, G[half:], None, max_elems)])
+    nq = ham.kpq_idx.shape[0]
+    rdt = G.real.dtype
+    out = []
+    for q0 in range(0, nq, q_chunk):
+        kpq_i = ham.kpq_idx[q0:q0 + q_chunk]
+        pmq_i = ham.pmq_idx[q0:q0 + q_chunk]
+        a = G[:, :, kpq_i] * ham.kpq_mask[q0:q0 + q_chunk].to(rdt)[None, None]
+        b = G[:, :, pmq_i] * ham.pmq_mask[q0:q0 + q_chunk].to(rdt)[None, None]
+        out.append(torch.einsum("wjqi,wiqj->wq", a, b))
+    return torch.cat(out, dim=-1)
+
+
+def local_energy_ueg(ham, Ga: torch.Tensor, Gb: torch.Tensor):
+    """(etot, e1b, e2b), each [w]:
+    pe = 1/(2 vol) sum_q v(q) [sum over spin pairs Gkpq_s Gpmq_s'
+    - Gprod_up - Gprod_dn]; the Madelung ecore is not added (as in the
+    reference kernel)."""
+    h1 = ham.H1.to(Ga.dtype)
+    ke = (torch.einsum("mn,wmn->w", h1[0], Ga)
+          + torch.einsum("mn,wmn->w", h1[1], Gb))
+    gkpq_a, gpmq_a = coulomb_greens_function_ueg(ham, Ga)
+    gkpq_b, gpmq_b = coulomb_greens_function_ueg(ham, Gb)
+    gprod_a = exchange_greens_function_ueg(ham, Ga)
+    gprod_b = exchange_greens_function_ueg(ham, Gb)
+    vq = ham.vqvec.to(Ga.dtype)
+    ess = (torch.einsum("q,wq->w", vq, gkpq_a * gpmq_a - gprod_a)
+           + torch.einsum("q,wq->w", vq, gkpq_b * gpmq_b - gprod_b))
+    eos = (torch.einsum("q,wq->w", vq, gkpq_a * gpmq_b)
+           + torch.einsum("q,wq->w", vq, gkpq_b * gpmq_a))
+    fac = 1.0 / (2.0 * ham.vol)
+    pe = fac * (ess + eos)
+    return ke + pe, ke, pe
 
 
 def _exx_host(chol: np.ndarray, g: np.ndarray, max_elems: int = 1 << 22):

@@ -1,7 +1,8 @@
 """Mixed estimator: per-step accumulation and host-side block reporting.
 
 Counterpart of the header, accumulator layout, ``energy_estimator``,
-``update`` and ``MixedReporter`` of ``pauxy_tpu/estimators/mixed.py``.
+``energy_estimator_G`` (the thermal path's), ``update`` and
+``MixedReporter`` of ``pauxy_tpu/estimators/mixed.py``.
 ``update`` is the generic block's per-step accumulation (single-determinant
 trial, phaseless, Hubbard or Generic, no density matrices); the lanes block of
 ``qmc/hubbard_fast.py`` keeps its own. ``MixedReporter`` turns a block's
@@ -49,6 +50,18 @@ def energy_estimator(ham, trial):
             trial, ga.Ghalf, gb.Ghalf, ham.ecore)
     raise NotImplementedError(
         f"no ported local energy for system {ham.name!r}")
+
+
+def energy_estimator_G(ham):
+    """Dense-G local energy ``(Ga, Gb) -> (etot, e1b, e2b)`` (the thermal
+    measurement's): Hubbard and UEG; the Generic dense-G energy is not
+    ported."""
+    if ham.name == "Hubbard":
+        return lambda ga, gb: le.local_energy_hubbard(ham, ga, gb)
+    if ham.name == "UEG":
+        return lambda ga, gb: le.local_energy_ueg(ham, ga, gb)
+    raise NotImplementedError(
+        f"no ported dense-G energy kernel for {ham.name!r}")
 
 
 def update(ham, trial, state, eval_energy: bool,

@@ -99,6 +99,16 @@ def slogdet_lanes(s: torch.Tensor) -> torch.Tensor:
     return ld.reshape(batch)
 
 
+def inv_max_n(dtype: torch.dtype, want_inv: bool = True) -> int:
+    """Largest n kernel B can launch for ``dtype``: one walker's n x n
+    matrix (n x 2n with the inverse beside it) must fit in a block's shared
+    memory (walkers_per_block in gauss_jordan.cuh). With the inverse: 170
+    float32, 120 float64 and complex64, 85 complex128; log-det only: 241,
+    170, 170, 120. ops/clinalg sends larger n to torch.linalg."""
+    per_entry = dtype.itemsize * (2 if want_inv else 1)
+    return math.isqrt(SMEM_MAX // per_entry)
+
+
 def chol_max_n(dtype: torch.dtype) -> int:
     """Largest n the Cholesky kernel can launch: one walker's n x n complex
     matrix must fit in a block's shared memory (170 in complex64, 120 in

@@ -4,7 +4,10 @@ Counterpart of ``slogdet``, ``inv``, ``solve``, ``cholesky_qr`` and
 ``cholesky_qr2`` in ``pauxy_tpu/ops/clinalg.py``. Kernel B
 (``batchla_cuda.inv_logdet_lanes``) and the Cholesky-inverse kernel
 (``batchla_cuda.chol_inv_lanes``) run on a CUDA tensor, their plain
-versions on a CPU tensor. The JAX module's real-embedding and
+versions on a CPU tensor. Each function chooses its route by shape, before
+any launch: n up to what the kernel launches for the type (and, for kernel
+B, with or without the inverse) goes to the kernel wrapper, a larger n to
+``torch.linalg``, on either device. The JAX module's real-embedding and
 Schur-complement machinery worked around the TPU and is not ported.
 """
 
@@ -12,7 +15,22 @@ from __future__ import annotations
 
 import torch
 
+from pauxy_tpu_torch import config
 from pauxy_tpu_torch.ops import batchla_cuda
+
+
+def uses_kernel_b(s: torch.Tensor, want_inv: bool) -> bool:
+    """Whether ``s [..., n, n]`` goes to kernel B's wrapper (else to
+    torch.linalg): n up to ``batchla_cuda.inv_max_n`` for its type and
+    mode."""
+    return s.shape[-1] <= batchla_cuda.inv_max_n(s.dtype, want_inv)
+
+
+def _slogdet_linalg(s: torch.Tensor) -> torch.Tensor:
+    sign, logabs = torch.linalg.slogdet(s)
+    cdtype = config.get_precision(s.dtype).cplx
+    return torch.complex(logabs, torch.angle(sign).to(logabs.dtype)).to(
+        cdtype)
 
 
 def slogdet(s: torch.Tensor) -> torch.Tensor:
@@ -20,12 +38,16 @@ def slogdet(s: torch.Tensor) -> torch.Tensor:
     if s.shape[-1] == 0:
         # det of the 0x0 matrix is 1 (fully spin-polarized blocks).
         return torch.zeros(s.shape[:-2], dtype=s.dtype, device=s.device)
+    if not uses_kernel_b(s, want_inv=False):
+        return _slogdet_linalg(s)
     return batchla_cuda.slogdet_lanes(s)
 
 
 def inv_logdet(s: torch.Tensor):
     """(complex log det [...], inverse [..., n, n] of s.dtype), one pass
     of kernel B over the flattened batch."""
+    if not uses_kernel_b(s, want_inv=True):
+        return _slogdet_linalg(s), torch.linalg.inv(s)
     flat = s.reshape((-1,) + tuple(s.shape[-2:]))
     ld, inv = batchla_cuda.inv_logdet_lanes(flat)
     return ld.reshape(s.shape[:-2]), inv.reshape(s.shape)

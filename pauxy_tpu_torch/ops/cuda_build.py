@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pauxy_tpu_torch"
 SOURCES = ("gauss_jordan.cuh", "greens.cu", "batchla.cu", "chol_inv.cu",
-           "sweep.cu", "taylor.cu", "exx.cu")
+           "sweep.cu", "taylor.cu", "exx.cu", "cpqr.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +43,8 @@ SIGNATURES = {
     "pauxy_taylor_c128": (_P, _P, _P, _I, _I, _I, _I, _P),
     "pauxy_exx_c64": (_P, _P, _P, _I, _I, _I, _I, _P),
     "pauxy_exx_c128": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "pauxy_cpqr_c64": (_P,) * 6 + (_I, _I, _P),
+    "pauxy_cpqr_c128": (_P,) * 6 + (_I, _I, _P),
 }
 
 _lib = None

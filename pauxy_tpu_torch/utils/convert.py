@@ -14,11 +14,18 @@ import torch
 from pauxy_tpu_torch import config
 from pauxy_tpu_torch.models.generic import Generic
 from pauxy_tpu_torch.models.hubbard import Hubbard, band_energies
+from pauxy_tpu_torch.models.thermal_trial import OneBodyTrial
 from pauxy_tpu_torch.models.trial import SingleDetTrial, trial_density_matrix
+from pauxy_tpu_torch.models.ueg import UEG
+from pauxy_tpu_torch.ops import ueg_sparse
 from pauxy_tpu_torch.propagation.generic import GenericContinuous
 from pauxy_tpu_torch.propagation.hirsch import Hirsch
 from pauxy_tpu_torch.propagation.hubbard import HubbardContinuous
+from pauxy_tpu_torch.propagation.thermal import (ThermalContinuous,
+                                                 ThermalHubbardInner,
+                                                 ThermalUEGInner)
 from pauxy_tpu_torch.walkers.state import WalkerState
+from pauxy_tpu_torch.walkers.thermal_state import ThermalWalkerState
 
 
 def _t(x, device) -> torch.Tensor:
@@ -108,3 +115,72 @@ def walker_state(*, phia, phib, weight, unscaled_weight, log_ovlp,
         total_weight=torch.tensor(float(np.asarray(total_weight)),
                                   dtype=rdtype, device=device),
     )
+
+
+def ueg(H1, h1e_mod, kpq_idx, kpq_mask, pmq_idx, pmq_mask, vqvec, *, basis,
+        qvecs, rs: float, ecut: float, vol: float, kfac: float,
+        ecore: float, nup: int, ndown: int, device=None) -> UEG:
+    """UEG from the JAX system's tables ([nq, M] gather maps as integers
+    and masks, vqvec [nq]) and its host basis and q vectors."""
+    device = config.resolve_device(device)
+    return UEG(_t(H1, device), _t(h1e_mod, device),
+               _t(np.asarray(kpq_idx).astype(np.int64), device),
+               _t(np.asarray(kpq_mask).astype(bool), device),
+               _t(np.asarray(pmq_idx).astype(np.int64), device),
+               _t(np.asarray(pmq_mask).astype(bool), device),
+               _t(vqvec, device), basis=np.asarray(basis),
+               qvecs=np.asarray(qvecs), rs=rs, ecut=ecut, vol=vol,
+               kfac=kfac, ecore=ecore, nup=nup, ndown=ndown)
+
+
+def one_body_trial(dmat, dmat_inv, left_table, bin_full, *, mu: float,
+                   beta: float, dt: float, num_slices: int, stack_size: int,
+                   nav: float, P_host, G_host, device=None) -> OneBodyTrial:
+    """One-body thermal trial from the JAX trial's tensors and host 1-RDM
+    and Green's function."""
+    device = config.resolve_device(device)
+    return OneBodyTrial(_t(dmat, device), _t(dmat_inv, device),
+                        _t(left_table, device), _t(bin_full, device),
+                        mu=mu, beta=beta, dt=dt, num_slices=num_slices,
+                        stack_size=stack_size, nav=nav,
+                        P_host=np.asarray(P_host), G_host=np.asarray(G_host))
+
+
+def thermal_propagator(inner: str, BH1, mf_shift, *, dt: float,
+                       mf_const_fac: complex, U: float | None = None,
+                       ham: UEG | None = None, force_bias: bool = True,
+                       fb_bound: float = 1.0, free_projection: bool = False,
+                       device=None) -> ThermalContinuous:
+    """Thermal propagator from the JAX one's BH1 [2, M, M], mf_shift and
+    constants; ``inner`` "hubbard" (with U) or "ueg" (with the port's UEG
+    on ``device``, whose gather metadata is rebuilt here as JAX builds
+    it)."""
+    device = config.resolve_device(device)
+    bh1, shift = _t(BH1, device), _t(mf_shift, device)
+    if inner == "hubbard":
+        inn = ThermalHubbardInner(bh1, shift, dt=dt, U=U)
+    elif inner == "ueg":
+        inn = ThermalUEGInner(bh1, shift, ueg_sparse.make_sparse_rho(
+            ham, config.real_dtype(bh1.dtype)), dt=dt)
+    else:
+        raise ValueError(f"unknown thermal inner {inner!r}")
+    return ThermalContinuous(inn, dt=dt, mf_const_fac=mf_const_fac,
+                             force_bias=force_bias, fb_bound=fb_bound,
+                             free_projection=free_projection)
+
+
+def thermal_walker_state(*, stack, right, G, log_m0, weight, unscaled_weight,
+                         phase, total_weight, hybrid_energy, pq, pd, pt,
+                         device=None) -> ThermalWalkerState:
+    """ThermalWalkerState from the JAX state's fields."""
+    device = config.resolve_device(device)
+    rdtype = config.real_dtype(_t(log_m0, "cpu").dtype)
+    return ThermalWalkerState(
+        stack=_t(stack, device), right=_t(right, device), G=_t(G, device),
+        log_m0=_t(log_m0, device), weight=_t(weight, device),
+        unscaled_weight=_t(unscaled_weight, device),
+        phase=_t(phase, device),
+        total_weight=torch.tensor(float(np.asarray(total_weight)),
+                                  dtype=rdtype, device=device),
+        hybrid_energy=_t(hybrid_energy, device), pq=_t(pq, device),
+        pd=_t(pd, device), pt=_t(pt, device))

@@ -9,7 +9,11 @@ inverse and solve, and kernel B on real input, against the JAX package.
 * clinalg.inv and solve, real and complex, against JAX, float64: 1e-10;
 * kernel B's plain version on real input against
   batchla_pallas.inv_logdet_lanes(real, interpret=True): 1e-4 relative,
-  a real inverse and a log-det with imaginary part 0 or pi.
+  a real inverse and a log-det with imaginary part 0 or pi;
+* the route of clinalg's inverse and log-det by shape: n up to kernel B's
+  cap for the type and mode to the kernel's wrapper, larger n to
+  torch.linalg, both against numpy (1e-10 / 1e-4, times n for the
+  log-det).
 """
 
 import jax.numpy as jnp
@@ -141,3 +145,49 @@ def test_inv_logdet_plain_real_matches_pallas_interpret(n):
         assert np.all((im < 1e-4 * n) | (np.abs(im - np.pi) < 1e-4 * n))
     sign = np.sign(np.linalg.det(s.astype(np.float64)))
     np.testing.assert_allclose(np.cos(ld_t.numpy().imag), sign, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,want_inv,cap", [
+    (torch.complex128, True, 85), (torch.complex128, False, 120),
+    (torch.complex64, True, 120), (torch.complex64, False, 170),
+    (torch.float64, True, 120), (torch.float32, True, 170)])
+def test_kernel_b_routes_by_shape(dtype, want_inv, cap, monkeypatch):
+    """clinalg sends n up to what kernel B launches for the type and mode
+    (one matrix, and its inverse beside it, in 227 KB of shared memory) to
+    the kernel's wrapper, and a larger n to torch.linalg; the decision is
+    made by shape, the same on either device. At the thermal shape n = 93
+    complex128 with the inverse goes to torch.linalg."""
+    assert batchla_cuda.inv_max_n(dtype, want_inv) == cap
+    entry = dtype.itemsize * (2 if want_inv else 1)
+    assert cap * cap * entry <= batchla_cuda.SMEM_MAX
+    assert (cap + 1) * (cap + 1) * entry > batchla_cuda.SMEM_MAX
+    calls = []
+    real = batchla_cuda.inv_logdet_lanes
+
+    def record(s, want_inv=True):
+        calls.append(s.shape[-1])
+        return real(s, want_inv)
+
+    monkeypatch.setattr(batchla_cuda, "inv_logdet_lanes", record)
+    rng = np.random.default_rng(cap)
+    for n in (cap, cap + 1):
+        s = 2.0 * np.eye(n) + rng.normal(size=(2, n, n)) / n ** 0.5
+        if dtype.is_complex:
+            s = s + 1j * rng.normal(size=(2, n, n)) / n ** 0.5
+        st = torch.from_numpy(s).to(dtype)
+        assert clinalg.uses_kernel_b(st, want_inv) == (n == cap)
+        calls.clear()
+        if want_inv:
+            ld, inv = clinalg.inv_logdet(st)
+            assert rel(inv.numpy(), np.linalg.inv(s)) < TOL_ROUTE[dtype]
+        else:
+            ld = clinalg.slogdet(st)
+        assert calls == ([n] if n == cap else [])
+        sign, logabs = np.linalg.slogdet(s)
+        assert np.abs(ld.real.numpy() - logabs).max() < TOL_ROUTE[dtype] * n
+        assert np.abs(np.exp(1j * ld.imag.numpy()) - sign).max() \
+            < TOL_ROUTE[dtype] * n
+
+
+TOL_ROUTE = {torch.complex128: 1e-10, torch.float64: 1e-10,
+             torch.complex64: 1e-4, torch.float32: 1e-4}

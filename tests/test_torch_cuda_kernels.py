@@ -23,15 +23,29 @@ err by up to ~1e-5 S_w on coherent inputs, the kernel's short ones by
 S_w / X on the coherent inputs, which the check must catch); a Generic
 block on the card (both kernels)
 and on the CPU with the same injected draws agree at rtol 1e-8 in
-complex128.
+complex128. The pivoted QR kernel is held to the factorization identities
+(||A[:, perm] - QR||_F / ||A||_F and max|Q^H Q - I| within 10 m eps of the
+type, exact zeros below R's diagonal, |r_kk| non-increasing) on any input,
+and on inputs with well-separated column norms (each pivot column's
+dominant entry on the diagonal, where the LAPACK phase choice leaves Q well
+determined) to its plain version elementwise (the same pivots; Q within
+1e-4 / 1e-10, R within 1e-4 / 1e-10 of max|R|); in float32 on Gaussian
+inputs with separated column norms (where that phase is ill-determined on
+a few columns) against the plain version in double precision with the
+kernel's pivots (R within 1e-4 of max|R|, Q within 1e-4 once each
+column's phase is aligned; a phase error of 2^-8 reads ~4e-3 in R); kernel
+B's route by shape at its cap; and a thermal path on
+the card and on the CPU with the same injected draws agree at rtol 1e-8
+in complex128.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from pauxy_tpu_torch.ops import (batchla_cuda, cuda_build, exx_cuda,
-                                 greens_cuda, sweep_cuda, taylor_cuda)
+from pauxy_tpu_torch.ops import (batchla_cuda, clinalg, cpqr_cuda,
+                                 cuda_build, exx_cuda, greens_cuda,
+                                 sweep_cuda, taylor_cuda)
 
 torch.set_num_threads(1)
 
@@ -559,3 +573,227 @@ def test_generic_block_on_card_matches_plain_block_on_cpu(cap):
                                rtol=1e-8, atol=1e-10)
     np.testing.assert_allclose(s_gpu.weight.cpu().numpy(),
                                s_cpu.weight.numpy(), rtol=1e-8, atol=1e-10)
+
+
+CPQR_EPS = {torch.complex64: 2.0 ** -24, torch.float32: 2.0 ** -24,
+            torch.complex128: 2.0 ** -53, torch.float64: 2.0 ** -53}
+
+
+def cpqr_identities(a, q, r, perm):
+    """(reconstruction ||A[:, perm] - QR||_F / ||A||_F per matrix, max
+    |Q^H Q - I|, max |below the diagonal of R|, worst increase of |r_kk|
+    over max |r_00|)."""
+    b, m, _ = a.shape
+    ap = torch.gather(a, 2, perm[:, None, :].expand(b, m, m))
+    rec = (torch.linalg.matrix_norm(ap - q @ r)
+           / torch.linalg.matrix_norm(a)).max().item()
+    eye = torch.eye(m, dtype=q.dtype, device=q.device)
+    orth = (q.conj().transpose(1, 2) @ q - eye).abs().max().item()
+    low = torch.tril(r, -1).abs().max().item() if m > 1 else 0.0
+    d = torch.diagonal(r, dim1=-2, dim2=-1).abs()
+    rise = ((d[:, 1:] - d[:, :-1]).clamp_min(0).amax(-1)
+            / d[:, 0].clamp_min(1e-300)).max().item() if m > 1 else 0.0
+    return rec, orth, low, rise
+
+
+def separated(rng, b, m, cplx):
+    """(W D)[:, shuffle]: W = I + 0.05 N / sqrt(m) (cond(W) ~ 1.1), D a
+    geometric column scaling from 1 down to 1e-4, the columns then
+    shuffled. Consecutive scales differ by 1e4^(1/(m-1)) (10% at m = 93),
+    far more than W moves a column's residual norm (~0.3%), so the pivots
+    are unambiguous; and the k-th pivot column's dominant entry sits in
+    row k, so its x_k is not small against ||x||: the LAPACK phase choice
+    beta = -(x_k/|x_k|) ||x|| makes Q as sensitive as x_k's phase, and
+    only then are Q and R well determined in float32 (~1e-6 from float64
+    at every m up to 162)."""
+    w = np.eye(m) + 0.05 / np.sqrt(m) * rng.normal(size=(b, m, m))
+    if cplx:
+        w = w + 0.05j / np.sqrt(m) * rng.normal(size=(b, m, m))
+    scale = 1e-4 ** (np.arange(m) / max(m - 1, 1))
+    return (w * scale[None, None, :])[:, :, rng.permutation(m)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128,
+                                   torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [9, 16, 36, 48, 93, "cap"])
+def test_cpqr_kernel_matches_plain(dtype, m):
+    need_cuda()
+    if m == "cap":
+        m = cpqr_cuda.max_m(dtype)
+    tol = TOL[dtype]
+    allow = 10 * m * CPQR_EPS[dtype]
+    rng = np.random.default_rng(m)
+    cplx = dtype.is_complex
+    for b in ((1, 37) if m > 93 else (1, 37, 512)):
+        a = rng.normal(size=(b, m, m))
+        if cplx:
+            a = a + 1j * rng.normal(size=(b, m, m))
+        a[0, :, m // 2] = 0.0                      # a zero column
+        a = torch.from_numpy(a).to("cuda", dtype)
+        before = cpqr_cuda.launches
+        q, r, p = cpqr_cuda.cpqr_lanes(a)
+        assert cpqr_cuda.launches == before + 1
+        q2, r2, p2 = cpqr_cuda.cpqr_lanes(a)
+        torch.cuda.synchronize()
+        assert q.dtype == dtype and r.dtype == dtype
+        assert torch.equal(q, q2) and torch.equal(r, r2) and torch.equal(p, p2)
+        assert torch.isfinite(q).all() and torch.isfinite(r).all()
+        rec, orth, low, rise = cpqr_identities(a, q, r, p)
+        assert rec <= allow and orth <= allow and low == 0.0
+        assert rise <= allow
+        s = torch.from_numpy(separated(rng, b, m, cplx)).to("cuda", dtype)
+        qk, rk, pk = cpqr_cuda.cpqr_lanes(s)
+        qp, rp, pp = cpqr_cuda.cpqr_lanes_plain(s)
+        torch.cuda.synchronize()
+        assert torch.equal(pk, pp)
+        assert (qk - qp).abs().max().item() <= tol
+        assert (rk - rp).abs().max().item() <= tol * rp.abs().max().item()
+        if dtype in (torch.complex64, torch.float32):
+            g = rng.normal(size=(b, m, m))
+            if cplx:
+                g = g + 1j * rng.normal(size=(b, m, m))
+            scale = 1e-4 ** (np.arange(m) / (m - 1))
+            g = torch.from_numpy((g * scale)[:, :, rng.permutation(m)]).to(
+                "cuda", dtype)
+            qk, rk, pk = cpqr_cuda.cpqr_lanes(g)
+            gp = torch.gather(g, 2, pk[:, None, :].expand(b, m, m))
+            wide = torch.complex128 if cplx else torch.float64
+            q64, r64, _ = cpqr_cuda.cpqr_lanes_plain(gp.to(wide), pivot=False)
+            qk, rk = qk.to(wide), rk.to(wide)
+            rmax = r64.abs().amax((-2, -1), keepdim=True)
+            assert ((rk - r64).abs() / rmax).max().item() <= tol
+            d = (q64.conj() * qk).sum(-2)
+            d = d / d.abs()
+            assert (qk * d.conj()[:, None, :] - q64).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_cpqr_rank_deficient_on_card():
+    need_cuda()
+    rng = np.random.default_rng(3)
+    for dtype in (torch.complex64, torch.complex128):
+        m, k = 40, 7
+        a = (rng.normal(size=(5, m, k)) + 1j * rng.normal(size=(5, m, k))) @ (
+            rng.normal(size=(5, k, m)))
+        a = torch.from_numpy(a).to("cuda", dtype)
+        q, r, p = cpqr_cuda.cpqr_lanes(a)
+        z = torch.zeros(2, m, m, dtype=dtype, device="cuda")
+        qz, rz, _ = cpqr_cuda.cpqr_lanes(z)
+        torch.cuda.synchronize()
+        assert torch.isfinite(q).all() and torch.isfinite(r).all()
+        rec, orth, low, _ = cpqr_identities(a, q, r, p)
+        allow = 10 * m * CPQR_EPS[dtype]
+        assert rec <= allow and orth <= allow and low == 0.0
+        d = torch.diagonal(r, dim1=-2, dim2=-1).abs()
+        assert (d[:, k:] <= 100 * m * CPQR_EPS[dtype] * d[:, :1]).all()
+        assert not rz.any()
+        assert torch.equal(qz, torch.eye(m, dtype=dtype,
+                                         device="cuda").expand(2, m, m))
+
+
+@pytest.mark.cuda
+def test_cpqr_refuses_instead_of_falling_back(monkeypatch):
+    need_cuda()
+    c64 = torch.complex64
+    with pytest.raises(TypeError):
+        cpqr_cuda.cpqr_lanes(torch.ones(2, 4, 4, dtype=torch.int32,
+                                        device="cuda"))
+    with pytest.raises(ValueError):
+        cpqr_cuda.cpqr_lanes(torch.ones(4, 4, dtype=c64, device="cuda"))
+    with pytest.raises(ValueError):
+        cpqr_cuda.cpqr_lanes(torch.ones(2, 4, 5, dtype=c64, device="cuda"))
+    m = cpqr_cuda.max_m(c64) + 1
+    with pytest.raises(ValueError):
+        cpqr_cuda.cpqr_lanes(torch.ones(1, m, m, dtype=c64, device="cuda"))
+
+    class FailingLibrary:
+        def __getattr__(self, name):
+            return lambda *args: 700      # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(cuda_build, "library", lambda: FailingLibrary())
+    before = cpqr_cuda.launches
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        cpqr_cuda.cpqr_lanes(torch.ones(2, 4, 4, dtype=c64, device="cuda"))
+    assert cpqr_cuda.launches == before
+
+
+@pytest.mark.cuda
+def test_kernel_b_route_at_its_cap():
+    """complex128 with the inverse: n = 85 (the cap) launches kernel B, n =
+    86 and the thermal n = 93 go to torch.linalg by shape; both agree with
+    torch.linalg."""
+    need_cuda()
+    c128 = torch.complex128
+    cap = batchla_cuda.inv_max_n(c128, True)
+    assert cap == 85
+    rng = np.random.default_rng(4)
+    for n, launched in ((cap, 1), (cap + 1, 0), (93, 0)):
+        s = 2.0 * np.eye(n) + (rng.normal(size=(16, n, n))
+                               + 1j * rng.normal(size=(16, n, n))) / n ** 0.5
+        s = torch.from_numpy(s).to("cuda", c128)
+        before = batchla_cuda.launches
+        ld, inv = clinalg.inv_logdet(s)
+        assert batchla_cuda.launches == before + launched
+        sign, logabs = torch.linalg.slogdet(s)
+        torch.cuda.synchronize()
+        assert (ld.real - logabs).abs().max().item() <= 1e-10 * n
+        assert (torch.exp(1j * ld.imag) - sign).abs().max().item() <= 1e-10
+        want = torch.linalg.inv(s)
+        assert ((inv - want).abs().max() / want.abs().max()).item() <= 1e-10
+
+
+def _thermal_path(system, device, noise):
+    from pauxy_tpu_torch.models import make_hubbard
+    from pauxy_tpu_torch.models.thermal_trial import make_one_body_trial
+    from pauxy_tpu_torch.models.ueg import make_ueg
+    from pauxy_tpu_torch.qmc import QMCOpts
+    from pauxy_tpu_torch.qmc.thermal_afqmc import ThermalAFQMC
+
+    kw = dict(device=device, dtype="double")
+    if system == "hubbard":
+        ham = make_hubbard(3, 3, U=4.0, nx=3, ny=3, **kw)
+        beta, dt, mu = 0.5, 0.05, 0.9
+    else:
+        ham = make_ueg(1, 1, rs=1.0, ecut=1.0, **kw)
+        beta, dt, mu = 0.25, 0.025, 0.245
+    trial = make_one_body_trial(ham, beta, dt, mu=mu, stack_size=2, **kw)
+    af = ThermalAFQMC(ham, trial, QMCOpts(nwalkers=8, dt=dt, nsteps=1,
+                                          nblocks=1, beta=beta,
+                                          npop_control=2), device=device)
+    return af, af.run_block(noise(af, device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("system", ["hubbard", "ueg"])
+def test_thermal_path_on_card_matches_cpu(system):
+    """One path with injected draws, stack of 5 bins: the card (the cpqr
+    kernel and kernel B) against the CPU (plain versions) in complex128,
+    and the launches of the schedule."""
+    need_cuda()
+    from pauxy_tpu_torch.qmc.thermal_afqmc import PathNoise
+
+    rng = np.random.default_rng(6)
+    draws = {}
+
+    def noise(af, device):
+        if not draws:
+            draws["xi"] = rng.normal(size=(af.ntime_slices, 8,
+                                           af.prop.nfields))
+            draws["pop"] = rng.uniform(size=(af.ntime_slices, 1))
+        return PathNoise(torch.from_numpy(draws["xi"]).to(device),
+                         torch.from_numpy(draws["pop"]).to(device))
+
+    before = (cpqr_cuda.launches, batchla_cuda.launches)
+    af, row_gpu = _thermal_path(system, "cuda", noise)
+    after = (cpqr_cuda.launches, batchla_cuda.launches)
+    nbins, ss = af.trial.nbins, af.trial.stack_size
+    folds = sum(nbins - ts // ss + (ts % ss == 0 and ts >= ss)
+                for ts in range(af.ntime_slices))
+    # Two walker initialisations (the driver's and the reset after the
+    # path), each nbins folds and 5 kernel B launches; 5 a slice.
+    want = (2 * nbins + folds, 10 + 5 * af.ntime_slices)
+    assert tuple(a - b for a, b in zip(after, before)) == want
+    _, row_cpu = _thermal_path(system, "cpu", noise)
+    np.testing.assert_allclose(row_gpu[:11], row_cpu[:11], rtol=1e-8,
+                               atol=1e-10)
