@@ -149,11 +149,15 @@ def greens_work(m: int, n: int, w: int):
             torch.complex64)
 
 
-def batchla_work(n: int, w: int, want_inv: bool):
-    """Kernel B: S in, the log-det (and the inverse) out; Gauss-Jordan on
-    [S | I] for the inverse, on S alone for the log-det."""
-    return ((n * n * w * (2 if want_inv else 1) + w) * C8,
-            w * gj_flops(n, 2 * n if want_inv else n, True), torch.complex64)
+def batchla_work(n: int, w: int, want_inv: bool, dtype=torch.complex64):
+    """Kernel B: S in, the log-det (and the inverse) out; what the function
+    needs, not what a design does: ~n^3 multiply-adds for the inverse, ~n^3
+    / 3 for the log-det (LU), 8 FLOPs each in complex and 2 in real."""
+    esize = dtype.itemsize
+    cplx_size = 2 * esize if not dtype.is_complex else esize
+    mac = 8 if dtype.is_complex else 2
+    return ((n * n * w * (2 if want_inv else 1)) * esize + w * cplx_size,
+            w * mac * (n ** 3 if want_inv else n ** 3 / 3), dtype)
 
 
 def chol_work(n: int, w: int):
@@ -386,44 +390,92 @@ def check_cpqr(cpqr_cuda, rng) -> tuple[float, str]:
 
 
 def check_batchla_thermal(batchla_cuda, clinalg, rng) -> str:
-    """Kernel B at the thermal shape n=93 with 512 matrices, in every type
-    and mode it launches, against its plain version; complex128 with the
-    inverse (past its cap of 85) goes to torch.linalg by shape and agrees
+    """Kernel B at the thermal shape n=93 with 512 matrices and at its cap
+    (37 matrices), in every type and both modes: the kernel launches and
+    agrees with its plain version and with the augmented Gauss-Jordan of
+    inv_logdet_lanes_plain; cap + 1 goes to torch.linalg by shape and agrees
     with it."""
     out = []
     for dtype in (torch.complex64, torch.complex128, torch.float32,
                   torch.float64):
-        n, w, tol = 93, 512, TOL[dtype]
-        s = 2.0 * np.eye(n) + 0.3 / np.sqrt(n) * rng.normal(size=(w, n, n))
-        if dtype.is_complex:
-            s = s + 0.3j / np.sqrt(n) * rng.normal(size=(w, n, n))
-        s = torch.from_numpy(s).to("cuda", dtype)
-        for want_inv in (True, False):
-            if n > batchla_cuda.inv_max_n(dtype, want_inv):
+        tol, cap = TOL[dtype], batchla_cuda.inv_max_n(dtype)
+        for n, w in ((93, 512), (cap, 37), (cap + 1, 37)):
+            s = pivot_cases(rng, w, n, dtype.is_complex)
+            s = torch.from_numpy(s).to("cuda", dtype)
+            if n > cap:
                 before = batchla_cuda.launches
-                ld, inv = clinalg.inv_logdet(s)
+                _, inv = clinalg.inv_logdet(s)
+                clinalg.slogdet(s)
                 want = torch.linalg.inv(s)
                 torch.cuda.synchronize()
                 d = ((inv - want).abs().max() / want.abs().max()).item()
                 if batchla_cuda.launches != before or d > tol:
                     raise AssertionError(f"kernel B route at {dtype} n={n}")
-                out.append(f"{dtype} inverse -> torch.linalg")
                 continue
-            ld_k, inv_k = batchla_cuda.inv_logdet_lanes(s, want_inv)
-            ld_p, inv_p = batchla_cuda.inv_logdet_lanes_plain(s, want_inv)
-            torch.cuda.synchronize()
-            dd = (ld_k - ld_p).cpu().numpy()
-            dre = float(np.abs(dd.real).max())
-            dim = float(phase_diff(dd.imag).max())
-            rel = 0.0
-            if want_inv:
-                rel = float((inv_k - inv_p).abs().max() / inv_p.abs().max())
-            if dre > tol * n or dim > tol * n or rel > tol:
-                raise AssertionError(
-                    f"inv_logdet_lanes disagrees at {dtype} n={n} w={w} "
-                    f"want_inv={want_inv}: dRe={dre:.3e} dIm={dim:.3e} "
-                    f"dinv/max={rel:.3e}")
+            for want_inv in (True, False):
+                before = batchla_cuda.launches
+                ld_k, inv_k = batchla_cuda.inv_logdet_lanes(s, want_inv)
+                if batchla_cuda.launches != before + 1:
+                    raise AssertionError(f"kernel B at {dtype} n={n}: no "
+                                         f"launch")
+                dre, dim, rel = against_plains(batchla_cuda, s, want_inv,
+                                               ld_k, inv_k)
+                if dre > tol * n or dim > tol * n or rel > tol:
+                    raise AssertionError(
+                        f"inv_logdet_lanes disagrees at {dtype} n={n} w={w} "
+                        f"want_inv={want_inv}: dRe={dre:.3e} dIm={dim:.3e} "
+                        f"dinv/max={rel:.3e}")
+        out.append(f"{str(dtype).split('.')[-1]} cap {cap}")
     return ", ".join(out)
+
+
+def pivot_cases(rng, w: int, n: int, complex_: bool) -> np.ndarray:
+    """2 I + 0.3 N / sqrt(n), with the matrices that need pivoting in the
+    first slots: the reversed identity (zero leading minors), a cyclic
+    shift, -I, a first column of exact ties in |a_i0| (entries +-1, +-i),
+    and one of near ties (|a_i0| = 1 + 1e-7 d_i, random phases)."""
+    s = 2.0 * np.eye(n) + 0.3 / np.sqrt(n) * rng.normal(size=(w, n, n))
+    units = np.array([1.0, -1.0])
+    if complex_:
+        s = s + 0.3j / np.sqrt(n) * rng.normal(size=(w, n, n))
+        units = np.array([1, -1, 1j, -1j])
+    specials = [np.eye(n)[::-1], np.roll(np.eye(n), 1, axis=0), -np.eye(n)]
+    ties = s[0].copy()
+    ties[:, 0] = rng.choice(units, n)
+    near = s[0].copy()
+    near[:, 0] = (1 + 1e-7 * rng.normal(size=n)) * (
+        np.exp(1j * rng.uniform(0, 2 * np.pi, n)) if complex_
+        else rng.choice(units, n))
+    for i, m in enumerate((specials + [ties, near])[:w]):
+        s[i] = m
+    return s
+
+
+def against_plains(batchla_cuda, s, want_inv, ld_k, inv_k):
+    """(max |dRe logdet|, max |dIm logdet| mod 2 pi, max |d inv| / max|inv|)
+    of the kernel's output against its plain version (in-place
+    Gauss-Jordan / LU, the kernel's order) and against the augmented
+    Gauss-Jordan of inv_logdet_lanes_plain (an independent elimination
+    order)."""
+    dre = dim = rel = 0.0
+    for plain in (batchla_cuda.inv_logdet_plain,
+                  batchla_cuda.inv_logdet_lanes_plain):
+        ld_p, inv_p = plain(s, want_inv)
+        torch.cuda.synchronize()
+        d = (ld_k - ld_p).cpu().numpy()
+        dre = max(dre, float(np.abs(d.real).max()))
+        dim = max(dim, float(phase_diff(d.imag).max()))
+        if want_inv:
+            if inv_k.dtype != s.dtype:
+                raise AssertionError(f"inverse of {s.dtype} input came back "
+                                     f"{inv_k.dtype}")
+            rel = max(rel, float((inv_k - inv_p).abs().max()
+                                 / inv_p.abs().max()))
+    if not s.dtype.is_complex:
+        im = np.abs(ld_k.imag.cpu().numpy())
+        if not np.all((im == 0) | (np.abs(im - np.pi) < 1e-6)):
+            raise AssertionError("real log-det phase not 0/pi")
+    return dre, dim, rel
 
 
 def thermal_launches(nbins: int, stack_size: int, nslices: int,
@@ -490,41 +542,24 @@ def check_greens(greens_cuda, rng) -> float:
 
 def check_batchla(batchla_cuda, rng) -> float:
     """Kernel B against its plain version, complex and real input,
-    including matrices that need pivoting and negative determinants, up to
-    the Generic paths' shapes (n=16 with 1024 walkers, n=42 with 256);
+    including matrices that need pivoting (pivot_cases) and negative
+    determinants, from n=1 up to the Generic paths' shapes (n=16 with 1024
+    walkers, n=42 with 256) and n=64;
     returns the largest absolute difference at the main-path shape
     (complex64, n=7, w=1024, log-det only)."""
     main_err = None
     for dtype in (torch.complex64, torch.complex128, torch.float32,
                   torch.float64):
         tol = TOL[dtype]
-        for n, w in ((3, 1024), (7, 1024), (16, 1024), (18, 1024),
-                     (24, 1024), (42, 256)):
-            s = 2.0 * np.eye(n) + 0.3 / np.sqrt(n) * rng.normal(size=(w, n, n))
-            if dtype.is_complex:
-                s = s + 0.3j / np.sqrt(n) * rng.normal(size=(w, n, n))
-            s[0] = np.eye(n)[::-1]                # zero leading minors
-            s[1] = np.roll(np.eye(n), 1, axis=0)  # cyclic permutation
-            s[2] = -np.eye(n)
+        for n, w in ((1, 1024), (2, 1024), (3, 1024), (5, 1024), (7, 1024),
+                     (16, 1024), (18, 1024), (32, 512), (42, 256),
+                     (64, 512)):
+            s = pivot_cases(rng, w, n, dtype.is_complex)
             s = torch.from_numpy(s).to("cuda", dtype)
             for want_inv in (True, False):
                 ld_k, inv_k = batchla_cuda.inv_logdet_lanes(s, want_inv)
-                ld_p, inv_p = batchla_cuda.inv_logdet_lanes_plain(s, want_inv)
-                torch.cuda.synchronize()
-                d = (ld_k - ld_p).cpu().numpy()
-                dre = float(np.abs(d.real).max())
-                dim = float(phase_diff(d.imag).max())
-                rel = 0.0
-                if want_inv:
-                    if inv_k.dtype != dtype:
-                        raise AssertionError(f"inverse of {dtype} input "
-                                             f"came back {inv_k.dtype}")
-                    rel = float((inv_k - inv_p).abs().max()
-                                / inv_p.abs().max())
-                if not dtype.is_complex:
-                    im = np.abs(ld_k.imag.cpu().numpy())
-                    if not np.all((im == 0) | (np.abs(im - np.pi) < 1e-6)):
-                        raise AssertionError("real log-det phase not 0/pi")
+                dre, dim, rel = against_plains(batchla_cuda, s, want_inv,
+                                               ld_k, inv_k)
                 if dre > tol * n or dim > tol * n or rel > tol:
                     raise AssertionError(
                         f"inv_logdet_lanes disagrees at {dtype} n={n} "
@@ -549,18 +584,20 @@ def scaled_err(a, b, s, tol) -> np.ndarray:
 
 def check_batchla_ill(batchla_cuda, rng) -> str:
     """Kernel B on ill-conditioned real input, 2 I + 0.5 N (eigenvalues
-    near zero, as the sweep's real S = psi^T phi may have): the kernel
-    against its plain version and against the float64 inverse, matrix by
-    matrix within the error that conditioning allows. Returns a summary:
+    near zero, as the sweep's real S = psi^T phi may have), at n = 5, 7,
+    18, 42 and 93: the kernel against its plain version and against the
+    float64 inverse, matrix by matrix within the error that conditioning
+    allows. Returns a summary:
     the largest condition number, and the largest error of each float32
     inverse against the float64 one in units of eps kappa max|S^-1|."""
     out = []
     for dtype in (torch.float32, torch.float64):
-        for n in (7, 18):
-            s = 2.0 * np.eye(n) + 0.5 * rng.normal(size=(1031, n, n))
+        for n, w in ((5, 1031), (7, 1031), (18, 1031), (42, 1031),
+                     (93, 512)):
+            s = 2.0 * np.eye(n) + 0.5 * rng.normal(size=(w, n, n))
             s = torch.from_numpy(s).to("cuda", dtype)
             _, inv_k = batchla_cuda.inv_logdet_lanes(s)
-            _, inv_p = batchla_cuda.inv_logdet_lanes_plain(s)
+            _, inv_p = batchla_cuda.inv_logdet_plain(s)
             truth64 = torch.linalg.inv(s.double())
             truth = truth64.to(dtype)
             torch.cuda.synchronize()
@@ -979,7 +1016,7 @@ def main() -> None:
             "plain": lambda: greens_cuda.greens_lanes_plain(psi, phi, True),
             "kernel": lambda: greens_cuda.greens_lanes(psi, phi, True)}),
         "inv_logdet_lanes": median_ms({
-            "plain": lambda: batchla_cuda.inv_logdet_lanes_plain(s, False),
+            "plain": lambda: batchla_cuda.inv_logdet_plain(s, False),
             "kernel": lambda: batchla_cuda.inv_logdet_lanes(s, False),
             "library": lambda: torch.linalg.slogdet(s)}),
         "chol_inv_lanes": median_ms({
@@ -1040,17 +1077,19 @@ def main() -> None:
                                    if k not in ("kernel", "plain",
                                                 "library")}})
 
+    # Kernel B at the Generic paths' shapes; the library call is
+    # torch.linalg.inv or slogdet.
     for gn, gw in ((16, 1024), (42, 256)):
         sg = torch.from_numpy(2.0 * np.eye(gn) + 0.3 / np.sqrt(gn) * (
             rng.normal(size=(gw, gn, gn))
             + 1j * rng.normal(size=(gw, gn, gn)))).to("cuda", c64)
         for want_inv in (True, False):
-            fns = {"plain": lambda: batchla_cuda.inv_logdet_lanes_plain(
+            fns = {"plain": lambda: batchla_cuda.inv_logdet_plain(
                        sg, want_inv),
                    "kernel": lambda: batchla_cuda.inv_logdet_lanes(
-                       sg, want_inv)}
-            if not want_inv:
-                fns["library"] = lambda: torch.linalg.slogdet(sg)
+                       sg, want_inv),
+                   "library": ((lambda: torch.linalg.inv(sg)) if want_inv
+                               else (lambda: torch.linalg.slogdet(sg)))}
             at_shape("inv_logdet_lanes",
                      f"n={gn} w={gw} c64 "
                      + ("inverse+log-det" if want_inv else "log-det only"),
@@ -1087,15 +1126,14 @@ def main() -> None:
         rng.normal(size=(512, 93, 93))
         + 1j * rng.normal(size=(512, 93, 93)))).to("cuda", c64)
     for want_inv in (True, False):
-        fns = {"plain": lambda: batchla_cuda.inv_logdet_lanes_plain(
-                   st, want_inv),
+        fns = {"plain": lambda: batchla_cuda.inv_logdet_plain(st, want_inv),
                "kernel": lambda: batchla_cuda.inv_logdet_lanes(st, want_inv),
                "library": ((lambda: torch.linalg.inv(st)) if want_inv
                            else (lambda: torch.linalg.slogdet(st)))}
         at_shape("inv_logdet_lanes",
                  "n=93 w=512 c64 " + ("inverse+log-det" if want_inv
                                       else "log-det only"),
-                 fns, batchla_work(93, 512, want_inv), reps=5)
+                 fns, batchla_work(93, 512, want_inv), reps=10)
     del st
     qh = torch.randn(64, 9, 9, dtype=c64, device="cuda", generator=gen)
     at_shape("cpqr", "(B,m)=(64,9) c64",
@@ -1108,7 +1146,8 @@ def main() -> None:
               "kernel": lambda: cpqr_cuda.cpqr_lanes(qd)},
              cpqr_work(93, 512, torch.complex128), reps=5)
     del qd
-    say("3 kernels", "greens_lanes, inv_logdet_lanes (complex and real), "
+    say("3 kernels", "greens_lanes, inv_logdet_lanes (complex and real, "
+        "n=1 to 64 and the cap, pivot-needing matrices), "
         "chol_inv_lanes and hirsch_sweep agree with their plain versions at "
         "every shape (complex64/float32 1e-4, complex128/float64 1e-10, "
         "sweep fields identical); at the main-path shapes "
@@ -1153,10 +1192,12 @@ def main() -> None:
         "Gaussian separated norms the factors against double precision, "
         "rank-7 "
         f"input finite; largest readings: {cpqr_readings}; kernel B at "
-        f"n=93 w=512 agrees with its plain version in every type and mode "
-        f"it launches ({b93_route})")
+        f"n=93 w=512 and at its cap (w=37) agrees with its plain version "
+        f"and the augmented Gauss-Jordan's in every type and mode, and "
+        f"cap + 1 goes to torch.linalg ({b93_route})")
     say("3 kernels", "inv_logdet_lanes on ill-conditioned real input "
-        "(2 I + 0.5 N, 1031 matrices) within max(tol, 2 n eps kappa) of its "
+        "(2 I + 0.5 N; n=5, 7, 18, 42 with 1031 matrices, n=93 with 512) "
+        "within max(tol, 2 n eps kappa) of its "
         "plain version and of the float64 inverse, matrix by matrix; "
         "float32 error against the float64 inverse in units of "
         f"eps kappa max|S^-1|: {ill}" + lap("3"))

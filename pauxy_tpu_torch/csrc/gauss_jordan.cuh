@@ -1,7 +1,8 @@
 // Partial-pivot Gauss-Jordan on one walker's augmented matrix in shared
-// memory, shared by greens.cu (kernel A) and batchla.cu (kernel B) just as
-// pauxy_tpu/ops/batchla_pallas.py:gauss_jordan_lanes is shared by the two
-// TPU kernels, and the shared-memory sizing of every lanes kernel.
+// memory, kernel A's (greens.cu), the counterpart of
+// pauxy_tpu/ops/batchla_pallas.py:gauss_jordan_lanes; the complex helpers
+// and the shared-memory sizing of every kernel. Kernel B (batchla.cu) has
+// its own elimination, one thread block per matrix.
 //
 // Layout: one thread per walker. A block's shared memory holds the
 // augmented matrices of its walkers as [row][col][lane], so element (i, j)
@@ -96,49 +97,6 @@ __device__ void gauss_jordan(cplx<T>* a, int n, int ncol, int stride,
         v.re -= f.re * r.re - f.im * r.im;
         v.im -= f.re * r.im + f.im * r.re;
         a[(i * ncol + j) * stride] = v;
-      }
-    }
-  }
-}
-
-// Real counterpart of gauss_jordan, same pivot rule: on return
-// log |det S| = ldr and sign(det S) = sgn (+1 or -1). The TPU kernel runs
-// real input through its complex elimination with zero imaginary parts;
-// this is the same arithmetic with the zeros left out.
-template <typename T>
-__device__ void gauss_jordan_real(T* a, int n, int ncol, int stride, T& ldr,
-                                  T& sgn) {
-  ldr = T(0);
-  sgn = T(1);
-  for (int k = 0; k < n; ++k) {
-    int piv = k;
-    T best = T(-1);
-    for (int i = k; i < n; ++i) {
-      const T v = a[(i * ncol + k) * stride];
-      if (v * v > best) {
-        best = v * v;
-        piv = i;
-      }
-    }
-    if (piv != k) {
-      for (int j = k; j < ncol; ++j) {
-        const T t = a[(k * ncol + j) * stride];
-        a[(k * ncol + j) * stride] = a[(piv * ncol + j) * stride];
-        a[(piv * ncol + j) * stride] = t;
-      }
-      sgn = -sgn;
-    }
-    const T p = a[(k * ncol + k) * stride];
-    const T den = p * p;
-    ldr += T(0.5) * dlog(den);
-    if (p < T(0)) sgn = -sgn;
-    const T ip = p / den;
-    for (int j = k; j < ncol; ++j) a[(k * ncol + j) * stride] *= ip;
-    for (int i = 0; i < n; ++i) {
-      if (i == k) continue;
-      const T f = a[(i * ncol + k) * stride];
-      for (int j = k; j < ncol; ++j) {
-        a[(i * ncol + j) * stride] -= f * a[(k * ncol + j) * stride];
       }
     }
   }

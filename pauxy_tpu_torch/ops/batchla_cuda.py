@@ -3,11 +3,13 @@ kernel.
 
 Counterparts of ``inv_logdet_lanes`` / ``slogdet_lanes`` and
 ``chol_inv_lanes`` in ``pauxy_tpu/ops/batchla_pallas.py``. Matrices arrive
-as [w, n, n]; each wrapper moves the batch axis last ([n, n, W], one thread
-per matrix reads coalesced), launches its CUDA kernel (``csrc/batchla.cu``,
-``csrc/chol_inv.cu``) on a CUDA tensor and calls the plain PyTorch version
-on a CPU tensor; any other device, or a CUDA tensor the kernel does not
-take, raises.
+as [w, n, n]. Kernel B (``csrc/batchla.cu``) takes them as they come, one
+thread block per matrix, up to ``inv_max_n``. The Cholesky kernel
+(``csrc/chol_inv.cu``) takes the lanes layout (the batch axis moved last,
+[n, n, W], one thread per matrix reads coalesced). Each wrapper launches
+its CUDA kernel on a CUDA tensor and calls its plain PyTorch version on a
+CPU tensor; any other device, or a CUDA tensor the kernel does not take,
+raises.
 """
 
 from __future__ import annotations
@@ -20,19 +22,22 @@ from pauxy_tpu_torch import config
 from pauxy_tpu_torch.ops import cuda_build
 from pauxy_tpu_torch.ops import lanelinalg as ll
 
-# Kernel launches so far (kernel B, the Cholesky kernel); a run can show
-# that its path used the kernels.
+# Kernel launches so far (kernel B and the Cholesky kernel); a run can
+# show that its path used the kernels.
 launches = 0
 chol_launches = 0
 
-# Shared memory one block may use on sm_90 (kSmemMax in gauss_jordan.cuh).
+# Shared memory one block may use on sm_90 (kSmemMax in gauss_jordan.cuh),
+# and what a block of kernel B keeps beside its matrix (kBlockStaticBytes
+# in batchla.cu).
 SMEM_MAX = 232448
+BLOCK_STATIC_BYTES = 64
 
 _INV_SYMBOLS = {
-    torch.complex64: "pauxy_inv_logdet_lanes_c64",
-    torch.complex128: "pauxy_inv_logdet_lanes_c128",
-    torch.float32: "pauxy_inv_logdet_lanes_f32",
-    torch.float64: "pauxy_inv_logdet_lanes_f64",
+    torch.complex64: "pauxy_inv_logdet_c64",
+    torch.complex128: "pauxy_inv_logdet_c128",
+    torch.float32: "pauxy_inv_logdet_f32",
+    torch.float64: "pauxy_inv_logdet_f64",
 }
 _CHOL_SYMBOLS = {
     torch.complex64: "pauxy_chol_inv_lanes_c64",
@@ -51,9 +56,11 @@ def _check(s: torch.Tensor, what: str, symbols: dict) -> None:
 
 
 def inv_logdet_lanes_plain(s: torch.Tensor, want_inv: bool = True):
-    """Plain version: lanelinalg.gauss on the lanes layout. Real input is
-    eliminated as complex with zero imaginary parts; its inverse comes back
-    real."""
+    """Augmented Gauss-Jordan on [S | I] in the lanes layout
+    (lanelinalg.gauss, the TPU kernel's order): an elimination independent
+    of kernel B's, against which the card's checks also hold it. Real input
+    is eliminated as complex with zero imaginary parts; its inverse comes
+    back real."""
     w, n, _ = s.shape
     lanes = ll.to_lanes(s)                                # [n, n, W]
     if not want_inv:
@@ -65,30 +72,87 @@ def inv_logdet_lanes_plain(s: torch.Tensor, want_inv: bool = True):
     return logdet, ll.from_lanes(inv)
 
 
+def _mag2(x: torch.Tensor) -> torch.Tensor:
+    """|x|^2 with each product and the sum rounded, as the kernel's."""
+    if x.is_complex():
+        return x.real * x.real + x.imag * x.imag
+    return x * x
+
+
+def inv_logdet_plain(s: torch.Tensor, want_inv: bool = True):
+    """Plain version of kernel B, in its order on [w, n, n]: the pivot is
+    the lowest row attaining the largest |a_ik|^2; with the inverse,
+    in-place Gauss-Jordan (column k of the working matrix becomes column k
+    of the inverse, the row swaps undone as a column permutation at the
+    end); without it, LU below the diagonal only. Real input stays real."""
+    w, n, _ = s.shape
+    cdtype = config.get_precision(s.dtype).cplx
+    a = s.clone(memory_format=torch.contiguous_format)
+    rows = torch.arange(w, device=s.device)
+    ldr = torch.zeros(w, dtype=s.real.dtype, device=s.device)
+    phase = torch.ones(w, dtype=s.dtype, device=s.device)
+    pos = torch.arange(n, device=s.device).expand(w, n)
+    for k in range(n):
+        piv = k + torch.argmax(_mag2(a[:, k:, k]), dim=1)       # first max
+        top = a[:, k].clone()
+        a[:, k] = a[rows, piv]
+        a[rows, piv] = top
+        p = a[:, k, k]
+        den = _mag2(p)
+        ldr = ldr + 0.5 * torch.log(den)
+        unit = p * torch.rsqrt(den)
+        phase = phase * torch.where(piv != k, -unit, unit)
+        pinv = p.conj() / den if p.is_complex() else 1.0 / p
+        if want_inv:
+            rowk = a[:, k] * pinv[:, None]
+            rowk[:, k] = pinv
+            f = a[:, :, k].clone()
+            f[:, k] = 0
+            a[:, :, k] = 0
+            a -= f[:, :, None] * rowk[:, None, :]
+            a[:, k] = rowk
+            kk = torch.full_like(pos, k)
+            pos = torch.where(pos == k, piv[:, None],
+                              torch.where(pos == piv[:, None], kk, pos))
+        else:
+            f = a[:, k + 1:, k] * pinv[:, None]
+            a[:, k + 1:, k + 1:] -= f[:, :, None] * a[:, k, None, k + 1:]
+    if phase.is_complex():
+        arg = torch.atan2(phase.imag, phase.real)
+    else:
+        arg = torch.atan2(torch.zeros_like(phase), phase)
+    logdet = torch.complex(ldr, arg).to(cdtype)
+    if not want_inv:
+        return logdet, None
+    # Column c of S^-1 is column pos[c] of the working matrix.
+    return logdet, torch.gather(a, 2, pos[:, None, :].expand(w, n, n))
+
+
 def inv_logdet_lanes(s: torch.Tensor, want_inv: bool = True):
     """(logdet [w] complex, inverse [w, n, n] of s.dtype or None) of
     s [w, n, n], complex or real. The imaginary part of logdet is defined
-    modulo 2 pi (0 or pi for real input)."""
+    modulo 2 pi (0 or pi for real input). n up to ``inv_max_n``."""
     global launches
     if s.device.type == "cpu":
-        return inv_logdet_lanes_plain(s, want_inv)
+        return inv_logdet_plain(s, want_inv)
     _check(s, "inv_logdet_lanes", _INV_SYMBOLS)
     w, n, _ = s.shape
     cdtype = config.get_precision(s.dtype).cplx
-    logdet = torch.zeros(w, dtype=cdtype, device=s.device)
     if n == 0 or w == 0:
+        logdet = torch.zeros(w, dtype=cdtype, device=s.device)
         return logdet, (torch.empty_like(s) if want_inv else None)
-    lanes = ll.to_lanes(s)                                # contiguous copy
-    inv = torch.empty_like(lanes) if want_inv else None
+    s = s.contiguous()
+    logdet = torch.empty(w, dtype=cdtype, device=s.device)
+    inv = torch.empty_like(s) if want_inv else None
     fn = getattr(cuda_build.library(), _INV_SYMBOLS[s.dtype])
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(lanes.data_ptr(), logdet.data_ptr(),
+        rc = fn(s.data_ptr(), logdet.data_ptr(),
                 inv.data_ptr() if want_inv else None, n, w, int(want_inv),
                 stream)
     cuda_build.check(rc, "inv_logdet_lanes")
     launches += 1
-    return logdet, (ll.from_lanes(inv) if want_inv else None)
+    return logdet, inv
 
 
 def slogdet_lanes(s: torch.Tensor) -> torch.Tensor:
@@ -99,14 +163,17 @@ def slogdet_lanes(s: torch.Tensor) -> torch.Tensor:
     return ld.reshape(batch)
 
 
-def inv_max_n(dtype: torch.dtype, want_inv: bool = True) -> int:
-    """Largest n kernel B can launch for ``dtype``: one walker's n x n
-    matrix (n x 2n with the inverse beside it) must fit in a block's shared
-    memory (walkers_per_block in gauss_jordan.cuh). With the inverse: 170
-    float32, 120 float64 and complex64, 85 complex128; log-det only: 241,
-    170, 170, 120. ops/clinalg sends larger n to torch.linalg."""
-    per_entry = dtype.itemsize * (2 if want_inv else 1)
-    return math.isqrt(SMEM_MAX // per_entry)
+def inv_max_n(dtype: torch.dtype) -> int:
+    """Largest n kernel B can launch for ``dtype``, in either mode: the
+    n x n matrix, rows padded to the odd stride n | 1, must fit one block's
+    shared memory beside BLOCK_STATIC_BYTES. 120 in complex128, 169 in
+    complex64 and float64, 241 in float32. ops/clinalg sends larger n to
+    torch.linalg."""
+    size = dtype.itemsize
+    n = math.isqrt((SMEM_MAX - BLOCK_STATIC_BYTES) // size)
+    while n * (n | 1) * size + BLOCK_STATIC_BYTES > SMEM_MAX:
+        n -= 1
+    return n
 
 
 def chol_max_n(dtype: torch.dtype) -> int:

@@ -19,11 +19,10 @@ from pauxy_tpu_torch import config
 from pauxy_tpu_torch.ops import batchla_cuda
 
 
-def uses_kernel_b(s: torch.Tensor, want_inv: bool) -> bool:
+def uses_kernel_b(s: torch.Tensor) -> bool:
     """Whether ``s [..., n, n]`` goes to kernel B's wrapper (else to
-    torch.linalg): n up to ``batchla_cuda.inv_max_n`` for its type and
-    mode."""
-    return s.shape[-1] <= batchla_cuda.inv_max_n(s.dtype, want_inv)
+    torch.linalg): n up to ``batchla_cuda.inv_max_n`` for its type."""
+    return s.shape[-1] <= batchla_cuda.inv_max_n(s.dtype)
 
 
 def _slogdet_linalg(s: torch.Tensor) -> torch.Tensor:
@@ -38,7 +37,7 @@ def slogdet(s: torch.Tensor) -> torch.Tensor:
     if s.shape[-1] == 0:
         # det of the 0x0 matrix is 1 (fully spin-polarized blocks).
         return torch.zeros(s.shape[:-2], dtype=s.dtype, device=s.device)
-    if not uses_kernel_b(s, want_inv=False):
+    if not uses_kernel_b(s):
         return _slogdet_linalg(s)
     return batchla_cuda.slogdet_lanes(s)
 
@@ -46,7 +45,7 @@ def slogdet(s: torch.Tensor) -> torch.Tensor:
 def inv_logdet(s: torch.Tensor):
     """(complex log det [...], inverse [..., n, n] of s.dtype), one pass
     of kernel B over the flattened batch."""
-    if not uses_kernel_b(s, want_inv=True):
+    if not uses_kernel_b(s):
         return _slogdet_linalg(s), torch.linalg.inv(s)
     flat = s.reshape((-1,) + tuple(s.shape[-2:]))
     ld, inv = batchla_cuda.inv_logdet_lanes(flat)

@@ -31,10 +31,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     "pauxy_greens_lanes_c64": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pauxy_greens_lanes_c128": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "pauxy_inv_logdet_lanes_c64": (_P, _P, _P, _I, _I, _I, _P),
-    "pauxy_inv_logdet_lanes_c128": (_P, _P, _P, _I, _I, _I, _P),
-    "pauxy_inv_logdet_lanes_f32": (_P, _P, _P, _I, _I, _I, _P),
-    "pauxy_inv_logdet_lanes_f64": (_P, _P, _P, _I, _I, _I, _P),
+    "pauxy_inv_logdet_c64": (_P, _P, _P, _I, _I, _I, _P),
+    "pauxy_inv_logdet_c128": (_P, _P, _P, _I, _I, _I, _P),
+    "pauxy_inv_logdet_f32": (_P, _P, _P, _I, _I, _I, _P),
+    "pauxy_inv_logdet_f64": (_P, _P, _P, _I, _I, _I, _P),
     "pauxy_chol_inv_lanes_c64": (_P, _P, _P, _I, _I, _P),
     "pauxy_chol_inv_lanes_c128": (_P, _P, _P, _I, _I, _P),
     "pauxy_hirsch_sweep_f32": (_P,) * 11 + (_I,) * 4 + (_P,),

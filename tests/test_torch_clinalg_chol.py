@@ -11,7 +11,7 @@ inverse and solve, and kernel B on real input, against the JAX package.
   batchla_pallas.inv_logdet_lanes(real, interpret=True): 1e-4 relative,
   a real inverse and a log-det with imaginary part 0 or pi;
 * the route of clinalg's inverse and log-det by shape: n up to kernel B's
-  cap for the type and mode to the kernel's wrapper, larger n to
+  cap for the type to the kernel's wrapper, larger n to
   torch.linalg, both against numpy (1e-10 / 1e-4, times n for the
   log-det).
 """
@@ -23,6 +23,7 @@ import torch
 
 from pauxy_tpu.ops import batchla_pallas as jbp
 from pauxy_tpu.ops import clinalg as jcl
+from chip_smoke import pivot_cases
 from pauxy_tpu_torch.ops import batchla_cuda, clinalg
 
 torch.set_num_threads(1)
@@ -148,19 +149,23 @@ def test_inv_logdet_plain_real_matches_pallas_interpret(n):
 
 
 @pytest.mark.parametrize("dtype,want_inv,cap", [
-    (torch.complex128, True, 85), (torch.complex128, False, 120),
-    (torch.complex64, True, 120), (torch.complex64, False, 170),
-    (torch.float64, True, 120), (torch.float32, True, 170)])
+    (torch.complex128, True, 120), (torch.complex128, False, 120),
+    (torch.complex64, True, 169), (torch.complex64, False, 169),
+    (torch.float64, True, 169), (torch.float32, True, 241)])
 def test_kernel_b_routes_by_shape(dtype, want_inv, cap, monkeypatch):
-    """clinalg sends n up to what kernel B launches for the type and mode
-    (one matrix, and its inverse beside it, in 227 KB of shared memory) to
-    the kernel's wrapper, and a larger n to torch.linalg; the decision is
-    made by shape, the same on either device. At the thermal shape n = 93
-    complex128 with the inverse goes to torch.linalg."""
-    assert batchla_cuda.inv_max_n(dtype, want_inv) == cap
-    entry = dtype.itemsize * (2 if want_inv else 1)
-    assert cap * cap * entry <= batchla_cuda.SMEM_MAX
-    assert (cap + 1) * (cap + 1) * entry > batchla_cuda.SMEM_MAX
+    """clinalg sends n up to what kernel B launches for the type (its one
+    n x n matrix, rows padded to the odd stride n | 1, in 227 KB of shared
+    memory beside its pivot scalars; the same cap in both modes) to the
+    kernel's wrapper, and a larger n to torch.linalg; the
+    decision is made by shape, the same on either device. At the thermal
+    shape n = 93 every type goes to the kernel in both modes."""
+    assert batchla_cuda.inv_max_n(dtype) == cap
+
+    def smem(n):
+        return (n * (n | 1) * dtype.itemsize
+                + batchla_cuda.BLOCK_STATIC_BYTES)
+    assert smem(cap) <= batchla_cuda.SMEM_MAX < smem(cap + 1)
+    assert cap >= 93
     calls = []
     real = batchla_cuda.inv_logdet_lanes
 
@@ -175,7 +180,7 @@ def test_kernel_b_routes_by_shape(dtype, want_inv, cap, monkeypatch):
         if dtype.is_complex:
             s = s + 1j * rng.normal(size=(2, n, n)) / n ** 0.5
         st = torch.from_numpy(s).to(dtype)
-        assert clinalg.uses_kernel_b(st, want_inv) == (n == cap)
+        assert clinalg.uses_kernel_b(st) == (n == cap)
         calls.clear()
         if want_inv:
             ld, inv = clinalg.inv_logdet(st)
@@ -191,3 +196,96 @@ def test_kernel_b_routes_by_shape(dtype, want_inv, cap, monkeypatch):
 
 TOL_ROUTE = {torch.complex128: 1e-10, torch.float64: 1e-10,
              torch.complex64: 1e-4, torch.float32: 1e-4}
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128,
+                                   torch.float32, torch.float64])
+def test_kernel_b_cpu_wrapper_takes_its_plain_version(dtype, monkeypatch):
+    """On a CPU tensor kernel B's wrapper runs the kernel's plain version
+    (in-place Gauss-Jordan / LU) and nothing else, for every n from 1 up
+    to the cap, every type and mode: the function it computes depends on
+    the shape and type alone, and no launch is counted."""
+    cap = batchla_cuda.inv_max_n(dtype)
+    calls = []
+    real = batchla_cuda.inv_logdet_plain
+    monkeypatch.setattr(
+        batchla_cuda, "inv_logdet_plain",
+        lambda s, want_inv=True: (calls.append((s.shape, want_inv))
+                                  or real(s, want_inv)))
+    rng = np.random.default_rng(cap)
+    before = batchla_cuda.launches
+    ns = (1, 2, 5, 6, 7, 16, 42, cap)
+    for n in ns:
+        s = torch.from_numpy(pivot_cases(rng, 3, n, dtype.is_complex)
+                             ).to(dtype)
+        for want_inv in (True, False):
+            ld, inv = batchla_cuda.inv_logdet_lanes(s, want_inv)
+            assert ld.shape == (3,)
+            assert (inv is None) != want_inv
+    assert calls == [((3, n, n), want_inv) for n in ns
+                     for want_inv in (True, False)]
+    assert batchla_cuda.launches == before
+
+
+@pytest.mark.parametrize("complex_", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 5, 6, 32, 40])
+def test_kernel_b_plain_matches_pallas_interpret(n, complex_):
+    """Kernel B's plain version (in-place Gauss-Jordan with the inverse, LU
+    without) against the TPU kernel in interpret mode, in the
+    TPU kernel's float32, on matrices that need pivoting: 1e-4 relative,
+    1e-4 n for the log-det."""
+    rng = np.random.default_rng(30 + n)
+    dt = np.complex64 if complex_ else np.float32
+    s = pivot_cases(rng, 37, n, complex_).astype(dt)
+    ld_j, inv_j = jbp.inv_logdet_lanes(jnp.asarray(s), interpret=True)
+    for want_inv in (True, False):
+        ld_t, inv_t = batchla_cuda.inv_logdet_plain(
+            torch.from_numpy(s), want_inv)
+        assert ld_t.dtype == torch.complex64
+        d = ld_t.numpy() - np.asarray(ld_j)
+        assert np.abs(d.real).max() < 1e-4 * n
+        assert np.abs(np.angle(np.exp(1j * d.imag))).max() < 1e-4 * n
+        if want_inv:
+            assert inv_t.dtype == torch.from_numpy(s).dtype
+            assert rel(inv_t.numpy(), inv_j) < 1e-4
+        else:
+            assert inv_t is None
+
+
+@pytest.mark.parametrize("complex_", [False, True])
+@pytest.mark.parametrize("n", [1, 3, 6, 42, 93])
+def test_kernel_b_plain_matches_linalg_f64(n, complex_):
+    """Kernel B's plain version against torch.linalg in float64,
+    with the pivot-needing matrices: 1e-10 (times n for the log-det); a
+    real input's log-det has imaginary part 0 or pi."""
+    rng = np.random.default_rng(40 + n)
+    s = torch.from_numpy(pivot_cases(rng, 9, n, complex_))
+    sign, logabs = torch.linalg.slogdet(s)
+    want = torch.linalg.inv(s)
+    for want_inv in (True, False):
+        ld, inv = batchla_cuda.inv_logdet_plain(s, want_inv)
+        assert (ld.real - logabs).abs().max().item() < 1e-10 * n
+        assert (torch.exp(1j * ld.imag) - sign).abs().max().item() < 1e-10 * n
+        if not complex_:
+            im = ld.imag.abs().numpy()
+            assert np.all((im == 0) | (im == np.pi))
+        if want_inv:
+            assert inv.dtype == s.dtype
+            assert rel(inv.numpy(), want.numpy()) < 1e-10
+
+
+def test_kernel_b_plain_undoes_row_swaps_exactly():
+    """Permutation matrices: every step swaps rows, and the in-place
+    inverse comes back as the exact transpose once the swaps are undone as
+    column swaps; the log-det is i pi times the permutation's parity."""
+    rng = np.random.default_rng(7)
+    n = 13
+    perms = [rng.permutation(n) for _ in range(6)] + [np.arange(n)[::-1]]
+    s = np.stack([np.eye(n)[p] for p in perms])
+    for dtype in (torch.float64, torch.complex64):
+        st = torch.from_numpy(s).to(dtype)
+        ld, inv = batchla_cuda.inv_logdet_plain(st)
+        assert torch.equal(inv, st.transpose(1, 2))
+        parity = np.round(np.linalg.det(s))
+        assert np.all(ld.real.numpy() == 0)
+        np.testing.assert_allclose(np.cos(ld.imag.numpy()), parity, atol=1e-6)

@@ -34,7 +34,10 @@ inputs with separated column norms (where that phase is ill-determined on
 a few columns) against the plain version in double precision with the
 kernel's pivots (R within 1e-4 of max|R|, Q within 1e-4 once each
 column's phase is aligned; a phase error of 2^-8 reads ~4e-3 in R); kernel
-B's route by shape at its cap; and a thermal path on
+B from n = 1 up to its cap, against its plain version, the augmented
+Gauss-Jordan's and torch.linalg in float64 (TOL, times n for the
+log-det); kernel B's route by shape at its cap; and a
+thermal path on
 the card and on the CPU with the same injected draws agree at rtol 1e-8
 in complex128.
 """
@@ -43,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import pivot_cases
 from pauxy_tpu_torch.ops import (batchla_cuda, clinalg, cpqr_cuda,
                                  cuda_build, exx_cuda, greens_cuda,
                                  sweep_cuda, taylor_cuda)
@@ -720,15 +724,15 @@ def test_cpqr_refuses_instead_of_falling_back(monkeypatch):
 
 @pytest.mark.cuda
 def test_kernel_b_route_at_its_cap():
-    """complex128 with the inverse: n = 85 (the cap) launches kernel B, n =
-    86 and the thermal n = 93 go to torch.linalg by shape; both agree with
-    torch.linalg."""
+    """complex128 with the inverse: the thermal n = 93 and n = 120 (the
+    cap) launch kernel B, n = 121 goes to torch.linalg by shape; all agree
+    with torch.linalg."""
     need_cuda()
     c128 = torch.complex128
-    cap = batchla_cuda.inv_max_n(c128, True)
-    assert cap == 85
+    cap = batchla_cuda.inv_max_n(c128)
+    assert cap == 120
     rng = np.random.default_rng(4)
-    for n, launched in ((cap, 1), (cap + 1, 0), (93, 0)):
+    for n, launched in ((93, 1), (cap, 1), (cap + 1, 0)):
         s = 2.0 * np.eye(n) + (rng.normal(size=(16, n, n))
                                + 1j * rng.normal(size=(16, n, n))) / n ** 0.5
         s = torch.from_numpy(s).to("cuda", c128)
@@ -741,6 +745,57 @@ def test_kernel_b_route_at_its_cap():
         assert (torch.exp(1j * ld.imag) - sign).abs().max().item() <= 1e-10
         want = torch.linalg.inv(s)
         assert ((inv - want).abs().max() / want.abs().max()).item() <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128,
+                                   torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 5, 7, 32, 42, 64, 93, "cap"])
+def test_kernel_b_matches_plain_and_linalg(dtype, n):
+    """Kernel B from n = 1 up to its cap, w in {1, 37, 512}, both modes,
+    with the pivot-needing matrices: the wrapper launches the kernel once,
+    and it agrees with its plain version, with the augmented Gauss-Jordan
+    of inv_logdet_lanes_plain (another elimination order) and with
+    torch.linalg in float64 (TOL relative to max|S^-1|, TOL n for the
+    log-det)."""
+    need_cuda()
+    if n == "cap":
+        n = batchla_cuda.inv_max_n(dtype)
+    tol = TOL[dtype]
+    rng = np.random.default_rng(n)
+    for w in (1, 37, 512):
+        s64 = torch.from_numpy(pivot_cases(rng, w, n, dtype.is_complex))
+        s = s64.to("cuda", dtype)
+        s64 = s.to(torch.complex128 if dtype.is_complex else torch.float64)
+        sign, logabs = torch.linalg.slogdet(s64)
+        want = torch.linalg.inv(s64)
+        for want_inv in (True, False):
+            before = batchla_cuda.launches
+            ld_k, inv_k = batchla_cuda.inv_logdet_lanes(s, want_inv)
+            assert batchla_cuda.launches == before + 1
+            plains = [batchla_cuda.inv_logdet_plain(s, want_inv),
+                      batchla_cuda.inv_logdet_lanes_plain(s, want_inv)]
+            torch.cuda.synchronize()
+            for ld_p, _ in plains:
+                d = (ld_k - ld_p).cpu().numpy()
+                assert np.abs(d.real).max() <= tol * n
+                assert phase_diff(d.imag).max() <= tol * n
+            ld64 = ld_k.to(torch.complex128)
+            assert (ld64.real - logabs).abs().max().item() <= tol * n
+            assert (torch.exp(1j * ld64.imag) - sign).abs().max().item() \
+                <= tol * n
+            if not dtype.is_complex:
+                im = np.abs(ld_k.imag.cpu().numpy())
+                assert np.all((im == 0) | (np.abs(im - np.pi) < 1e-6))
+            if want_inv:
+                assert inv_k.dtype == dtype and inv_k.shape == (w, n, n)
+                for _, inv_p in plains:
+                    scale = inv_p.abs().max().item()
+                    assert (inv_k - inv_p).abs().max().item() <= tol * scale
+                assert (inv_k.to(want.dtype) - want).abs().max().item() \
+                    <= tol * want.abs().max().item()
+            else:
+                assert inv_k is None
 
 
 def _thermal_path(system, device, noise):
