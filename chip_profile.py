@@ -11,7 +11,10 @@ block) and with the discrete Hirsch propagator (the generic block and the
 sweep kernel); then the Generic path at chip_smoke.py's bench shape
 (nmo=128, naux=512, (16, 16), RHF trial, 1024 walkers, dt=0.005,
 re-orthogonalisation every 5 steps, taylor_impl="pallas", energy every
-step); then the finite-temperature UEG path at chip_smoke.py's phase-11
+step) and past the supermatrix cap at chip_smoke.py's phase-9 shape
+(nmo=228, naux=1024, (42, 42), 256 walkers, the energy once a block: the
+Taylor kernel at (228, 84) and the exchange kernel); then the
+finite-temperature UEG path at chip_smoke.py's phase-11
 shape (M=93, (7, 7), beta=2, dt=0.05, mu=0.9, 40 slices, 256 walkers,
 complex64), whose block is one imaginary-time path. For each it runs
 one warm-up block, then one block under
@@ -107,6 +110,15 @@ def main() -> None:
     af = AFQMC(ham, trial, qmc, propagator_options={"taylor_impl": "pallas"},
                estimator_options=eopts, device="cuda")
     profile_block(af, "generic", args.trace, qmc.nsteps)
+    del ham, trial, af
+    ham = generic_model(228, 1024, 42, make_generic)
+    trial = rhf_identity_trial(ham, device="cuda", dtype="single")
+    qmc = QMCOpts(nwalkers=256, dt=0.005, nsteps=10, nblocks=2, nstblz=5,
+                  npop_control=1, rng_seed=8)
+    af = AFQMC(ham, trial, qmc, propagator_options={"taylor_impl": "pallas"},
+               device="cuda")
+    profile_block(af, "generic_exx", args.trace, qmc.nsteps)
+    del ham, trial, af
     ham = make_ueg(7, 7, rs=1.0, ecut=4.0, device="cuda", dtype="single")
     trial = make_one_body_trial(ham, 2.0, 0.05, mu=0.9, device="cuda",
                                 dtype="single")

@@ -8,7 +8,9 @@ non-zero and prints no result line:
   2. build the CUDA kernels of pauxy_tpu_torch/csrc from this checkout, one
      nvcc per source, all at once;
   3. each kernel against its plain PyTorch version on the same card tensors,
-     at the shapes the main paths and the larger lattices give it, with
+     at the shapes the main paths and the larger lattices give it, and at
+     each kernel's cap (kernel A, kernel B, Taylor, cpqr; one past the cap
+     takes the plain route by shape, without a launch), with
      median times at the main-path shape (kernel, plain version, and the
      one PyTorch call that computes the same function where there is one);
   4. the continuous main path at full width: 4x4 Hubbard (7, 7), U=4,
@@ -705,7 +707,9 @@ def check_sweep(sweep_cuda, rng) -> float:
     return main_err
 
 
-TAYLOR_SHAPES = ((16, 14), (128, 32), (228, 84))
+# The Generic paths' shapes, the UEG bench class (M = 257, 7 + 7 columns)
+# and each type's cap (taylor_cuda.max_m) with the same columns.
+TAYLOR_SHAPES = ((16, 14), (128, 32), (228, 84), (257, 14), ("cap", 14))
 # The listed exchange shapes, then two whose walker exceeds a block's
 # shared memory (the kernel stages column chunks; n = 130 takes its pair
 # tiles in several rounds).
@@ -751,9 +755,14 @@ def check_taylor(taylor_cuda, gen) -> float:
     main_err = None
     for dtype in (torch.complex64, torch.complex128):
         for m, ncol in TAYLOR_SHAPES:
+            if m == "cap":
+                m = taylor_cuda.max_m(dtype)
             for w in (1, 37, 1024):
                 vhs, phi = taylor_inputs(gen, w, m, ncol, dtype)
+                before = taylor_cuda.launches
                 out_k = taylor_cuda.apply_taylor(vhs, phi)
+                if taylor_cuda.launches != before + 1:
+                    raise AssertionError(f"apply_taylor at M={m}: no launch")
                 out_p = taylor_cuda.apply_taylor_plain(vhs, phi)
                 torch.cuda.synchronize()
                 err = float((out_k - out_p).abs().max())
@@ -765,6 +774,82 @@ def check_taylor(taylor_cuda, gen) -> float:
                     main_err = err
                 del vhs, phi, out_k, out_p
     return main_err
+
+
+def check_taylor_route(taylor_cuda, GenericContinuous, gen) -> str:
+    """The Generic propagator's "pallas" route at M = cap + 1 (each type):
+    no launch, and the plain series' result within TOL."""
+    out = []
+    for dtype in (torch.complex64, torch.complex128):
+        m = taylor_cuda.max_m(dtype) + 1
+        chol = 0.01 * torch.randn((m, m, 1), generator=gen,
+                                  dtype=RDTYPE[dtype], device="cuda")
+        prop = GenericContinuous(
+            torch.zeros(2, m, m, dtype=dtype, device="cuda"),
+            torch.zeros(1, dtype=dtype, device="cuda"), chol, dt=0.01,
+            taylor_impl="pallas")
+        phia = torch.randn((3, m, 7), generator=gen, dtype=dtype,
+                           device="cuda")
+        phib = torch.randn((3, m, 7), generator=gen, dtype=dtype,
+                           device="cuda")
+        before = taylor_cuda.launches
+        a, b = prop.apply_vhs(phia, phib,
+                              torch.ones(3, 1, dtype=dtype, device="cuda"))
+        vhs = ((1j * 0.1) * chol[..., 0].to(dtype))[None].expand(3, m, m)
+        want = taylor_cuda.apply_taylor_plain(vhs, torch.cat([phia, phib],
+                                                             -1))
+        torch.cuda.synchronize()
+        err = float((torch.cat([a, b], -1) - want).abs().max()
+                    / want.abs().max())
+        if taylor_cuda.launches != before or err > TOL[dtype]:
+            raise AssertionError(f"Taylor route at {dtype} M={m}: "
+                                 f"{taylor_cuda.launches - before} launches, "
+                                 f"error {err:.3e}")
+        out.append(f"{str(dtype).split('.')[-1]} cap {m - 1}")
+    return ", ".join(out)
+
+
+def check_greens_route(greens_cuda, rng) -> str:
+    """Kernel A at n = max_n (each type and mode, 37 walkers, M = 4 n)
+    launches and agrees with its plain version; at max_n + 1 it launches
+    nothing and returns the plain version's result."""
+    out = []
+    for dtype in (torch.complex64, torch.complex128):
+        tol = TOL[dtype]
+        for want_gh in (True, False):
+            cap = greens_cuda.max_n(dtype, want_gh)
+            for n in (cap, cap + 1):
+                m, w = 4 * n, 37
+                psi = rng.normal(size=(m, n)) + 1j * rng.normal(size=(m, n))
+                phi = psi[:, :, None] + 0.3 * (
+                    rng.normal(size=(m, n, w))
+                    + 1j * rng.normal(size=(m, n, w)))
+                psi = torch.from_numpy(psi).to("cuda", dtype)
+                phi = torch.from_numpy(phi).to("cuda", dtype)
+                before = greens_cuda.launches
+                ld_k, gh_k = greens_cuda.greens_lanes(psi, phi, want_gh)
+                launched = greens_cuda.launches - before
+                ld_p, gh_p = greens_cuda.greens_lanes_plain(psi, phi,
+                                                            want_gh)
+                torch.cuda.synchronize()
+                d = (ld_k - ld_p).cpu().numpy()
+                dre = float(np.abs(d.real).max())
+                dim = float(phase_diff(d.imag).max())
+                rel = 0.0
+                if want_gh:
+                    rel = float((gh_k - gh_p).abs().max()
+                                / gh_p.abs().max())
+                where = f"{dtype} n={n} want_gh={want_gh}"
+                if launched != (1 if n == cap else 0):
+                    raise AssertionError(f"greens_lanes route at {where}: "
+                                         f"{launched} launches")
+                if dre > tol * n or dim > tol * n or rel > tol:
+                    raise AssertionError(
+                        f"greens_lanes disagrees at {where}: dRe={dre:.3e} "
+                        f"dIm={dim:.3e} dghT/max={rel:.3e}")
+            out.append(f"{str(dtype).split('.')[-1]} "
+                       f"{'G' if want_gh else 'log-det'} cap {cap}")
+    return ", ".join(out)
 
 
 def check_exx(exx_cuda, gen) -> tuple[float, dict]:
@@ -939,7 +1024,8 @@ def main() -> None:
     from pauxy_tpu_torch.ops import (batchla_cuda, clinalg, cpqr_cuda,
                                      cuda_build, exx_cuda, greens_cuda,
                                      sweep_cuda, taylor_cuda)
-    from pauxy_tpu_torch.propagation.generic import apply_exponential_taylor
+    from pauxy_tpu_torch.propagation.generic import (GenericContinuous,
+                                                     apply_exponential_taylor)
     from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
     from pauxy_tpu_torch.qmc.afqmc import run_block
     from pauxy_tpu_torch.qmc.hubbard_fast import BlockNoise
@@ -1002,6 +1088,8 @@ def main() -> None:
            "exx": exx_err}
     err["cpqr"], cpqr_readings = check_cpqr(cpqr_cuda, rng)
     b93_route = check_batchla_thermal(batchla_cuda, clinalg, rng)
+    greens_route = check_greens_route(greens_cuda, rng)
+    taylor_route = check_taylor_route(taylor_cuda, GenericContinuous, gen)
     ill = check_batchla_ill(batchla_cuda, rng)
     m, n, w = 16, 7, 1024
     c64, f32 = torch.complex64, torch.float32
@@ -1171,10 +1259,14 @@ def main() -> None:
                if "supermatrix_ms" in e else "")
             for k, es in at_shapes.items() for e in es)
         + f" (supermatrix vs kernel max |d|/S {sup_err:.3e})")
-    say("3 kernels", "apply_taylor at (M,C) in {(16,14),(128,32),(228,84)} "
-        "w in {1,37,1024} agrees with its plain version (max|d| <= tol "
-        "max|out|); exx at (X,n,M) in {(30,3,12),(512,16,128),"
-        "(1024,42,228),(8,60,500),(4,130,200)} w in {1,37,256}, random and "
+    say("3 kernels", "apply_taylor at (M,C) in {(16,14),(128,32),(228,84),"
+        "(257,14),(cap,14)} w in {1,37,1024} launches and agrees with its "
+        "plain version (max|d| <= tol max|out|); M = cap + 1 takes the plain "
+        f"series by shape ({taylor_route}); greens_lanes at n = max_n "
+        "launches and agrees with its plain version, n = max_n + 1 launches "
+        f"nothing ({greens_route}); exx at (X,n,M) in "
+        "{(30,3,12),(512,16,128),(1024,42,228),(8,60,500),(4,130,200)} "
+        "w in {1,37,256}, random and "
         "coherent phases, agrees walker by walker with its plain version in "
         "float64 (|d_w| <= tol S_w, tol 5e-6 c64 / 1e-13 c128), is "
         "bit-identical on a second launch, and "

@@ -82,6 +82,19 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return torch.device(device)
 
 
+def check_matmul_precision(policy: str | None) -> str:
+    """The ``matmul_precision`` propagator option: ``None`` and
+    ``"float32"`` (the JAX package's default tier) run in full float32;
+    any lower tier raises, as it waits for an end-to-end anchor run that
+    validates it. Returns the tier in force."""
+    if policy in (None, "float32"):
+        return "float32"
+    raise NotImplementedError(
+        f"matmul_precision={policy!r} is not ported: the port runs float32 "
+        f"products in full float32 only, and a lower tier waits for an "
+        f"end-to-end anchor run that validates it")
+
+
 def set_matmul_precision() -> None:
     """Keep float32 products in full float32: no TF32 in matmuls or cuDNN.
 

@@ -30,7 +30,7 @@ chol_launches = 0
 # Shared memory one block may use on sm_90 (kSmemMax in gauss_jordan.cuh),
 # and what a block of kernel B keeps beside its matrix (kBlockStaticBytes
 # in batchla.cu).
-SMEM_MAX = 232448
+SMEM_MAX = cuda_build.SMEM_MAX
 BLOCK_STATIC_BYTES = 64
 
 _INV_SYMBOLS = {

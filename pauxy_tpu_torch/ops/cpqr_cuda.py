@@ -28,7 +28,7 @@ CPQR_NORM_REFRESH = 16
 
 # Shared memory one block may use on sm_90 (kSmemMax in gauss_jordan.cuh),
 # and the form-Q pass's column block (kQcb in csrc/cpqr.cu).
-SMEM_MAX = 232448
+SMEM_MAX = cuda_build.SMEM_MAX
 QCB = 16
 
 _SYMBOLS = {torch.complex64: "pauxy_cpqr_c64",

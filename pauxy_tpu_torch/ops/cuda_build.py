@@ -20,10 +20,20 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pauxy_tpu_torch"
-SOURCES = ("gauss_jordan.cuh", "greens.cu", "batchla.cu", "chol_inv.cu",
-           "sweep.cu", "taylor.cu", "exx.cu", "cpqr.cu")
+SOURCES = ("gauss_jordan.cuh", "async_copy.cuh", "greens.cu", "batchla.cu",
+           "chol_inv.cu", "sweep.cu", "taylor.cu", "exx.cu", "cpqr.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Shared memory one block may use on sm_90 (227 KB, pauxy::kSmemMax); the
+# kernels' caps and tile plans are sized against it.
+SMEM_MAX = 232448
+
+
+def round_up(a: int, b: int) -> int:
+    """a rounded up to a multiple of b."""
+    return -(-a // b) * b
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,10 +49,10 @@ SIGNATURES = {
     "pauxy_chol_inv_lanes_c128": (_P, _P, _P, _I, _I, _P),
     "pauxy_hirsch_sweep_f32": (_P,) * 11 + (_I,) * 4 + (_P,),
     "pauxy_hirsch_sweep_f64": (_P,) * 11 + (_I,) * 4 + (_P,),
-    "pauxy_taylor_c64": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "pauxy_taylor_c128": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "pauxy_exx_c64": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "pauxy_exx_c128": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "pauxy_taylor_c64": (_P, _P, _P) + (_I,) * 6 + (_P,),
+    "pauxy_taylor_c128": (_P, _P, _P) + (_I,) * 6 + (_P,),
+    "pauxy_exx_c64": (_P,) * 6 + (_I,) * 11 + (_P,),
+    "pauxy_exx_c128": (_P,) * 6 + (_I,) * 11 + (_P,),
     "pauxy_cpqr_c64": (_P,) * 6 + (_I, _I, _P),
     "pauxy_cpqr_c128": (_P,) * 6 + (_I, _I, _P),
 }

@@ -1,12 +1,18 @@
 """Kernel A: walker Green's functions + log-overlaps, lanes layout.
 
 Counterpart of ``pauxy_tpu/ops/greens_pallas.py``. ``greens_lanes`` launches
-the CUDA kernel of ``csrc/greens.cu`` on a CUDA tensor and calls the plain
-PyTorch version ``greens_lanes_plain`` on a CPU tensor; any other device, or
-a CUDA tensor the kernel does not take, raises.
+the CUDA kernel of ``csrc/greens.cu`` on a CUDA tensor with n up to
+``max_n(dtype, want_gh)`` and calls the plain PyTorch version
+``greens_lanes_plain`` on a CPU tensor. A CUDA tensor with a larger n,
+whose walker does not fit one block's shared memory, runs the plain version
+on the card: the route is chosen by shape before any launch, as JAX's
+``greens_pallas.vmem_ok`` sends such lattices to its XLA lanes path. Any
+other device, or a CUDA tensor the kernel does not take, raises.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -15,6 +21,26 @@ from pauxy_tpu_torch.ops import lanelinalg as ll
 
 # Kernel launches so far; a run can show that the main path used the kernel.
 launches = 0
+
+
+def max_n(dtype: torch.dtype, want_gh: bool = True) -> int:
+    """Largest n the kernel launches: one walker's n x (2n with the Green's
+    function, else n) complex entries must fit one block's shared memory
+    (csrc/greens.cu). 85 / 120 in complex128, 120 / 170 in complex64."""
+    per = (2 if want_gh else 1) * dtype.itemsize
+    return math.isqrt(cuda_build.SMEM_MAX // per)
+
+
+def uses_kernel(phi: torch.Tensor, want_gh: bool = True) -> bool:
+    """Whether ``greens_lanes`` launches the kernel for ``phi`` [M, n, W]:
+    a CUDA tensor with n <= ``max_n`` (a type or shape the kernel does not
+    take is refused by the wrapper, not routed)."""
+    if phi.device.type != "cuda":
+        return False
+    if (phi.dtype not in (torch.complex64, torch.complex128)
+            or len(phi.shape) != 3):
+        return True
+    return phi.shape[1] <= max_n(phi.dtype, want_gh)
 
 
 def greens_lanes_plain(psi: torch.Tensor, phi: torch.Tensor,
@@ -38,6 +64,8 @@ def greens_lanes(psi: torch.Tensor, phi: torch.Tensor, want_gh: bool = True):
     """
     global launches
     if phi.device.type == "cpu":
+        return greens_lanes_plain(psi, phi, want_gh)
+    if phi.device.type == "cuda" and not uses_kernel(phi, want_gh):
         return greens_lanes_plain(psi, phi, want_gh)
     if phi.device.type != "cuda" or psi.device != phi.device:
         raise ValueError(f"greens_lanes: psi on {psi.device}, phi on "

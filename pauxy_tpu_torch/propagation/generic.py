@@ -9,7 +9,8 @@ series to both spins' columns at once.
 ``taylor_impl`` selects the series, with the JAX package's values:
 ``"xla"`` (the default) six batched matmuls, ``"pallas"`` the fused kernel
 (``ops/taylor_cuda``: the CUDA kernel on the card, its plain version on a
-CPU tensor). ``"pallas_interpret"`` (JAX's CPU test mode) is refused: here
+CPU tensor; an M past the kernel's cap, ``taylor_cuda.max_m``, takes the
+six matmuls, chosen by shape before any launch). ``"pallas_interpret"`` (JAX's CPU test mode) is refused: here
 ``"pallas"`` on a CPU tensor already takes the plain version.
 ``"pallas_bf16"`` and ``"xla_3m"`` are not ported yet.
 """
@@ -86,7 +87,8 @@ class GenericContinuous(nn.Module):
                         (1j * self.sqrt_dt) * xshifted).contiguous()
         na = phia.shape[-1]
         phi_in = torch.cat([phia, phib], dim=-1)
-        if self.taylor_impl == "pallas":
+        if self.taylor_impl == "pallas" and taylor_cuda.fits(vhs.shape[-1],
+                                                             vhs.dtype):
             phi = taylor_cuda.apply_taylor(vhs, phi_in, self.exp_order)
         else:
             phi = apply_exponential_taylor(vhs, phi_in, self.exp_order)

@@ -114,6 +114,8 @@ class AFQMC:
         self.verbose = verbose
         popts = dict(propagator_options or {})
         eopts = dict(estimator_options or {})
+        self.matmul_precision = config.check_matmul_precision(
+            popts.get("matmul_precision"))
         self.free_projection = popts.get("free_projection", False)
         self.hybrid = popts.get("hybrid", True)
         self.prop = self._build_propagator(popts)

@@ -128,6 +128,8 @@ class ThermalAFQMC:
         self.verbose = verbose
         self.ntime_slices = self.trial.num_slices
         popts = dict(propagator_options or {})
+        self.matmul_precision = config.check_matmul_precision(
+            popts.get("matmul_precision"))
         wopts = dict(walker_options or {})
         if wopts.get("low_rank", False) or popts.get("low_rank", False):
             raise NotImplementedError("the low-rank thermal walkers are not "

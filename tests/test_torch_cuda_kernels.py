@@ -36,7 +36,10 @@ kernel's pivots (R within 1e-4 of max|R|, Q within 1e-4 once each
 column's phase is aligned; a phase error of 2^-8 reads ~4e-3 in R); kernel
 B from n = 1 up to its cap, against its plain version, the augmented
 Gauss-Jordan's and torch.linalg in float64 (TOL, times n for the
-log-det); kernel B's route by shape at its cap; and a
+log-det); kernel B's route by shape at its cap; kernel A at its cap
+(launches, TOL) and past it (no launch, the plain result); the Taylor
+kernel at M = 257 and at its cap, and the Generic propagator's route past
+that cap (no launch, TOL against the plain series); and a
 thermal path on
 the card and on the CPU with the same injected draws agree at rtol 1e-8
 in complex128.
@@ -407,7 +410,9 @@ def test_discrete_block_on_card_matches_plain_block_on_cpu():
                                s_cpu.weight.numpy(), rtol=1e-8, atol=1e-10)
 
 
-TAYLOR_SHAPES = [(16, 14), (128, 32), (228, 84)]
+# The Generic paths' shapes, the UEG bench class (M = 257, 7 + 7 columns)
+# and each type's cap (taylor_cuda.max_m) with the same columns.
+TAYLOR_SHAPES = [(16, 14), (128, 32), (228, 84), (257, 14), ("cap", 14)]
 EXX_SHAPES = [(30, 3, 12), (512, 16, 128), (1024, 42, 228)]
 
 
@@ -422,6 +427,8 @@ def card_gen(seed):
 @pytest.mark.parametrize("m,ncol", TAYLOR_SHAPES)
 def test_taylor_kernel_matches_plain(dtype, m, ncol):
     need_cuda()
+    if m == "cap":
+        m = taylor_cuda.max_m(dtype)
     gen = card_gen(m + ncol)
     for w in (1, 37, 1024):
         vhs = (0.3 / m ** 0.5) * torch.randn((w, m, m), generator=gen,
@@ -485,6 +492,66 @@ def test_exx_kernel_matches_plain(dtype, x, n, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_taylor_route_past_the_cap(dtype):
+    """The Generic propagator's "pallas" route at M = cap + 1 launches
+    nothing and gives the plain series."""
+    need_cuda()
+    from pauxy_tpu_torch.propagation.generic import GenericContinuous
+    m = taylor_cuda.max_m(dtype) + 1
+    gen = card_gen(m)
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    chol = 0.01 * torch.randn((m, m, 1), generator=gen, dtype=rdt,
+                              device="cuda")
+    prop = GenericContinuous(torch.zeros(2, m, m, dtype=dtype, device="cuda"),
+                             torch.zeros(1, dtype=dtype, device="cuda"), chol,
+                             dt=0.01, taylor_impl="pallas")
+    phia = torch.randn((3, m, 7), generator=gen, dtype=dtype, device="cuda")
+    phib = torch.randn((3, m, 7), generator=gen, dtype=dtype, device="cuda")
+    x = torch.ones(3, 1, dtype=dtype, device="cuda")
+    before = taylor_cuda.launches
+    a, b = prop.apply_vhs(phia, phib, x)
+    assert taylor_cuda.launches == before
+    vhs = ((1j * 0.1) * chol[..., 0].to(dtype))[None].expand(3, m, m)
+    want = taylor_cuda.apply_taylor_plain(vhs, torch.cat([phia, phib], -1))
+    got = torch.cat([a, b], -1)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= TOL[dtype] * want.abs().max(
+    ).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("want_gh", [True, False])
+def test_greens_kernel_at_its_cap_and_route_past_it(dtype, want_gh):
+    """Kernel A at n = max_n launches and matches its plain version; at
+    max_n + 1 it launches nothing and gives the plain result."""
+    need_cuda()
+    cap = greens_cuda.max_n(dtype, want_gh)
+    tol = TOL[dtype]
+    rng = np.random.default_rng(cap)
+    for n in (cap, cap + 1):
+        psi, phi = card_walkers(rng, 4 * n, n, 37, dtype)
+        before = greens_cuda.launches
+        ld_k, gh_k = greens_cuda.greens_lanes(psi, phi, want_gh)
+        assert greens_cuda.launches == before + (1 if n == cap else 0)
+        ld_p, gh_p = greens_cuda.greens_lanes_plain(psi, phi, want_gh)
+        torch.cuda.synchronize()
+        d = (ld_k - ld_p).cpu().numpy()
+        if n > cap:
+            assert torch.equal(ld_k, ld_p)
+            assert (gh_k is None) == (gh_p is None)
+            if want_gh:
+                assert torch.equal(gh_k, gh_p)
+            continue
+        assert np.abs(d.real).max() <= tol * n
+        assert phase_diff(d.imag).max() <= tol * n
+        if want_gh:
+            err = (gh_k - gh_p).abs().max().item()
+            assert err <= tol * gh_p.abs().max().item()
+
+
+@pytest.mark.cuda
 def test_generic_kernels_refuse_instead_of_falling_back(monkeypatch):
     need_cuda()
     c64 = torch.complex64
@@ -494,7 +561,7 @@ def test_generic_kernels_refuse_instead_of_falling_back(monkeypatch):
         taylor_cuda.apply_taylor(vhs, phi.to(torch.complex128))
     with pytest.raises(ValueError):
         taylor_cuda.apply_taylor(vhs.transpose(1, 2), phi)
-    m = taylor_cuda.MAX_M + 1
+    m = taylor_cuda.max_m(c64) + 1
     with pytest.raises(ValueError):
         taylor_cuda.apply_taylor(torch.ones(1, m, m, dtype=c64, device="cuda"),
                                  torch.ones(1, m, 2, dtype=c64, device="cuda"))

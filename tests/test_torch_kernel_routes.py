@@ -1,0 +1,279 @@
+"""Routes by shape, kernel caps and tile plans of the port, on the CPU.
+
+* Kernel A (ops/greens_cuda): ``max_n`` is the largest n whose walker
+  (n x 2n complex values with the Green's function, n x n without) fits one
+  block's shared memory; the route sends a CUDA tensor past it to the plain
+  version before any launch.
+* The Taylor kernel (ops/taylor_cuda): ``max_m`` from the kernel's shared
+  memory layout, at least 257 in both types; the plan refuses cap + 1; the
+  Generic propagator sends an M past the cap to the plain series.
+* The exchange kernel (ops/exx_cuda): the tile plan stays within the
+  thread and shared-memory budgets, and the tiled algorithm it describes
+  (packed panels, index-block pairs weighted 2 off the diagonal, the
+  partials' sum) gives exx_plain's result in float64 to 1e-12.
+* ``matmul_precision``: both drivers refuse a tier other than float32.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from pauxy_tpu_torch.ops import cuda_build, exx_cuda, greens_cuda, taylor_cuda
+
+torch.set_num_threads(1)
+
+C64, C128 = torch.complex64, torch.complex128
+CPU = dict(device="cpu", dtype="double")
+
+
+def cuda_like(shape, dtype):
+    """Stands in for a CUDA tensor where only its device, type and shape
+    are read (this machine may have no card)."""
+    return types.SimpleNamespace(device=torch.device("cuda"), dtype=dtype,
+                                 shape=torch.Size(shape))
+
+
+@pytest.mark.parametrize("dtype,want_gh,cap", [
+    (C128, True, 85), (C128, False, 120), (C64, True, 120),
+    (C64, False, 170)])
+def test_greens_max_n_from_the_layout(dtype, want_gh, cap):
+    ncol = 2 if want_gh else 1
+    per = lambda n: n * ncol * n * dtype.itemsize   # noqa: E731
+    assert greens_cuda.max_n(dtype, want_gh) == cap
+    assert per(cap) <= cuda_build.SMEM_MAX < per(cap + 1)
+    assert greens_cuda.uses_kernel(cuda_like((2 * cap, cap, 8), dtype),
+                                   want_gh)
+    assert not greens_cuda.uses_kernel(
+        cuda_like((2 * cap + 2, cap + 1, 8), dtype), want_gh)
+
+
+def test_greens_route_on_the_cpu_is_the_plain_version(monkeypatch):
+    """A CPU tensor past the cap takes the plain version; nothing reaches
+    the kernel library."""
+    monkeypatch.setattr(greens_cuda.cuda_build, "library", None)
+    rng = np.random.default_rng(3)
+    n, m, w = greens_cuda.max_n(C128) + 1, 2 * 86 + 4, 2
+    psi = torch.from_numpy(rng.normal(size=(m, n)) + 0j)
+    phi = (psi[:, :, None] + 0.3 * torch.from_numpy(
+        rng.normal(size=(m, n, w)) + 0j)).contiguous()
+    before = greens_cuda.launches
+    ld, gh = greens_cuda.greens_lanes(psi, phi)
+    ld_p, gh_p = greens_cuda.greens_lanes_plain(psi, phi)
+    assert greens_cuda.launches == before
+    assert torch.equal(ld, ld_p) and torch.equal(gh, gh_p)
+    assert not greens_cuda.uses_kernel(phi)
+
+
+@pytest.mark.parametrize("dtype,cap", [(C64, 656), (C128, 556)])
+def test_taylor_max_m_and_refusal_past_it(dtype, cap):
+    tn = taylor_cuda.TILES[dtype][1]
+    assert taylor_cuda.max_m(dtype) == cap >= 257
+    assert taylor_cuda.smem_bytes(cap, tn, dtype) <= cuda_build.SMEM_MAX
+    assert taylor_cuda.smem_bytes(cap + 1, tn, dtype) > cuda_build.SMEM_MAX
+    assert taylor_cuda.plan(cap, 14, dtype) >= tn
+    with pytest.raises(ValueError, match="largest the kernel takes"):
+        taylor_cuda.plan(cap + 1, 14, dtype)
+    assert taylor_cuda.fits(cap, dtype) and not taylor_cuda.fits(cap + 1,
+                                                                 dtype)
+
+
+@pytest.mark.parametrize("dtype", [C64, C128])
+@pytest.mark.parametrize("m,ncol", [(16, 14), (128, 32), (228, 84),
+                                    (257, 14), (257, 84)])
+def test_taylor_plan_fits_the_budget(dtype, m, ncol):
+    tm, tn, ks, ksp = taylor_cuda.TILES[dtype]
+    cb = taylor_cuda.plan(m, ncol, dtype)
+    assert cb % tn == 0
+    assert taylor_cuda.threads(m, cb, dtype) <= taylor_cuda.MAX_THREADS[
+        dtype]
+    assert taylor_cuda.smem_bytes(m, cb, dtype) <= cuda_build.SMEM_MAX
+    # The fewest parts: one part fewer would not fit.
+    parts = -(-ncol // cb)
+    if parts > 1:
+        wider = cuda_build.round_up(-(-ncol // (parts - 1)), tn)
+        assert (taylor_cuda.threads(m, wider, dtype)
+                > taylor_cuda.MAX_THREADS[dtype]
+                or taylor_cuda.smem_bytes(m, wider, dtype)
+                > cuda_build.SMEM_MAX)
+    if dtype == C64 and (m, ncol) == (228, 84):
+        assert cb == 44       # two column halves of one walker, 20 warps
+    if dtype == C64 and (m, ncol) == (128, 32):
+        assert cb == 32       # the whole walker in one block
+
+
+def test_generic_propagator_routes_past_the_taylor_cap(monkeypatch):
+    """taylor_impl="pallas": M up to the cap goes to apply_taylor, M past it
+    to the plain series, chosen by shape."""
+    from pauxy_tpu_torch.propagation.generic import GenericContinuous
+    calls = []
+    real = taylor_cuda.apply_taylor
+
+    def spy(vhs, phi, order=6):
+        calls.append(vhs.shape[-1])
+        return real(vhs, phi, order)
+
+    monkeypatch.setattr(taylor_cuda, "apply_taylor", spy)
+    rng = np.random.default_rng(5)
+    for m in (12, taylor_cuda.max_m(C128) + 1):
+        chol = torch.from_numpy(0.01 * rng.normal(size=(m, m, 1)))
+        prop = GenericContinuous(torch.zeros(2, m, m, dtype=C128),
+                                 torch.zeros(1, dtype=C128), chol, dt=0.01,
+                                 taylor_impl="pallas")
+        phia = torch.from_numpy(rng.normal(size=(1, m, 2)) + 0j)
+        phib = torch.from_numpy(rng.normal(size=(1, m, 1)) + 0j)
+        x = torch.ones(1, 1, dtype=C128)
+        a, b = prop.apply_vhs(phia, phib, x)
+        vhs = (1j * 0.1) * chol[..., 0].to(C128)[None]
+        want = taylor_cuda.apply_taylor_plain(vhs, torch.cat([phia, phib],
+                                                             -1))
+        torch.testing.assert_close(torch.cat([a, b], -1), want, rtol=1e-12,
+                                   atol=1e-12)
+    assert calls == [12]
+
+
+EXX_PLAN_SHAPES = [(30, 3, 12, 5), (512, 16, 128, 1024), (1024, 42, 228, 256),
+                   (8, 60, 500, 256), (4, 130, 200, 256), (1023, 42, 228, 1)]
+
+
+@pytest.mark.parametrize("dtype", [C64, C128])
+@pytest.mark.parametrize("x,n,m,w", EXX_PLAN_SHAPES)
+def test_exx_plan_fits_the_budget(dtype, x, n, m, w):
+    tm, tn, ks, _, _ = exx_cuda.TILES[dtype]
+    pl = exx_cuda.plan(x, n, m, w, dtype)
+    assert pl.bsz <= exx_cuda.MAX_BLOCK and pl.bsz * pl.nb >= n
+    assert pl.bsz * (pl.nb - 1) < n
+    assert pl.rt % tm == 0 and pl.rt >= pl.xg * pl.bsz
+    assert pl.ct % tn == 0 and pl.ct >= pl.wg * pl.bsz
+    assert pl.kp % ks == 0 and m <= pl.kp < m + ks
+    assert pl.threads <= exx_cuda.MAX_THREADS
+    assert pl.smem <= cuda_build.SMEM_MAX
+    assert pl.ng * pl.xg >= x and pl.nh * pl.wg >= w
+    assert pl.apack == pl.ng * pl.nb * pl.kp * pl.rt
+    assert pl.bpack == pl.nh * pl.nb * pl.kp * pl.ct
+    assert pl.part == pl.ng * pl.nb * (pl.nb + 1) // 2 * w
+    if dtype == C64 and (x, n, m) == (1024, 42, 228):
+        assert (pl.bsz, pl.nb, pl.xg, pl.wg, pl.rt, pl.ct, pl.kp) == (
+            42, 1, 3, 3, 128, 128, 240)
+        assert pl.smem == 132240 and pl.threads == 512
+    if dtype == C64 and (x, n, m) == (512, 16, 128):
+        # 8 warps, two on each scheduler.
+        assert (pl.xg, pl.wg, pl.rt, pl.ct, pl.threads) == (8, 4, 128, 64,
+                                                            256)
+
+
+def tiled_exx(rchol, ghalf, pl):
+    """The algorithm of csrc/exx.cu in numpy: packed panels, T[I, J] and
+    T[J, I] of each index-block pair, the transpose-trace of each (x, w)
+    block, off-diagonal pairs weighted 2, partials summed in order."""
+    nx, n, m = rchol.shape
+    w = ghalf.shape[0]
+
+    def pack(src, count, grp, rtot, ngrp):
+        out = np.zeros((ngrp, pl.nb, pl.kp, rtot), dtype=src.dtype)
+        for gi in range(ngrp):
+            for blk in range(pl.nb):
+                for lo in range(grp):
+                    idx = gi * grp + lo
+                    i1 = min(n, (blk + 1) * pl.bsz)
+                    if idx >= count or blk * pl.bsz >= n:
+                        continue
+                    rows = src[idx, blk * pl.bsz:i1, :]      # [<=B, M]
+                    out[gi, blk, :m, lo * pl.bsz:lo * pl.bsz + len(rows)] = \
+                        rows.T
+        return out
+
+    a = pack(rchol, nx, pl.xg, pl.rt, pl.ng)
+    b = pack(ghalf, w, pl.wg, pl.ct, pl.nh)
+    pairs = [(i, j) for i in range(pl.nb) for j in range(i, pl.nb)]
+    part = np.zeros((pl.ng, len(pairs), w), dtype=np.complex128)
+    bs = pl.bsz
+    for g in range(pl.ng):
+        for h in range(pl.nh):
+            for p, (bi, bj) in enumerate(pairs):
+                t1 = a[g, bi].T @ b[h, bj]
+                t2 = a[g, bj].T @ b[h, bi] if bi != bj else t1
+                for wl in range(pl.wg):
+                    wi = h * pl.wg + wl
+                    if wi >= w:
+                        continue
+                    s = 0
+                    for xl in range(pl.xg):
+                        blk1 = t1[xl * bs:(xl + 1) * bs, wl * bs:(wl + 1) * bs]
+                        blk2 = t2[xl * bs:(xl + 1) * bs, wl * bs:(wl + 1) * bs]
+                        s += np.sum(blk1 * blk2.T)
+                    part[g, p, wi] = s * (1 if bi == bj else 2)
+    return part.reshape(-1, w).sum(0)
+
+
+@pytest.mark.parametrize("x,n,m,w", [(30, 3, 12, 5), (7, 60, 20, 3),
+                                     (4, 130, 16, 2), (9, 16, 40, 11)])
+def test_exx_tiled_algorithm_matches_plain(x, n, m, w):
+    rng = np.random.default_rng(x + n + m + w)
+    rchol = rng.normal(size=(x, n, m)) / m ** 0.5
+    ghalf = rng.normal(size=(w, n, m)) + 1j * rng.normal(size=(w, n, m))
+    pl = exx_cuda.plan(x, n, m, w, C128)
+    got = tiled_exx(rchol, ghalf, pl)
+    want = exx_cuda.exx_plain(torch.from_numpy(rchol),
+                              torch.from_numpy(ghalf)).numpy()
+    scale = exx_cuda.exx_magnitude(torch.from_numpy(rchol),
+                                   torch.from_numpy(ghalf)).numpy()
+    assert np.all(np.abs(got - want) <= 1e-12 * scale)
+
+
+@pytest.mark.parametrize("policy", ["bfloat16", "bfloat16_3x"])
+def test_afqmc_refuses_lower_matmul_precision(policy):
+    from pauxy_tpu_torch.models import free_electron_trial, make_hubbard
+    from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
+    ham = make_hubbard(2, 2, U=4.0, nx=2, ny=2, **CPU)
+    with pytest.raises(NotImplementedError, match=policy):
+        AFQMC(ham, free_electron_trial(ham, **CPU),
+              QMCOpts(nwalkers=4, dt=0.01, nsteps=2, nblocks=1),
+              propagator_options={"matmul_precision": policy}, device="cpu")
+
+
+@pytest.mark.parametrize("policy", [None, "float32"])
+def test_afqmc_runs_with_float32_precision(policy):
+    from pauxy_tpu_torch.models import free_electron_trial, make_hubbard
+    from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
+    ham = make_hubbard(2, 2, U=4.0, nx=2, ny=2, **CPU)
+    af = AFQMC(ham, free_electron_trial(ham, **CPU),
+               QMCOpts(nwalkers=4, dt=0.01, nsteps=2, nblocks=1, rng_seed=3),
+               propagator_options={"matmul_precision": policy},
+               device="cpu")
+    rows = af.run()
+    assert af.matmul_precision == "float32"
+    assert np.isfinite(rows.real).all()
+
+
+@pytest.mark.parametrize("policy", ["bfloat16", "bfloat16_3x"])
+def test_thermal_afqmc_refuses_lower_matmul_precision(policy):
+    from pauxy_tpu_torch.models import make_hubbard
+    from pauxy_tpu_torch.models.thermal_trial import make_one_body_trial
+    from pauxy_tpu_torch.qmc import QMCOpts
+    from pauxy_tpu_torch.qmc.thermal_afqmc import ThermalAFQMC
+    ham = make_hubbard(3, 3, U=4.0, nx=3, ny=3, **CPU)
+    trial = make_one_body_trial(ham, 0.5, 0.05, mu=0.9, **CPU)
+    with pytest.raises(NotImplementedError, match=policy):
+        ThermalAFQMC(ham, trial, QMCOpts(nwalkers=2, dt=0.05, nsteps=1,
+                                         nblocks=1, beta=0.5),
+                     propagator_options={"matmul_precision": policy},
+                     device="cpu")
+
+
+@pytest.mark.parametrize("policy", [None, "float32"])
+def test_thermal_afqmc_runs_with_float32_precision(policy):
+    from pauxy_tpu_torch.models import make_hubbard
+    from pauxy_tpu_torch.models.thermal_trial import make_one_body_trial
+    from pauxy_tpu_torch.qmc import QMCOpts
+    from pauxy_tpu_torch.qmc.thermal_afqmc import ThermalAFQMC
+    ham = make_hubbard(3, 3, U=4.0, nx=3, ny=3, **CPU)
+    trial = make_one_body_trial(ham, 0.5, 0.05, mu=0.9, **CPU)
+    af = ThermalAFQMC(ham, trial, QMCOpts(nwalkers=2, dt=0.05, nsteps=1,
+                                          nblocks=1, beta=0.5),
+                      propagator_options={"matmul_precision": policy},
+                      device="cpu")
+    rows = af.run()
+    assert af.matmul_precision == "float32"
+    assert np.isfinite(rows.real).all()
