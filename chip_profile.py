@@ -1,7 +1,7 @@
 """Where one block of each of the port's main paths spends its time, on one
 CUDA card.
 
-    python3 chip_profile.py [--trace PREFIX]
+    python3 chip_profile.py [--trace PREFIX] [--paths NAME,...]
 
 Builds the north-star configuration of chip_smoke.py (4x4 Hubbard (7, 7),
 U=4, free-electron trial, complex64, 1024 walkers, dt=0.01,
@@ -16,14 +16,21 @@ step) and past the supermatrix cap at chip_smoke.py's phase-9 shape
 Taylor kernel at (228, 84) and the exchange kernel); then the
 finite-temperature UEG path at chip_smoke.py's phase-11
 shape (M=93, (7, 7), beta=2, dt=0.05, mu=0.9, 40 slices, 256 walkers,
-complex64), whose block is one imaginary-time path. For each it runs
+complex64), whose block is one imaginary-time path, and the
+finite-temperature Hubbard path of chip_smoke.py's phase 12 (3x3, U=4,
+mu=0.9, beta=0.5, dt=0.05, 32 walkers, population control every 2
+slices, complex64; cpqr at (64, 9)). For each it runs
 one warm-up block, then one block under
 torch.profiler (CPU and CUDA activity), and prints the block's wall time,
 the summed device time of its kernels, the device's idle share (1 - device
 time / wall time; kernels run on one stream, so they do not overlap), the
-kernel launch count, and the kernels by device time. The card's name and
-power limit (nvidia-smi) come first. With --trace the Chrome traces are
-written to PREFIX.<path>.json. Needs the card; there is no CPU fallback.
+kernel launch count, the device time and launches of the cpqr kernel
+and of kernel A (``cpqr_ms``, ``greens_ms``: every kernel whose name holds
+"cpqr" or "greens_lanes"), and the kernels by device time. The card's
+name and power limit (nvidia-smi) come first. --paths profiles only the
+named paths (continuous, discrete, generic, generic_exx, thermal_ueg,
+thermal_hubbard). With --trace the Chrome traces are written to
+PREFIX.<path>.json. Needs the card; there is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -58,11 +65,17 @@ def profile_block(af, name: str, trace: str | None, steps: int,
     device_us = sum(sum(v) for v in by_name.values())
     rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
     nwalkers = af.qmc.nwalkers
+    mine = {key: [t for k, v in by_name.items() if key in k for t in v]
+            for key in ("cpqr", "greens_lanes")}
     print(json.dumps({
         "path": name, "nwalkers": nwalkers, "nsteps": steps,
         "block_wall_ms": wall * 1e3, "device_ms": device_us / 1e3,
         "device_idle_share": 1.0 - device_us / 1e6 / wall,
         "kernel_launches": len(kernels),
+        "cpqr_ms": sum(mine["cpqr"]) / 1e3,
+        "cpqr_launches": len(mine["cpqr"]),
+        "greens_ms": sum(mine["greens_lanes"]) / 1e3,
+        "greens_launches": len(mine["greens_lanes"]),
         metric: nwalkers * steps / wall,
     }))
     for kname, times in rows[:25]:
@@ -75,7 +88,14 @@ def profile_block(af, name: str, trace: str | None, steps: int,
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--paths", default=None,
+                    help="comma-separated paths to profile (default all)")
     args = ap.parse_args()
+    want = set(args.paths.split(",")) if args.paths else None
+
+    def wanted(name: str) -> bool:
+        return want is None or name in want
+
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -100,25 +120,43 @@ def main() -> None:
     eopts = {"mixed": {"energy_eval_freq": 1}}
     for name, popts in (("continuous", None),
                         ("discrete", {"hubbard_stratonovich": "discrete"})):
+        if not wanted(name):
+            continue
         af = AFQMC(ham, trial, qmc, propagator_options=popts,
                    estimator_options=eopts, device="cuda")
         profile_block(af, name, args.trace, qmc.nsteps)
-    ham = generic_model(128, 512, 16, make_generic)
-    trial = rhf_identity_trial(ham, device="cuda", dtype="single")
-    qmc = QMCOpts(nwalkers=1024, dt=0.005, nsteps=10, nblocks=2, nstblz=5,
-                  npop_control=1, rng_seed=8)
-    af = AFQMC(ham, trial, qmc, propagator_options={"taylor_impl": "pallas"},
-               estimator_options=eopts, device="cuda")
-    profile_block(af, "generic", args.trace, qmc.nsteps)
-    del ham, trial, af
-    ham = generic_model(228, 1024, 42, make_generic)
-    trial = rhf_identity_trial(ham, device="cuda", dtype="single")
-    qmc = QMCOpts(nwalkers=256, dt=0.005, nsteps=10, nblocks=2, nstblz=5,
-                  npop_control=1, rng_seed=8)
-    af = AFQMC(ham, trial, qmc, propagator_options={"taylor_impl": "pallas"},
-               device="cuda")
-    profile_block(af, "generic_exx", args.trace, qmc.nsteps)
-    del ham, trial, af
+    if wanted("thermal_hubbard"):
+        ham = make_hubbard(3, 3, U=4.0, nx=3, ny=3, device="cuda",
+                           dtype="single")
+        trial = make_one_body_trial(ham, 0.5, 0.05, mu=0.9, device="cuda",
+                                    dtype="single")
+        qmc = QMCOpts(nwalkers=32, dt=0.05, nsteps=1, nblocks=2, beta=0.5,
+                      npop_control=2, rng_seed=8)
+        af = ThermalAFQMC(ham, trial, qmc, device="cuda")
+        profile_block(af, "thermal_hubbard", args.trace, af.ntime_slices,
+                      "walker_slice_steps_per_s")
+    if wanted("generic"):
+        ham = generic_model(128, 512, 16, make_generic)
+        trial = rhf_identity_trial(ham, device="cuda", dtype="single")
+        qmc = QMCOpts(nwalkers=1024, dt=0.005, nsteps=10, nblocks=2,
+                      nstblz=5, npop_control=1, rng_seed=8)
+        af = AFQMC(ham, trial, qmc,
+                   propagator_options={"taylor_impl": "pallas"},
+                   estimator_options=eopts, device="cuda")
+        profile_block(af, "generic", args.trace, qmc.nsteps)
+        del ham, trial, af
+    if wanted("generic_exx"):
+        ham = generic_model(228, 1024, 42, make_generic)
+        trial = rhf_identity_trial(ham, device="cuda", dtype="single")
+        qmc = QMCOpts(nwalkers=256, dt=0.005, nsteps=10, nblocks=2,
+                      nstblz=5, npop_control=1, rng_seed=8)
+        af = AFQMC(ham, trial, qmc,
+                   propagator_options={"taylor_impl": "pallas"},
+                   device="cuda")
+        profile_block(af, "generic_exx", args.trace, qmc.nsteps)
+        del ham, trial, af
+    if not wanted("thermal_ueg"):
+        return
     ham = make_ueg(7, 7, rs=1.0, ecut=4.0, device="cuda", dtype="single")
     trial = make_one_body_trial(ham, 2.0, 0.05, mu=0.9, device="cuda",
                                 dtype="single")

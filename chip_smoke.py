@@ -12,7 +12,9 @@ non-zero and prints no result line:
      each kernel's cap (kernel A, kernel B, Taylor, cpqr; one past the cap
      takes the plain route by shape, without a launch), with
      median times at the main-path shape (kernel, plain version, and the
-     one PyTorch call that computes the same function where there is one);
+     one PyTorch call that computes the same function where there is one),
+     and for cpqr and kernel A the kernel's own device time (profiler)
+     beside the wrapper call's;
   4. the continuous main path at full width: 4x4 Hubbard (7, 7), U=4,
      free-electron trial, complex64, 1024 walkers, dt=0.01,
      re-orthogonalisation every 10 steps, comb population control and the
@@ -123,6 +125,29 @@ def median_ms(fns: dict, reps: int = 25) -> dict:
             end.synchronize()
             samples[name].append(start.elapsed_time(end))
     return {k: statistics.median(v) for k, v in samples.items()}
+
+
+def device_ms(fn, key: str, reps: int = 20) -> float:
+    """Device time of one launch of the kernel whose name holds ``key``
+    (the profiler's kernel times over ``reps`` calls of ``fn``, one launch
+    each, after a warm-up), so the host's share of a wrapper call is told
+    apart from the kernel's. The profiler may drop an event at a window's
+    edge, so the mean is over the events it kept (at least half)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.device_time_total for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and key in e.name]
+    if not reps // 2 <= len(times) <= reps:
+        raise AssertionError(f"device_ms: {len(times)} '{key}' kernels in "
+                             f"{reps} calls")
+    return sum(times) / 1e3 / len(times)
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -292,7 +317,7 @@ def check_cpqr(cpqr_cuda, rng) -> tuple[float, str]:
     input finite with a vanishing trailing diagonal. Returns (largest
     |R - R_plain| at (512, 93) complex64 on separated norms, the largest
     readings)."""
-    main_err, worst = None, {}
+    main_err, worst, routes = None, {}, set()
     wide = {"kernel": [0.0] * 3, "plain": [0.0] * 3, "planted": np.inf}
     cases = [(dt, m, b) for dt in (torch.complex64, torch.complex128)
              for m in (9, 16, 36, 48, 93, cpqr_cuda.max_m(dt))
@@ -305,10 +330,14 @@ def check_cpqr(cpqr_cuda, rng) -> tuple[float, str]:
             a = a + 1j * rng.normal(size=(b, m, m))
         a[0, :, m // 2] = 0.0
         a = torch.from_numpy(a).to("cuda", dtype)
+        before = cpqr_cuda.launches
         q, r, p = cpqr_cuda.cpqr_lanes(a)
         q2, r2, p2 = cpqr_cuda.cpqr_lanes(a)
         torch.cuda.synchronize()
         where = f"{dtype} m={m} B={b}"
+        if cpqr_cuda.launches - before != 2:
+            raise AssertionError(f"cpqr launches at {where}")
+        routes.add(cpqr_cuda.route(m))
         if not (torch.equal(q, q2) and torch.equal(r, r2)
                 and torch.equal(p, p2)):
             raise AssertionError(f"cpqr not reproducible at {where}")
@@ -379,8 +408,11 @@ def check_cpqr(cpqr_cuda, rng) -> tuple[float, str]:
                 and bool((d[:, k:] <= 10 * allow * d[:, :1]).all())):
             raise AssertionError(f"cpqr on rank-7 input at {dtype}: rec "
                                  f"{rec:.3e} orth {orth:.3e}")
+    if routes != {("warp", cpqr_cuda.WARP_TEAMS), ("block", 1)}:
+        raise AssertionError(f"cpqr routes checked: {routes}")
     kern, plain = wide["kernel"], wide["plain"]
-    return main_err, "; ".join(
+    return main_err, "routes (route, matrices a block) " + ", ".join(
+        f"{r} {mpb}" for r, mpb in sorted(routes)) + "; " + "; ".join(
         f"{k} rec {v[0]:.3f}, orth {v[1]:.3f} of 10 m eps, dQ {v[2]:.3f}, "
         f"dR {v[3]:.3f} of tol" for k, v in worst.items()) + (
         f"; Gaussian separated norms against double precision (complex64 "
@@ -507,12 +539,15 @@ def phase_diff(a: np.ndarray) -> np.ndarray:
 
 
 def check_greens(greens_cuda, rng) -> float:
-    """Kernel A against its plain version; returns the largest absolute
-    difference at the main-path shape (complex64, with ghT)."""
+    """Kernel A against its plain version at (M, n) in {(4, 1), (9, 3),
+    (16, 7), (36, 18), (64, 24)} x W in {1, 100, 1024, 1031}, both types
+    and modes (staged in shared memory at these shapes); returns the
+    largest absolute difference at the main-path shape (complex64, with
+    ghT)."""
     main_err = None
     for dtype in (torch.complex64, torch.complex128):
         tol = TOL[dtype]
-        for m, n in ((9, 3), (16, 7), (36, 18), (64, 24)):
+        for m, n in ((4, 1), (9, 3), (16, 7), (36, 18), (64, 24)):
             for w in (1, 100, 1024, 1031):
                 psi = rng.normal(size=(m, n)) + 1j * rng.normal(size=(m, n))
                 phi = psi[:, :, None] + 0.3 * (
@@ -810,16 +845,18 @@ def check_taylor_route(taylor_cuda, GenericContinuous, gen) -> str:
 
 
 def check_greens_route(greens_cuda, rng) -> str:
-    """Kernel A at n = max_n (each type and mode, 37 walkers, M = 4 n)
-    launches and agrees with its plain version; at max_n + 1 it launches
+    """Kernel A at n = max_n (each type and mode, M = 4 n, W in {1, 100,
+    1024, 1031}; phi read from device memory, not staged) launches and
+    agrees with its plain version; at max_n + 1 (37 walkers) it launches
     nothing and returns the plain version's result."""
     out = []
     for dtype in (torch.complex64, torch.complex128):
         tol = TOL[dtype]
         for want_gh in (True, False):
             cap = greens_cuda.max_n(dtype, want_gh)
-            for n in (cap, cap + 1):
-                m, w = 4 * n, 37
+            for n, w in ((cap, 1), (cap, 100), (cap, 1024), (cap, 1031),
+                         (cap + 1, 37)):
+                m = 4 * n
                 psi = rng.normal(size=(m, n)) + 1j * rng.normal(size=(m, n))
                 phi = psi[:, :, None] + 0.3 * (
                     rng.normal(size=(m, n, w))
@@ -839,7 +876,7 @@ def check_greens_route(greens_cuda, rng) -> str:
                 if want_gh:
                     rel = float((gh_k - gh_p).abs().max()
                                 / gh_p.abs().max())
-                where = f"{dtype} n={n} want_gh={want_gh}"
+                where = f"{dtype} n={n} W={w} want_gh={want_gh}"
                 if launched != (1 if n == cap else 0):
                     raise AssertionError(f"greens_lanes route at {where}: "
                                          f"{launched} launches")
@@ -1137,6 +1174,11 @@ def main() -> None:
     times["cpqr"] = median_ms({
         "plain": lambda: cpqr_cuda.cpqr_lanes_plain(qa),
         "kernel": lambda: cpqr_cuda.cpqr_lanes(qa)}, reps=10)
+    # The kernels' own device time (profiler), beside the wrapper's.
+    times["cpqr"]["device"] = device_ms(lambda: cpqr_cuda.cpqr_lanes(qa),
+                                        "cpqr")
+    times["greens_lanes"]["device"] = device_ms(
+        lambda: greens_cuda.greens_lanes(psi, phi, True), "greens_lanes")
     del qa
     work = {
         "greens_lanes": greens_work(m, n, w),
@@ -1155,8 +1197,10 @@ def main() -> None:
     # (with the supermatrix GEMM that the path takes there).
     at_shapes = {k: [] for k in times}
 
-    def at_shape(kernel, shape, fns, wk, reps=25):
+    def at_shape(kernel, shape, fns, wk, reps=25, dev_key=None):
         t = median_ms(fns, reps)
+        if dev_key is not None:
+            t["device_ms"] = device_ms(fns["kernel"], dev_key)
         bnd = bound_ms(*wk)
         at_shapes[kernel].append({
             "shape": shape, "ms": t["kernel"], "plain_ms": t["plain"],
@@ -1226,14 +1270,23 @@ def main() -> None:
     qh = torch.randn(64, 9, 9, dtype=c64, device="cuda", generator=gen)
     at_shape("cpqr", "(B,m)=(64,9) c64",
              {"plain": lambda: cpqr_cuda.cpqr_lanes_plain(qh),
-              "kernel": lambda: cpqr_cuda.cpqr_lanes(qh)}, cpqr_work(9, 64))
+              "kernel": lambda: cpqr_cuda.cpqr_lanes(qh)}, cpqr_work(9, 64),
+             dev_key="cpqr")
     qd = torch.randn(512, 93, 93, dtype=torch.complex128, device="cuda",
                      generator=gen)
     at_shape("cpqr", "(B,m)=(512,93) c128",
              {"plain": lambda: cpqr_cuda.cpqr_lanes_plain(qd),
               "kernel": lambda: cpqr_cuda.cpqr_lanes(qd)},
-             cpqr_work(93, 512, torch.complex128), reps=5)
+             cpqr_work(93, 512, torch.complex128), reps=5, dev_key="cpqr")
     del qd
+    # Kernel A with one walker and with a ragged 37: the chain of one
+    # walker, not the card's width, sets its time.
+    for gw in (1, 37):
+        pg = phi[:, :, :gw].contiguous()
+        at_shape("greens_lanes", f"(M,n)=(16,7) W={gw} c64",
+                 {"plain": lambda: greens_cuda.greens_lanes_plain(psi, pg),
+                  "kernel": lambda: greens_cuda.greens_lanes(psi, pg)},
+                 greens_work(m, n, gw), dev_key="greens_lanes")
     say("3 kernels", "greens_lanes, inv_logdet_lanes (complex and real, "
         "n=1 to 64 and the cap, pivot-needing matrices), "
         "chol_inv_lanes and hirsch_sweep agree with their plain versions at "
@@ -1244,14 +1297,18 @@ def main() -> None:
         "w=1024 c64 with the xla route as library call; exx (1024,42,228) "
         "w=256 c64 with the einsum route as library call; cpqr (512,93) "
         "c64, no library call): " + "; ".join(
-            f"{k} kernel {t['kernel']:.4f} ms vs plain {t['plain']:.4f} ms"
+            f"{k} kernel {t['kernel']:.4f} ms"
+            + (f" (device {t['device']:.4f} ms)" if "device" in t else "")
+            + f" vs plain {t['plain']:.4f} ms"
             + (f" vs library {t['library']:.4f} ms" if "library" in t
                else "")
             + f", bound {bounds[k][0]:.5f} ms ({bounds[k][1]}), max abs err "
             f"{err[k]:.3e}" for k, t in times.items()))
     say("3 kernels", "at the other main-path shapes (kernel / plain / "
         "library / bound ms): " + "; ".join(
-            f"{k} {e['shape']} {e['ms']:.4f} / {e['plain_ms']:.4f} / "
+            f"{k} {e['shape']} {e['ms']:.4f}"
+            + (f" (device {e['device_ms']:.4f})" if "device_ms" in e else "")
+            + f" / {e['plain_ms']:.4f} / "
             + (f"{e['library_ms']:.4f}" if e["library_ms"] is not None
                else "none")
             + f" / {e['bound_ms']:.5f} ({e['bound_by']})"
@@ -1263,7 +1320,8 @@ def main() -> None:
         "(257,14),(cap,14)} w in {1,37,1024} launches and agrees with its "
         "plain version (max|d| <= tol max|out|); M = cap + 1 takes the plain "
         f"series by shape ({taylor_route}); greens_lanes at n = max_n "
-        "launches and agrees with its plain version, n = max_n + 1 launches "
+        "with W in {1,100,1024,1031} launches and agrees with its plain "
+        "version, n = max_n + 1 launches "
         f"nothing ({greens_route}); exx at (X,n,M) in "
         "{(30,3,12),(512,16,128),(1024,42,228),(8,60,500),(4,130,200)} "
         "w in {1,37,256}, random and "
@@ -1687,7 +1745,8 @@ def main() -> None:
          "launches": sum(c[k] for c in by_path.values()),
          "launches_by_path": {p: c[k] for p, c in by_path.items()},
          "max_abs_err": err[k],
-         "ms": times[k]["kernel"], "plain_ms": times[k]["plain"],
+         "ms": times[k]["kernel"], "device_ms": times[k].get("device"),
+         "plain_ms": times[k]["plain"],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
          "library_ms": times[k].get("library"), "at_shapes": at_shapes[k]}
         for k, (src, rep) in meta.items()

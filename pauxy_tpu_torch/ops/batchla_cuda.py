@@ -14,6 +14,7 @@ raises.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -163,12 +164,13 @@ def slogdet_lanes(s: torch.Tensor) -> torch.Tensor:
     return ld.reshape(batch)
 
 
+@functools.lru_cache(maxsize=None)
 def inv_max_n(dtype: torch.dtype) -> int:
     """Largest n kernel B can launch for ``dtype``, in either mode: the
     n x n matrix, rows padded to the odd stride n | 1, must fit one block's
     shared memory beside BLOCK_STATIC_BYTES. 120 in complex128, 169 in
-    complex64 and float64, 241 in float32. ops/clinalg sends larger n to
-    torch.linalg."""
+    complex64 and float64, 241 in float32; derived once per type.
+    ops/clinalg sends larger n to torch.linalg."""
     size = dtype.itemsize
     n = math.isqrt((SMEM_MAX - BLOCK_STATIC_BYTES) // size)
     while n * (n | 1) * size + BLOCK_STATIC_BYTES > SMEM_MAX:

@@ -9,27 +9,35 @@ take, raises. Both use the LAPACK phase choice beta = -(alpha/|alpha|)
 ||x|| for the diagonal of R, so with equal pivots their factors agree
 elementwise; the pivots themselves may differ on near-tied column norms
 (the kernel recomputes the norms exactly every step, the plain version
-downdates them between refreshes).
+downdates them between refreshes). The kernel has two routes, chosen by
+its launcher from m alone (``route``): a warp per matrix, WARP_TEAMS
+matrices a block, for m <= WARP_MAX_M; a 256-thread block per matrix
+above. Both factor and then form Q in the same block, in place.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from pauxy_tpu_torch.ops import cuda_build
 
-# Kernel launches so far (one per call: the factor and form-Q passes); a
-# run can show that its path used the kernel.
+# Kernel launches so far (one per call); a run can show that its path used
+# the kernel.
 launches = 0
 
 # Exact partial-norm recompute period of the plain version's downdated
 # pivot norms (pauxy_tpu/ops/cpqr.py:CPQR_NORM_REFRESH).
 CPQR_NORM_REFRESH = 16
 
-# Shared memory one block may use on sm_90 (kSmemMax in gauss_jordan.cuh),
-# and the form-Q pass's column block (kQcb in csrc/cpqr.cu).
+# csrc/cpqr.cu: the form-Q panel width (kNb) and the largest m of the warp
+# route (kWarpMaxM; a warp per matrix, WARP_TEAMS matrices a block). A
+# larger m takes the block route, a 256-thread block per matrix.
+NB = 8
+WARP_MAX_M = 32
+WARP_TEAMS = 4
 SMEM_MAX = cuda_build.SMEM_MAX
-QCB = 16
 
 _SYMBOLS = {torch.complex64: "pauxy_cpqr_c64",
             torch.complex128: "pauxy_cpqr_c128"}
@@ -40,20 +48,29 @@ DTYPES = tuple(_COMPLEX)
 
 
 def smem_bytes(m: int, dtype: torch.dtype) -> int:
-    """Shared memory of the larger of the kernel's two passes at m
-    (factor_bytes / formq_bytes in csrc/cpqr.cu): the form-Q pass holds the
-    m x m reflectors, an m x 16 block of Q and tau."""
+    """Shared memory of one matrix's team (Layout in csrc/cpqr.cu): the
+    matrix, column-major with the odd stride m | 1; form-Q's W [NB, m]; the
+    Gram matrix and T [NB, NB]; tau [m]; perm [m] (int32); each piece
+    rounded up to 16 bytes."""
     c = _COMPLEX[dtype].itemsize
-    factor = m * m * c + m * (c // 2) + 2 * (c // 2) + 8
-    formq = m * m * c + m * QCB * c + m * (c // 2)
-    return max(factor, formq)
+    r16 = lambda x: cuda_build.round_up(x, 16)   # noqa: E731
+    return (r16(m * (m | 1) * c) + r16(NB * m * c) + 2 * NB * NB * c
+            + r16(m * (c // 2)) + r16(4 * m))
 
 
+def route(m: int) -> tuple[str, int]:
+    """The launcher's route for m and the matrices a block of it holds:
+    ("warp", WARP_TEAMS) up to WARP_MAX_M, else ("block", 1)."""
+    return ("warp", WARP_TEAMS) if m <= WARP_MAX_M else ("block", 1)
+
+
+@functools.lru_cache(maxsize=None)
 def max_m(dtype: torch.dtype) -> int:
-    """Largest m the kernel launches for ``dtype`` (162 for complex64 and
-    float32, 112 for complex128 and float64): what fits one block's shared
-    memory. ops/cpqr.cpqr sends a larger m to the plain version by shape."""
-    m = 1
+    """Largest m the kernel launches for ``dtype`` (165 for complex64 and
+    float32, 115 for complex128 and float64): one matrix's team fits a
+    block's shared memory. Derived once per type. ops/cpqr.cpqr sends a
+    larger m to the plain version by shape."""
+    m = WARP_MAX_M
     while smem_bytes(m + 1, dtype) <= SMEM_MAX:
         m += 1
     return m
@@ -152,9 +169,10 @@ def cpqr_lanes(a: torch.Tensor):
         raise ValueError(f"cpqr_lanes: shape {tuple(a.shape)}, want "
                          f"[B, m, m]")
     b, m, _ = a.shape
-    if m > max_m(a.dtype):
-        raise ValueError(f"cpqr_lanes: m = {m} > {max_m(a.dtype)}, what the "
-                         f"kernel launches for {a.dtype}")
+    cap = max_m(a.dtype)
+    if m > cap:
+        raise ValueError(f"cpqr_lanes: m = {m} > {cap}, what the kernel "
+                         f"launches for {a.dtype}")
     cdtype = _COMPLEX[a.dtype]
     x = a.to(cdtype).contiguous()
     q = torch.empty_like(x)
@@ -162,13 +180,11 @@ def cpqr_lanes(a: torch.Tensor):
     perm = torch.empty((b, m), dtype=torch.long, device=a.device)
     if b == 0 or m == 0:
         return q, r, perm
-    packed = torch.empty_like(x)
-    tau = torch.empty((b, m), dtype=x.real.dtype, device=a.device)
     fn = getattr(cuda_build.library(), _SYMBOLS[cdtype])
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), q.data_ptr(), r.data_ptr(), packed.data_ptr(),
-                tau.data_ptr(), perm.data_ptr(), b, m, stream)
+        rc = fn(x.data_ptr(), q.data_ptr(), r.data_ptr(), perm.data_ptr(), b,
+                m, stream)
     cuda_build.check(rc, "cpqr_lanes")
     launches += 1
     if not a.is_complex():

@@ -39,8 +39,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes; each returns the cudaError_t of its launch.
 SIGNATURES = {
-    "pauxy_greens_lanes_c64": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "pauxy_greens_lanes_c128": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "pauxy_greens_lanes_c64": (_P,) * 4 + (_I,) * 8 + (_P,),
+    "pauxy_greens_lanes_c128": (_P,) * 4 + (_I,) * 8 + (_P,),
     "pauxy_inv_logdet_c64": (_P, _P, _P, _I, _I, _I, _P),
     "pauxy_inv_logdet_c128": (_P, _P, _P, _I, _I, _I, _P),
     "pauxy_inv_logdet_f32": (_P, _P, _P, _I, _I, _I, _P),
@@ -53,8 +53,8 @@ SIGNATURES = {
     "pauxy_taylor_c128": (_P, _P, _P) + (_I,) * 6 + (_P,),
     "pauxy_exx_c64": (_P,) * 6 + (_I,) * 11 + (_P,),
     "pauxy_exx_c128": (_P,) * 6 + (_I,) * 11 + (_P,),
-    "pauxy_cpqr_c64": (_P,) * 6 + (_I, _I, _P),
-    "pauxy_cpqr_c128": (_P,) * 6 + (_I, _I, _P),
+    "pauxy_cpqr_c64": (_P,) * 4 + (_I, _I, _P),
+    "pauxy_cpqr_c128": (_P,) * 4 + (_I, _I, _P),
 }
 
 _lib = None

@@ -14,6 +14,7 @@ CUDA tensor of a type or layout the kernel does not take, raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -82,12 +83,14 @@ def _score(xg: int, wg: int, bsz: int, tm: int, tn: int) -> float:
     return (xg * bsz * wg * bsz) / (rt * ct) * (warps / 4) / -(-warps // 4)
 
 
+@functools.lru_cache(maxsize=None)
 def plan(nx: int, n: int, m: int, w: int, dtype: torch.dtype) -> Plan:
     """The tile of an exx call: index blocks of at most MAX_BLOCK rows; then,
     among the tiles of up to the aimed-at rows and columns (at least one
     vector and one walker, at most all) that fit the thread and
     shared-memory budgets, the one with the best ``_score``; on a tie one of
-    at most 8 warps (two blocks share an SM), then the larger."""
+    at most 8 warps (two blocks share an SM), then the larger. Derived once
+    per shape and type."""
     tm, tn, ks, want_r, want_c = TILES[dtype]
     nb = -(-n // MAX_BLOCK)
     bsz = -(-n // nb)

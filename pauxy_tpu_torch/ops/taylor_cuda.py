@@ -12,6 +12,8 @@ plain series. The bf16 multiplicand option of the TPU kernel is not ported.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from pauxy_tpu_torch.ops import cuda_build
@@ -49,11 +51,12 @@ def threads(m: int, cb: int, dtype: torch.dtype) -> int:
     return round_up(round_up(m, tm) // tm * (cb // tn), 32)
 
 
+@functools.lru_cache(maxsize=None)
 def plan(m: int, ncol: int, dtype: torch.dtype) -> int:
     """Columns of a part, a multiple of TN: all C columns (padded to TN) in
     one block when the threads and shared memory allow, else the fewest
     equal parts that fit. Raises ValueError when not even one column group
-    fits (M > ``max_m``)."""
+    fits (M > ``max_m``). Derived once per shape and type."""
     _, tn, _, _ = TILES[dtype]
     parts = 1
     while True:
@@ -67,9 +70,11 @@ def plan(m: int, ncol: int, dtype: torch.dtype) -> int:
         parts += 1
 
 
+@functools.lru_cache(maxsize=None)
 def max_m(dtype: torch.dtype) -> int:
     """Largest M the kernel launches for ``dtype``: one column group and the
-    VHS ring fit a block (656 in complex64, 556 in complex128)."""
+    VHS ring fit a block (656 in complex64, 556 in complex128). Derived
+    once per type."""
     _, tn, _, _ = TILES[dtype]
     m = 1
     while (smem_bytes(m + 1, tn, dtype) <= cuda_build.SMEM_MAX

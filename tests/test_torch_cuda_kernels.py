@@ -37,7 +37,10 @@ column's phase is aligned; a phase error of 2^-8 reads ~4e-3 in R); kernel
 B from n = 1 up to its cap, against its plain version, the augmented
 Gauss-Jordan's and torch.linalg in float64 (TOL, times n for the
 log-det); kernel B's route by shape at its cap; kernel A at its cap
-(launches, TOL) and past it (no launch, the plain result); the Taylor
+(launches, TOL, W in {1, 100, 1024, 1031}, phi read from device memory)
+and past it (no launch, the plain result); the cpqr kernel's two routes
+on ragged batches (a matrix's factors do not depend on its neighbours);
+the Taylor
 kernel at M = 257 and at its cap, and the Generic propagator's route past
 that cap (no launch, TOL against the plain series); and a
 thermal path on
@@ -82,7 +85,7 @@ def card_walkers(rng, m, n, w, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("m,n", SHAPES)
+@pytest.mark.parametrize("m,n", [(4, 1)] + SHAPES)
 def test_greens_kernel_matches_plain(dtype, m, n):
     need_cuda()
     tol = TOL[dtype]
@@ -696,7 +699,7 @@ def test_cpqr_kernel_matches_plain(dtype, m):
     allow = 10 * m * CPQR_EPS[dtype]
     rng = np.random.default_rng(m)
     cplx = dtype.is_complex
-    for b in ((1, 37) if m > 93 else (1, 37, 512)):
+    for b in (1, 37, 512):
         a = rng.normal(size=(b, m, m))
         if cplx:
             a = a + 1j * rng.normal(size=(b, m, m))
@@ -919,3 +922,48 @@ def test_thermal_path_on_card_matches_cpu(system):
     _, row_cpu = _thermal_path(system, "cpu", noise)
     np.testing.assert_allclose(row_gpu[:11], row_cpu[:11], rtol=1e-8,
                                atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("want_gh", [True, False])
+def test_greens_kernel_at_its_cap_over_walker_counts(dtype, want_gh):
+    """Kernel A at n = max_n, where phi is read from device memory rather
+    than staged, with W in {1, 100, 1024, 1031}: one launch each, TOL."""
+    need_cuda()
+    cap = greens_cuda.max_n(dtype, want_gh)
+    assert not greens_cuda.plan(4 * cap, cap, dtype, want_gh).staged
+    tol = TOL[dtype]
+    rng = np.random.default_rng(cap + 1)
+    for w in (1, 100, 1024, 1031):
+        psi, phi = card_walkers(rng, 4 * cap, cap, w, dtype)
+        before = greens_cuda.launches
+        ld_k, gh_k = greens_cuda.greens_lanes(psi, phi, want_gh)
+        assert greens_cuda.launches == before + 1
+        ld_p, gh_p = greens_cuda.greens_lanes_plain(psi, phi, want_gh)
+        torch.cuda.synchronize()
+        d = (ld_k - ld_p).cpu().numpy()
+        assert np.abs(d.real).max() <= tol * cap
+        assert phase_diff(d.imag).max() <= tol * cap
+        if want_gh:
+            err = (gh_k - gh_p).abs().max().item()
+            assert err <= tol * gh_p.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [9, 32, 33, 93])
+def test_cpqr_routes_agree_across_ragged_batches(dtype, m):
+    """Both launcher routes (a warp per matrix, four a block, up to m = 32;
+    a block per matrix above) on B in {1, 3, 5, 37}, ragged for the warp
+    route: each matrix's factors do not depend on its batch neighbours."""
+    need_cuda()
+    rng = np.random.default_rng(m + 3)
+    a = rng.normal(size=(37, m, m)) + 1j * rng.normal(size=(37, m, m))
+    a = torch.from_numpy(a).to("cuda", dtype)
+    q, r, p = cpqr_cuda.cpqr_lanes(a)
+    for b in (1, 3, 5):
+        qb, rb, pb = cpqr_cuda.cpqr_lanes(a[-b:].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(qb, q[-b:]) and torch.equal(rb, r[-b:])
+        assert torch.equal(pb, p[-b:])

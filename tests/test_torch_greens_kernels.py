@@ -10,6 +10,15 @@ CPU tensors; those are checked here against the JAX package:
     inside the kernel): 1e-4 relative, plus numpy at 1e-10 in float64.
 Log-determinant imaginary parts are compared modulo 2 pi.
 
+``greens_mirror`` follows csrc/greens.cu's order of work in plain torch: the
+lanes of ``greens_cuda.plan`` per walker, lane g owning rows g, g + lanes,
+...; each lane's best pivot candidate (the first of its rows with the
+largest |S_ik|^2), then a butterfly over the lanes that keeps the lower
+index on ties; the elimination with the pivot row as it stands, the pivot
+row normalised after it (LU below the pivot without the Green's function).
+It is held to greens_lanes_plain in float64 at 1e-12 of the scale, at
+n in {1, 7, cap} and on exact ties in |S_ik|.
+
 The kernels themselves are compared with these plain versions on the card
 in tests/test_torch_cuda_kernels.py.
 """
@@ -140,3 +149,92 @@ def test_wrappers_reject_other_devices_and_count_no_cpu_launch():
     greens_cuda.greens_lanes(torch.from_numpy(psi), torch.from_numpy(phi))
     batchla_cuda.inv_logdet_lanes(torch.from_numpy(phi[:3].T.copy()))
     assert (greens_cuda.launches, batchla_cuda.launches) == before
+
+
+def greens_mirror(psi, phi, want_gh=True):
+    """csrc/greens.cu's order of work, batched over walkers, plain torch."""
+    m, n, w = phi.shape
+    lanes = greens_cuda.plan(m, n, phi.dtype, want_gh).lanes
+    s = torch.einsum("miw,mj->wij", phi, psi.conj())
+    aug = torch.cat([s, torch.eye(n, dtype=s.dtype).expand(w, n, n)], 2) \
+        if want_gh else s.clone()
+    wi = torch.arange(w)
+    ldr = torch.zeros(w, dtype=phi.real.dtype)
+    ph = torch.ones(w, dtype=phi.dtype)
+    for k in range(n):
+        mag = aug[:, :, k].abs() ** 2
+        best = torch.full((w, lanes), -1.0, dtype=mag.dtype)
+        idx = torch.full((w, lanes), n)
+        for g in range(lanes):
+            for i in range(g, n, lanes):
+                if i < k:
+                    continue
+                better = mag[:, i] > best[:, g]
+                best[:, g] = torch.where(better, mag[:, i], best[:, g])
+                idx[:, g] = torch.where(better, i, idx[:, g])
+        off = lanes // 2
+        while off:
+            partner = torch.arange(lanes) ^ off
+            ob, oi = best[:, partner], idx[:, partner]
+            take = (ob > best) | ((ob == best) & (oi < idx))
+            best, idx = torch.where(take, ob, best), torch.where(take, oi, idx)
+            off //= 2
+        assert bool((idx == idx[:, :1]).all())
+        piv = idx[:, 0]
+        rk, rp = aug[wi, k].clone(), aug[wi, piv].clone()
+        aug[wi, piv], aug[wi, k] = rk, rp
+        ph = torch.where(piv != k, -ph, ph)
+        p = aug[:, k, k]
+        ldr = ldr + 0.5 * torch.log(p.abs() ** 2)
+        ph = ph * (p / p.abs())
+        f = aug[:, :, k] / p[:, None]
+        rows = torch.arange(n) > k if not want_gh else torch.arange(n) != k
+        f = torch.where(rows[None, :], f, torch.zeros_like(f))
+        aug = aug - f[:, :, None] * aug[:, k:k + 1, :]
+        if want_gh:
+            aug[:, k] = aug[:, k] / p[:, None]
+    logdet = ldr + 1j * torch.angle(ph)
+    if not want_gh:
+        return logdet, None
+    return logdet, torch.einsum("wij,mjw->miw", aug[:, :, n:], phi)
+
+
+@pytest.mark.parametrize("want_gh", [True, False])
+@pytest.mark.parametrize("n", [1, 7, "cap"])
+def test_greens_mirror_matches_plain_f64(n, want_gh):
+    dt = torch.complex128
+    if n == "cap":
+        n = greens_cuda.max_n(dt, want_gh)
+    m, w = max(2 * n, 4), 3
+    psi, phi = walkers(np.random.default_rng(n), m, n, w, np.complex128)
+    psi, phi = torch.from_numpy(psi), torch.from_numpy(phi)
+    ld, gh = greens_mirror(psi, phi, want_gh)
+    ld_p, gh_p = greens_cuda.greens_lanes_plain(psi, phi, want_gh)
+    scale = ld_p.real.abs().max().item() + 1.0
+    assert (ld.real - ld_p.real).abs().max().item() <= 1e-12 * scale
+    assert phase_diff(ld.imag.numpy(), ld_p.imag.numpy()).max() <= 1e-12 * n
+    if want_gh:
+        scale = gh_p.abs().max().item()
+        assert (gh - gh_p).abs().max().item() <= 1e-12 * scale
+
+
+@pytest.mark.parametrize("want_gh", [True, False])
+def test_greens_mirror_on_exact_ties(want_gh):
+    """|S_ik| tied exactly down every column (S = phi^T conj(psi) with psi
+    the identity and phi a +-1 Hadamard block, times a unit phase per
+    walker): both pick the lowest row, and agree to 1e-12."""
+    n, w = 8, 4
+    h = np.ones((1, 1))
+    while h.shape[0] < n:
+        h = np.block([[h, h], [h, -h]])
+    psi = np.eye(n, dtype=np.complex128)
+    phase = np.exp(1j * np.arange(w))
+    phi = np.ascontiguousarray(h[:, :, None] * phase[None, None, :])
+    psi, phi = torch.from_numpy(psi), torch.from_numpy(phi)
+    ld, gh = greens_mirror(psi, phi, want_gh)
+    ld_p, gh_p = greens_cuda.greens_lanes_plain(psi, phi, want_gh)
+    assert (ld.real - ld_p.real).abs().max().item() <= 1e-12 * n
+    assert phase_diff(ld.imag.numpy(), ld_p.imag.numpy()).max() <= 1e-12 * n
+    if want_gh:
+        scale = gh_p.abs().max().item()
+        assert (gh - gh_p).abs().max().item() <= 1e-12 * scale

@@ -12,6 +12,11 @@
   (packed panels, index-block pairs weighted 2 off the diagonal, the
   partials' sum) gives exx_plain's result in float64 to 1e-12.
 * ``matmul_precision``: both drivers refuse a tier other than float32.
+* The cap helpers are derived once: ``cpqr_cuda.max_m`` and
+  ``taylor_cuda.max_m`` equal the largest m their layout formulas admit and
+  a second call is a cache hit (``cache_info``), as are the Taylor and exx
+  plans and kernel B's cap; kernel A's plan mirrors its launcher, and the
+  cpqr route follows m.
 """
 
 import types
@@ -20,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from pauxy_tpu_torch.ops import cuda_build, exx_cuda, greens_cuda, taylor_cuda
+from pauxy_tpu_torch.ops import (batchla_cuda, cpqr_cuda, cuda_build, exx_cuda,
+                                 greens_cuda, taylor_cuda)
 
 torch.set_num_threads(1)
 
@@ -277,3 +283,85 @@ def test_thermal_afqmc_runs_with_float32_precision(policy):
     rows = af.run()
     assert af.matmul_precision == "float32"
     assert np.isfinite(rows.real).all()
+
+
+def _largest(fits, start=1):
+    """The largest m >= start with fits(m), walking up from start."""
+    m = start
+    while fits(m + 1):
+        m += 1
+    return m
+
+
+@pytest.mark.parametrize("dtype,cap", [(C64, 165), (torch.float32, 165),
+                                       (C128, 115), (torch.float64, 115)])
+def test_cpqr_max_m_from_its_layout_and_cached(dtype, cap):
+    cpqr_cuda.max_m.cache_clear()
+    want = _largest(lambda m: cpqr_cuda.smem_bytes(m, dtype)
+                    <= cuda_build.SMEM_MAX)
+    assert cpqr_cuda.max_m(dtype) == want == cap
+    before = cpqr_cuda.max_m.cache_info()
+    assert cpqr_cuda.max_m(dtype) == cap
+    after = cpqr_cuda.max_m.cache_info()
+    assert (after.hits, after.misses) == (before.hits + 1, before.misses)
+
+
+@pytest.mark.parametrize("dtype,cap", [(C64, 656), (C128, 556)])
+def test_taylor_max_m_from_its_layout_and_cached(dtype, cap):
+    taylor_cuda.max_m.cache_clear()
+    tn = taylor_cuda.TILES[dtype][1]
+    want = _largest(lambda m: (
+        taylor_cuda.smem_bytes(m, tn, dtype) <= cuda_build.SMEM_MAX
+        and taylor_cuda.threads(m, tn, dtype)
+        <= taylor_cuda.MAX_THREADS[dtype]))
+    assert taylor_cuda.max_m(dtype) == want == cap
+    before = taylor_cuda.max_m.cache_info()
+    assert taylor_cuda.fits(cap, dtype) and not taylor_cuda.fits(cap + 1,
+                                                                 dtype)
+    after = taylor_cuda.max_m.cache_info()
+    assert after.misses == before.misses and after.hits == before.hits + 2
+
+
+@pytest.mark.parametrize("helper,args", [
+    (taylor_cuda.plan, (228, 84, C64)),
+    (exx_cuda.plan, (1024, 42, 228, 256, C64)),
+    (batchla_cuda.inv_max_n, (C128,)),
+    (greens_cuda.plan, (16, 7, C64, True))])
+def test_plans_and_caps_are_cached(helper, args):
+    helper.cache_clear()
+    first = helper(*args)
+    assert helper(*args) is first
+    info = helper.cache_info()
+    assert (info.hits, info.misses) == (1, 1)
+
+
+@pytest.mark.parametrize("dtype", [C64, C128])
+@pytest.mark.parametrize("want_gh", [True, False])
+@pytest.mark.parametrize("n", [1, 3, 7, 18, 24, "cap"])
+def test_greens_plan_mirrors_the_launcher(dtype, want_gh, n):
+    """Lanes the next power of two >= n (at most 32), walkers 64 / lanes
+    unless their matrices overflow a block, the odd row stride where it
+    fits, staging only when phi's slabs, psi and the matrices fit 48 KB."""
+    cap = greens_cuda.max_n(dtype, want_gh)
+    n = cap if n == "cap" else n
+    m = 16 if n == 7 else 4 * n
+    pl = greens_cuda.plan(m, n, dtype, want_gh)
+    assert pl.lanes == min(32, 1 << (n - 1).bit_length())
+    ncol = 2 * n if want_gh else n
+    assert pl.ld in (ncol, ncol | 1)
+    per = n * pl.ld * dtype.itemsize
+    assert pl.walkers * pl.lanes <= greens_cuda.THREADS
+    assert pl.walkers >= 1 and pl.walkers * per <= cuda_build.SMEM_MAX
+    if n == 7 and dtype == C64 and want_gh:
+        assert pl == greens_cuda.Plan(8, 8, 15, True)   # 128 blocks at W=1024
+    if n == cap:
+        assert not pl.staged and pl.walkers == 1
+        with pytest.raises(ValueError, match="largest the kernel takes"):
+            greens_cuda.plan(4 * cap + 4, cap + 1, dtype, want_gh)
+
+
+@pytest.mark.parametrize("m,route", [(1, ("warp", 4)), (9, ("warp", 4)),
+                                     (32, ("warp", 4)), (33, ("block", 1)),
+                                     (93, ("block", 1)), (165, ("block", 1))])
+def test_cpqr_route_follows_m(m, route):
+    assert cpqr_cuda.route(m) == route
