@@ -24,9 +24,11 @@ one warm-up block, then one block under
 torch.profiler (CPU and CUDA activity), and prints the block's wall time,
 the summed device time of its kernels, the device's idle share (1 - device
 time / wall time; kernels run on one stream, so they do not overlap), the
-kernel launch count, the device time and launches of the cpqr kernel
-and of kernel A (``cpqr_ms``, ``greens_ms``: every kernel whose name holds
-"cpqr" or "greens_lanes"), and the kernels by device time. The card's
+kernel launch count, the device time and launches of the cpqr kernel,
+kernel A, the Cholesky-inverse kernel and the sweep kernel (``cpqr_ms``,
+``greens_ms``, ``chol_ms``, ``sweep_ms``: every kernel whose name holds
+"cpqr", "greens_lanes", "chol_inv" or "hirsch_sweep"), and the kernels
+by device time. The card's
 name and power limit (nvidia-smi) come first. --paths profiles only the
 named paths (continuous, discrete, generic, generic_exx, thermal_ueg,
 thermal_hubbard). With --trace the Chrome traces are written to
@@ -66,7 +68,7 @@ def profile_block(af, name: str, trace: str | None, steps: int,
     rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
     nwalkers = af.qmc.nwalkers
     mine = {key: [t for k, v in by_name.items() if key in k for t in v]
-            for key in ("cpqr", "greens_lanes")}
+            for key in ("cpqr", "greens_lanes", "chol_inv", "hirsch_sweep")}
     print(json.dumps({
         "path": name, "nwalkers": nwalkers, "nsteps": steps,
         "block_wall_ms": wall * 1e3, "device_ms": device_us / 1e3,
@@ -76,6 +78,10 @@ def profile_block(af, name: str, trace: str | None, steps: int,
         "cpqr_launches": len(mine["cpqr"]),
         "greens_ms": sum(mine["greens_lanes"]) / 1e3,
         "greens_launches": len(mine["greens_lanes"]),
+        "chol_ms": sum(mine["chol_inv"]) / 1e3,
+        "chol_launches": len(mine["chol_inv"]),
+        "sweep_ms": sum(mine["hirsch_sweep"]) / 1e3,
+        "sweep_launches": len(mine["hirsch_sweep"]),
         metric: nwalkers * steps / wall,
     }))
     for kname, times in rows[:25]:

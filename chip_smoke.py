@@ -12,9 +12,10 @@ non-zero and prints no result line:
      each kernel's cap (kernel A, kernel B, Taylor, cpqr; one past the cap
      takes the plain route by shape, without a launch), with
      median times at the main-path shape (kernel, plain version, and the
-     one PyTorch call that computes the same function where there is one),
-     and for cpqr and kernel A the kernel's own device time (profiler)
-     beside the wrapper call's;
+     one PyTorch call that computes the same function where there is one;
+     for the Cholesky kernel the two calls of its route past the cap), and
+     for cpqr, kernel A, the Cholesky and the sweep kernels the kernel's own
+     device time (profiler) beside the wrapper call's;
   4. the continuous main path at full width: 4x4 Hubbard (7, 7), U=4,
      free-electron trial, complex64, 1024 walkers, dt=0.01,
      re-orthogonalisation every 10 steps, comb population control and the
@@ -127,27 +128,60 @@ def median_ms(fns: dict, reps: int = 25) -> dict:
     return {k: statistics.median(v) for k, v in samples.items()}
 
 
-def device_ms(fn, key: str, reps: int = 20) -> float:
+def device_ms(fn, key: str, reps: int = 20, tries: int = 3) -> float:
     """Device time of one launch of the kernel whose name holds ``key``
     (the profiler's kernel times over ``reps`` calls of ``fn``, one launch
     each, after a warm-up), so the host's share of a wrapper call is told
     apart from the kernel's. The profiler may drop an event at a window's
-    edge, so the mean is over the events it kept (at least half)."""
+    edge, so the mean is over the events it kept (at least half). It has
+    been seen to keep none of a window's device events: after ``tries``
+    such windows the time is ``queued_ms``'s instead (said on stderr)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.device_time_total for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and key in e.name]
+        if len(times) > reps:
+            raise AssertionError(f"device_ms: {len(times)} '{key}' kernels "
+                                 f"in {reps} calls")
+        if len(times) >= reps // 2:
+            return sum(times) / 1e3 / len(times)
+    ms = queued_ms(fn, reps)
+    print(f"device_ms: the profiler kept under {reps // 2} of {reps} '{key}' "
+          f"kernels in {tries} windows; CUDA events over queued launches: "
+          f"{ms:.5f} ms", file=sys.stderr)
+    return ms
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` from CUDA events around ``reps``
+    calls that were all queued behind a sleeping kernel before the first
+    of them ran, so the card runs them back to back and no host time lies
+    between the events. ``fn`` must not synchronize. Every kernel that a
+    call launches is counted (the wrappers timed here launch one)."""
+    cycles = 1 << 24
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    times = [e.device_time_total for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and key in e.name]
-    if not reps // 2 <= len(times) <= reps:
-        raise AssertionError(f"device_ms: {len(times)} '{key}' kernels in "
-                             f"{reps} calls")
-    return sum(times) / 1e3 / len(times)
+        end.record()
+        queued = not start.query()   # the sleep outlasted the queueing
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise AssertionError("queued_ms: the host never queued the calls "
+                         "within the sleep")
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -664,17 +698,18 @@ def hpd(rng, w: int, n: int) -> np.ndarray:
 
 
 def check_chol(batchla_cuda, rng) -> float:
-    """The Cholesky-inverse kernel against its plain version, up to the
-    largest n it launches (one walker per block there) and at the Generic
-    paths' shapes (n=16 with 1024 walkers, n=42 with 256); returns the
-    largest absolute difference at the main-path shape (complex64, n=7,
+    """The Cholesky-inverse kernel against its plain version on both routes
+    and their edges (the lanes route up to n = 32, the block route from 33
+    up to the largest n it launches), at the Generic paths' shapes (n=16
+    with 1024 walkers, n=42 with 256), with ragged walker counts; returns
+    the largest absolute difference at the main-path shape (complex64, n=7,
     w=1024)."""
     main_err = None
     for dtype in (torch.complex64, torch.complex128):
         tol = TOL[dtype]
         cap = batchla_cuda.chol_max_n(dtype)
-        for n in (3, 7, 16, 24, 42, 48, cap):
-            ws = {cap: (1, 37), 42: (1, 256)}.get(n, (1, 1024, 1031))
+        for n in (1, 3, 7, 16, 24, 31, 32, 33, 42, 48, cap):
+            ws = {cap: (1, 37), 42: (1, 256, 1031)}.get(n, (1, 1024, 1031))
             for w in ws:
                 s = torch.from_numpy(hpd(rng, w, n)).to("cuda", dtype)
                 ld_k, l_k = batchla_cuda.chol_inv_lanes(s)
@@ -684,11 +719,22 @@ def check_chol(batchla_cuda, rng) -> float:
                 dl = float((l_k - l_p).abs().max())
                 if dld > tol * n or dl > tol * float(l_p.abs().max()):
                     raise AssertionError(
-                        f"chol_inv_lanes disagrees at {dtype} n={n} W={w}: "
+                        f"chol_inv_lanes disagrees at {dtype} n={n} W={w} "
+                        f"({batchla_cuda.chol_plan(n, dtype).route}): "
                         f"dlogdetL={dld:.3e} dLinv={dl:.3e}")
                 if dtype == torch.complex64 and (n, w) == (7, 1024):
                     main_err = max(dld, dl)
     return main_err
+
+
+def chol_two_calls(s):
+    """The two PyTorch calls that compute the Cholesky kernel's function,
+    the route ops/clinalg.cholesky_qr takes past the kernel's cap:
+    L = cholesky(S), then L^-1 = solve_triangular(L, I) (log det L is one
+    more, small reduction)."""
+    l = torch.linalg.cholesky(s)
+    eye = torch.eye(s.shape[-1], dtype=s.dtype, device=s.device)
+    return torch.linalg.solve_triangular(l, eye.expand_as(s), upper=False)
 
 
 def sweep_inputs(rng, m, na, nb, w, dtype):
@@ -711,13 +757,15 @@ def sweep_inputs(rng, m, na, nb, w, dtype):
 
 
 def check_sweep(sweep_cuda, rng) -> float:
-    """The sweep kernel against its plain version: outputs within the
-    tolerance, fields identical; returns the largest absolute difference
+    """The sweep kernel against its plain version, up to na = nb = 32
+    (one warp a walker) and at na != nb: outputs within the tolerance,
+    fields identical; returns the largest absolute difference
     at the main-path shape (float32, (16, 7, 7), W=1024)."""
     main_err = None
     for dtype in (torch.float32, torch.float64):
         tol = TOL[dtype]
-        for m, na, nb in ((9, 3, 3), (16, 7, 7), (9, 4, 2), (36, 18, 18)):
+        for m, na, nb in ((9, 3, 3), (16, 7, 7), (9, 4, 2), (36, 18, 18),
+                          (36, 17, 5), (36, 32, 32)):
             for w in (1, 37, 1024, 1031):
                 args = sweep_inputs(rng, m, na, nb, w, dtype)
                 out_k = sweep_cuda.hirsch_sweep_real(*args)
@@ -1146,7 +1194,8 @@ def main() -> None:
             "library": lambda: torch.linalg.slogdet(s)}),
         "chol_inv_lanes": median_ms({
             "plain": lambda: batchla_cuda.chol_inv_lanes_plain(g),
-            "kernel": lambda: batchla_cuda.chol_inv_lanes(g)}),
+            "kernel": lambda: batchla_cuda.chol_inv_lanes(g),
+            "two_calls": lambda: chol_two_calls(g)}),
         "hirsch_sweep": median_ms({
             "plain": lambda: sweep_cuda.hirsch_sweep_real_plain(*sw),
             "kernel": lambda: sweep_cuda.hirsch_sweep_real(*sw)}),
@@ -1179,6 +1228,10 @@ def main() -> None:
                                         "cpqr")
     times["greens_lanes"]["device"] = device_ms(
         lambda: greens_cuda.greens_lanes(psi, phi, True), "greens_lanes")
+    times["chol_inv_lanes"]["device"] = device_ms(
+        lambda: batchla_cuda.chol_inv_lanes(g), "chol_inv")
+    times["hirsch_sweep"]["device"] = device_ms(
+        lambda: sweep_cuda.hirsch_sweep_real(*sw), "hirsch_sweep")
     del qa
     work = {
         "greens_lanes": greens_work(m, n, w),
@@ -1229,8 +1282,9 @@ def main() -> None:
         hg = torch.from_numpy(hpd(rng, gw, gn)).to("cuda", c64)
         at_shape("chol_inv_lanes", f"n={gn} w={gw} c64",
                  {"plain": lambda: batchla_cuda.chol_inv_lanes_plain(hg),
-                  "kernel": lambda: batchla_cuda.chol_inv_lanes(hg)},
-                 chol_work(gn, gw))
+                  "kernel": lambda: batchla_cuda.chol_inv_lanes(hg),
+                  "two_calls": lambda: chol_two_calls(hg)},
+                 chol_work(gn, gw), dev_key="chol_inv")
     vb, pb = taylor_inputs(gen, 256, 228, 84, torch.complex64)
     at_shape("taylor_exp", "(M,C)=(228,84) w=256 c64",
              {"plain": lambda: taylor_cuda.apply_taylor_plain(vb, pb),
@@ -1302,6 +1356,8 @@ def main() -> None:
             + f" vs plain {t['plain']:.4f} ms"
             + (f" vs library {t['library']:.4f} ms" if "library" in t
                else "")
+            + (f" vs two library calls {t['two_calls']:.4f} ms"
+               if "two_calls" in t else "")
             + f", bound {bounds[k][0]:.5f} ms ({bounds[k][1]}), max abs err "
             f"{err[k]:.3e}" for k, t in times.items()))
     say("3 kernels", "at the other main-path shapes (kernel / plain / "
@@ -1314,6 +1370,8 @@ def main() -> None:
             + f" / {e['bound_ms']:.5f} ({e['bound_by']})"
             + (f" supermatrix GEMM {e['supermatrix_ms']:.4f}"
                if "supermatrix_ms" in e else "")
+            + (f" two library calls {e['two_calls']:.4f}"
+               if "two_calls" in e else "")
             for k, es in at_shapes.items() for e in es)
         + f" (supermatrix vs kernel max |d|/S {sup_err:.3e})")
     say("3 kernels", "apply_taylor at (M,C) in {(16,14),(128,32),(228,84),"
@@ -1746,6 +1804,7 @@ def main() -> None:
          "launches_by_path": {p: c[k] for p, c in by_path.items()},
          "max_abs_err": err[k],
          "ms": times[k]["kernel"], "device_ms": times[k].get("device"),
+         "two_calls_ms": times[k].get("two_calls"),
          "plain_ms": times[k]["plain"],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
          "library_ms": times[k].get("library"), "at_shapes": at_shapes[k]}

@@ -45,7 +45,7 @@
 // the FP64 tensor cores (DMMA through mma.sync) is a later step.
 //
 // The same design serves small n: one thread per matrix on [S | I] in
-// [row][col][lane] shared memory (kernel A's gauss_jordan.cuh) needs the
+// [row][col][lane] shared memory (the first port's layout) needs the
 // batch axis moved last and back, two transposes a call, and on the H100
 // its call was the longer at every n from 1 (PERF.md). The cap is the n
 // whose n x (n | 1) matrix still fits one block's 227 KB: 120 in

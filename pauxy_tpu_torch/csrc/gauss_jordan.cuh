@@ -1,5 +1,5 @@
 // What the kernels share: the complex type and its math helpers, and the
-// shared-memory sizing. Kernel A (greens.cu) and kernel B (batchla.cu) each
+// shared-memory limits. Kernel A (greens.cu) and kernel B (batchla.cu) each
 // have their own elimination.
 //
 // Complex values are interleaved (re, im) pairs, PyTorch's layout for
@@ -28,17 +28,6 @@ __device__ __forceinline__ double datan2(double y, double x) { return atan2(y, x
 // Shared memory a block may use on sm_90 (227 KB, dynamic above 48 KB).
 constexpr size_t kSmemMax = 232448;
 constexpr size_t kSmemStatic = 48 * 1024;
-constexpr int kMaxWalkersPerBlock = 128;
-
-// Walkers per block when each walker keeps `per` bytes in shared memory:
-// the largest power of two up to 128 whose walkers fit; 0 when not even
-// one fits. `bytes` receives the dynamic shared memory of one block.
-inline int walkers_per_block(size_t per, size_t* bytes) {
-  int wpb = kMaxWalkersPerBlock;
-  while (wpb > 1 && (size_t)wpb * per > kSmemMax) wpb /= 2;
-  *bytes = (size_t)wpb * per;
-  return *bytes <= kSmemMax ? wpb : 0;
-}
 
 // Opt a kernel into more than 48 KB of dynamic shared memory when needed.
 template <typename K>

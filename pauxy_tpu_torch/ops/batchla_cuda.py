@@ -3,19 +3,20 @@ kernel.
 
 Counterparts of ``inv_logdet_lanes`` / ``slogdet_lanes`` and
 ``chol_inv_lanes`` in ``pauxy_tpu/ops/batchla_pallas.py``. Matrices arrive
-as [w, n, n]. Kernel B (``csrc/batchla.cu``) takes them as they come, one
-thread block per matrix, up to ``inv_max_n``. The Cholesky kernel
-(``csrc/chol_inv.cu``) takes the lanes layout (the batch axis moved last,
-[n, n, W], one thread per matrix reads coalesced). Each wrapper launches
-its CUDA kernel on a CUDA tensor and calls its plain PyTorch version on a
-CPU tensor; any other device, or a CUDA tensor the kernel does not take,
-raises.
+as [w, n, n] and both kernels take them as they come: kernel B
+(``csrc/batchla.cu``) one thread block per matrix, up to ``inv_max_n``; the
+Cholesky kernel (``csrc/chol_inv.cu``) a group of lanes per matrix up to
+n = 32 and a block per matrix above, up to ``chol_max_n`` (``chol_plan``).
+Each wrapper launches its CUDA kernel on a CUDA tensor and calls its plain
+PyTorch version on a CPU tensor; any other device, or a CUDA tensor the
+kernel does not take, raises.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -41,8 +42,8 @@ _INV_SYMBOLS = {
     torch.float64: "pauxy_inv_logdet_f64",
 }
 _CHOL_SYMBOLS = {
-    torch.complex64: "pauxy_chol_inv_lanes_c64",
-    torch.complex128: "pauxy_chol_inv_lanes_c128",
+    torch.complex64: "pauxy_chol_inv_c64",
+    torch.complex128: "pauxy_chol_inv_c128",
 }
 
 
@@ -179,10 +180,56 @@ def inv_max_n(dtype: torch.dtype) -> int:
 
 
 def chol_max_n(dtype: torch.dtype) -> int:
-    """Largest n the Cholesky kernel can launch: one walker's n x n complex
-    matrix must fit in a block's shared memory (170 in complex64, 120 in
-    complex128). ops/clinalg.cholesky_qr sends larger n to torch.linalg."""
+    """Largest n the Cholesky kernel can launch: one n x n complex matrix
+    (rows unpadded at the cap) must fit a block's shared memory (170 in
+    complex64, 120 in complex128). ops/clinalg.cholesky_qr sends larger n
+    to torch.linalg. A closed form, nothing to cache."""
     return math.isqrt(SMEM_MAX // config.get_precision(dtype).cplx.itemsize)
+
+
+# csrc/chol_inv.cu: threads a block on each route, and the largest n of the
+# lanes route (one warp's lanes a matrix at most).
+CHOL_LANE_THREADS = 64
+CHOL_BLOCK_THREADS = 256
+CHOL_LANES_MAX_N = 32
+
+
+class CholPlan(NamedTuple):
+    """The Cholesky kernel's launch, which csrc/chol_inv.cu checks and
+    takes: ``threads`` a block, ``group`` threads a matrix, the thread of
+    row tg mod ``rows`` (and, on the block route, of the columns
+    tg // rows mod group // rows), the row stride ``ld``."""
+    route: str
+    threads: int
+    group: int
+    rows: int
+    ld: int
+
+
+@functools.lru_cache(maxsize=None)
+def chol_plan(n: int, dtype: torch.dtype) -> CholPlan:
+    """The launch for s [w, n, n] of ``dtype`` (n <= ``chol_max_n``):
+    n <= 32 the "lanes" route, a group of G lanes a matrix (the next power
+    of two >= n), lane r owning row r, CHOL_LANE_THREADS / G matrices a
+    block; n > 32 the "block" route, CHOL_BLOCK_THREADS threads a matrix,
+    thread t owning row t mod n and every (t // n)-th column of it. Rows
+    padded to the odd stride n | 1 where the block's matrices still fit.
+    Raises ValueError past the cap, where no launch exists."""
+    cap = chol_max_n(dtype)
+    if not 1 <= n <= cap:
+        raise ValueError(f"chol_inv_lanes: n = {n} outside 1..{cap}, what "
+                         f"the kernel takes in {dtype}")
+    size = config.get_precision(dtype).cplx.itemsize
+    if n <= CHOL_LANES_MAX_N:
+        group = 1 << (n - 1).bit_length()
+        route, threads, rows = "lanes", CHOL_LANE_THREADS, group
+    else:
+        route, threads = "block", CHOL_BLOCK_THREADS
+        group, rows = threads, n
+    ld = n | 1
+    if threads // group * n * ld * size > SMEM_MAX:
+        ld = n
+    return CholPlan(route, threads, group, rows, ld)
 
 
 def chol_inv_lanes_plain(s: torch.Tensor):
@@ -209,23 +256,26 @@ def chol_inv_lanes_plain(s: torch.Tensor):
 
 def chol_inv_lanes(s: torch.Tensor):
     """(log det L [w] real, L^-1 [w, n, n]) of Hermitian positive-definite
-    s [w, n, n] = L L^H with diag(L) real positive; complex input on the
-    card."""
+    s [w, n, n] = L L^H with diag(L) real positive (its lower triangle is
+    read); complex input on the card, n up to ``chol_max_n``."""
     global chol_launches
     if s.device.type == "cpu":
         return chol_inv_lanes_plain(s)
     _check(s, "chol_inv_lanes", _CHOL_SYMBOLS)
     w, n, _ = s.shape
-    log_l = torch.zeros(w, dtype=s.real.dtype, device=s.device)
     if n == 0 or w == 0:
-        return log_l, torch.empty_like(s)
-    lanes = ll.to_lanes(s)
-    linv = torch.empty_like(lanes)
+        return (torch.zeros(w, dtype=s.real.dtype, device=s.device),
+                torch.empty_like(s))
+    pl = chol_plan(n, s.dtype)
+    s = s.contiguous()
+    # The kernel writes every matrix's log-determinant and every entry.
+    log_l = torch.empty(w, dtype=s.real.dtype, device=s.device)
+    linv = torch.empty_like(s)
     fn = getattr(cuda_build.library(), _CHOL_SYMBOLS[s.dtype])
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(lanes.data_ptr(), log_l.data_ptr(), linv.data_ptr(), n, w,
-                stream)
+        rc = fn(s.data_ptr(), log_l.data_ptr(), linv.data_ptr(), n, w,
+                pl.threads, pl.group, pl.rows, pl.ld, stream)
     cuda_build.check(rc, "chol_inv_lanes")
     chol_launches += 1
-    return log_l, ll.from_lanes(linv)
+    return log_l, linv

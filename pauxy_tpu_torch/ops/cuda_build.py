@@ -45,10 +45,10 @@ SIGNATURES = {
     "pauxy_inv_logdet_c128": (_P, _P, _P, _I, _I, _I, _P),
     "pauxy_inv_logdet_f32": (_P, _P, _P, _I, _I, _I, _P),
     "pauxy_inv_logdet_f64": (_P, _P, _P, _I, _I, _I, _P),
-    "pauxy_chol_inv_lanes_c64": (_P, _P, _P, _I, _I, _P),
-    "pauxy_chol_inv_lanes_c128": (_P, _P, _P, _I, _I, _P),
-    "pauxy_hirsch_sweep_f32": (_P,) * 11 + (_I,) * 4 + (_P,),
-    "pauxy_hirsch_sweep_f64": (_P,) * 11 + (_I,) * 4 + (_P,),
+    "pauxy_chol_inv_c64": (_P, _P, _P) + (_I,) * 6 + (_P,),
+    "pauxy_chol_inv_c128": (_P, _P, _P) + (_I,) * 6 + (_P,),
+    "pauxy_hirsch_sweep_f32": (_P,) * 16 + (_I,) * 8 + (_P,),
+    "pauxy_hirsch_sweep_f64": (_P,) * 16 + (_I,) * 8 + (_P,),
     "pauxy_taylor_c64": (_P, _P, _P) + (_I,) * 6 + (_P,),
     "pauxy_taylor_c128": (_P, _P, _P) + (_I,) * 6 + (_P,),
     "pauxy_exx_c64": (_P,) * 6 + (_I,) * 11 + (_P,),

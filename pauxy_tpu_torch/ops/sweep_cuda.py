@@ -1,14 +1,19 @@
 """The Hirsch site-sweep kernel and its plain version.
 
 Counterpart of ``pauxy_tpu/ops/sweep_pallas.py:hirsch_sweep_real``, with the
-same inputs and outputs (walker-major, real). ``hirsch_sweep_real`` moves
-the walker axis last ([M, n, W], one thread per walker reads coalesced),
-launches the CUDA kernel of ``csrc/sweep.cu`` on a CUDA tensor and calls
-``hirsch_sweep_real_plain`` on a CPU tensor; any other device, or a CUDA
-tensor the kernel does not take, raises.
+same inputs and outputs (walker-major, real). ``hirsch_sweep_real`` launches
+the CUDA kernel of ``csrc/sweep.cu`` on CUDA tensors as they come (a group
+of lanes per walker, ``plan``; any strides, so the real part of a complex
+tensor is read in place) and calls ``hirsch_sweep_real_plain`` on CPU
+tensors; any other device, or a CUDA tensor the kernel does not take,
+raises.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -24,6 +29,33 @@ MAX_N = 32
 
 _SYMBOLS = {torch.float32: "pauxy_hirsch_sweep_f32",
             torch.float64: "pauxy_hirsch_sweep_f64"}
+
+# csrc/sweep.cu: threads a block.
+THREADS = 64
+
+
+class Plan(NamedTuple):
+    """The sweep kernel's launch, which csrc/sweep.cu checks and takes:
+    ``lanes`` threads a walker (lane r owns row r of both inverses),
+    ``walkers`` walkers a block, the inverses' row strides ``lda``,
+    ``ldb``."""
+    lanes: int
+    walkers: int
+    lda: int
+    ldb: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(na: int, nb: int) -> Plan:
+    """The launch for na and nb electrons per spin (1..MAX_N): the next
+    power of two >= max(na, nb) lanes, THREADS / lanes walkers a block, the
+    odd strides na | 1 and nb | 1 (a block's inverses stay well under 48 KB
+    at MAX_N in float64). Raises ValueError outside 1..MAX_N."""
+    if not (1 <= na <= MAX_N and 1 <= nb <= MAX_N):
+        raise ValueError(f"hirsch_sweep_real: (na, nb) = {(na, nb)} outside "
+                         f"1..{MAX_N}, what the kernel takes")
+    lanes = 1 << (max(na, nb) - 1).bit_length()
+    return Plan(lanes, THREADS // lanes, na | 1, nb | 1)
 
 
 def _gdiag(inv, row, psi_row):
@@ -120,25 +152,22 @@ def hirsch_sweep_real(psia, psib, delta, wfac, phia, phib, inva, invb, rs,
         raise ValueError(f"hirsch_sweep_real: shapes {bad} (want "
                          f"{ {k: want[k] for k in bad} }), (w, M, na, nb) = "
                          f"{(w, m, na, nb)} must all be positive")
-    pa = ll.to_lanes(phia)                # fresh copies, updated in place
-    pb = ll.to_lanes(phib)
-    ia = ll.to_lanes(inva)
-    ib = ll.to_lanes(invb)
-    tab = torch.cat([delta.reshape(-1), wfac.reshape(-1)]).contiguous()
-    psia = psia.contiguous()
-    psib = psib.contiguous()
-    rs = rs.contiguous()
-    wt = weight.clone()
+    pl = plan(na, nb)
+    # Element strides of the ten inputs, in order (csrc/sweep.cu kStrides).
+    strides = (ctypes.c_longlong * 22)(*(st for a in args
+                                          for st in a.stride()))
+    phia_out = torch.empty((w, m, na), dtype=phia.dtype, device=phia.device)
+    phib_out = torch.empty((w, m, nb), dtype=phia.dtype, device=phia.device)
+    wt = torch.empty_like(weight, memory_format=torch.contiguous_format)
     dlog = torch.empty_like(wt)
-    fields = torch.empty((m, w), dtype=torch.int32, device=phia.device)
+    fields = torch.empty((w, m), dtype=torch.int32, device=phia.device)
     fn = getattr(cuda_build.library(), _SYMBOLS[phia.dtype])
     with torch.cuda.device(phia.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(psia.data_ptr(), psib.data_ptr(), tab.data_ptr(),
-                pa.data_ptr(), pb.data_ptr(), ia.data_ptr(), ib.data_ptr(),
-                rs.data_ptr(), wt.data_ptr(), dlog.data_ptr(),
-                fields.data_ptr(), m, na, nb, w, stream)
+        rc = fn(*(a.data_ptr() for a in args + (phia_out, phib_out, wt, dlog,
+                                                fields)),
+                ctypes.addressof(strides), m, na, nb, w, pl.lanes,
+                pl.walkers, pl.lda, pl.ldb, stream)
     cuda_build.check(rc, "hirsch_sweep_real")
     launches += 1
-    return (ll.from_lanes(pa), ll.from_lanes(pb), wt, dlog,
-            ll.from_lanes(fields))
+    return phia_out, phib_out, wt, dlog, fields

@@ -13,7 +13,12 @@ inverse and solve, and kernel B on real input, against the JAX package.
 * the route of clinalg's inverse and log-det by shape: n up to kernel B's
   cap for the type to the kernel's wrapper, larger n to
   torch.linalg, both against numpy (1e-10 / 1e-4, times n for the
-  log-det).
+  log-det);
+* ``chol_mirror``, the Cholesky kernel's order of work (one chain of n
+  steps, the forward substitution fused into the Cholesky, row i holding
+  X[i, :k] beside its trailing row), against chol_inv_lanes_plain in
+  float64 at 1e-12 of the scale, on both of the kernel's routes and their
+  edges; the strict upper triangle of S is never read.
 """
 
 import jax.numpy as jnp
@@ -289,3 +294,66 @@ def test_kernel_b_plain_undoes_row_swaps_exactly():
         parity = np.round(np.linalg.det(s))
         assert np.all(ld.real.numpy() == 0)
         np.testing.assert_allclose(np.cos(ld.imag.numpy()), parity, atol=1e-6)
+
+
+def chol_mirror(s):
+    """csrc/chol_inv.cu's order of work, batched over matrices, plain
+    torch. Step k: phase A forms L[i, k] = a_ik / d for the rows below k
+    and writes conj(L[i, k]) into row k right of the diagonal, and 1 / d
+    of step k - 1 onto row k - 1's diagonal; phase B subtracts L[i, k] p
+    from each row below k, p = (X[k, :k] / d, 1 / d, conj(L[k + 1:, k])),
+    after X[i, k] = 0. The rows are scaled by their 1 / d at the end."""
+    w, n, _ = s.shape
+    a = s.clone()
+    log_l = torch.zeros(w, dtype=s.real.dtype)
+    id_prev = None
+    for k in range(n):
+        d = torch.sqrt(torch.clamp_min(a[:, k, k].real, 1e-30))
+        log_l = log_l + torch.log(d)
+        idv = 1.0 / d
+        lk = a[:, k + 1:, k] * idv[:, None]
+        a[:, k, k + 1:] = lk.conj()
+        if k > 0:
+            a[:, k - 1, k - 1] = id_prev
+        id_prev = idv
+        p = a[:, k].clone()
+        p[:, :k] = p[:, :k] * idv[:, None]
+        p[:, k] = idv
+        a[:, k + 1:, k] = 0
+        a[:, k + 1:] -= lk[:, :, None] * p[:, None, :]
+    a[:, n - 1, n - 1] = id_prev
+    dg = torch.diagonal(a, dim1=1, dim2=2).real
+    return log_l, (torch.tril(a * dg[:, :, None], -1)
+                   + torch.diag_embed(dg.to(a.dtype)))
+
+
+@pytest.mark.parametrize("n", [1, 7, 16, 32, 33, 42])
+def test_chol_mirror_matches_plain_f64(n):
+    """Both routes of the kernel (lanes up to n = 32, a block above) do the
+    same arithmetic; the mirror is held to the plain version at 1e-12 of
+    the scale, the log-det at 1e-12 of its size."""
+    route = batchla_cuda.chol_plan(n, torch.complex128).route
+    assert route == ("lanes" if n <= 32 else "block")
+    s = torch.from_numpy(hpd(np.random.default_rng(40 + n), 5, n))
+    ld, linv = chol_mirror(s)
+    ld_p, linv_p = batchla_cuda.chol_inv_lanes_plain(s)
+    assert (ld - ld_p).abs().max().item() <= 1e-12 * (
+        ld_p.abs().max().item() + 1.0)
+    assert (linv - linv_p).abs().max().item() <= 1e-12 * (
+        linv_p.abs().max().item())
+    assert torch.equal(linv, torch.tril(linv))
+
+
+def test_chol_mirror_reads_only_the_lower_triangle():
+    """NaN above the diagonal of S changes neither the mirror's result nor
+    the plain version's (the kernel loads whole rows; what it loads above
+    the diagonal is overwritten before it is read)."""
+    n = 9
+    s = torch.from_numpy(hpd(np.random.default_rng(3), 4, n))
+    poisoned = s.clone()
+    iu = torch.triu_indices(n, n, 1)
+    poisoned[:, iu[0], iu[1]] = float("nan")
+    for fn in (chol_mirror, batchla_cuda.chol_inv_lanes_plain):
+        ld, linv = fn(s)
+        ld_n, linv_n = fn(poisoned)
+        assert torch.equal(ld, ld_n) and torch.equal(linv, linv_n)

@@ -45,7 +45,12 @@ kernel at M = 257 and at its cap, and the Generic propagator's route past
 that cap (no launch, TOL against the plain series); and a
 thermal path on
 the card and on the CPU with the same injected draws agree at rtol 1e-8
-in complex128.
+in complex128. The Cholesky kernel is checked on both of its routes and
+their edges (n = 31, 32, 33) up to its cap with 1, 37, 1024 and 1031
+matrices (TOL, times n for the log-det), and is blind to the strict upper
+triangle of S; the Cholesky and sweep wrappers make no layout copy
+(lanelinalg's to_lanes / from_lanes refused), and the sweep reads the
+real parts of complex tensors in place.
 """
 
 import numpy as np
@@ -63,7 +68,8 @@ SHAPES = [(9, 3), (16, 7), (36, 18), (64, 24)]
 TOL = {torch.complex64: 1e-4, torch.complex128: 1e-10, torch.float32: 1e-4,
        torch.float64: 1e-10}
 DTYPES = [torch.complex64, torch.complex128]
-SWEEP_SHAPES = [(9, 3, 3), (16, 7, 7), (9, 4, 2), (36, 18, 18)]
+SWEEP_SHAPES = [(9, 3, 3), (16, 7, 7), (9, 4, 2), (36, 18, 18), (36, 17, 5),
+                (36, 32, 32)]
 
 
 def need_cuda():
@@ -271,25 +277,31 @@ def test_inv_logdet_kernel_real_ill_conditioned(dtype, n):
     assert per_matrix_scaled_err(inv_k, truth, s, tol) <= 1.0
 
 
-def hpd(rng, w, n):
-    phi = rng.normal(size=(w, 2 * n, n)) + 1j * rng.normal(size=(w, 2 * n, n))
-    return np.conj(np.swapaxes(phi, 1, 2)) @ phi
+def hpd_card(seed, w, n, dtype):
+    """w Hermitian positive-definite n x n matrices phi^H phi, phi [2n, n]
+    Gaussian, made on the card in complex128."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    phi = torch.randn((w, 2 * n, n), dtype=torch.complex128, device="cuda",
+                      generator=gen)
+    return (phi.mH @ phi).to(dtype)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", [1, 3, 7, 16, 24, 42, 48, "cap"])
+@pytest.mark.parametrize("n", [1, 3, 7, 16, 24, 31, 32, 33, 42, 48, "cap"])
 def test_chol_inv_kernel_matches_plain(dtype, n):
-    """Up to the largest n the kernel launches (one walker per block), and
-    at the Generic paths' shapes (n = 16, 1024 walkers; n = 42, 256)."""
+    """Both routes (a group of lanes a matrix up to n = 32, a block a
+    matrix above) and their edges, up to the largest n the kernel launches,
+    with 1, 37, 1024 and 1031 matrices (the Generic paths' shapes: n = 16
+    with 1024, n = 42 with 256)."""
     need_cuda()
     tol = TOL[dtype]
     if n == "cap":
         n = batchla_cuda.chol_max_n(dtype)
-    rng = np.random.default_rng(n + 2)
-    ws = {16: (1, 1024), 42: (1, 256)}.get(n, (1, 37 if n > 48 else 1031))
+    ws = (1, 37, 256, 1024, 1031) if n == 42 else (1, 37, 1024, 1031)
     for w in ws:
-        s = torch.from_numpy(hpd(rng, w, n)).to("cuda", dtype)
+        s = hpd_card(n + w, w, n, dtype)
         before = batchla_cuda.chol_launches
         ld_k, l_k = batchla_cuda.chol_inv_lanes(s)
         assert batchla_cuda.chol_launches == before + 1
@@ -297,6 +309,21 @@ def test_chol_inv_kernel_matches_plain(dtype, n):
         torch.cuda.synchronize()
         assert (ld_k - ld_p).abs().max().item() <= tol * n
         assert (l_k - l_p).abs().max().item() <= tol * l_p.abs().max().item()
+        assert torch.equal(l_k, torch.tril(l_k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [7, 42])
+def test_chol_inv_kernel_reads_only_the_lower_triangle(n):
+    """NaN above the diagonal of S leaves the kernel's result as it is."""
+    need_cuda()
+    s = hpd_card(n, 37, n, torch.complex64)
+    poisoned = s.clone()
+    iu = torch.triu_indices(n, n, 1, device="cuda")
+    poisoned[:, iu[0], iu[1]] = float("nan")
+    ld, linv = batchla_cuda.chol_inv_lanes(s)
+    ld_n, linv_n = batchla_cuda.chol_inv_lanes(poisoned)
+    assert torch.equal(ld, ld_n) and torch.equal(linv, linv_n)
 
 
 def sweep_inputs(rng, m, na, nb, w, dtype):
@@ -335,6 +362,42 @@ def test_sweep_kernel_matches_plain(dtype, m, na, nb):
             scale = max(p.abs().max().item(), 1.0)
             assert (k - p).abs().max().item() <= tol * scale
         assert torch.equal(out_k[4], out_p[4])
+
+
+@pytest.mark.cuda
+def test_chol_and_sweep_wrappers_make_no_layout_copies(monkeypatch):
+    """On CUDA tensors the Cholesky and sweep wrappers launch on the
+    walker-major tensors as they come: lanelinalg's to_lanes / from_lanes
+    raise here, and the results still match the plain versions (computed
+    before). The sweep also takes the real parts of complex tensors (the
+    discrete path's views) in place."""
+    need_cuda()
+    from pauxy_tpu_torch.ops import lanelinalg
+
+    rng = np.random.default_rng(11)
+    chol_in = [hpd_card(3, 37, n, torch.complex64) for n in (7, 42)]
+    chol_ref = [batchla_cuda.chol_inv_lanes_plain(s) for s in chol_in]
+    args = sweep_inputs(rng, 16, 7, 5, 37, torch.float32)
+    views = [torch.complex(a, torch.full_like(a, 3.0)).real for a in args]
+    assert not views[4].is_contiguous()
+    sweep_ref = sweep_cuda.hirsch_sweep_real_plain(*args)
+
+    def refuse(*_):
+        raise AssertionError("a layout copy on the CUDA branch")
+
+    monkeypatch.setattr(lanelinalg, "to_lanes", refuse)
+    monkeypatch.setattr(lanelinalg, "from_lanes", refuse)
+    for s, (ld_p, l_p) in zip(chol_in, chol_ref):
+        ld_k, l_k = batchla_cuda.chol_inv_lanes(s)
+        assert (l_k - l_p).abs().max().item() <= 1e-4 * l_p.abs().max().item()
+        assert (ld_k - ld_p).abs().max().item() <= 1e-4 * s.shape[-1]
+    for inputs in (args, views):
+        out = sweep_cuda.hirsch_sweep_real(*inputs)
+        for k, p in zip(out[:4], sweep_ref[:4]):
+            assert k.is_contiguous()
+            assert (k - p).abs().max().item() <= 1e-4 * max(
+                p.abs().max().item(), 1.0)
+        assert torch.equal(out[4], sweep_ref[4])
 
 
 @pytest.mark.cuda

@@ -7,7 +7,11 @@
 * hirsch_sweep_real_plain against sweep_pallas.hirsch_sweep_real in
   interpret mode, float64, same draws: 1e-10, identical fields;
 * the "scan" sweep against JAX's lax.scan sweep on complex (charge
-  decomposition) walkers, float64, same draws: 1e-10, identical fields.
+  decomposition) walkers, float64, same draws: 1e-10, identical fields;
+* ``sweep_mirror``, the sweep kernel's order of work (lane r's scalars,
+  the gathered sums added in order), against hirsch_sweep_real_plain in
+  float64 at 1e-12 with identical fields, dead walkers included, up to
+  32 electrons in a spin and at na != nb.
 """
 
 import jax
@@ -232,3 +236,100 @@ def test_kernel_sweep_on_cpu_is_the_plain_version():
     close(a.weight.numpy(), b.weight.numpy())
     close(a.log_ovlp.numpy().real, b.log_ovlp.numpy().real)
     np.testing.assert_array_equal(fa.numpy(), fb.numpy())
+
+
+def sweep_mirror(psia, psib, delta, wfac, phia, phib, inva, invb, rs,
+                 weight):
+    """csrc/sweep.cu's order of work, batched over walkers, plain torch:
+    column [:, r] is lane r's value. q[r] from column r of S^-1, G_ii the
+    ordered sum of psi[a] q[a]; t1[r] from row r, t2[r] from column r;
+    1 + vt . t1 the ordered sum of lane products; the rank-1 update row by
+    row, scaled by one reciprocal of it."""
+    w, m, na = phia.shape
+    inv = [inva.clone(), invb.clone()]
+    psi = (psia, psib)
+    out = [phia.clone(), phib.clone()]
+    (d00, d01), (d10, d11) = delta
+    wt = weight.clone()
+    dlog = torch.zeros_like(wt)
+    fields = torch.zeros((w, m), dtype=torch.int32)
+
+    def ordered(terms):              # terms [w, n]: sum over n in order
+        acc = torch.zeros(terms.shape[0], dtype=terms.dtype)
+        for a in range(terms.shape[1]):
+            acc = acc + terms[:, a]
+        return acc
+
+    for i in range(m):
+        rows = [out[0][:, i].clone(), out[1][:, i].clone()]
+        g = []
+        for sp in range(2):
+            n = rows[sp].shape[1]
+            q = torch.zeros_like(rows[sp])
+            for b in range(n):
+                q = q + inv[sp][:, b, :] * rows[sp][:, b:b + 1]
+            g.append(ordered(psi[sp][i] * q))
+        p0 = 0.5 * (1.0 + d00 * g[0]) * (1.0 + d01 * g[1]) * wfac[0]
+        p1 = 0.5 * (1.0 + d10 * g[0]) * (1.0 + d11 * g[1]) * wfac[1]
+        pr0 = torch.clamp_min(p0, 0.0)
+        norm = pr0 + torch.clamp_min(p1, 0.0)
+        alive = (norm > 0) & (wt != 0)
+        xi = rs[i] >= pr0 / torch.where(alive, norm, torch.ones_like(norm))
+        wt = torch.where(alive, wt * norm, torch.zeros_like(wt))
+        dlog = dlog + torch.where(
+            alive, torch.log(2.0 * torch.where(xi, p1, p0)),
+            torch.zeros_like(dlog))
+        fields[:, i] = xi.to(torch.int32)
+        zero = torch.zeros_like(wt)
+        dsp = (torch.where(alive, torch.where(xi, d10, d00), zero),
+               torch.where(alive, torch.where(xi, d11, d01), zero))
+        for sp in range(2):
+            n = rows[sp].shape[1]
+            vt = rows[sp] * dsp[sp][:, None]
+            out[sp][:, i] = rows[sp] + vt
+            t1 = torch.zeros_like(vt)
+            t2 = torch.zeros_like(vt)
+            for b in range(n):
+                t1 = t1 + psi[sp][i, b] * inv[sp][:, :, b]
+                t2 = t2 + vt[:, b:b + 1] * inv[sp][:, b, :]
+            rden = 1.0 / (1.0 + ordered(vt * t1))
+            inv[sp] = inv[sp] - t1[:, :, None] * t2[:, None, :] \
+                * rden[:, None, None]
+    return out[0], out[1], wt, dlog, fields
+
+
+def sweep_case(m, na, nb, w, seed):
+    """Walkers near an orthonormal trial (float64), the spin tables of
+    dt=0.01, U=4, every seventh walker dead (weight 0)."""
+    rng = np.random.default_rng(seed)
+    psia = np.linalg.qr(rng.normal(size=(m, na)))[0]
+    psib = np.linalg.qr(rng.normal(size=(m, nb)))[0]
+    phia = psia[None] + 0.1 * rng.normal(size=(w, m, na))
+    phib = psib[None] + 0.1 * rng.normal(size=(w, m, nb))
+    inva = np.linalg.inv(np.einsum("mi,wmj->wij", psia, phia))
+    invb = np.linalg.inv(np.einsum("mi,wmj->wij", psib, phib))
+    g = np.arccosh(np.exp(0.5 * 0.01 * 4.0))
+    delta = np.exp(-0.02) * np.array([[np.exp(g), np.exp(-g)],
+                                      [np.exp(-g), np.exp(g)]]) - 1.0
+    weight = np.ones(w)
+    weight[::7] = 0.0
+    return [torch.from_numpy(a) for a in (
+        psia, psib, delta, np.ones(2), phia, phib, inva, invb,
+        rng.uniform(size=(m, w)), weight)]
+
+
+@pytest.mark.parametrize("m,na,nb", [(9, 3, 3), (16, 7, 7), (9, 4, 2),
+                                     (36, 32, 5), (36, 3, 32)])
+def test_sweep_mirror_matches_plain_f64(m, na, nb):
+    args = sweep_case(m, na, nb, 15, m + na + nb)
+    assert sweep_cuda.plan(na, nb).lanes == 1 << (max(na, nb) - 1).bit_length()
+    mine = sweep_mirror(*args)
+    ref = sweep_cuda.hirsch_sweep_real_plain(*args)
+    for a, b in zip(mine[:4], ref[:4]):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert (a - b).abs().max().item() <= 1e-12 * max(
+            b.abs().max().item(), 1.0)
+    assert torch.equal(mine[4], ref[4])
+    dead = args[9] == 0
+    assert bool((mine[2][dead] == 0).all() and (mine[3][dead] == 0).all())
+    assert torch.equal(mine[0][dead], args[4][dead])

@@ -17,6 +17,12 @@
   a second call is a cache hit (``cache_info``), as are the Taylor and exx
   plans and kernel B's cap; kernel A's plan mirrors its launcher, and the
   cpqr route follows m.
+* The Cholesky kernel's plan (ops/batchla_cuda.chol_plan): a group of the
+  next power of two >= n lanes a matrix up to n = 32, one block a matrix
+  above, the odd row stride where the block's matrices fit, every n up to
+  the unchanged caps (170 complex64, 120 complex128) and none past them.
+  The sweep kernel's plan (ops/sweep_cuda.plan): the next power of two
+  >= max(na, nb) lanes a walker, up to 32 electrons in a spin.
 """
 
 import types
@@ -26,7 +32,7 @@ import pytest
 import torch
 
 from pauxy_tpu_torch.ops import (batchla_cuda, cpqr_cuda, cuda_build, exx_cuda,
-                                 greens_cuda, taylor_cuda)
+                                 greens_cuda, sweep_cuda, taylor_cuda)
 
 torch.set_num_threads(1)
 
@@ -326,7 +332,9 @@ def test_taylor_max_m_from_its_layout_and_cached(dtype, cap):
     (taylor_cuda.plan, (228, 84, C64)),
     (exx_cuda.plan, (1024, 42, 228, 256, C64)),
     (batchla_cuda.inv_max_n, (C128,)),
-    (greens_cuda.plan, (16, 7, C64, True))])
+    (greens_cuda.plan, (16, 7, C64, True)),
+    (batchla_cuda.chol_plan, (42, C64)),
+    (sweep_cuda.plan, (7, 7))])
 def test_plans_and_caps_are_cached(helper, args):
     helper.cache_clear()
     first = helper(*args)
@@ -365,3 +373,48 @@ def test_greens_plan_mirrors_the_launcher(dtype, want_gh, n):
                                      (93, ("block", 1)), (165, ("block", 1))])
 def test_cpqr_route_follows_m(m, route):
     assert cpqr_cuda.route(m) == route
+
+
+@pytest.mark.parametrize("dtype,cap", [(C64, 170), (C128, 120)])
+def test_chol_plan_routes_by_n_up_to_the_cap(dtype, cap):
+    """Lanes up to n = 32 (G = the next power of two >= n, lane r owning
+    row r, 64 / G matrices a block), a 256-thread block a matrix from 33
+    (thread t owning row t mod n); the row stride n | 1 where the block's
+    matrices fit 227 KB, n at the complex64 cap; ValueError past the cap,
+    which is clinalg.cholesky_qr's route to torch.linalg."""
+    assert batchla_cuda.chol_max_n(dtype) == cap
+    size = dtype.itemsize
+    for n in list(range(1, 45)) + [93, cap - 1, cap]:
+        pl = batchla_cuda.chol_plan(n, dtype)
+        assert pl.ld in (n, n | 1) and pl.threads % pl.group == 0
+        per_block = pl.threads // pl.group
+        assert per_block * n * pl.ld * size <= cuda_build.SMEM_MAX
+        if pl.ld == n and n % 2 == 0:
+            assert per_block * n * (n + 1) * size > cuda_build.SMEM_MAX
+        if n <= 32:
+            assert pl.route == "lanes" and pl.rows == pl.group
+            assert pl.group == 1 << (n - 1).bit_length()
+            assert pl.threads == 64 and pl.group <= 32
+        else:
+            assert pl.route == "block" and pl.rows == n
+            assert pl.threads == pl.group == 256
+    assert batchla_cuda.chol_plan(7, C64) == batchla_cuda.CholPlan(
+        "lanes", 64, 8, 8, 7)                   # 128 blocks at w = 1024
+    assert batchla_cuda.chol_plan(42, C64) == batchla_cuda.CholPlan(
+        "block", 256, 256, 42, 43)              # 6 threads a row
+    assert batchla_cuda.chol_plan(170, C64).ld == 170
+    for bad in (0, cap + 1):
+        with pytest.raises(ValueError, match="what the kernel takes"):
+            batchla_cuda.chol_plan(bad, dtype)
+
+
+@pytest.mark.parametrize("na,nb,lanes", [(1, 1, 1), (3, 3, 4), (7, 7, 8),
+                                         (4, 2, 4), (17, 5, 32),
+                                         (32, 32, 32), (5, 32, 32)])
+def test_sweep_plan_lanes_follow_the_larger_spin(na, nb, lanes):
+    pl = sweep_cuda.plan(na, nb)
+    assert pl == sweep_cuda.Plan(lanes, 64 // lanes, na | 1, nb | 1)
+    assert pl.walkers * (na * pl.lda + nb * pl.ldb) * 8 <= 48 * 1024
+    for bad in ((33, 1), (1, 33), (0, 3)):
+        with pytest.raises(ValueError, match="what the kernel takes"):
+            sweep_cuda.plan(*bad)

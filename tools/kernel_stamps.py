@@ -1,32 +1,43 @@
-"""Where a block of the cpqr kernel and of kernel A spends its cycles, on
-one CUDA card.
+"""Where a block of the cpqr kernel, kernel A, the Cholesky-inverse
+kernel and the sweep kernel spends its cycles, on one CUDA card.
 
-    python3 tools/kernel_stamps.py
+    python3 tools/kernel_stamps.py [--csrc DIR] [--only chol,sweep]
 
-Copies csrc/cpqr.cu and csrc/greens.cu into build/stamps/, puts clock64()
-stamps between their phases (thread 0 of block 0 adds each phase's cycles
-to a device array), builds each copy with nvcc like ops/cuda_build.py, and
-prints the cycles by phase and the call's time (CUDA events) at the thermal
-UEG shape (512, 93), one matrix (1, 93) and the thermal Hubbard shape
-(64, 9) in both types, and kernel A at (16, 7) with W = 1 and 1024. The
-stamps are inserted by matching the sources' text, so the script fails
-loudly when a phase it marks has been rewritten: adapt the markers then.
-A stamp costs a few cycles and a global add, so the sums run a little
-above the unstamped kernel. The card's name and power limit come first.
+Copies csrc/cpqr.cu, csrc/greens.cu, csrc/chol_inv.cu and csrc/sweep.cu
+(or those in DIR, e.g. another build of the same kernels) into
+build/stamps/, puts clock64() stamps between their phases (thread 0 of
+block 0 adds each phase's cycles to a device array), builds each copy with
+nvcc like ops/cuda_build.py, and prints the cycles by phase and the call's
+time (CUDA events) at the thermal UEG shape (512, 93), one matrix (1, 93)
+and the thermal Hubbard shape (64, 9) in both types; kernel A at (16, 7)
+with W = 1 and 1024; the Cholesky kernel at the discrete and Generic
+paths' shapes (n = 7 and 16 with 1024 matrices, n = 42 with 256 and 1);
+the sweep at (16, 7, 7) with W = 1024 and 1, with every seventh walker
+dead and with none. --only names the kernels to stamp (cpqr, greens,
+chol, sweep). The stamps are inserted by matching the sources' text, so
+the script fails loudly when a phase it marks has been rewritten: adapt
+the markers then. A cpqr or kernel A stamp costs a few cycles and a global
+add, so their sums run a little above the unstamped kernel; the Cholesky
+and sweep stamps add into registers, written once at the end. The card's
+name and power limit come first.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from pauxy_tpu_torch.ops import cuda_build, greens_cuda  # noqa: E402
+from pauxy_tpu_torch.ops import (batchla_cuda, cuda_build,  # noqa: E402
+                                 greens_cuda, sweep_cuda)
 
 OUT = os.path.join(ROOT, "build", "stamps")
 STAMP = ("__device__ long long g_prof[32];\n"
@@ -41,6 +52,21 @@ CPQR_PHASES = ["pivot+scalars", "row pass", "barrier 1", "update",
                "barrier 2", "form-Q X", "barrier a", "T", "barrier b",
                "TW + V rows", "barrier c", "Q update", "barrier d"]
 GREENS_PHASES = ["stage", "S", "elimination", "ghT"]
+# The Cholesky and sweep kernels' stamps add into registers and thread 0
+# of block 0 writes them once at the end: a global add a stamp would wait
+# on its load inside the chain it measures.
+STAMP_REG = ("__device__ long long g_prof[32];\n"
+             "#define STAMP(i) do { long long _t = clock64(); "
+             "_acc[i] += _t - _t0; _t0 = _t; } while (0)\n"
+             "#define STAMP_FLUSH() do { if (blockIdx.x == 0 && "
+             "threadIdx.x == 0) { for (int _q = 0; _q < 16; ++_q) "
+             "g_prof[_q] += _acc[_q]; } } while (0)\n")
+STAMP_INIT = "  long long _t0 = clock64();\n  long long _acc[16] = {};\n"
+CHOL_PHASES = ["load", "phase A", "barrier A", "phase B", "barrier B",
+               "out"]
+SWEEP_PHASES = ["load", "prefetch", "G_ii", "decision", "row", "t1 t2 dot",
+                "sync 1", "update", "sync 2"]
+CSRC = cuda_build.CSRC
 
 
 def put(src: str, marker: str, text: str, after: bool = True) -> str:
@@ -51,7 +77,7 @@ def put(src: str, marker: str, text: str, after: bool = True) -> str:
 
 
 def stamped_cpqr() -> str:
-    s = open(os.path.join(cuda_build.CSRC, "cpqr.cu")).read()
+    s = open(os.path.join(CSRC, "cpqr.cu")).read()
     s = s.replace("namespace {\n", "namespace {\n" + STAMP, 1)
     s = put(s, "  team_sync<NT>();\n\n  for (int k = 0; k < m; ++k) {\n",
             "    long long _t0 = clock64();\n")
@@ -77,7 +103,7 @@ def stamped_cpqr() -> str:
 
 
 def stamped_greens() -> str:
-    s = open(os.path.join(cuda_build.CSRC, "greens.cu")).read()
+    s = open(os.path.join(CSRC, "greens.cu")).read()
     s = s.replace("namespace {\n", "namespace {\n" + STAMP, 1)
     s = put(s, "  const cplx<T> zero = mk(T(0), T(0));\n",
             "  long long _t0 = clock64();\n")
@@ -91,11 +117,51 @@ def stamped_greens() -> str:
     return s + GET
 
 
+def stamped_chol() -> str:
+    s = open(os.path.join(CSRC, "chol_inv.cu")).read()
+    s = s.replace("namespace {\n", "namespace {\n" + STAMP_REG, 1)
+    s = put(s, "  const int tg = threadIdx.x % group;\n", STAMP_INIT,
+            after=False)
+    s = put(s, "  T ldl = T(0);\n", "  STAMP(0);\n")
+    s = put(s, "    id_prev = id;\n", "    STAMP(1);\n")
+    s = put(s, "    // ---- phase B:", "    STAMP(2);\n", after=False)
+    s, n = re.subn(r"(    sync_group<\w+>\(\);\n)(  }\n  if \(tg == 0\) a\[)",
+                   r"    STAMP(3);\n\1    STAMP(4);\n\2", s)
+    if n != 1:
+        raise SystemExit("kernel_stamps: chol_inv.cu's step end not found")
+    s = put(s, "}\n\n// The plan's launch, checked",
+            "  STAMP(5);\n  STAMP_FLUSH();\n", after=False)
+    return s + GET
+
+
+def stamped_sweep() -> str:
+    s = open(os.path.join(CSRC, "sweep.cu")).read()
+    s = s.replace("namespace {\n", "namespace {\n" + STAMP_REG, 1)
+    s = put(s, "  const int r = threadIdx.x % G;\n", STAMP_INIT, after=False)
+    s = put(s, "  for (int i = 0; i < m; ++i) {\n", "  STAMP(0);\n",
+            after=False)
+    s = put(s, "    u = ur[i1 * in.rs_s[0]];\n", "    STAMP(1);\n")
+    s = put(s, "    // Heat-bath probabilities", "    STAMP(2);\n",
+            after=False)
+    s = put(s, "fields[(size_t)wk * m + i] = xi ? 1 : 0;\n", "    STAMP(3);\n")
+    s = put(s, "    // Sherman-Morrison", "    STAMP(4);\n", after=False)
+    mark = "    __syncwarp();  // every lane has read the columns\n"
+    s = put(s, mark, "    STAMP(5);\n", after=False)
+    s = put(s, mark, "    STAMP(6);\n")
+    mark = ("    __syncwarp();  // the rows are updated before the next "
+            "site reads them\n")
+    s = put(s, mark, "    STAMP(7);\n", after=False)
+    s = put(s, mark, "    STAMP(8);\n")
+    s = put(s, "  if (valid && r == 0) {\n    weight_out[wk] = wt;",
+            "  STAMP_FLUSH();\n", after=False)
+    return s + GET
+
+
 def build(name: str, src: str) -> ctypes.CDLL:
     os.makedirs(OUT, exist_ok=True)
     for h in ("gauss_jordan.cuh",):
         with open(os.path.join(OUT, h), "w") as f:
-            f.write(open(os.path.join(cuda_build.CSRC, h)).read())
+            f.write(open(os.path.join(CSRC, h)).read())
     cu, so = os.path.join(OUT, f"{name}.cu"), os.path.join(OUT, f"{name}.so")
     with open(cu, "w") as f:
         f.write(src)
@@ -107,17 +173,20 @@ def build(name: str, src: str) -> ctypes.CDLL:
 
 
 def main() -> None:
+    global CSRC
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--csrc", default=str(CSRC),
+                    help="directory of the kernel sources to stamp")
+    ap.add_argument("--only", default="cpqr,greens,chol,sweep")
+    args = ap.parse_args()
+    CSRC = args.csrc
+    only = set(args.only.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("kernel_stamps: no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip())
     P, I = ctypes.c_void_p, ctypes.c_int
-    cp = build("cpqr_stamped", stamped_cpqr())
-    gr = build("greens_stamped", stamped_greens())
-    for f in (cp.pauxy_cpqr_c64, cp.pauxy_cpqr_c128):
-        f.argtypes = (P,) * 4 + (I, I, P)
-    gr.pauxy_greens_lanes_c64.argtypes = (P,) * 4 + (I,) * 8 + (P,)
     buf = (ctypes.c_longlong * 32)()
 
     def run(lib, call, names, label):
@@ -135,6 +204,20 @@ def main() -> None:
         print(f"{label} {start.elapsed_time(end):.4f} ms, block 0's cycles "
               f"{sum(cycles.values())}: {cycles}", flush=True)
 
+    if "cpqr" in only:
+        stamp_cpqr(run, P, I)
+    if "greens" in only:
+        stamp_greens(run, P, I)
+    if "chol" in only:
+        stamp_chol(run, P, I)
+    if "sweep" in only:
+        stamp_sweep(run, P, I)
+
+
+def stamp_cpqr(run, P, I) -> None:
+    cp = build("cpqr_stamped", stamped_cpqr())
+    for f in (cp.pauxy_cpqr_c64, cp.pauxy_cpqr_c128):
+        f.argtypes = (P,) * 4 + (I, I, P)
     for dtype, fn in ((torch.complex64, cp.pauxy_cpqr_c64),
                       (torch.complex128, cp.pauxy_cpqr_c128)):
         for b, m in ((512, 93), (1, 93), (64, 9)):
@@ -144,6 +227,11 @@ def main() -> None:
             run(cp, lambda: fn(a.data_ptr(), q.data_ptr(), r.data_ptr(),
                                p.data_ptr(), b, m, None),
                 CPQR_PHASES, f"cpqr {dtype} (B,m)=({b},{m})")
+
+
+def stamp_greens(run, P, I) -> None:
+    gr = build("greens_stamped", stamped_greens())
+    gr.pauxy_greens_lanes_c64.argtypes = (P,) * 4 + (I,) * 8 + (P,)
     for w in (1, 1024):
         m, n = 16, 7
         psi = torch.randn(m, n, dtype=torch.complex64, device="cuda")
@@ -157,6 +245,47 @@ def main() -> None:
                 ght.data_ptr(), m, n, w, 1, pl.lanes, pl.walkers, pl.ld,
                 int(pl.staged), None),
             GREENS_PHASES, f"greens (M,n)=(16,7) W={w} {pl}")
+
+
+def stamp_chol(run, P, I) -> None:
+    ch = build("chol_stamped", stamped_chol())
+    ch.pauxy_chol_inv_c64.argtypes = (P, P, P) + (I,) * 6 + (P,)
+    for n, w in ((7, 1024), (16, 1024), (42, 256), (42, 1)):
+        phi = torch.randn(w, 2 * n, n, dtype=torch.complex64, device="cuda")
+        s = (phi.mH @ phi).contiguous()
+        ld = torch.empty(w, dtype=torch.float32, device="cuda")
+        linv = torch.empty_like(s)
+        pl = batchla_cuda.chol_plan(n, torch.complex64)
+        run(ch, lambda: ch.pauxy_chol_inv_c64(
+                s.data_ptr(), ld.data_ptr(), linv.data_ptr(), n, w,
+                pl.threads, pl.group, pl.rows, pl.ld, None),
+            CHOL_PHASES, f"chol_inv n={n} w={w} c64 {pl}")
+
+
+def stamp_sweep(run, P, I) -> None:
+    from chip_smoke import sweep_inputs
+
+    sw = build("sweep_stamped", stamped_sweep())
+    sw.pauxy_hirsch_sweep_f32.argtypes = (P,) * 16 + (I,) * 8 + (P,)
+    rng = np.random.default_rng(8)
+    m, na, nb = 16, 7, 7
+    for w, dead in ((1024, True), (1024, False), (1, False)):
+        args = sweep_inputs(rng, m, na, nb, w, torch.float32)
+        if not dead:
+            args[9].fill_(1.0)
+        strides = (ctypes.c_longlong * 22)(*(st for a in args
+                                              for st in a.stride()))
+        outs = [torch.empty((w, m, na), device="cuda"),
+                torch.empty((w, m, nb), device="cuda"),
+                torch.empty(w, device="cuda"), torch.empty(w, device="cuda"),
+                torch.empty((w, m), dtype=torch.int32, device="cuda")]
+        pl = sweep_cuda.plan(na, nb)
+        run(sw, lambda: sw.pauxy_hirsch_sweep_f32(
+                *(a.data_ptr() for a in list(args) + outs),
+                ctypes.addressof(strides), m, na, nb, w, pl.lanes,
+                pl.walkers, pl.lda, pl.ldb, None),
+            SWEEP_PHASES, f"sweep (16,7,7) W={w} "
+            f"{'every seventh walker dead' if dead else 'all alive'} {pl}")
 
 
 if __name__ == "__main__":
