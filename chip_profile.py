@@ -19,7 +19,11 @@ shape (M=93, (7, 7), beta=2, dt=0.05, mu=0.9, 40 slices, 256 walkers,
 complex64), whose block is one imaginary-time path, and the
 finite-temperature Hubbard path of chip_smoke.py's phase 12 (3x3, U=4,
 mu=0.9, beta=0.5, dt=0.05, 32 walkers, population control every 2
-slices, complex64; cpqr at (64, 9)). For each it runs
+slices, complex64; cpqr at (64, 9)); and the discrete path with
+back propagation and the ITCF of chip_smoke.py's phase 13 (tau_bp =
+tau_max = 0.4, stable), three warm-up blocks so that the profiled block
+ends with one measurement of each, whose wall times (synchronised)
+come as ``bp_wall_ms`` and ``itcf_wall_ms``. For each it runs
 one warm-up block, then one block under
 torch.profiler (CPU and CUDA activity), and prints the block's wall time,
 the summed device time of its kernels, the device's idle share (1 - device
@@ -30,8 +34,8 @@ kernel A, the Cholesky-inverse kernel and the sweep kernel (``cpqr_ms``,
 "cpqr", "greens_lanes", "chol_inv" or "hirsch_sweep"), and the kernels
 by device time. The card's
 name and power limit (nvidia-smi) come first. --paths profiles only the
-named paths (continuous, discrete, generic, generic_exx, thermal_ueg,
-thermal_hubbard). With --trace the Chrome traces are written to
+named paths (continuous, discrete, bp_discrete, generic, generic_exx,
+thermal_ueg, thermal_hubbard). With --trace the Chrome traces are written to
 PREFIX.<path>.json. Needs the card; there is no CPU fallback.
 """
 
@@ -48,10 +52,14 @@ import torch
 
 
 def profile_block(af, name: str, trace: str | None, steps: int,
-                  metric: str = "walker_steps_per_s") -> None:
+                  metric: str = "walker_steps_per_s", warmup: int = 1,
+                  extra=None) -> None:
+    """Profile one block after ``warmup`` blocks; ``extra()``, read after
+    the profiled block, adds keys to the JSON line."""
     from torch.profiler import ProfilerActivity, profile
 
-    af.run_block()
+    for _ in range(warmup):
+        af.run_block()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -83,6 +91,7 @@ def profile_block(af, name: str, trace: str | None, steps: int,
         "sweep_ms": sum(mine["hirsch_sweep"]) / 1e3,
         "sweep_launches": len(mine["hirsch_sweep"]),
         metric: nwalkers * steps / wall,
+        **(extra() if extra else {}),
     }))
     for kname, times in rows[:25]:
         print(f"{sum(times) / 1e3:10.4f} ms {len(times):6d} x  "
@@ -113,6 +122,22 @@ def main() -> None:
     from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
     from pauxy_tpu_torch.qmc.thermal_afqmc import ThermalAFQMC
 
+    def timed(module, fname: str, seconds: list):
+        """Wrap ``module.fname`` so each call's wall time (synchronised on
+        both sides) is appended to ``seconds``."""
+        fn = getattr(module, fname)
+
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return out
+
+        setattr(module, fname, wrapper)
+        return fn
+
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -131,6 +156,36 @@ def main() -> None:
         af = AFQMC(ham, trial, qmc, propagator_options=popts,
                    estimator_options=eopts, device="cuda")
         profile_block(af, name, args.trace, qmc.nsteps)
+    if wanted("bp_discrete"):
+        from pauxy_tpu_torch.estimators import back_prop
+        from pauxy_tpu_torch.estimators import itcf as itcf_mod
+
+        # chip_smoke.py phase 13: the warm-up blocks bring the field buffer
+        # to 30 of its 40 steps, so the profiled block ends with one BP and
+        # one ITCF measurement.
+        bq = QMCOpts(nwalkers=1024, dt=0.01, nsteps=10, nblocks=4,
+                     nstblz=10, npop_control=1, rng_seed=8)
+        af = AFQMC(ham, trial, bq,
+                   propagator_options={"hubbard_stratonovich": "discrete"},
+                   estimator_options={
+                       "mixed": {"energy_eval_freq": 1},
+                       "back_propagation": {"tau_bp": 0.4,
+                                            "evaluate_energy": True},
+                       "itcf": {"tau_max": 0.4, "stable": True}},
+                   device="cuda")
+        bp_s, itcf_s = [], []
+        old = (timed(back_prop, "update", bp_s),
+               timed(itcf_mod, "measure", itcf_s))
+        try:
+            profile_block(af, "bp_discrete", args.trace, bq.nsteps,
+                          warmup=3, extra=lambda: {
+                              "bp_wall_ms": 1e3 * sum(bp_s),
+                              "itcf_wall_ms": 1e3 * sum(itcf_s),
+                              "warmup_block_ms": [
+                                  1e3 * t for t in af.block_seconds[:3]]})
+        finally:
+            back_prop.update, itcf_mod.measure = old
+        del af
     if wanted("thermal_hubbard"):
         ham = make_hubbard(3, 3, U=4.0, nx=3, ny=3, device="cuda",
                            dtype="single")

@@ -65,7 +65,42 @@ non-zero and prints no result line:
      dt=0.05, 32 walkers, population control every 2 slices, complex64:
      paths with injected draws on the card against the host's complex128
      run, then the golden anchor tests/data/thermal_hubbard3x3.npz over 60
-     paths, |dE| < max(4 se, 0.05) and |dNav| < max(4 se, 0.02).
+     paths, |dE| < max(4 se, 0.05) and |dNav| < max(4 se, 0.02);
+ 13. discrete back propagation and ITCF at full width: phase 6's system
+     and 1024 walkers (the sweep kernel's route), BP tau_bp=0.4 with
+     energies and the stable ITCF with tau_max=0.4 sharing the 40-step
+     field buffer, 8 blocks of 10 steps through AFQMC(...).run(): every
+     row and BP / ITCF value finite, Tr of the weighted BP G = n per spin
+     and G>(0) + G<(0) = I within 1e-4, and the sweep, Cholesky (forward
+     CholeskyQR2 and the one-pass backward and ITCF re-orthogonalisations)
+     and kernel B launches of the schedule (``discrete_schedule``); then
+     16 walkers, 2 blocks with injected draws (tau_bp = tau_max = 0.1, so
+     that the blocks hold measurements), complex64 on the card against
+     complex128 on the host, the mixed, BP and ITCF sums each within 1e-4
+     of their scale;
+ 14. the 3x3 tutorial anchors (tests/test_tutorial_anchors.py:27-42: U=4,
+     (3,3), twist [0.01, -0.02], discrete CPMC on the scan sweep, dt=0.05,
+     100 walkers, 300 blocks, tau_bp=2.0, ITCF tau_max=2.0) in complex64 on
+     the card: the mixed energy, the BP energy and the ITCF G>up00(0)
+     within 4 combined sigma of the published -9.667367 +/- 0.006009,
+     -10.172595 +/- 0.221067 and 0.662088 +/- 0.043912, G>up00(0.9)
+     within 0.05 of 0.14, and the launches of the schedule;
+ 15. the other run modes at full width (phase 4's system, 1024 walkers, 3
+     blocks each): continuous and discrete free projection (|phase| = 1
+     within 1e-5), the direct (whole-lattice) update and the k-space
+     kinetic step, finite rows and their launches; continuous Hubbard
+     with back propagation through the [w, M, n] block (kernel B and
+     Cholesky launches of the schedule); then each mode, the local-energy
+     update and continuous BP with phase restoration on 16 walkers, 2
+     blocks with injected draws, card (complex64) against host
+     (complex128) within 1e-4 of the scale;
+ 16. Generic back propagation: the golden system (generic_nmo11.npz, 16
+     walkers, 3 blocks, tau_bp=0.05 with energies and EKT,
+     taylor_impl="pallas") card against host within 1e-4 of the scale,
+     the Taylor kernel launched in the back propagation; then phase 8's
+     bench shape with one BP measurement of tau_bp=0.05: the Taylor
+     kernel 10 times forward and 10 back, Tr G_bp = N per spin within
+     1e-4, a finite BP energy (its dense-G exchange in chunks).
 Each phase line ends with its seconds. Then the card's name and power limit
 (nvidia-smi), one JSON line about the kernels, and last
 {"ok": true, "device": {...}}.
@@ -1036,7 +1071,7 @@ def injected_blocks(af, xi: np.ndarray, pop: np.ndarray, nblocks: int,
         steps = slice(b * q.nsteps, (b + 1) * q.nsteps)
         noise = BlockNoise(torch.from_numpy(xi[steps]).to(dev, rdt),
                            torch.from_numpy(pop[steps]).to(dev, rdt))
-        state, acc = run_block(
+        state, acc, _, _ = run_block(
             af.ham, af.trial, af.prop, state, None, float(af.trial.etrial),
             b * q.nsteps, nsteps=q.nsteps, nstblz=q.nstblz,
             npop_control=q.npop_control, pop_method=q.pop_control_method,
@@ -1046,6 +1081,75 @@ def injected_blocks(af, xi: np.ndarray, pop: np.ndarray, nblocks: int,
         out.append(((z[mixed.ENUMER] / z[mixed.EDENOM]).real,
                     z[mixed.UWEIGHT].real))
     return np.array(out)
+
+
+def extras_blocks(af, xi: np.ndarray, pop: np.ndarray, nblocks: int,
+                  run_block, BlockNoise) -> list:
+    """``af``'s path driven through run_block with injected draws, with its
+    back-propagation / ITCF settings and free projection: per block the
+    (mixed, BP, ITCF) sums as complex numpy arrays. ``xi`` holds one
+    propagator draw per step (the sweep's uniforms [M, w], the direct
+    update's [w, M], free-projection bits [w, M] or HS fields [w, X]),
+    ``pop`` one comb uniform per step; the shift is the trial energy."""
+    q = af.qmc
+    dev, rdt = af.state.weight.device, af.state.weight.dtype
+    state, out = af.state, []
+    for b in range(nblocks):
+        steps = slice(b * q.nsteps, (b + 1) * q.nsteps)
+        noise = BlockNoise(torch.from_numpy(xi[steps]).to(dev, rdt),
+                           torch.from_numpy(pop[steps]).to(dev, rdt))
+        state, *accs = run_block(
+            af.ham, af.trial, af.prop, state, None, float(af.trial.etrial),
+            b * q.nsteps, nsteps=q.nsteps, nstblz=q.nstblz,
+            npop_control=q.npop_control, pop_method=q.pop_control_method,
+            target_weight=float(q.nwalkers),
+            energy_eval_freq=af.energy_eval_freq,
+            free_projection=af.free_projection, extras=af.extras,
+            noise=noise)
+        out.append([(lambda z: z[0] + 1j * z[1])(a.cpu().double().numpy())
+                    for a in accs])
+    return out
+
+
+def extras_gap(card: list, host: list) -> list:
+    """Per accumulator (mixed, BP, ITCF): max |card - host| over the
+    blocks over the largest |host| entry (0 for an estimator that is
+    off)."""
+    gaps = []
+    for k in range(3):
+        c = np.array([b[k] for b in card])
+        h = np.array([b[k] for b in host])
+        gaps.append(float(np.abs(c - h).max() / np.abs(h).max())
+                    if h.size else 0.0)
+    return gaps
+
+
+def orthos(n: int, nstblz: int) -> int:
+    """Re-orthogonalisations in a back or forward sweep of n slices:
+    j = 1 .. n - 1 with j % nstblz == 0."""
+    return sum(1 for j in range(1, n) if j % nstblz == 0)
+
+
+def discrete_schedule(nsteps: int, nstblz: int, energy_every: int,
+                      nbp: int, nitcf: int, stable: bool,
+                      kernel: bool) -> dict:
+    """Launches of a discrete single-site run of ``nsteps`` steps with one
+    BP split of ``nbp`` and an ITCF of ``nitcf`` slices sharing the
+    buffer: kernel B 2 at set-up, 4 a step in the kinetic half steps, 2
+    for the sweep's S^-1, 2 per energy; per BP measurement 2 (gab); per
+    ITCF measurement 2 + 4 a slice (stable: equal-time G and the solve;
+    unstable: the solve). Cholesky: 4 per forward re-orthogonalisation
+    (CholeskyQR2, two spins), 2 per backward or ITCF one (one pass)."""
+    nhist = nbp or nitcf
+    nbpm = nsteps // nbp if nbp else 0
+    nitm = nsteps // nhist if nitcf else 0
+    kb = (2 + 6 * nsteps + 2 * (nsteps // energy_every) + 2 * nbpm
+          + nitm * (2 + nitcf * (4 if stable else 2)))
+    chol = (4 * (nsteps // nstblz) + 2 * orthos(nbp, nstblz) * nbpm
+            + nitm * 2 * (orthos(nhist, nstblz)
+                          + (orthos(nitcf, nstblz) if stable else 0)))
+    return {"inv_logdet_lanes": kb, "chol_inv_lanes": chol,
+            "hirsch_sweep": nsteps if kernel else 0}
 
 
 def golden(path: str, propagator_options: dict | None, make_hubbard,
@@ -1775,6 +1879,319 @@ def main() -> None:
         f"< max(4 se, 0.05) with se {se_e:.6f}; Nav {nav.mean():.6f} vs "
         f"{ref_n.mean():.6f}, |d| {dn:.6f} < max(4 se, 0.02) with se "
         f"{se_n:.6f}; launches {hub_counts}" + lap("12"))
+    # ---- 13. discrete BP + ITCF at full width ----------------------------
+    bq = QMCOpts(nwalkers=1024, dt=0.01, nsteps=10, nblocks=8, nstblz=10,
+                 npop_control=1, rng_seed=8)
+    bsteps = bq.nblocks * bq.nsteps
+    bp_itcf = {"mixed": {"energy_eval_freq": 1},
+               "back_propagation": {"tau_bp": 0.4, "evaluate_energy": True},
+               "itcf": {"tau_max": 0.4, "stable": True}}
+    zero_counts()
+    ham = make_hubbard(7, 7, U=4.0, nx=4, ny=4, device="cuda",
+                       dtype="single")
+    trial = free_electron_trial(ham, device="cuda", dtype="single")
+    af = AFQMC(ham, trial, bq, propagator_options=discrete,
+               estimator_options=bp_itcf, device="cuda")
+    if af.prop.sweep_kernel != "kernel" or af.use_fast_block:
+        raise AssertionError("BP + ITCF: not the sweep kernel's route")
+    rows = af.run()
+    torch.cuda.synchronize()
+    bp_counts = counts()
+    want = only(**discrete_schedule(bsteps, 10, 1, 40, 40, True, True))
+    if bp_counts != want:
+        raise AssertionError(f"BP + ITCF launches {bp_counts}, want {want}")
+    bps = [r for r in af.bp_reporter.rows if "energies_40" in r]
+    its = [r for r in af.itcf_reporter.rows if r["denominator"][0] != 0]
+    if not (np.isfinite(rows).all() and len(bps) == 2 == len(its)
+            and all(np.isfinite(v).all() for r in af.bp_reporter.rows
+                    + af.itcf_reporter.rows for v in r.values())):
+        raise AssertionError(f"BP + ITCF: non-finite or missing output "
+                             f"({len(bps)} BP, {len(its)} ITCF)")
+    tr_bp = np.array([[np.trace(r["one_rdm_40"][s]).real
+                       / r["denominator_40"][0].real for s in (0, 1)]
+                      for r in bps])
+    d_tr = float(np.abs(tr_bp / 7.0 - 1.0).max())
+    eye_gap = float(max(np.abs(r["real_space_greens_function"][0, s, 0]
+                               + r["real_space_greens_function"][0, s, 1]
+                               - np.eye(16)).max()
+                        for r in its for s in (0, 1)))
+    if not (d_tr <= 1e-4 and eye_gap <= 1e-4):
+        raise AssertionError(f"BP + ITCF identities: Tr G_bp / n - 1 "
+                             f"{d_tr:.3e}, G>(0) + G<(0) - I {eye_gap:.3e}")
+    rate_b = bq.nwalkers * bq.nsteps * (bq.nblocks - 1) / sum(
+        af.block_seconds[1:])
+    e_bp = [round(float(r["energies_40"][0].real), 5) for r in bps]
+    g_up = its[-1]["real_space_greens_function"][:, 0, 0, 0, 0]
+    say("13 BP + ITCF", f"discrete spin HS, sweep kernel, 4x4 (7,7) U=4 "
+        f"complex64 {bq.nwalkers} walkers {bsteps} steps (8 blocks of 10; "
+        f"BP tau_bp=0.4 with energies, ITCF tau_max=0.4 stable): ETotal "
+        f"per block {np.array2string(rows[:, 5].real, precision=4)}; BP "
+        f"energies {e_bp}; ITCF G>up00(tau) at tau = 0, 0.1, 0.4: "
+        f"{[round(float(g_up[k]), 5) for k in (0, 10, 40)]}"
+        f"; max |Tr G_bp / n - 1| {d_tr:.2e}, max |G>(0) + G<(0) - I| "
+        f"{eye_gap:.2e} (<= 1e-4); launches {bp_counts} as scheduled; "
+        f"{rate_b:.1f} walker-steps/s over 7 blocks after a warm-up (block "
+        f"seconds {', '.join(f'{t:.3f}' for t in af.block_seconds)})")
+    del af
+    # 16 walkers with injected draws: the card's complex64 against the
+    # host's complex128, tau_bp = tau_max = 0.1 so that 2 blocks of 10
+    # steps hold two measurements of each.
+    g_gen = np.load(os.path.join(ROOT, "tests", "data",
+                                 "generic_nmo11.npz"))
+
+    def golden_generic_ham(device, dtype):
+        n = g_gen["h1e"].shape[-1]
+        return make_generic((3, 3), np.stack([g_gen["h1e"], g_gen["h1e"]]),
+                            np.asarray(g_gen["chol"]).reshape(-1, n, n)
+                            .transpose(1, 2, 0), ecore=float(g_gen["enuc"]),
+                            device=device, dtype=dtype)
+
+    small = {"mixed": {"energy_eval_freq": 1},
+             "back_propagation": {"tau_bp": 0.1, "evaluate_energy": True},
+             "itcf": {"tau_max": 0.1, "stable": True}}
+    sq = dict(nwalkers=16, dt=0.01, nsteps=10, nblocks=2, nstblz=5,
+              npop_control=1, rng_seed=8)
+
+    def small_af(device, dtype, popts, eopts, model="hubbard"):
+        if model == "hubbard":
+            ham = make_hubbard(7, 7, U=4.0, nx=4, ny=4, device=device,
+                               dtype=dtype)
+            trial = free_electron_trial(ham, device=device, dtype=dtype)
+        else:
+            ham = golden_generic_ham(device, dtype)
+            trial = trial_from_orbitals(ham, np.asarray(g_gen["psi"]),
+                                        device=device, dtype=dtype)
+        return AFQMC(ham, trial, QMCOpts(**sq), propagator_options=popts,
+                     estimator_options=eopts, device=device)
+
+    def card_vs_host(popts, eopts, xi, model="hubbard", nblocks=2):
+        zero_counts()
+        c = extras_blocks(small_af("cuda", "single", popts, eopts, model),
+                          xi, pop16, nblocks, run_block, BlockNoise)
+        launched = counts()
+        h = extras_blocks(small_af("cpu", "double", popts, eopts, model),
+                          xi, pop16, nblocks, run_block, BlockNoise)
+        gaps = extras_gap(c, h)
+        if not (all(np.isfinite(a).all() for b in c for a in b)
+                and max(gaps) <= 1e-4):
+            raise AssertionError(f"card vs host {popts} {eopts}: gaps "
+                                 f"(mixed, BP, ITCF) {gaps} > 1e-4")
+        return gaps, launched
+
+    draws = np.random.default_rng(13)
+    pop16 = draws.uniform(size=(40, 1))
+    gaps13, _ = card_vs_host(discrete, small,
+                             draws.uniform(size=(20, 16, 16)))
+    say("13 BP + ITCF", f"16 walkers, 2 blocks with injected draws (tau_bp "
+        f"= tau_max = 0.1): complex64 on the card vs complex128 on the host,"
+        f" max |d| over the scale (mixed, BP, ITCF) "
+        f"{', '.join(f'{x:.2e}' for x in gaps13)} <= 1e-4" + lap("13"))
+
+    # ---- 14. the 3x3 tutorial anchors on the card ------------------------
+    zero_counts()
+    ham = make_hubbard(3, 3, U=4.0, nx=3, ny=3, ktwist=[0.01, -0.02],
+                       device="cuda", dtype="single")
+    trial = free_electron_trial(ham, device="cuda", dtype="single")
+    tut = AFQMC(ham, trial, QMCOpts(nwalkers=100, dt=0.05, nsteps=10,
+                                    nblocks=300, nstblz=5, npop_control=10,
+                                    rng_seed=8),
+                propagator_options=discrete,
+                estimator_options={
+                    "mixed": {"energy_eval_freq": 10},
+                    "back_propagation": {"tau_bp": 2.0,
+                                         "evaluate_energy": True},
+                    "itcf": {"tau_max": 2.0, "stable": True}},
+                device="cuda")
+    if tut.prop.sweep_kernel != "scan":
+        raise AssertionError("the twisted tutorial lattice takes the scan "
+                             "sweep")
+    rows = tut.run()
+    torch.cuda.synchronize()
+    tut_counts = counts()
+    want = only(**discrete_schedule(3000, 5, 10, 40, 40, True, False))
+    if tut_counts != want:
+        raise AssertionError(f"tutorial launches {tut_counts}, want {want}")
+    et = rows[40:, 5].real
+    blk = et[: len(et) // 10 * 10].reshape(-1, 10).mean(axis=1)
+    se_m = blk.std(ddof=1) / len(blk) ** 0.5
+    ebp = np.array([r["energies_40"][0].real for r in tut.bp_reporter.rows
+                    if "energies_40" in r])[4:]
+    se_bp = ebp.std(ddof=1) / len(ebp) ** 0.5
+    live = np.array([r["real_space_greens_function"]
+                     for r in tut.itcf_reporter.rows])
+    live = live[np.abs(live[:, 0, 0, 0, 0, 0]) > 1e-12]
+    g0, g9 = live[4:, 0, 0, 0, 0, 0], live[4:, 18, 0, 0, 0, 0]
+    se_g = g0.std(ddof=1) / len(g0) ** 0.5
+    anchors = {
+        "mixed": (et.mean(), -9.667367, np.hypot(se_m, 0.006009)),
+        "BP": (ebp.mean(), -10.172595, np.hypot(se_bp, 0.221067)),
+        "ITCF G>up00(0)": (g0.mean(), 0.662088, np.hypot(se_g, 0.043912)),
+    }
+    missed = {k: v for k, v in anchors.items()
+              if not abs(v[0] - v[1]) < 4 * v[2]}
+    if (missed or len(live) < 40 or not abs(g9.mean() - 0.14) < 0.05
+            or not np.isfinite(rows).all()):
+        raise AssertionError(f"tutorial anchors missed: {missed}, "
+                             f"{len(live)} ITCF rows, G(0.9) {g9.mean()}")
+    tut_s = sum(tut.block_seconds)
+    say("14 tutorial", "3x3 U=4 (3,3) twist [0.01,-0.02] discrete CPMC "
+        "(scan sweep), dt=0.05, 100 walkers, 300 blocks, complex64, "
+        "BP tau_bp=2.0 and ITCF tau_max=2.0: " + "; ".join(
+            f"{k} {v[0]:.6f} vs published {v[1]:.6f}, |d| "
+            f"{abs(v[0] - v[1]):.6f} < 4 x {v[2]:.6f}"
+            for k, v in anchors.items())
+        + f"; ITCF G>up00(0.9) {g9.mean():.4f} within 0.05 of 0.14 "
+        f"({len(live)} measurements, {len(ebp) + 4} BP); launches "
+        f"{tut_counts} as scheduled; {tut_s:.1f} s of blocks"
+        + lap("14"))
+    del tut
+
+    # ---- 15. free projection, the direct update, k-space kinetic ---------
+    fq = QMCOpts(nwalkers=1024, dt=0.01, nsteps=10, nblocks=3, nstblz=10,
+                 npop_control=1, rng_seed=8)
+    fsteps = fq.nblocks * fq.nsteps
+    ham = make_hubbard(7, 7, U=4.0, nx=4, ny=4, device="cuda",
+                       dtype="single")
+    trial = free_electron_trial(ham, device="cuda", dtype="single")
+    ortho = 4 * (fsteps // fq.nstblz)
+    modes = {
+        "continuous free projection": ({"free_projection": True},
+                                       only(inv_logdet_lanes=2 + 4 * fsteps,
+                                            chol_inv_lanes=ortho)),
+        "discrete free projection": (
+            {**discrete, "free_projection": True},
+            only(inv_logdet_lanes=2 + 4 * fsteps, chol_inv_lanes=ortho)),
+        "direct update": ({**discrete, "single_site_update": False},
+                          only(inv_logdet_lanes=2 + 10 * fsteps,
+                               chol_inv_lanes=ortho)),
+        "kinetic_kspace": ({**discrete, "kinetic_kspace": True},
+                           only(inv_logdet_lanes=2 + 8 * fsteps,
+                                chol_inv_lanes=ortho,
+                                hirsch_sweep=fsteps)),
+    }
+    fp_counts = dict.fromkeys(counts(), 0)
+    notes = []
+    for name, (popts, want) in modes.items():
+        zero_counts()
+        af = AFQMC(ham, trial, fq, propagator_options=popts,
+                   estimator_options=eopts, device="cuda")
+        rows = af.run()
+        torch.cuda.synchronize()
+        got = counts()
+        if got != want:
+            raise AssertionError(f"{name} launches {got}, want {want}")
+        for k, v in got.items():
+            fp_counts[k] += v
+        phase_gap = float((af.state.phase.abs() - 1).abs().max())
+        if not (np.isfinite(rows).all() and phase_gap <= 1e-5):
+            raise AssertionError(f"{name}: rows {rows}, |phase| - 1 "
+                                 f"{phase_gap}")
+        et_rows = np.array2string(rows[:, 5], precision=3)
+        notes.append(f"{name} ETotal {et_rows} (|phase| - 1 <= "
+                     f"{phase_gap:.1e})")
+        del af
+    # Hubbard continuous with BP: the [w, M, n] block, not the lanes one.
+    zero_counts()
+    af = AFQMC(ham, trial, QMCOpts(nwalkers=1024, dt=0.01, nsteps=10,
+                                   nblocks=2, nstblz=5, npop_control=1,
+                                   rng_seed=8),
+               estimator_options={"mixed": {"energy_eval_freq": 1},
+                                  "back_propagation": {
+                                      "tau_bp": 0.1,
+                                      "evaluate_energy": True}},
+               device="cuda")
+    rows = af.run()
+    torch.cuda.synchronize()
+    got = counts()
+    want = only(inv_logdet_lanes=2 + 6 * 20 + 2 * 2,
+                chol_inv_lanes=4 * 4 + 2 * 2 * orthos(10, 5))
+    bpc = [r["energies_10"] for r in af.bp_reporter.rows]
+    if af.use_fast_block or got != want or not (
+            np.isfinite(rows).all() and np.isfinite(bpc).all()):
+        raise AssertionError(f"continuous BP launches {got}, want {want}; "
+                             f"BP {bpc}")
+    for k, v in got.items():
+        fp_counts[k] += v
+    notes.append(f"continuous BP (tau_bp=0.1, [w, M, n] block) BP energies "
+                 f"{[round(float(e[0].real), 4) for e in bpc]}")
+    del af
+    gaps15 = {
+        "continuous free projection": card_vs_host(
+            {"free_projection": True}, None,
+            draws.normal(size=(20, 16, 16)))[0],
+        "discrete free projection": card_vs_host(
+            {**discrete, "free_projection": True}, None,
+            (draws.uniform(size=(20, 16, 16)) < 0.5).astype(float))[0],
+        "direct update": card_vs_host(
+            {**discrete, "single_site_update": False}, None,
+            draws.uniform(size=(20, 16, 16)))[0],
+        "kinetic_kspace": card_vs_host(
+            {**discrete, "kinetic_kspace": True}, None,
+            draws.uniform(size=(20, 16, 16)))[0],
+        "hybrid=False": card_vs_host({"hybrid": False}, None,
+                                     draws.normal(size=(20, 16, 16)))[0],
+        "continuous BP partial": card_vs_host(
+            None, {"mixed": {"energy_eval_freq": 1},
+                   "back_propagation": {"tau_bp": 0.1,
+                                        "restore_weights": "partial"}},
+            draws.normal(size=(20, 16, 16)))[0],
+    }
+    say("15 run modes", f"4x4 (7,7) U=4 complex64 1024 walkers {fsteps} "
+        f"steps each: " + "; ".join(notes) + f"; launches {fp_counts} as "
+        "scheduled; 16 walkers, 2 blocks with injected draws, complex64 on "
+        "the card vs complex128 on the host, max |d| over the scale "
+        "(mixed, BP): " + "; ".join(
+            f"{k} {v[0]:.2e}, {v[1]:.2e}" for k, v in gaps15.items())
+        + " (<= 1e-4)" + lap("15"))
+
+    # ---- 16. Generic BP + EKT --------------------------------------------
+    gen_bp = {"mixed": {"energy_eval_freq": 1},
+              "back_propagation": {"tau_bp": 0.05, "evaluate_energy": True,
+                                   "evaluate_ekt": True}}
+    xg = draws.normal(size=(30, 16, g_gen["chol"].shape[0]))
+    sq["nwalkers"], sq["dt"], sq["nstblz"] = 16, 0.005, 5
+    gaps16, gold_counts = card_vs_host(pallas, gen_bp, xg, model="generic",
+                                       nblocks=3)
+    if gold_counts["taylor_exp"] != 30 + 3 * 10:
+        raise AssertionError(f"Generic golden BP launches {gold_counts}")
+    zero_counts()
+    ham = generic_model(128, 512, 16, make_generic)
+    trial = rhf_identity_trial(ham, device="cuda", dtype="single")
+    af = AFQMC(ham, trial, QMCOpts(nwalkers=1024, dt=0.005, nsteps=10,
+                                   nblocks=1, nstblz=5, npop_control=1,
+                                   rng_seed=8),
+               propagator_options=pallas,
+               estimator_options={"mixed": {"energy_eval_freq": 1},
+                                  "back_propagation": {
+                                      "tau_bp": 0.05,
+                                      "evaluate_energy": True}},
+               device="cuda")
+    rows = af.run()
+    torch.cuda.synchronize()
+    bpg_counts = counts()
+    want = only(taylor_exp=10 + 10, inv_logdet_lanes=2 + 6 * 10 + 2,
+                chol_inv_lanes=4 * 2 + 2 * orthos(10, 5))
+    r = af.bp_reporter.rows[0]
+    tr_g = [float(np.trace(r["one_rdm_10"][s]).real
+                  / r["denominator_10"][0].real) for s in (0, 1)]
+    if not (bpg_counts == want and np.isfinite(rows).all()
+            and np.isfinite(r["energies_10"]).all()
+            and max(abs(x / 16.0 - 1.0) for x in tr_g) <= 1e-4):
+        raise AssertionError(f"Generic BP at the bench shape: launches "
+                             f"{bpg_counts} (want {want}), Tr G {tr_g}, "
+                             f"energies {r['energies_10']}")
+    say("16 Generic BP", f"golden nmo=11 (3,3), 16 walkers, 3 blocks with "
+        f"injected draws, BP tau_bp=0.05 with energies and EKT, "
+        f"taylor_impl=pallas: complex64 on the card (launches {gold_counts})"
+        f" vs complex128 on the host, max |d| over the scale (mixed, BP) "
+        f"{gaps16[0]:.2e}, {gaps16[1]:.2e} <= 1e-4; bench shape nmo=128 "
+        f"naux=512 (16,16) 1024 walkers, one BP measurement of tau_bp=0.05:"
+        f" BP energy {r['energies_10'][0].real:.5f} (mixed ETotal "
+        f"{rows[0, 5].real:.5f}), Tr G_bp per spin "
+        f"{', '.join(f'{x:.5f}' for x in tr_g)} = 16, launches "
+        f"{bpg_counts} as scheduled (Taylor 10 forward + 10 back); block "
+        f"{af.block_seconds[0]:.2f} s" + lap("16"))
+    del ham, trial, af
     say("seconds", json.dumps(seconds))
 
     # ---- result ----------------------------------------------------------
@@ -1797,7 +2214,9 @@ def main() -> None:
     }
     by_path = {"continuous": cont, "discrete": disc, "generic": gen_counts,
                "generic_exx": exx_counts, "thermal_ueg": ueg_counts,
-               "thermal_hubbard": hub_counts}
+               "thermal_hubbard": hub_counts, "bp_discrete": bp_counts,
+               "tutorial_3x3": tut_counts, "free_projection": fp_counts,
+               "bp_generic": bpg_counts}
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[k] for c in by_path.values()),

@@ -1,7 +1,9 @@
 """PyTorch/CUDA port of pauxy-tpu's AFQMC: at zero temperature the Hubbard
-continuous and discrete paths and the Generic (Cholesky ab-initio) phaseless
-path; at finite temperature the Hubbard and UEG continuous paths on the
-full-rank QDT stack (``qmc.ThermalAFQMC``).
+continuous and discrete paths and the Generic (Cholesky ab-initio) path,
+phaseless, local-energy or free-projection, with the mixed,
+back-propagated (with EKT), and ITCF estimators; at finite temperature the
+Hubbard and UEG continuous paths on the full-rank QDT stack
+(``qmc.ThermalAFQMC``).
 
 The JAX package ``pauxy_tpu`` stays the reference; this package mirrors its
 module paths (``models/hubbard.py`` here is ``pauxy_tpu/models/hubbard.py``

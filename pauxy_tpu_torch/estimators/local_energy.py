@@ -1,8 +1,9 @@
 """Hubbard, Generic and UEG local energies: walker-batched and host-side.
 
 Counterpart of ``local_energy_hubbard``, ``local_energy_generic_opt``,
-``_exx``, the UEG gather kernels (``coulomb_greens_function_ueg``,
-``exchange_greens_function_ueg``, ``local_energy_ueg``) and the Hubbard
+``_exx``, ``local_energy_generic_cholesky_G``, the UEG gather kernels
+(``coulomb_greens_function_ueg``, ``exchange_greens_function_ueg``,
+``local_energy_ueg``) and the Hubbard
 and Generic branches of ``local_energy_G_host`` in
 ``pauxy_tpu/estimators/local_energy.py``. The lanes block of
 ``qmc/hubbard_fast.py`` keeps its own fused energy.
@@ -14,7 +15,11 @@ import numpy as np
 import torch
 
 from pauxy_tpu_torch.ops import exx_cuda
-from pauxy_tpu_torch.ops.contract import cr_einsum
+from pauxy_tpu_torch.ops.contract import cr_einsum, rc_einsum
+
+# Elements of one chunk of the dense-G exchange intermediate
+# t[w, l, k, x] = sum_i G[w, i, l] L[i, k, x] (2^26: 512 MB in complex64).
+CHOLESKY_G_MAX_ELEMS = 2 ** 26
 
 
 def local_energy_hubbard(ham, Ga: torch.Tensor, Gb: torch.Tensor):
@@ -66,6 +71,47 @@ def _exx(rchol: torch.Tensor, ghalf: torch.Tensor,
     if not rchol.is_complex() and ghalf.is_complex():
         return exx_cuda.exx(rchol, ghalf.contiguous())
     return exx_cuda.exx_plain(rchol, ghalf)
+
+
+def local_energy_generic_cholesky_G(ham, Ga: torch.Tensor, Gb: torch.Tensor,
+                                    max_elems: int | None = None):
+    """(etot, e1b, e2b), each [w], of the Generic Hamiltonian from full
+    Green's functions G_s [w, M, M] (no trial half-rotation: the
+    back-propagated bra is not the trial):
+      e1b = sum H1_s * G_s + ecore,
+      X[w, x] = sum_ik L[i, k, x] (Ga + Gb)[w, i, k],
+      exx = sum_s sum_x tr((G_s^T L_x)^2),
+      e2b = 0.5 (X.X - exx).
+    The exchange's [w, M, M, X] intermediate is formed in chunks of the
+    Cholesky axis (and of walkers when one vector is already too large)
+    of at most ``max_elems`` elements, so it fits the card at the bench
+    shape."""
+    if max_elems is None:
+        max_elems = CHOLESKY_G_MAX_ELEMS
+    h1 = ham.H1
+    chol = ham.chol                                       # [M, M, X]
+    e1b = (cr_einsum("mn,wmn->w", h1[0], Ga)
+           + cr_einsum("mn,wmn->w", h1[1], Gb))
+    x = cr_einsum("ikx,wik->wx", chol, Ga + Gb)
+    ecoul = torch.einsum("wx,wx->w", x, x)
+    w, m = Ga.shape[0], Ga.shape[-1]
+    nx = chol.shape[-1]
+    wc = max(1, min(w, max_elems // (m * m)))
+    xc = max(1, min(nx, max_elems // (wc * m * m)))
+    exx = torch.zeros_like(ecoul)
+    for g in (Ga, Gb):
+        parts = []
+        for w0 in range(0, w, wc):
+            gw = g[w0:w0 + wc]
+            acc = torch.zeros(gw.shape[0], dtype=ecoul.dtype,
+                              device=ecoul.device)
+            for x0 in range(0, nx, xc):
+                t = rc_einsum("wil,ikx->wlkx", gw, chol[:, :, x0:x0 + xc])
+                acc = acc + torch.einsum("wlkx,wklx->w", t, t)
+            parts.append(acc)
+        exx = exx + torch.cat(parts)
+    e2b = 0.5 * (ecoul - exx)
+    return e1b + e2b + ham.ecore, e1b + ham.ecore, e2b
 
 
 def coulomb_greens_function_ueg(ham, G: torch.Tensor):

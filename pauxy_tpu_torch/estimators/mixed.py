@@ -1,11 +1,12 @@
 """Mixed estimator: per-step accumulation and host-side block reporting.
 
 Counterpart of the header, accumulator layout, ``energy_estimator``,
-``energy_estimator_G`` (the thermal path's), ``update`` and
-``MixedReporter`` of ``pauxy_tpu/estimators/mixed.py``.
+``energy_estimator_G`` (the thermal path's and back propagation's),
+``update`` and ``MixedReporter`` of ``pauxy_tpu/estimators/mixed.py``.
 ``update`` is the generic block's per-step accumulation (single-determinant
-trial, phaseless, Hubbard or Generic, no density matrices); the lanes block of
-``qmc/hubbard_fast.py`` keeps its own. ``MixedReporter`` turns a block's
+trial, phaseless or free projection, Hubbard or Generic; the density
+matrices are not ported yet); the lanes block of ``qmc/hubbard_fast.py``
+keeps its own. ``MixedReporter`` turns a block's
 sums into an output row, prints it and pushes it to the HDF5 file.
 """
 
@@ -54,10 +55,12 @@ def energy_estimator(ham, trial):
 
 def energy_estimator_G(ham):
     """Dense-G local energy ``(Ga, Gb) -> (etot, e1b, e2b)`` (the thermal
-    measurement's): Hubbard and UEG; the Generic dense-G energy is not
-    ported."""
+    measurement's and the back-propagated one's): Hubbard, Generic (from
+    the Cholesky factors) and UEG."""
     if ham.name == "Hubbard":
         return lambda ga, gb: le.local_energy_hubbard(ham, ga, gb)
+    if ham.name == "Generic":
+        return lambda ga, gb: le.local_energy_generic_cholesky_G(ham, ga, gb)
     if ham.name == "UEG":
         return lambda ga, gb: le.local_energy_ueg(ham, ga, gb)
     raise NotImplementedError(
@@ -68,12 +71,17 @@ def update(ham, trial, state, eval_energy: bool,
            free_projection: bool = False) -> torch.Tensor:
     """One step's contribution to the block accumulator, [NACC] complex, in
     the order UWEIGHT, WEIGHT, ENUMER, EDENOM, E1B, E2B, EHYB, OVLP. The
-    energy terms are zero unless ``eval_energy``."""
-    if free_projection:
-        raise NotImplementedError(
-            "the free-projection mixed estimator is not ported yet")
+    energy terms are zero unless ``eval_energy``. Free projection weighs
+    each walker by weight x overlap x phase and keeps the energies
+    complex."""
     cdtype = state.log_ovlp.dtype
-    wfac = state.weight.to(cdtype)
+    if free_projection:
+        ot = torch.exp(state.log_ovlp)
+        wfac = state.weight * ot * state.phase
+        ovlp = state.weight * ot.abs()
+    else:
+        wfac = state.weight.to(cdtype)
+        ovlp = state.weight * torch.exp(state.log_ovlp.real)
     zero = torch.zeros((), dtype=cdtype, device=wfac.device)
     enumer = edenom = e1b = e2b = zero
     if eval_energy:
@@ -81,10 +89,12 @@ def update(ham, trial, state, eval_energy: bool,
         ga = greens.greens_function(state.phia, trial.psia, want_g)
         gb = greens.greens_function(state.phib, trial.psib, want_g)
         etot, ke, pe = energy_estimator(ham, trial)(ga, gb)
-        enumer = torch.sum(wfac * etot.real)
+        if not free_projection:
+            etot, ke, pe = etot.real, ke.real, pe.real
+        enumer = torch.sum(wfac * etot)
         edenom = torch.sum(wfac)
-        e1b = torch.sum(wfac * ke.real)
-        e2b = torch.sum(wfac * pe.real)
+        e1b = torch.sum(wfac * ke)
+        e2b = torch.sum(wfac * pe)
     acc = [None] * NACC
     acc[UWEIGHT] = torch.sum(state.unscaled_weight).to(cdtype)
     acc[WEIGHT] = torch.sum(wfac)
@@ -93,8 +103,7 @@ def update(ham, trial, state, eval_energy: bool,
     acc[E1B] = e1b
     acc[E2B] = e2b
     acc[EHYB] = torch.sum(wfac * state.hybrid_energy)
-    acc[OVLP] = torch.sum(state.weight * torch.exp(state.log_ovlp.real)
-                          ).to(cdtype)
+    acc[OVLP] = torch.sum(ovlp).to(cdtype)
     return torch.stack(acc)
 
 

@@ -8,6 +8,7 @@ from pauxy_tpu_torch.models.trial import (
     SingleDetTrial,
     free_electron_trial,
     rhf_identity_trial,
+    spin_project_init,
     trial_from_orbitals,
     uhf_trial,
 )
@@ -15,5 +16,5 @@ from pauxy_tpu_torch.models.ueg import UEG, make_ueg
 
 __all__ = ["Generic", "make_generic", "Hubbard", "make_hubbard",
            "SingleDetTrial", "free_electron_trial", "rhf_identity_trial",
-           "trial_from_orbitals", "uhf_trial", "OneBodyTrial",
-           "make_one_body_trial", "UEG", "make_ueg"]
+           "spin_project_init", "trial_from_orbitals", "uhf_trial",
+           "OneBodyTrial", "make_one_body_trial", "UEG", "make_ueg"]

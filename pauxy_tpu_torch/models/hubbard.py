@@ -2,7 +2,9 @@
 
 Counterpart of ``pauxy_tpu/models/hubbard.py``. The lattice one-body matrix
 is built host-side with numpy (setup, not the hot path) and held as module
-buffers, so ``.to(device)`` moves it. Pinning fields are not ported yet.
+buffers, so ``.to(device)`` moves it. ``pinning_fields`` gives the
+staggered-pinning lattice (open x, periodic y, spin-dependent fields on the
+ix = 0 column).
 
 Site ordering: i = ix + nx*iy. Twist: boundary-wrap hops pick up a phase
 exp(i pi k.e).
@@ -41,6 +43,11 @@ class Hubbard(nn.Module):
     def nbasis(self) -> int:
         return self.nx * self.ny
 
+    @property
+    def nfields(self) -> int:
+        """One auxiliary field per site."""
+        return self.nbasis
+
 
 def _lattice_coords(nx: int, ny: int) -> np.ndarray:
     """[M, 2] cartesian coordinates, i = ix + nx*iy."""
@@ -76,6 +83,17 @@ def kinetic_matrix(t: float, nx: int, ny: int, ktwist=None,
     return tmat + tmat.conj().T
 
 
+def pinned_kinetic(t: float, nx: int, ny: int) -> np.ndarray:
+    """Hopping matrices [2, M, M] with staggered pinning fields on the
+    ix = 0 column: open x / periodic y boundaries, diagonal fields
+    +/- 0.1 t (-1)^iy, of opposite sign for the two spins."""
+    base = kinetic_matrix(t, nx, ny, ktwist=None, xpbc=False, ypbc=True)
+    coords = _lattice_coords(nx, ny)
+    field = np.where(coords[:, 0] == 0, (-1.0) ** coords[:, 1] * 0.1 * t,
+                     0.0)
+    return np.stack([base + np.diag(field), base - np.diag(field)])
+
+
 def band_energies(t: float, nx: int, ny: int) -> np.ndarray:
     """e(k) = -2t (cos kx + cos ky), FFT k-ordering."""
     kx = 2.0 * np.pi * np.arange(nx) / nx
@@ -87,19 +105,24 @@ def band_energies(t: float, nx: int, ny: int) -> np.ndarray:
 
 def make_hubbard(nup: int, ndown: int, U: float, nx: int, ny: int = 1,
                  t: float = 1.0, ktwist=None, xpbc: bool = True,
-                 ypbc: bool = True, symmetric: bool = False, *,
-                 device=None, dtype=None) -> Hubbard:
+                 ypbc: bool = True, symmetric: bool = False,
+                 pinning_fields: bool = False, *, device=None, dtype=None
+                 ) -> Hubbard:
     """Build a Hubbard system on ``device`` at precision ``dtype``."""
     prec = config.get_precision(dtype)
     device = config.resolve_device(device)
     m = nx * ny
-    tmat = kinetic_matrix(t, nx, ny, ktwist=ktwist, xpbc=xpbc, ypbc=ypbc)
-    np_dtype = prec.np_cplx if np.iscomplexobj(tmat) else prec.np_real
-    h1 = np.stack([tmat, tmat]).astype(np_dtype)
+    if pinning_fields:
+        h1 = pinned_kinetic(t, nx, ny).astype(prec.np_real)
+    else:
+        tmat = kinetic_matrix(t, nx, ny, ktwist=ktwist, xpbc=xpbc,
+                              ypbc=ypbc)
+        h1 = np.stack([tmat, tmat]).astype(
+            prec.np_cplx if np.iscomplexobj(tmat) else prec.np_real)
     if symmetric:
         h1e_mod = h1
     else:
-        h1e_mod = (h1 - 0.5 * U * np.eye(m)[None]).astype(np_dtype)
+        h1e_mod = (h1 - 0.5 * U * np.eye(m)[None]).astype(h1.dtype)
     return Hubbard(
         torch.from_numpy(h1).to(device),
         torch.from_numpy(np.ascontiguousarray(h1e_mod)).to(device),

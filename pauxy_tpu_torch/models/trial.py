@@ -6,9 +6,12 @@ setup, not the hot path) and hold their orbitals, and for Generic systems
 the half-rotated tensors, as module buffers.
 
 The trial's Green's function is G_s = conj(psi) (psi^T conj(psi))^{-1} psi^T.
+``spin_project_init`` moves only the walkers' initial determinant.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -244,3 +247,38 @@ def uhf_trial(ham, ueff: float = 0.4, ninitial: int = 10, nconv: int = 5000,
             best_e, best = enew, (va, vb)
     va, vb = best
     return _finalize(ham, va, vb, prec, "uhf", device)
+
+
+def spin_project_init(ham, trial: SingleDetTrial,
+                      init_walker: str | None = None):
+    """A copy of ``trial`` whose walkers start from spin-symmetric
+    orbitals: the natural orbitals of the spin-summed trial 1-RDM, or with
+    ``init_walker='free_electron'`` the one-body Hamiltonian's eigenvectors
+    (H1, or the hopping matrix T of a lattice model). Only ``inita`` /
+    ``initb`` change. Returns (trial, natural-orbital occupations in
+    descending order, or None for the free-electron variant)."""
+    na, nb = ham.nup, ham.ndown
+    noons = None
+    if init_walker == "free_electron":
+        h1 = getattr(ham, "H1", None)
+        if h1 is None:
+            h1 = ham.T
+        _, eigv = np.linalg.eigh(h1.cpu().numpy()[0])
+    else:
+        psia = trial.psia.cpu().numpy()
+        psib = trial.psib.cpu().numpy()
+
+        def proj(p):
+            return p @ np.linalg.inv(p.conj().T @ p) @ p.conj().T
+
+        eigs, eigv = np.linalg.eigh(proj(psia) + proj(psib))
+        ix = np.argsort(eigs)[::-1]
+        noons = eigs[ix].real
+        eigv = eigv[:, ix]
+    new = copy.deepcopy(trial)
+    cdtype, dev = trial.inita.dtype, trial.inita.device
+    new.inita = torch.from_numpy(np.ascontiguousarray(eigv[:, :na])).to(
+        dev, cdtype)
+    new.initb = torch.from_numpy(np.ascontiguousarray(eigv[:, :nb])).to(
+        dev, cdtype)
+    return new, noons

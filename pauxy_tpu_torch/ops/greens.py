@@ -1,7 +1,7 @@
 """Batched Slater-determinant overlaps and Green's functions, [w, M, n].
 
 Counterpart of ``overlap_matrix``, ``log_overlap``, ``SpinGreens``,
-``greens_function`` and ``reortho`` in ``pauxy_tpu/ops/greens.py``.
+``greens_function``, ``gab`` and ``reortho`` in ``pauxy_tpu/ops/greens.py``.
 ``phi`` is [w, M, n], ``psi`` [M, n]; the overlap is S = phi^T conj(psi),
 kept in log space. The inverse and log-determinant of S come from kernel B
 in one pass; the two products around it are plain batched matmuls, as they
@@ -46,6 +46,14 @@ def greens_function(phi: torch.Tensor, psi: torch.Tensor,
     g = (torch.einsum("mi,win->wmn", psi.conj(), ghalf) if want_g
          else None)
     return SpinGreens(G=g, Ghalf=ghalf, log_ovlp=log_det.to(phi.dtype))
+
+
+def gab(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One-particle Green's function between two batched determinants,
+    G = B (A^H B)^-1 A^H with a, b [..., M, n]; the solve is kernel B's
+    inverse on the card."""
+    adag = a.conj().transpose(-1, -2)                     # [..., n, M]
+    return torch.matmul(b, clinalg.solve(torch.matmul(adag, b), adag))
 
 
 def reortho(phi: torch.Tensor):

@@ -1,16 +1,18 @@
 """Model-agnostic continuous Hubbard-Stratonovich propagation.
 
 Counterpart of ``pauxy_tpu/propagation/continuous.py``: ``Continuous`` holds
-the step's settings around the model's inner propagator (the Generic one
-here; the Hubbard lanes block of ``qmc/hubbard_fast.py`` runs its own step)
-and ``propagate_phaseless`` is the batched phaseless step
+the step's settings around the model's inner propagator (Hubbard or
+Generic; the Hubbard lanes block of ``qmc/hubbard_fast.py`` runs its own
+step) and the batched steps
 
     phi <- B_{T/2} e^{VHS(x - xbar)} B_{T/2} phi
 
-with the hybrid weight update. Not ported yet, each raising
-``NotImplementedError``: free projection, the local-energy update
-(``hybrid=False``), the stochastic-RI one-body step and multi-determinant
-trials.
+``propagate_phaseless`` with the hybrid weight update or, with
+``hybrid=False``, the local-energy update; ``propagate_free`` for free
+projection. With a back-propagation buffer the phaseless step records its
+shifted fields and weight factors at ``bp_ix``. Not ported yet, each
+raising ``NotImplementedError``: the stochastic-RI one-body step and
+multi-determinant trials.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from pauxy_tpu_torch.estimators import mixed
 from pauxy_tpu_torch.ops import greens
 
 
@@ -44,18 +47,22 @@ class Continuous:
         """Hybrid-energy bound sqrt(2/dt)."""
         return (2.0 / self.dt) ** 0.5
 
-    def propagate(self, trial, state, generator, eshift: float, xi=None):
-        """One phaseless step. ``xi`` [w, nfields] injects the normal field
-        draws (tests); otherwise they come from ``generator``."""
-        missing = {"free_projection": self.free_projection,
-                   "hybrid=False": not self.hybrid,
-                   "stochastic_ri": self.stochastic_ri,
+    def propagate(self, trial, state, generator, eshift: float, xi=None, *,
+                  bp_ix: int | None = None, ham=None):
+        """One step. ``xi`` [w, nfields] injects the normal field draws
+        (tests); otherwise they come from ``generator``. ``bp_ix`` is the
+        back-propagation buffer's slot for this step; ``ham`` is needed by
+        the local-energy update (``hybrid=False``)."""
+        missing = {"stochastic_ri": self.stochastic_ri,
                    "multi-determinant trials": not is_single_det(trial)}
         if any(missing.values()):
             raise NotImplementedError(
                 "not ported yet for the continuous propagator: "
                 + ", ".join(k for k, v in missing.items() if v))
-        return propagate_phaseless(self, trial, state, generator, eshift, xi)
+        if self.free_projection:
+            return propagate_free(self, trial, state, generator, eshift, xi)
+        return propagate_phaseless(self, trial, state, generator, eshift, xi,
+                                   bp_ix=bp_ix, ham=ham)
 
 
 def is_single_det(trial) -> bool:
@@ -71,11 +78,11 @@ def _bound_hybrid(ehyb: torch.Tensor, eshift: float, ebound: float
     return torch.complex(re, ehyb.imag)
 
 
-def trial_greens(trial, phia, phib):
-    """(ga, gb, log overlap) of a single-determinant trial; only the
-    half-rotated Green's functions are formed."""
-    ga = greens.greens_function(phia, trial.psia, want_g=False)
-    gb = greens.greens_function(phib, trial.psib, want_g=False)
+def trial_greens(trial, phia, phib, want_g: bool = False):
+    """(ga, gb, log overlap) of a single-determinant trial; the full
+    Green's functions are formed only with ``want_g``."""
+    ga = greens.greens_function(phia, trial.psia, want_g=want_g)
+    gb = greens.greens_function(phib, trial.psib, want_g=want_g)
     return ga, gb, ga.log_ovlp + gb.log_ovlp
 
 
@@ -122,12 +129,18 @@ def two_body_factors(prop: Continuous, trial, ga, gb, nwalkers: int,
 
 
 def propagate_phaseless(prop: Continuous, trial, state, generator,
-                        eshift: float, xi=None):
-    """One phaseless step for the whole population, with the hybrid weight
-    update. Walkers with |weight| <= 1e-8 are frozen, which also keeps NaNs
-    of dead walkers out of the state."""
+                        eshift: float, xi=None, *, bp_ix: int | None = None,
+                        ham=None):
+    """One phaseless step for the whole population: the hybrid weight
+    update or, with ``prop.hybrid`` False, the local-energy update
+    (magnitude from the bounded local energy, cosine from the overlap
+    ratio's phase). Walkers with |weight| <= 1e-8 are frozen, which also
+    keeps NaNs of dead walkers out of the state. With a buffer and
+    ``bp_ix`` the shifted fields, the phase factor and the cosine factor
+    are recorded in slot ``bp_ix``."""
     inner = prop.inner
-    ga, gb, log_o = trial_greens(trial, state.phia, state.phib)
+    ga, gb, log_o = trial_greens(trial, state.phia, state.phib,
+                                 getattr(inner, "uses_full_g", False))
     phia, phib = _apply_bh1(inner.BH1, state.phia, state.phib)
     fac = two_body_factors(prop, trial, ga, gb, state.nwalkers, generator,
                            xi)
@@ -137,12 +150,24 @@ def propagate_phaseless(prop: Continuous, trial, state, generator,
 
     dt = prop.dt
     log_ratio = log_o_new - log_o
-    ehyb = _bound_hybrid(-(log_ratio + fac.cfb + fac.cmf) / dt, eshift,
-                         prop.ebound)
-    log_imp = -dt * (0.5 * (ehyb + state.hybrid_energy) - eshift)
-    magn = torch.exp(log_imp.real)
-    dtheta = (-dt * ehyb - fac.cfb).imag
-    weight = state.weight * magn * torch.clamp_min(torch.cos(dtheta), 0.0)
+    ehyb = -(log_ratio + fac.cfb + fac.cmf) / dt
+    if prop.hybrid:
+        ehyb = _bound_hybrid(ehyb, eshift, prop.ebound)
+        log_imp = -dt * (0.5 * (ehyb + state.hybrid_energy) - eshift)
+        magn = torch.exp(log_imp.real)
+        dtheta = (-dt * ehyb - fac.cfb).imag
+    else:
+        if ham is None:
+            raise ValueError("the local-energy weight update needs ham")
+        eloc = mixed.energy_estimator(ham, trial)(ga, gb)[0]
+        re_eloc = _bound_hybrid(eloc, eshift, prop.ebound)
+        magn = torch.exp(-0.5 * dt * (re_eloc + state.eloc - eshift).real)
+        log_imp = torch.zeros_like(log_ratio)
+        dtheta = log_ratio.imag
+        ehyb = state.hybrid_energy
+        state = dataclasses.replace(state, eloc=eloc)
+    cosine_fac = torch.clamp_min(torch.cos(dtheta), 0.0)
+    weight = state.weight * magn * cosine_fac
     weight = torch.where(torch.isfinite(weight), weight,
                          torch.zeros_like(weight))
 
@@ -152,11 +177,54 @@ def propagate_phaseless(prop: Continuous, trial, state, generator,
         return torch.where(alive.reshape((-1,) + (1,) * (new.dim() - 1)),
                            new, old)
 
-    return dataclasses.replace(
-        state,
+    updates = dict(
         phia=sel(phia, state.phia),
         phib=sel(phib, state.phib),
         weight=sel(weight, state.weight),
         log_ovlp=sel(log_o_new, state.log_ovlp),
         hybrid_energy=sel(ehyb, state.hybrid_energy),
+    )
+    if state.configs is not None and bp_ix is not None:
+        ok = magn > 1e-16
+        phase_fac = torch.where(ok, torch.exp(1j * log_imp.imag),
+                                torch.zeros_like(log_imp))
+        cos_rec = torch.where(ok, cosine_fac, torch.zeros_like(cosine_fac))
+        configs = state.configs.clone()
+        configs[:, bp_ix] = sel(fac.xshifted.to(configs.dtype),
+                                configs[:, bp_ix])
+        weight_fac = state.weight_fac.clone()
+        weight_fac[:, bp_ix] = sel(phase_fac.to(weight_fac.dtype),
+                                   weight_fac[:, bp_ix])
+        cos_fac = state.cos_fac.clone()
+        cos_fac[:, bp_ix] = sel(cos_rec.to(cos_fac.dtype), cos_fac[:, bp_ix])
+        updates.update(configs=configs, weight_fac=weight_fac,
+                       cos_fac=cos_fac)
+    return dataclasses.replace(state, **updates)
+
+
+def propagate_free(prop: Continuous, trial, state, generator, eshift: float,
+                   xi=None):
+    """One free-projection step (no phaseless constraint): the weight takes
+    |exp(cmf + dt eshift)|, the walker phase its argument. The force bias,
+    off by default, is formed only when asked for."""
+    inner = prop.inner
+    if prop.force_bias:
+        ga, gb, _ = trial_greens(trial, state.phia, state.phib,
+                                 getattr(inner, "uses_full_g", False))
+    else:
+        ga = gb = None
+    phia, phib = _apply_bh1(inner.BH1, state.phia, state.phib)
+    fac = two_body_factors(prop, trial, ga, gb, state.nwalkers, generator,
+                           xi)
+    phia, phib = inner.apply_vhs(phia, phib, fac.xshifted)
+    phia, phib = _apply_bh1(inner.BH1, phia, phib)
+    log_o_new = trial_log_overlap(trial, phia, phib)
+    arg = fac.cmf + prop.dt * eshift
+    return dataclasses.replace(
+        state,
+        phia=phia,
+        phib=phib,
+        weight=state.weight * torch.exp(arg.real),
+        phase=state.phase * torch.exp(1j * arg.imag).to(state.phase.dtype),
+        log_ovlp=log_o_new,
     )

@@ -15,9 +15,13 @@ The sweep has two implementations, chosen at build time by
 * ``"scan"``: the general complex path, a Python loop over sites of
   batched tensor operations.
 
-Not ported yet, each raising ``NotImplementedError``: free projection, the
-whole-lattice ``two_body_mode='direct'`` update, ``kinetic_kspace``, the
-GHF (multi-determinant) variants and a walker ``mesh``.
+Both routes return the chosen fields, which a back-propagation buffer
+records at ``bp_ix``. Besides the sweep: the whole-lattice
+``two_body_mode='direct'`` update (dynamic force bias), free projection
+(fields 50/50, |aux_wfac| into the weight, its phase into the walker's) and
+``kinetic_kspace`` (B_{T/2} diagonal in momentum space, by ``torch.fft``).
+Not ported yet, each raising ``NotImplementedError``: the GHF
+(multi-determinant) variants and a walker ``mesh``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from pauxy_tpu_torch import config
 from pauxy_tpu_torch.ops import clinalg, greens, sweep_cuda
 
 SWEEP_KERNELS = ("scan", "kernel")
+TWO_BODY_MODES = ("single_site", "direct")
 
 
 class Hirsch(nn.Module):
@@ -50,28 +55,51 @@ class Hirsch(nn.Module):
 
     def __init__(self, BT2, auxf, aux_wfac, *, dt: float,
                  charge: bool = False, gamma: complex = 0.0,
-                 sweep_kernel: str = "scan"):
+                 sweep_kernel: str = "scan", free_projection: bool = False,
+                 two_body_mode: str = "single_site", btk=None, nx: int = 0,
+                 ny: int = 0):
         super().__init__()
         if sweep_kernel not in SWEEP_KERNELS:
             raise ValueError(f"sweep_kernel {sweep_kernel!r}, want one of "
                              f"{SWEEP_KERNELS}")
+        if two_body_mode not in TWO_BODY_MODES:
+            raise ValueError(f"two_body_mode {two_body_mode!r}, want one of "
+                             f"{TWO_BODY_MODES}")
         self.register_buffer("BT2", BT2)
         self.register_buffer("auxf", auxf)
         self.register_buffer("aux_wfac", aux_wfac)
+        # exp(-dt/2 eps_k) [ny, nx] on the FFT grid, or None (dense BT2).
+        self.register_buffer("btk", btk)
         self.dt = float(dt)
         self.charge = bool(charge)
         self.gamma = complex(gamma)
         self.sweep_kernel = sweep_kernel
+        self.free_projection = bool(free_projection)
+        self.two_body_mode = two_body_mode
+        self.nx = int(nx)
+        self.ny = int(ny)
 
     @property
     def delta(self) -> torch.Tensor:
         return self.auxf - 1.0
 
+    def _apply_bt2_kspace(self, phi: torch.Tensor) -> torch.Tensor:
+        """B_{T/2} phi as a diagonal in momentum space (2-D FFT over the
+        lattice)."""
+        w, m, n = phi.shape
+        gk = torch.fft.fft2(phi.reshape(w, self.ny, self.nx, n), dim=(1, 2))
+        gk = gk * self.btk[None, :, :, None]
+        return torch.fft.ifft2(gk, dim=(1, 2)).reshape(w, m, n)
+
     def _kinetic_half_step(self, trial, state):
         """B_{T/2} phi and the constraint: weight *= Re(ratio) where
         |arg ratio| < pi/2, else 0."""
-        phia = torch.matmul(self.BT2[0], state.phia)
-        phib = torch.matmul(self.BT2[1], state.phib)
+        if self.btk is not None:
+            phia = self._apply_bt2_kspace(state.phia)
+            phib = self._apply_bt2_kspace(state.phib)
+        else:
+            phia = torch.matmul(self.BT2[0], state.phia)
+            phib = torch.matmul(self.BT2[1], state.phib)
         log_new = (greens.log_overlap(phia, trial.psia)
                    + greens.log_overlap(phib, trial.psib)
                    ).to(state.log_ovlp.dtype)
@@ -175,24 +203,106 @@ class Hirsch(nn.Module):
                                     + dlog.to(cdtype)),
                 fields)
 
+    def _two_body_direct(self, trial, state, generator=None, rs=None):
+        """Whole-lattice discrete update with the dynamic force bias from
+        the current diagonal of G: every site's field drawn at once from
+        ``rs`` [w, M] uniforms, then one diagonal scaling. Returns
+        (state, fields [w, M])."""
+        m, nw = state.nbasis, state.nwalkers
+        cdtype = state.phia.dtype
+        gamma = torch.tensor(self.gamma, dtype=cdtype,
+                             device=state.phia.device)
+        psia, psib = trial.psia, trial.psib
+        inva = clinalg.inv(torch.einsum("mi,wmj->wij", psia.conj(),
+                                        state.phia))
+        invb = clinalg.inv(torch.einsum("mi,wmj->wij", psib.conj(),
+                                        state.phib))
+        nia = torch.einsum("ia,wba,wib->wi", psia.conj(), inva, state.phia)
+        nib = torch.einsum("ia,wba,wib->wi", psib.conj(), invb, state.phib)
+        fb_term = (nia + nib - 1.0) if self.charge else (nia - nib)
+        pp = 0.5 * torch.exp(gamma * fb_term).real
+        pm = 0.5 * torch.exp(-gamma * fb_term).real
+        norm = pp + pm
+        if rs is None:
+            rs = torch.rand((nw, m), generator=generator,
+                            dtype=state.weight.dtype,
+                            device=state.weight.device)
+        xi = (rs >= pp / norm).long()
+        sign = torch.where(xi == 0, -1.0, 1.0).to(cdtype)
+        fb_fac = torch.prod((0.5 * norm) * torch.exp(sign * gamma
+                                                     * fb_term).real, dim=-1)
+        phia = state.phia * self.auxf[xi, 0][:, :, None]
+        phib = state.phib * self.auxf[xi, 1][:, :, None]
+        wfac = torch.prod(self.aux_wfac[xi], dim=-1)
+        log_new = (greens.log_overlap(phia, psia)
+                   + greens.log_overlap(phib, psib)).to(state.log_ovlp.dtype)
+        ratio = wfac * torch.exp(log_new - state.log_ovlp)
+        phase_ok = torch.angle(ratio).abs() < 0.5 * math.pi
+        weight = torch.where(phase_ok, state.weight * (fb_fac * ratio).real,
+                             torch.zeros_like(state.weight))
+        return (dataclasses.replace(state, phia=phia, phib=phib,
+                                    weight=weight, log_ovlp=log_new),
+                xi.to(torch.int32))
+
     def _propagate_constrained(self, trial, state, generator, eshift: float,
-                               rs=None):
-        """Kinetic half, site sweep, kinetic half, eshift growth."""
+                               rs=None, bp_ix: int | None = None):
+        """Kinetic half, site sweep (or the direct update), kinetic half,
+        eshift growth; the fields go into the buffer at ``bp_ix``."""
         state = self._kinetic_half_step(trial, state)
-        state, _ = self._site_sweep(trial, state, generator, rs)
+        if self.two_body_mode == "direct":
+            state, fields = self._two_body_direct(trial, state, generator, rs)
+        else:
+            state, fields = self._site_sweep(trial, state, generator, rs)
         state = self._kinetic_half_step(trial, state)
         growth = math.exp(self.dt * float(np.real(eshift)))
-        return dataclasses.replace(state, weight=state.weight * growth)
+        state = dataclasses.replace(state, weight=state.weight * growth)
+        if state.configs is not None and bp_ix is not None:
+            configs = state.configs.clone()
+            configs[:, bp_ix] = fields.to(configs.dtype)
+            state = dataclasses.replace(state, configs=configs)
+        return state
 
-    def propagate(self, trial, state, generator, eshift: float, rs=None):
-        """One constrained-path step. ``rs`` [M, w] injects the sweep's
-        uniform draws (tests); otherwise they come from ``generator``."""
+    def _propagate_free(self, trial, state, generator, eshift: float,
+                        bits=None):
+        """Free projection: fields 50/50 (``bits`` [w, M] of 0/1, drawn
+        unless given), |wfac| and the growth into the weight, the phase of
+        wfac into the walker's phase; dense B_{T/2} on both sides."""
+        phia = torch.matmul(self.BT2[0], state.phia)
+        phib = torch.matmul(self.BT2[1], state.phib)
+        if bits is None:
+            bits = torch.rand((state.nwalkers, state.nbasis),
+                              generator=generator, dtype=state.weight.dtype,
+                              device=state.weight.device) < 0.5
+        xi = bits.long()
+        phia = torch.matmul(self.BT2[0], phia * self.auxf[xi, 0][:, :, None])
+        phib = torch.matmul(self.BT2[1], phib * self.auxf[xi, 1][:, :, None])
+        wfac = torch.prod(self.aux_wfac[xi], dim=-1)
+        log_new = (greens.log_overlap(phia, trial.psia)
+                   + greens.log_overlap(phib, trial.psib)
+                   ).to(state.log_ovlp.dtype)
+        growth = math.exp(self.dt * float(np.real(eshift)))
+        return dataclasses.replace(
+            state, phia=phia, phib=phib,
+            weight=state.weight * wfac.abs() * growth,
+            phase=state.phase * torch.exp(1j * torch.angle(wfac)).to(
+                state.phase.dtype),
+            log_ovlp=log_new)
+
+    def propagate(self, trial, state, generator, eshift: float, rs=None, *,
+                  bp_ix: int | None = None, ham=None):
+        """One step. ``rs`` injects the step's draws (tests): the sweep's
+        uniforms [M, w], the direct update's uniforms [w, M] or free
+        projection's field bits [w, M]; otherwise they come from
+        ``generator``. ``bp_ix`` is the back-propagation buffer's slot;
+        ``ham`` is unused (the continuous propagator's signature)."""
         if getattr(trial, "psia", None) is None or trial.psia.dim() != 2:
             raise NotImplementedError(
                 "the discrete propagator is ported for single-determinant "
                 "trials only (no GHF)")
+        if self.free_projection:
+            return self._propagate_free(trial, state, generator, eshift, rs)
         return self._propagate_constrained(trial, state, generator, eshift,
-                                           rs)
+                                           rs, bp_ix)
 
 
 def make_hirsch(ham, trial, dt: float, charge_decomposition: bool = False,
@@ -204,21 +314,36 @@ def make_hirsch(ham, trial, dt: float, charge_decomposition: bool = False,
 
     The sweep's route comes from ``_auto_sweep_kernel``; the real-arithmetic
     kernel is never forced onto a complex system. The spin decomposition
-    needs U >= 0.
+    needs U >= 0. ``kinetic_kspace`` needs a circulant hopping matrix (a
+    periodic lattice without twist or pinning fields).
     """
-    missing = {"free_projection": free_projection,
-               "two_body_mode='direct'": two_body_mode != "single_site",
-               "kinetic_kspace": kinetic_kspace,
-               "mesh": mesh is not None}
-    if any(missing.values()):
+    if mesh is not None:
         raise NotImplementedError(
-            "not ported yet for the discrete propagator: "
-            + ", ".join(k for k, v in missing.items() if v))
+            "not ported yet for the discrete propagator: mesh")
     prec = config.get_precision(dtype)
     device = config.resolve_device(device)
     t = ham.T.cpu().numpy()
     bt2 = np.stack([scipy.linalg.expm(-0.5 * dt * t[0]),
                     scipy.linalg.expm(-0.5 * dt * t[1])])
+    btk = None
+    nx = ny = 0
+    if kinetic_kspace:
+        nx, ny = int(ham.nx), int(ham.ny)
+        # A circulant T on the (ny, nx) torus has the FFT of its column at
+        # site 0 as eigenvalues (in float64 whatever the run's precision).
+        t64 = t[0].astype(np.complex128)
+        ek = np.fft.fft2(t64[:, 0].reshape(ny, nx))
+        if np.abs(ek.imag).max() > 1e-10:
+            raise ValueError(
+                "kinetic_kspace requires a circulant hopping matrix "
+                "(PBC, no twist/pinning)")
+        btk = np.exp(-0.5 * dt * ek.real)
+        f = np.fft.fft2(np.eye(nx * ny).reshape(nx * ny, ny, nx),
+                        axes=(1, 2)).reshape(nx * ny, nx * ny)
+        recon = f.conj().T @ (btk.reshape(-1)[:, None] * f) / (nx * ny)
+        if np.abs(recon - scipy.linalg.expm(-0.5 * dt * t64)).max() > 1e-8:
+            raise ValueError("kinetic_kspace: the momentum-space B_{T/2} "
+                             "does not reproduce expm(-dt T / 2)")
     if charge_decomposition:
         gamma = np.arccosh(np.exp(-0.5 * dt * ham.U + 0j))
         auxf = np.array([[np.exp(gamma), np.exp(gamma)],
@@ -244,7 +369,9 @@ def make_hirsch(ham, trial, dt: float, charge_decomposition: bool = False,
 
     return Hirsch(buf(bt2), buf(auxf), buf(aux_wfac), dt=dt,
                   charge=charge_decomposition, gamma=complex(gamma),
-                  sweep_kernel=sweep_kernel)
+                  sweep_kernel=sweep_kernel, free_projection=free_projection,
+                  two_body_mode=two_body_mode,
+                  btk=None if btk is None else buf(btk), nx=nx, ny=ny)
 
 
 def _auto_sweep_kernel(trial, t, auxf, aux_wfac, free_projection,

@@ -2,9 +2,11 @@
 
 Counterpart of ``pauxy_tpu/propagation/hubbard.py``: the one-body
 half-step ``BH1`` and the mean-field shift ``mf_shift`` for the charge or
-spin decomposition. The HS potential is diagonal in the site basis; the
-main path applies exp(VHS) as an elementwise gauge factor inside
-``qmc/hubbard_fast.py``.
+spin decomposition, and the step pieces the generic [w, M, n] block needs
+(the force bias from the full Green's function, exp(VHS) and the fields of
+its adjoint for back propagation). The HS potential is diagonal in the site
+basis, so exp(VHS) is an elementwise gauge factor, here and inside the
+lanes block of ``qmc/hubbard_fast.py``.
 """
 
 from __future__ import annotations
@@ -31,9 +33,43 @@ class HubbardContinuous(nn.Module):
         self.U = float(U)
         self.charge = bool(charge)
 
+    # The force bias reads the full Green's function's diagonal.
+    uses_full_g = True
+
     @property
     def sqrt_dt(self) -> float:
         return self.dt ** 0.5
+
+    @property
+    def mf_core(self) -> torch.Tensor:
+        """0.5 mf_shift . mf_shift."""
+        return 0.5 * torch.dot(self.mf_shift, self.mf_shift)
+
+    def force_bias(self, trial, ga, gb) -> torch.Tensor:
+        """xbar = -sqrt(dt) (vbias - mf_shift), vbias = i sqrt(U)
+        (diag Ga + diag Gb) (charge) or sqrt(U) (diag Ga - diag Gb)
+        (spin)."""
+        da = torch.diagonal(ga.G, dim1=-2, dim2=-1)
+        db = torch.diagonal(gb.G, dim1=-2, dim2=-1)
+        if self.charge:
+            vbias = 1j * self.U ** 0.5 * (da + db)
+        else:
+            vbias = self.U ** 0.5 * (da - db)
+        return -self.sqrt_dt * (vbias - self.mf_shift)
+
+    def apply_vhs(self, phia, phib, xshifted):
+        """phi <- exp(VHS) phi, VHS diagonal: i sqrt(dt U) diag(x) on both
+        spins (charge) or -/+ sqrt(dt U) diag(x) per spin (spin)."""
+        if self.charge:
+            gauge = torch.exp(self.sqrt_dt * 1j * self.U ** 0.5 * xshifted)
+            return phia * gauge[:, :, None], phib * gauge[:, :, None]
+        gauge = torch.exp((self.dt * self.U) ** 0.5 * xshifted)
+        return phia / gauge[:, :, None], phib * gauge[:, :, None]
+
+    def bp_dagger_fields(self, x: torch.Tensor) -> torch.Tensor:
+        """Fields y with exp(VHS(y)) = exp(VHS(x))^dagger: -conj(x) for the
+        anti-Hermitian charge generator, conj(x) for the spin one."""
+        return -x.conj_physical() if self.charge else x.conj_physical()
 
 
 def make_hubbard_continuous(ham, trial, dt: float,

@@ -6,12 +6,16 @@ package's counterpart:
 * ``hubbard_fast.run_block_lanes``, the lanes fast block, for the
   configurations ``hubbard_fast.eligible`` covers (Hubbard continuous-HS
   hybrid phaseless);
-* ``run_block`` below, the generic [w, M, n] block, for the discrete-HS
-  (Hirsch) propagator (constrained-path CPMC) and for the Generic
-  ab-initio continuous-HS hybrid phaseless propagator.
+* ``run_block`` below, the generic [w, M, n] block, for everything else:
+  the discrete-HS (Hirsch) propagator (constrained-path CPMC, the direct
+  update, free projection), the Hubbard and Generic continuous-HS
+  propagators (phaseless with the hybrid or the local-energy update, or
+  free projection), with the back-propagated and ITCF estimators.
 
-Block boundaries touch the host for the output row, the HDF5 push and the
-eshift update. Any other configuration raises ``NotImplementedError``.
+Block boundaries touch the host for the output rows, the HDF5 push and the
+eshift update. Multi-determinant and GHF trials, the stochastic-RI
+one-body step, the mixed estimator's density matrices and a walker mesh
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,10 +30,10 @@ import numpy as np
 import torch
 
 from pauxy_tpu_torch import config
-from pauxy_tpu_torch.estimators import mixed
+from pauxy_tpu_torch.estimators import back_prop, mixed
+from pauxy_tpu_torch.estimators import itcf as itcf_mod
 from pauxy_tpu_torch.propagation.continuous import Continuous, is_single_det
-from pauxy_tpu_torch.propagation.generic import (GenericContinuous,
-                                                 make_generic_continuous)
+from pauxy_tpu_torch.propagation.generic import make_generic_continuous
 from pauxy_tpu_torch.propagation.hirsch import Hirsch, make_hirsch
 from pauxy_tpu_torch.propagation.hubbard import make_hubbard_continuous
 from pauxy_tpu_torch.qmc import hubbard_fast
@@ -53,30 +57,93 @@ def check_population_alive(weight: torch.Tensor, hint: str):
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class Extras:
+    """Back-propagation and ITCF settings of a block (all off by default).
+
+    ``nbp`` steps of back propagation measured at ``bp_nsplit`` split
+    points; ``nitcf`` slices of ITCF; ``nprop_tot`` the length of the
+    shared field buffer (``nbp``, or ``nitcf`` + the ITCF equilibration).
+    """
+
+    nbp: int = 0
+    bp_nsplit: int = 1
+    bp_restore: str | None = None
+    bp_two_rdm: str | None = None
+    bp_eval_energy: bool = False
+    bp_eval_ekt: bool = False
+    nprop_tot: int = 0
+    nitcf: int = 0
+    itcf_stable: bool = True
+    itcf_restore: bool = True
+    itcf_stack_size: int = 1
+
+    @property
+    def nhist(self) -> int:
+        return self.nprop_tot or self.nbp
+
+    @property
+    def splits(self) -> tuple:
+        return tuple((i + 1) * (self.nbp // self.bp_nsplit)
+                     for i in range(self.bp_nsplit))
+
+
+def _reset(state, old: str):
+    """The history after a measurement: the current walkers become the
+    snapshot ``phia_<old>``/``phib_<old>`` and the factors restart at 1."""
+    return dataclasses.replace(
+        state, **{f"phia_{old}": state.phia, f"phib_{old}": state.phib},
+        cos_fac=torch.ones_like(state.cos_fac),
+        weight_fac=torch.ones_like(state.weight_fac))
+
+
 def run_block(ham, trial, prop, state, generator, eshift: float,
               step0: int, *, nsteps: int, nstblz: int, npop_control: int,
               pop_method: str, target_weight: float, energy_eval_freq: int,
+              free_projection: bool = False, extras: Extras = Extras(),
               noise: BlockNoise | None = None):
-    """Advance ``state`` by one phaseless block of ``nsteps`` steps in the
+    """Advance ``state`` by one block of ``nsteps`` steps in the
     [w, M, n] layout, in the JAX step order
-    (``pauxy_tpu/qmc/afqmc.py:117-156``): re-orthogonalise on
-    ``step % nstblz == 0`` before propagating; propagate; cap weights at
-    10% of the total weight from step 2 on;
-    population control on ``step % npop_control == 0``; the mixed
-    estimator, with energies on ``step % energy_eval_freq == 0``.
+    (``pauxy_tpu/qmc/afqmc.py:117-228``): re-orthogonalise on
+    ``step % nstblz == 0`` before propagating; propagate (the shifted
+    fields into buffer slot ``(step - 1) % nhist``); cap weights at 10% of
+    the total weight from step 2 on; population control on
+    ``step % npop_control == 0``; the mixed estimator, with energies on
+    ``step % energy_eval_freq == 0``; a back-propagation measurement when
+    the buffer count ``(step - 1) % nhist + 1`` reaches a split point, and
+    the history reset after the last split; the ITCF measurement and its
+    snapshot reset on ``step % nhist == 0``.
 
-    Returns (state, accumulator [2, NACC] real: the block sums' real and
-    imaginary parts). Draws come from ``generator`` unless ``noise`` is
-    given (``noise.xi[i]`` is step i's propagator draw: the site sweep's
-    uniforms [M, w], or the Generic HS fields [w, X]).
+    Returns (state, mixed, bp, itcf): each accumulator [2, n] real, the
+    block sums' real and imaginary parts (n = 0 for an estimator that is
+    off). Draws come from ``generator`` unless ``noise`` is given
+    (``noise.xi[i]`` is step i's propagator draw: the site sweep's
+    uniforms [M, w], the direct update's uniforms [w, M], discrete free
+    projection's field bits [w, M], or the continuous HS fields [w, X]).
     """
+    discrete = isinstance(prop, Hirsch)
+    nhist = extras.nhist
+    energy_fn = None
+    if extras.bp_eval_energy:
+        energy_fn = mixed.energy_estimator_G(ham)
+    cdtype = state.log_ovlp.dtype
+    m = state.nbasis
+    nacc_bp = (back_prop.bp_acc_size(ham, extras.bp_two_rdm,
+                                     extras.bp_eval_ekt) if extras.nbp else 0)
     accs = []
+    bp_acc = torch.zeros(nacc_bp * extras.bp_nsplit, dtype=cdtype,
+                         device=state.weight.device)
+    itcf_acc = torch.zeros(
+        itcf_mod.itcf_acc_size(m, extras.nitcf, extras.itcf_stack_size)
+        if extras.nitcf else 0, dtype=cdtype, device=state.weight.device)
     for i in range(nsteps):
         step = step0 + 1 + i
         if step % nstblz == 0:
-            state = orthogonalise(state)
+            state = orthogonalise(state, free_projection)
         state = prop.propagate(trial, state, generator, eshift,
-                               None if noise is None else noise.xi[i])
+                               None if noise is None else noise.xi[i],
+                               bp_ix=(step - 1) % nhist if nhist else None,
+                               ham=ham)
         if step > 1:
             cap = 0.10 * state.total_weight
             state = dataclasses.replace(
@@ -88,9 +155,30 @@ def run_block(ham, trial, prop, state, generator, eshift: float,
                 uniforms=None if noise is None else noise.pop[i],
                 generator=generator)
         accs.append(mixed.update(ham, trial, state,
-                                 step % energy_eval_freq == 0))
+                                 step % energy_eval_freq == 0,
+                                 free_projection))
+        if extras.nbp:
+            buffcount = (step - 1) % nhist + 1
+            for k, s in enumerate(extras.splits):
+                if buffcount == s:
+                    bp_acc[k * nacc_bp:(k + 1) * nacc_bp] += back_prop.update(
+                        ham, trial, prop, state, energy_fn, nstblz=nstblz,
+                        restore_weights=extras.bp_restore,
+                        discrete=discrete, eval_ekt=extras.bp_eval_ekt,
+                        nbp_len=s, calc_two_rdm=extras.bp_two_rdm)
+            if buffcount == extras.splits[-1]:
+                state = _reset(state, "old")
+        if extras.nitcf and step % nhist == 0:
+            itcf_acc += itcf_mod.measure(
+                prop, trial, state, nmax=extras.nitcf, nstblz=nstblz,
+                stable=extras.itcf_stable,
+                restore_weights=extras.itcf_restore, discrete=discrete,
+                stack_size=extras.itcf_stack_size)
+            state = _reset(state, "right")
     s = torch.stack(accs).sum(dim=0)
-    return state, torch.stack([s.real, s.imag])
+    return (state, torch.stack([s.real, s.imag]),
+            torch.stack([bp_acc.real, bp_acc.imag]),
+            torch.stack([itcf_acc.real, itcf_acc.imag]))
 
 
 class AFQMC:
@@ -124,37 +212,45 @@ class AFQMC:
         self.hybrid = getattr(self.prop, "hybrid", self.hybrid)
         mixed_opts = eopts.get("mixed", {})
         self.energy_eval_freq = mixed_opts.get("energy_eval_freq", qmc.nsteps)
-        extras = dict(
-            nbp=eopts.get("back_propagation",
-                          eopts.get("back_propagated")) is not None,
-            nitcf=eopts.get("itcf") is not None,
-            calc_one_rdm=bool(mixed_opts.get("one_rdm", False)),
-            calc_two_rdm=mixed_opts.get("two_rdm") is not None,
-        )
+        if (bool(mixed_opts.get("one_rdm", False))
+                or mixed_opts.get("two_rdm") is not None):
+            raise NotImplementedError(
+                "the mixed estimator's one_rdm / two_rdm are not ported yet")
+        bp_opts = eopts.get("back_propagation",
+                            eopts.get("back_propagated"))
+        itcf_opts = eopts.get("itcf")
+        if (bp_opts is not None or itcf_opts is not None) and not \
+                is_single_det(self.trial):
+            raise NotImplementedError(
+                "back propagation and the ITCF are single-determinant only")
+        self.extras = self._extras(bp_opts, itcf_opts)
         self.use_fast_block = hubbard_fast.eligible(
             self.ham, self.trial, self.prop,
             free_projection=self.free_projection,
-            pop_method=qmc.pop_control_method, **extras,
+            pop_method=qmc.pop_control_method, nbp=self.extras.nbp,
+            nitcf=self.extras.nitcf, calc_one_rdm=False, calc_two_rdm=None,
         )
         generic_prop = isinstance(self.prop, Hirsch) or (
             isinstance(self.prop, Continuous)
-            and isinstance(self.prop.inner, GenericContinuous)
-            and self.prop.hybrid and not self.prop.free_projection
             and not self.prop.stochastic_ri and is_single_det(self.trial))
-        generic = (generic_prop and not any(extras.values())
+        generic = (generic_prop
                    and qmc.pop_control_method in ("comb", "pair_branch"))
         if not (self.use_fast_block or generic):
             raise NotImplementedError(
                 "this configuration is not ported yet: the port runs Hubbard "
-                "continuous-HS hybrid phaseless AFQMC, discrete-HS "
-                "constrained-path CPMC and Generic (Cholesky ab-initio) "
-                "continuous-HS hybrid phaseless AFQMC, with a "
-                "single-determinant trial, comb or pair_branch population "
-                "control and the mixed energy estimator"
+                "(continuous or discrete HS) and Generic (Cholesky "
+                "ab-initio) AFQMC with a single-determinant trial, "
+                "phaseless, local-energy or free-projection, comb or "
+                "pair_branch population control, the mixed energy "
+                "estimator, back propagation and the ITCF"
             )
 
-        self.state = init_walkers(self.trial, qmc.nwalkers,
-                                  total_weight=float(qmc.nwalkers))
+        ex = self.extras
+        self.state = init_walkers(
+            self.trial, qmc.nwalkers, total_weight=float(qmc.nwalkers),
+            nprop_tot=ex.nhist or None,
+            nfields=self.ham.nfields if ex.nhist else None,
+            itcf=bool(ex.nitcf))
         self.eshift = 0.0
         self.filename = filename
         output = None
@@ -164,12 +260,66 @@ class AFQMC:
             output = H5EstimatorHelper(filename, "basic")
         self.reporter = mixed.MixedReporter(qmc.nsteps, output=output,
                                             verbose=verbose)
+        self.bp_reporter = self.itcf_reporter = None
+        if ex.nbp:
+            self.bp_reporter = back_prop.BPReporter(
+                None if filename is None
+                else H5EstimatorHelper(filename, "back_propagated"),
+                ex.nbp, ex.bp_eval_energy, nsplit=ex.bp_nsplit,
+                two_rdm_shape=((self.ham.nbasis,) * 4
+                               if ex.bp_two_rdm == "full" else None))
+        if ex.nitcf:
+            kdims = None
+            if itcf_opts.get("kspace", False) and hasattr(self.ham, "nx"):
+                kdims = (self.ham.nx, self.ham.ny)
+            self.itcf_reporter = itcf_mod.ITCFReporter(
+                None if filename is None
+                else H5EstimatorHelper(filename, "itcf"),
+                kspace_dims=kdims, mode=itcf_opts.get("mode", "full"))
         seed = qmc.rng_seed if qmc.rng_seed is not None else 7
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.step = 0
         # Wall-clock seconds of each block, ending with its host readback.
         self.block_seconds: list[float] = []
+
+    def _extras(self, bp_opts: dict | None, itcf_opts: dict | None
+                ) -> Extras:
+        """Back-propagation and ITCF settings from the estimator options,
+        with the JAX driver's checks: ``nsplit`` divides tau_bp / dt,
+        ``stack_size`` divides tau_max / dt, and with both on the shared
+        field buffer needs tau_bp = tau_max + tau_eqlb."""
+        dt = self.qmc.dt
+        kw = {}
+        nprop_tot = None
+        if bp_opts is not None:
+            nbp = int(round(bp_opts.get("tau_bp", 0) / dt))
+            nsplit = int(bp_opts.get("nsplit", 1))
+            if nbp % nsplit:
+                raise ValueError("nsplit must divide tau_bp/dt")
+            kw.update(nbp=nbp, bp_nsplit=nsplit,
+                      bp_restore=bp_opts.get("restore_weights", None),
+                      bp_two_rdm=bp_opts.get("two_rdm", None),
+                      bp_eval_energy=bp_opts.get("evaluate_energy", True),
+                      bp_eval_ekt=bp_opts.get("evaluate_ekt", False))
+            back_prop.bp_two_rdm_size(self.ham, kw["bp_two_rdm"])
+            nprop_tot = nbp
+        if itcf_opts is not None:
+            nitcf = int(round(itcf_opts.get("tau_max", 0) / dt))
+            neqlb = int(round(itcf_opts.get("tau_eqlb", 0) / dt))
+            stack_size = int(itcf_opts.get("stack_size", 1))
+            if nitcf % stack_size:
+                raise ValueError("itcf stack_size must divide tau_max/dt")
+            if nprop_tot is not None and nprop_tot != nitcf + neqlb:
+                raise ValueError(
+                    "with both BP and ITCF enabled, tau_bp must equal "
+                    "tau_max + tau_eqlb (shared field-config buffer)")
+            kw.update(nitcf=nitcf,
+                      itcf_stable=itcf_opts.get("stable", True),
+                      itcf_restore=itcf_opts.get("restore_weights", True),
+                      itcf_stack_size=stack_size)
+            nprop_tot = nitcf + neqlb
+        return Extras(nprop_tot=nprop_tot or 0, **kw)
 
     def _build_propagator(self, popts: dict) -> Continuous | Hirsch:
         hs = popts.get("hubbard_stratonovich", "continuous")
@@ -237,29 +387,41 @@ class AFQMC:
                             "hybrid": self.hybrid},
             "estimators": {
                 "mixed": {"energy_eval_freq": self.energy_eval_freq},
-                "estimators": {"back_prop": {"splits": [[0]]}},
+                "estimators": {"back_prop": {"splits": [
+                    list(self.extras.splits) if self.extras.nbp else [0]]}},
             },
         }
 
     def run_block(self) -> np.ndarray:
         """Advance one block (nsteps), report, and update eshift."""
         t0 = time.perf_counter()
-        block = (hubbard_fast.run_block_lanes if self.use_fast_block
-                 else run_block)
-        self.state, acc = block(
-            self.ham, self.trial, self.prop, self.state, self.generator,
-            self.eshift, self.step,
-            nsteps=self.qmc.nsteps,
-            nstblz=self.qmc.nstblz,
-            npop_control=self.qmc.npop_control,
-            pop_method=self.qmc.pop_control_method,
-            target_weight=float(self.qmc.nwalkers),
-            energy_eval_freq=self.energy_eval_freq,
-        )
+        kw = dict(nsteps=self.qmc.nsteps, nstblz=self.qmc.nstblz,
+                  npop_control=self.qmc.npop_control,
+                  pop_method=self.qmc.pop_control_method,
+                  target_weight=float(self.qmc.nwalkers),
+                  energy_eval_freq=self.energy_eval_freq)
+        if self.use_fast_block:
+            self.state, acc = hubbard_fast.run_block_lanes(
+                self.ham, self.trial, self.prop, self.state, self.generator,
+                self.eshift, self.step, **kw)
+            bp_acc = itcf_acc = None
+        else:
+            self.state, acc, bp_acc, itcf_acc = run_block(
+                self.ham, self.trial, self.prop, self.state, self.generator,
+                self.eshift, self.step, free_projection=self.free_projection,
+                extras=self.extras, **kw)
         acc = acc.cpu().numpy()
         self.block_seconds.append(time.perf_counter() - t0)
         self.step += self.qmc.nsteps
         row = self.reporter.block_row(self.step, acc[0] + 1j * acc[1])
+        if self.bp_reporter is not None:
+            a = bp_acc.cpu().numpy()
+            self.bp_reporter.block_row(a[0] + 1j * a[1], self.ham.nbasis)
+        if self.itcf_reporter is not None:
+            a = itcf_acc.cpu().numpy()
+            self.itcf_reporter.block_row(
+                a[0] + 1j * a[1], self.ham.nbasis,
+                self.extras.nitcf // self.extras.itcf_stack_size)
         if self.step < self.qmc.neqlb:
             self.eshift = self.reporter.get_shift(self.hybrid)
         else:

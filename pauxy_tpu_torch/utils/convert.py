@@ -89,31 +89,52 @@ def hubbard_continuous(BH1, mf_shift, *, dt: float, U: float, charge: bool,
 
 
 def hirsch(BT2, auxf, aux_wfac, *, dt: float, charge: bool, gamma: complex,
-           sweep_kernel: str, device=None) -> Hirsch:
+           sweep_kernel: str, free_projection: bool = False,
+           two_body_mode: str = "single_site", btk=None, nx: int = 0,
+           ny: int = 0, device=None) -> Hirsch:
     """Hirsch propagator from the JAX one's tables BT2 [2, M, M],
-    auxf [2, 2] and aux_wfac [2]."""
+    auxf [2, 2] and aux_wfac [2], and for ``kinetic_kspace`` its
+    momentum-space half step btk [ny, nx]."""
     device = config.resolve_device(device)
     return Hirsch(_t(BT2, device), _t(auxf, device), _t(aux_wfac, device),
                   dt=dt, charge=charge, gamma=gamma,
-                  sweep_kernel=sweep_kernel)
+                  sweep_kernel=sweep_kernel, free_projection=free_projection,
+                  two_body_mode=two_body_mode,
+                  btk=None if btk is None else _t(btk, device), nx=nx, ny=ny)
+
+
+# The optional back-propagation / ITCF buffers of a walker state.
+HISTORY_FIELDS = ("configs", "cos_fac", "weight_fac", "phia_old", "phib_old",
+                  "phia_right", "phib_right")
 
 
 def walker_state(*, phia, phib, weight, unscaled_weight, log_ovlp,
-                 hybrid_energy, log_detr, total_weight, device=None
-                 ) -> WalkerState:
-    """WalkerState from the JAX state's fields ([w, M, n] layout)."""
+                 hybrid_energy, log_detr, total_weight, phase=None,
+                 eloc=None, device=None, **history) -> WalkerState:
+    """WalkerState from the JAX state's fields ([w, M, n] layout). The
+    phase defaults to 1 and the local energy to 0 (a fresh state's);
+    ``history`` takes the buffers of ``HISTORY_FIELDS`` (None skipped)."""
     device = config.resolve_device(device)
-    rdtype = config.real_dtype(_t(log_ovlp, "cpu").dtype)
+    unknown = set(history) - set(HISTORY_FIELDS)
+    if unknown:
+        raise TypeError(f"unknown walker fields {sorted(unknown)}")
+    log_ovlp = _t(log_ovlp, device)
+    rdtype = config.real_dtype(log_ovlp.dtype)
     return WalkerState(
         phia=_t(phia, device),
         phib=_t(phib, device),
         weight=_t(weight, device),
         unscaled_weight=_t(unscaled_weight, device),
-        log_ovlp=_t(log_ovlp, device),
+        log_ovlp=log_ovlp,
         hybrid_energy=_t(hybrid_energy, device),
         log_detr=_t(log_detr, device),
         total_weight=torch.tensor(float(np.asarray(total_weight)),
                                   dtype=rdtype, device=device),
+        phase=(torch.ones_like(log_ovlp) if phase is None
+               else _t(phase, device)),
+        eloc=(torch.zeros_like(log_ovlp) if eloc is None
+              else _t(eloc, device)),
+        **{k: _t(v, device) for k, v in history.items() if v is not None},
     )
 
 

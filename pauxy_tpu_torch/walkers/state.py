@@ -1,9 +1,10 @@
 """Struct-of-arrays walker state.
 
 Counterpart of ``pauxy_tpu/walkers/state.py`` for single-determinant
-phaseless runs: the whole population is one dataclass of tensors with a
-leading walker axis. The free-projection phase, the local-energy history
-and the back-propagation buffers of the JAX state are not ported yet.
+trials: the whole population is one dataclass of tensors with a leading
+walker axis. The back-propagation / ITCF buffers (the auxiliary-field
+history and the historic wavefunctions) are optional and ride along as
+[w, ...] fields, so population control moves them with their walkers.
 """
 
 from __future__ import annotations
@@ -26,6 +27,16 @@ class WalkerState:
     hybrid_energy: torch.Tensor    # [w] complex hybrid energy of last step
     log_detr: torch.Tensor         # [w] real accumulated log det R
     total_weight: torch.Tensor     # [] real global weight (pop control)
+    phase: torch.Tensor | None = None  # [w] complex phase (free projection)
+    eloc: torch.Tensor | None = None   # [w] complex local energy, last step
+    # Auxiliary-field history for back propagation / ITCF.
+    configs: torch.Tensor | None = None     # [w, nprop_tot, nfields] complex
+    cos_fac: torch.Tensor | None = None     # [w, nprop_tot] real
+    weight_fac: torch.Tensor | None = None  # [w, nprop_tot] complex
+    phia_old: torch.Tensor | None = None    # [w, M, na] historic wfn (BP)
+    phib_old: torch.Tensor | None = None
+    phia_right: torch.Tensor | None = None  # [w, M, na] snapshot (ITCF)
+    phib_right: torch.Tensor | None = None
 
     @property
     def nwalkers(self) -> int:
@@ -36,13 +47,18 @@ class WalkerState:
         return self.phia.shape[1]
 
 
-def init_walkers(trial, nwalkers: int, total_weight: float | None = None
-                 ) -> WalkerState:
-    """All walkers start as the trial's initial determinant, weight 1.
+def init_walkers(trial, nwalkers: int, total_weight: float | None = None,
+                 nprop_tot: int | None = None, nfields: int | None = None,
+                 itcf: bool = False) -> WalkerState:
+    """All walkers start as the trial's initial determinant, weight 1,
+    phase 1.
 
     ``total_weight`` seeds the 10% weight cap before the first population
     control (the target weight by default). The log-overlaps go through
-    ``clinalg.slogdet``: kernel B on the card.
+    ``clinalg.slogdet``: kernel B on the card. With ``nprop_tot`` the
+    back-propagation buffers are added (fields zero, factors one, the
+    historic wavefunction the initial one), with ``itcf`` also the ITCF
+    snapshot.
     """
     inita, initb = trial.inita, trial.initb
     phia = inita[None].expand((nwalkers,) + tuple(inita.shape)).contiguous()
@@ -54,6 +70,18 @@ def init_walkers(trial, nwalkers: int, total_weight: float | None = None
              + greens.log_overlap(phib, trial.psib))
     if total_weight is None:
         total_weight = float(nwalkers)
+    extras = {}
+    if nprop_tot is not None:
+        extras = dict(
+            configs=torch.zeros((nwalkers, nprop_tot, nfields), dtype=cdtype,
+                                device=dev),
+            cos_fac=torch.ones((nwalkers, nprop_tot), dtype=rdtype,
+                               device=dev),
+            weight_fac=torch.ones((nwalkers, nprop_tot), dtype=cdtype,
+                                  device=dev),
+            phia_old=phia, phib_old=phib)
+        if itcf:
+            extras.update(phia_right=phia, phib_right=phib)
     return WalkerState(
         phia=phia,
         phib=phib,
@@ -64,20 +92,26 @@ def init_walkers(trial, nwalkers: int, total_weight: float | None = None
         log_detr=torch.zeros(nwalkers, dtype=rdtype, device=dev),
         total_weight=torch.tensor(float(total_weight), dtype=rdtype,
                                   device=dev),
+        phase=torch.ones(nwalkers, dtype=cdtype, device=dev),
+        eloc=torch.zeros(nwalkers, dtype=cdtype, device=dev),
+        **extras,
     )
 
 
 def orthogonalise(state: WalkerState, free_projection: bool = False
                   ) -> WalkerState:
-    """CholeskyQR2 re-orthogonalisation of the whole population; the
-    overlap absorbs det R (phaseless). Free projection, which moves |det R|
-    into the weight and needs the walkers' phase, is not ported yet."""
-    if free_projection:
-        raise NotImplementedError(
-            "orthogonalise with free projection is not ported yet")
+    """CholeskyQR2 re-orthogonalisation of the whole population. Phaseless:
+    the overlap absorbs det R. Free projection: |det R| (real positive by
+    construction) multiplies the weight and the overlap is left as it is,
+    as in JAX."""
     phia, log_ra = greens.reortho(state.phia)
     phib, log_rb = greens.reortho(state.phib)
     log_r = log_ra + log_rb
+    if free_projection:
+        return dataclasses.replace(
+            state, phia=phia, phib=phib,
+            weight=state.weight * torch.exp(log_r),
+            log_detr=state.log_detr + log_r)
     return dataclasses.replace(
         state,
         phia=phia,

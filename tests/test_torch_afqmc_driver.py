@@ -1,5 +1,6 @@
 """Port driver tests: the golden statistical anchor, h5 layout, import
-hygiene and the unsupported-configuration guard.
+hygiene, the unsupported-configuration guard and the formerly refused
+configurations that now run.
 
 The golden series (tests/data/hubbard4x4_uhf_continuous.npz) comes from the
 reference implementation run serially with the same UHF trial; the port's
@@ -95,11 +96,11 @@ def test_no_file_without_filename(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("popts,eopts", [
-    ({"hubbard_stratonovich": "discrete", "free_projection": True}, None),
-    ({"free_projection": True}, None),
-    ({"hybrid": False}, None),
-    (None, {"back_propagation": {"tau_bp": 0.05}}),
     (None, {"mixed": {"one_rdm": True}}),
+    (None, {"mixed": {"two_rdm": "structure_factor"}}),
+    (None, {"back_propagation": {"tau_bp": 0.05,
+                                 "two_rdm": "structure_factor"}}),
+    ({"stochastic_ri": True}, None),
 ])
 def test_unported_configurations_raise(popts, eopts):
     ham = make_hubbard(2, 2, U=4.0, nx=2, ny=2, **CPU)
@@ -108,6 +109,28 @@ def test_unported_configurations_raise(popts, eopts):
               QMCOpts(nwalkers=4, dt=0.01, nsteps=2, nblocks=1),
               propagator_options=popts, estimator_options=eopts,
               device="cpu")
+
+
+@pytest.mark.parametrize("popts,eopts", [
+    ({"hubbard_stratonovich": "discrete", "free_projection": True}, None),
+    ({"free_projection": True}, None),
+    ({"hybrid": False}, None),
+    (None, {"back_propagation": {"tau_bp": 0.05}}),
+])
+def test_formerly_unported_configurations_run(popts, eopts):
+    """The configurations of earlier slices' refusals now run (their
+    trajectories are held against JAX in test_torch_run_modes.py and
+    test_torch_back_prop.py)."""
+    ham = make_hubbard(2, 2, U=4.0, nx=2, ny=2, **CPU)
+    af = AFQMC(ham, free_electron_trial(ham, **CPU),
+               QMCOpts(nwalkers=4, dt=0.01, nsteps=5, nblocks=2, nstblz=5),
+               propagator_options=popts, estimator_options=eopts,
+               device="cpu")
+    rows = af.run()
+    assert rows.shape == (2, 11) and np.isfinite(rows).all()
+    if eopts is not None:
+        bp = af.bp_reporter.rows
+        assert len(bp) == 2 and np.isfinite(bp[-1]["energies_5"]).all()
 
 
 def test_options_from_dict_matches_jax():

@@ -50,7 +50,14 @@ their edges (n = 31, 32, 33) up to its cap with 1, 37, 1024 and 1031
 matrices (TOL, times n for the log-det), and is blind to the strict upper
 triangle of S; the Cholesky and sweep wrappers make no layout copy
 (lanelinalg's to_lanes / from_lanes refused), and the sweep reads the
-real parts of complex tensors in place.
+real parts of complex tensors in place. The zero-temperature run modes
+(discrete back propagation and ITCF on the sweep kernel, unstable ITCF,
+continuous back propagation with phase restoration and two splits,
+continuous and discrete free projection, the direct update, the
+momentum-space kinetic step, the local-energy update, Generic back
+propagation with EKT and the full 2-RDM through the Taylor kernel) run two
+blocks on the card and on the CPU with the same injected draws and agree
+at rtol 1e-8, atol 1e-10 in complex128, with their kernels launched.
 """
 
 import numpy as np
@@ -445,7 +452,7 @@ def _discrete_block(device, noise):
     assert prop.sweep_kernel == "kernel"
     return run_block(ham, trial, prop, init_walkers(trial, 64), None, 0.0, 0,
                      nsteps=10, nstblz=5, npop_control=1, pop_method="comb",
-                     target_weight=64.0, energy_eval_freq=1, noise=noise)
+                     target_weight=64.0, energy_eval_freq=1, noise=noise)[:2]
 
 
 @pytest.mark.cuda
@@ -679,7 +686,7 @@ def _generic_block(device, noise, cap):
         ham, trial, 0.01, taylor_impl="pallas", **kw), dt=0.01)
     return run_block(ham, trial, prop, init_walkers(trial, 64), None, 0.0, 0,
                      nsteps=10, nstblz=5, npop_control=1, pop_method="comb",
-                     target_weight=64.0, energy_eval_freq=1, noise=noise)
+                     target_weight=64.0, energy_eval_freq=1, noise=noise)[:2]
 
 
 @pytest.mark.cuda
@@ -1030,3 +1037,120 @@ def test_cpqr_routes_agree_across_ragged_batches(dtype, m):
         torch.cuda.synchronize()
         assert torch.equal(qb, q[-b:]) and torch.equal(rb, r[-b:])
         assert torch.equal(pb, p[-b:])
+
+
+# The zero-temperature run modes and estimators on the card: two blocks of
+# 16 walkers with injected draws, complex128 on the card (kernels) and on
+# the CPU (plain versions); (propagator options, estimator options, model,
+# the kernels that must launch).
+RUN_MODES = {
+    "discrete_bp_itcf": (
+        {"hubbard_stratonovich": "discrete"},
+        {"back_propagation": {"tau_bp": 0.1, "evaluate_energy": True,
+                              "restore_weights": "full"},
+         "itcf": {"tau_max": 0.1, "stable": True}},
+        "hubbard", ("hirsch_sweep", "chol_inv_lanes", "inv_logdet_lanes")),
+    "discrete_itcf_unstable": (
+        {"hubbard_stratonovich": "discrete"},
+        {"itcf": {"tau_max": 0.1, "stable": False, "stack_size": 2}},
+        "hubbard", ("hirsch_sweep", "chol_inv_lanes", "inv_logdet_lanes")),
+    "continuous_bp_partial": (
+        None, {"back_propagation": {"tau_bp": 0.1, "nsplit": 2,
+                                    "restore_weights": "partial"}},
+        "hubbard", ("chol_inv_lanes", "inv_logdet_lanes")),
+    "continuous_free_projection": (
+        {"free_projection": True}, None, "hubbard",
+        ("chol_inv_lanes", "inv_logdet_lanes")),
+    "discrete_free_projection": (
+        {"hubbard_stratonovich": "discrete", "free_projection": True}, None,
+        "hubbard", ("chol_inv_lanes", "inv_logdet_lanes")),
+    "direct_update": (
+        {"hubbard_stratonovich": "discrete", "single_site_update": False},
+        None, "hubbard", ("chol_inv_lanes", "inv_logdet_lanes")),
+    "kinetic_kspace": (
+        {"hubbard_stratonovich": "discrete", "kinetic_kspace": True}, None,
+        "hubbard", ("hirsch_sweep", "chol_inv_lanes", "inv_logdet_lanes")),
+    "local_energy": ({"hybrid": False}, None, "hubbard",
+                     ("chol_inv_lanes", "inv_logdet_lanes")),
+    "generic_bp_ekt": (
+        {"taylor_impl": "pallas"},
+        {"back_propagation": {"tau_bp": 0.05, "evaluate_ekt": True,
+                              "two_rdm": "full"}},
+        "generic", ("taylor_exp", "chol_inv_lanes", "inv_logdet_lanes")),
+}
+
+
+def _run_mode_blocks(device, case, draws):
+    from pauxy_tpu_torch.models import (free_electron_trial, make_generic,
+                                        make_hubbard, rhf_identity_trial)
+    from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
+    from pauxy_tpu_torch.qmc.afqmc import run_block
+    from pauxy_tpu_torch.qmc.hubbard_fast import BlockNoise
+
+    popts, eopts, model, _ = RUN_MODES[case]
+    kw = dict(device=device, dtype="double")
+    if model == "hubbard":
+        ham = make_hubbard(7, 7, U=4.0, nx=4, ny=4, **kw)
+        trial = free_electron_trial(ham, **kw)
+    else:
+        rng = np.random.default_rng(7)
+        chol = rng.normal(scale=0.05, size=(10, 10, 24))
+        chol = 0.5 * (chol + chol.transpose(1, 0, 2))
+        h1 = rng.normal(scale=0.1, size=(10, 10))
+        ham = make_generic((3, 3), 0.5 * (h1 + h1.T), chol, **kw)
+        trial = rhf_identity_trial(ham, **kw)
+    af = AFQMC(ham, trial, QMCOpts(nwalkers=16, dt=0.01, nsteps=10,
+                                   nblocks=2, nstblz=5, npop_control=1),
+               propagator_options=popts,
+               estimator_options={"mixed": {"energy_eval_freq": 1},
+                                  **(eopts or {})}, device=device)
+    xi, pop = draws(af)
+    state, out = af.state, []
+    for b in range(2):
+        steps = slice(10 * b, 10 * b + 10)
+        noise = BlockNoise(torch.from_numpy(xi[steps]).to(device),
+                           torch.from_numpy(pop[steps]).to(device))
+        state, *accs = run_block(
+            af.ham, af.trial, af.prop, state, None, float(trial.etrial),
+            10 * b, nsteps=10, nstblz=5, npop_control=1, pop_method="comb",
+            target_weight=16.0, energy_eval_freq=1,
+            free_projection=af.free_projection, extras=af.extras,
+            noise=noise)
+        out.append([a.cpu().numpy() for a in accs] + [
+            state.weight.cpu().numpy()])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RUN_MODES))
+def test_run_mode_blocks_on_card_match_cpu(case):
+    need_cuda()
+    rng = np.random.default_rng(11)
+    _, _, model, kernels = RUN_MODES[case]
+
+    def draws(af):
+        m, nf = af.ham.nbasis, af.ham.nfields
+        if af.free_projection and "discrete" in case:
+            xi = (rng.uniform(size=(20, 16, m)) < 0.5).astype(float)
+        elif "direct" in case:
+            xi = rng.uniform(size=(20, 16, m))
+        elif "discrete" in case or "kspace" in case:
+            xi = rng.uniform(size=(20, m, 16))
+        else:
+            xi = rng.normal(size=(20, 16, nf))
+        return xi, rng.uniform(size=(20, 1))
+
+    state = rng.bit_generator.state
+    counters = {"hirsch_sweep": (sweep_cuda, "launches"),
+                "chol_inv_lanes": (batchla_cuda, "chol_launches"),
+                "inv_logdet_lanes": (batchla_cuda, "launches"),
+                "taylor_exp": (taylor_cuda, "launches")}
+    before = {k: getattr(*counters[k]) for k in kernels}
+    card = _run_mode_blocks("cuda", case, draws)
+    torch.cuda.synchronize()
+    assert all(getattr(*counters[k]) > before[k] for k in kernels)
+    rng.bit_generator.state = state
+    host = _run_mode_blocks("cpu", case, draws)
+    for c, h in zip(card, host):
+        for a, b in zip(c, h):
+            np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-10)

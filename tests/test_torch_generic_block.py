@@ -2,8 +2,9 @@
 
 float64 throughout, from the same walker state (the JAX objects carried
 across with pauxy_tpu_torch.utils.convert):
-  * greens_function, orthogonalise, local_energy_hubbard, mixed.update and
-    comb / pair_branch population control (same parents): 1e-10;
+  * greens_function, orthogonalise and mixed.update (phaseless and free
+    projection), local_energy_hubbard and comb / pair_branch population
+    control (same parents): 1e-10;
   * two blocks of qmc/afqmc.run_block against pauxy_tpu.qmc.afqmc.run_block
     with JAX's own draws injected through ``noise``, taken in JAX's order
     (keys = split(block_key, nsteps); kprop, kpop, kest = split(key, 3);
@@ -112,8 +113,9 @@ def test_orthogonalise_matches_jax():
     jnew = jstate_mod.orthogonalise(js)
     tnew = tstate_mod.orthogonalise(ts)
     assert_states_close(tnew, jnew)
-    with pytest.raises(NotImplementedError):
-        tstate_mod.orthogonalise(ts, free_projection=True)
+    # Free projection: |det R| into the weight, the overlap kept.
+    assert_states_close(tstate_mod.orthogonalise(ts, free_projection=True),
+                        jstate_mod.orthogonalise(js, free_projection=True))
 
 
 @pytest.mark.parametrize("symmetric", [False, True])
@@ -139,8 +141,9 @@ def test_mixed_update_matches_jax(eval_energy):
     at = tmixed.update(tham, tt, ts, eval_energy)
     assert at.shape == (tmixed.NACC,) == aj.shape
     close(at.numpy(), aj)
-    with pytest.raises(NotImplementedError):
-        tmixed.update(tham, tt, ts, True, free_projection=True)
+    close(tmixed.update(tham, tt, ts, eval_energy,
+                        free_projection=True).numpy(),
+          jmixed.update(ham, trial, js, eval_energy, free_projection=True))
 
 
 @pytest.mark.parametrize("method", ["comb", "pair_branch"])
@@ -209,8 +212,8 @@ def test_block_trajectory_matches_jax(case):
             ham, trial, jprop, js, key, jnp.asarray(eshift, jnp.complex128),
             jnp.asarray(step0, jnp.int32), free_projection=False, **opts)
         noise = jax_noise(key, 10, nw, 16, pop_method)
-        ts, tacc = tafqmc.run_block(tham, ttrial, tprop, ts, None, eshift,
-                                    step0, noise=noise, **opts)
+        ts, tacc, _, _ = tafqmc.run_block(tham, ttrial, tprop, ts, None,
+                                          eshift, step0, noise=noise, **opts)
         np.testing.assert_allclose(tacc.numpy()[0], np.asarray(jacc)[0],
                                    rtol=1e-8, atol=1e-10)
         for f in ("weight", "unscaled_weight", "log_detr"):

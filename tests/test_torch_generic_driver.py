@@ -14,7 +14,8 @@
   float64, |diff| < max(4 se, 0.02), the test of tests/test_afqmc_driver.py;
 * the HDF5 layout equal to the JAX driver's for the same Generic run;
 * the device rule: device=None means the card and raises without one;
-* configurations not ported yet raise NotImplementedError;
+* configurations not ported yet raise NotImplementedError; free
+  projection and the local-energy update run;
 * importing and running the port's Generic path pulls in no jax.
 """
 
@@ -129,8 +130,8 @@ def test_block_trajectory_matches_jax(case, monkeypatch):
             routes.append(_n), _fn(*a))[1])
     for block, (key, eshift) in enumerate(zip(keys, (0.0, -3.0))):
         noise = jax_noise(key, 10, nw, jham.nchol, pop_method)
-        ts, tacc = tafqmc.run_block(tham, tt, tprop, ts, None, eshift,
-                                    10 * block, noise=noise, **opts)
+        ts, tacc, _, _ = tafqmc.run_block(tham, tt, tprop, ts, None, eshift,
+                                          10 * block, noise=noise, **opts)
         jacc, jweight, jphia = jout[block]
         np.testing.assert_allclose(tacc.numpy()[0], jacc, rtol=1e-8,
                                    atol=1e-10)
@@ -231,8 +232,6 @@ def test_device_none_means_the_card():
 
 
 @pytest.mark.parametrize("popts", [
-    {"free_projection": True},
-    {"hybrid": False},
     {"stochastic_ri": True},
     {"hubbard_stratonovich": "discrete"},
     {"taylor_impl": "xla_3m"},
@@ -244,6 +243,24 @@ def test_unported_generic_configurations_raise(popts):
     with pytest.raises(NotImplementedError):
         AFQMC(ham, trial, QMCOpts(nwalkers=4, dt=0.01, nsteps=2, nblocks=1),
               propagator_options=popts, device="cpu")
+
+
+@pytest.mark.parametrize("popts", [
+    {"free_projection": True},
+    {"hybrid": False},
+])
+def test_formerly_unported_generic_configurations_run(popts):
+    """Free projection and the local-energy update now run (their
+    trajectories are held against JAX in test_torch_run_modes.py)."""
+    h1e, chol, enuc, _ = generate_hamiltonian(5, (2, 2), seed=2)
+    ham = make_generic((2, 2), h1e, chol, enuc, **CPU)
+    trial = rhf_identity_trial(ham, **CPU)
+    rows = AFQMC(ham, trial, QMCOpts(nwalkers=4, dt=0.01, nsteps=2,
+                                     nblocks=2),
+                 propagator_options=popts,
+                 estimator_options={"mixed": {"energy_eval_freq": 1}},
+                 device="cpu").run()
+    assert rows.shape == (2, 11) and np.isfinite(rows).all()
 
 
 def test_supermatrix_cap_routes_the_energy(monkeypatch):

@@ -137,14 +137,39 @@ def test_auto_sweep_kernel_chooses_as_jax(case, want):
 def test_unported_options_raise():
     jh = make_hubbard(nup=2, ndown=2, U=4.0, nx=2, ny=2)
     th, tt = port_objects(jh, free_electron_trial(jh))
-    for kw in (dict(free_projection=True), dict(two_body_mode="direct"),
-               dict(kinetic_kspace=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            thirsch.make_hirsch(th, tt, 0.01, **kw, **CPU)
+    with pytest.raises(NotImplementedError):
+        thirsch.make_hirsch(th, tt, 0.01, mesh=object(), **CPU)
     tp = thirsch.make_hirsch(th, tt, 0.01, **CPU)
     with pytest.raises(ValueError):
         thirsch.Hirsch(tp.BT2, tp.auxf, tp.aux_wfac, dt=0.01,
                        sweep_kernel="pallas")
+    with pytest.raises(ValueError):
+        thirsch.Hirsch(tp.BT2, tp.auxf, tp.aux_wfac, dt=0.01,
+                       two_body_mode="lattice")
+
+
+@pytest.mark.parametrize("kw", [dict(free_projection=True),
+                                dict(two_body_mode="direct"),
+                                dict(kinetic_kspace=True)])
+def test_formerly_unported_options_build_as_jax(kw):
+    """Free projection, the direct update and kinetic_kspace build the
+    JAX package's tables and flags (their steps and blocks are held
+    against JAX in test_torch_run_modes.py); none of them takes the sweep
+    kernel."""
+    jh = make_hubbard(nup=2, ndown=2, U=4.0, nx=2, ny=2)
+    jt = free_electron_trial(jh)
+    th, tt = port_objects(jh, jt)
+    jp = jhirsch.make_hirsch(jh, jt, 0.01, sweep_kernel="scan", **kw)
+    tp = thirsch.make_hirsch(th, tt, 0.01, **kw, **CPU)
+    for name in ("BT2", "auxf", "aux_wfac"):
+        close(getattr(tp, name).numpy(), getattr(jp, name), 1e-12)
+    assert (tp.free_projection, tp.two_body_mode, tp.nx, tp.ny) == (
+        jp.free_projection, jp.two_body_mode, jp.nx, jp.ny)
+    assert (tp.btk is None) == (jp.btk is None)
+    if tp.btk is not None:
+        close(tp.btk.numpy(), jp.btk, 1e-12)
+    assert tp.sweep_kernel == ("kernel" if "kinetic_kspace" in kw
+                               else "scan")
 
 
 @pytest.mark.parametrize("charge", [False, True])
