@@ -23,7 +23,12 @@ slices, complex64; cpqr at (64, 9)); and the discrete path with
 back propagation and the ITCF of chip_smoke.py's phase 13 (tau_bp =
 tau_max = 0.4, stable), three warm-up blocks so that the profiled block
 ends with one measurement of each, whose wall times (synchronised)
-come as ``bp_wall_ms`` and ``itcf_wall_ms``. For each it runs
+come as ``bp_wall_ms`` and ``itcf_wall_ms``; the low-rank UEG path of
+chip_smoke.py's phase 17 (phase 11's configuration with the low-rank
+walkers); and the discrete thermal Hubbard path of its phase 18 (3x3,
+U=4, mu=0.9, beta=2, dt=0.05, 128 walkers, population control every 2
+slices, complex64), whose site sweeps' synchronised wall time comes as
+``sweep_wall_ms``. For each it runs
 one warm-up block, then one block under
 torch.profiler (CPU and CUDA activity), and prints the block's wall time,
 the summed device time of its kernels, the device's idle share (1 - device
@@ -35,8 +40,9 @@ kernel A, the Cholesky-inverse kernel and the sweep kernel (``cpqr_ms``,
 by device time. The card's
 name and power limit (nvidia-smi) come first. --paths profiles only the
 named paths (continuous, discrete, bp_discrete, generic, generic_exx,
-thermal_ueg, thermal_hubbard). With --trace the Chrome traces are written to
-PREFIX.<path>.json. Needs the card; there is no CPU fallback.
+thermal_ueg, thermal_hubbard, thermal_ueg_lowrank, thermal_discrete).
+With --trace the Chrome traces are written to PREFIX.<path>.json. Needs
+the card; there is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -216,16 +222,48 @@ def main() -> None:
                    device="cuda")
         profile_block(af, "generic_exx", args.trace, qmc.nsteps)
         del ham, trial, af
-    if not wanted("thermal_ueg"):
-        return
-    ham = make_ueg(7, 7, rs=1.0, ecut=4.0, device="cuda", dtype="single")
-    trial = make_one_body_trial(ham, 2.0, 0.05, mu=0.9, device="cuda",
-                                dtype="single")
-    qmc = QMCOpts(nwalkers=256, dt=0.05, nsteps=1, nblocks=2, beta=2.0,
-                  npop_control=1, rng_seed=8)
-    af = ThermalAFQMC(ham, trial, qmc, device="cuda")
-    profile_block(af, "thermal_ueg", args.trace, af.ntime_slices,
-                  "walker_slice_steps_per_s")
+    if wanted("thermal_discrete"):
+        from pauxy_tpu_torch.propagation import thermal_discrete
+
+        # chip_smoke.py phase 18: the site sweep's wall time (synchronised)
+        # comes as sweep_wall_ms.
+        ham = make_hubbard(3, 3, U=4.0, nx=3, ny=3, device="cuda",
+                           dtype="single")
+        trial = make_one_body_trial(ham, 2.0, 0.05, mu=0.9, device="cuda",
+                                    dtype="single")
+        qmc = QMCOpts(nwalkers=128, dt=0.05, nsteps=1, nblocks=2, beta=2.0,
+                      npop_control=2, rng_seed=8)
+        af = ThermalAFQMC(ham, trial, qmc, device="cuda",
+                          propagator_options={
+                              "hubbard_stratonovich": "discrete"})
+        sweep_s = []
+        af.run_block()
+        old = timed(thermal_discrete.ThermalDiscrete, "_site_sweep", sweep_s)
+        try:
+            profile_block(af, "thermal_discrete", args.trace,
+                          af.ntime_slices, "walker_slice_steps_per_s",
+                          warmup=0, extra=lambda: {
+                              "sweep_wall_ms": 1e3 * sum(sweep_s),
+                              "sweeps": len(sweep_s)})
+        finally:
+            thermal_discrete.ThermalDiscrete._site_sweep = old
+        del ham, trial, af
+    for name, wopts in (("thermal_ueg", None),
+                        ("thermal_ueg_lowrank", {"low_rank": True,
+                                                 "low_rank_thresh": 1e-6})):
+        if not wanted(name):
+            continue
+        ham = make_ueg(7, 7, rs=1.0, ecut=4.0, device="cuda",
+                       dtype="single")
+        trial = make_one_body_trial(ham, 2.0, 0.05, mu=0.9, device="cuda",
+                                    dtype="single")
+        qmc = QMCOpts(nwalkers=256, dt=0.05, nsteps=1, nblocks=2, beta=2.0,
+                      npop_control=1, rng_seed=8)
+        af = ThermalAFQMC(ham, trial, qmc, walker_options=wopts,
+                          device="cuda")
+        profile_block(af, name, args.trace, af.ntime_slices,
+                      "walker_slice_steps_per_s")
+        del ham, trial, af
 
 
 if __name__ == "__main__":

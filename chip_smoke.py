@@ -100,9 +100,37 @@ non-zero and prints no result line:
      the Taylor kernel launched in the back propagation; then phase 8's
      bench shape with one BP measurement of tau_bp=0.05: the Taylor
      kernel 10 times forward and 10 back, Tr G_bp = N per spin within
-     1e-4, a finite BP energy (its dense-G exchange in chunks).
-Each phase line ends with its seconds. Then the card's name and power limit
-(nvidia-smi), one JSON line about the kernels, and last
+     1e-4, a finite BP energy (its dense-G exchange in chunks);
+ 17. the low-rank thermal UEG at phase 11's bench shape
+     (walker_options low_rank, thresh 1e-6), 256 walkers, 2 paths through
+     ThermalAFQMC(...).run(): finite rows, Nav > 0, the cpqr and kernel B
+     launches of ``low_rank_launches``, walker-slice-steps/s beside phase
+     11's; a 16-walker path card (complex64) vs host (complex128) within
+     1e-4; the anchor tests/data/thermal_ueg_lowrank.npz (M=93, 16
+     walkers, 160 paths, complex64): row 0 within 1e-5 of the pinned
+     values, the block means of E and Nav within 4 combined se, no floor;
+ 18. the discrete thermal Hubbard (examples/ftafqmc_discrete: 3x3, U=4,
+     mu=0.9, beta=2, 128 walkers, population control every 2 slices):
+     finite rows and ``discrete_thermal_launches``; card vs host, 16
+     walkers, 2 paths with injected uniforms (constrained path) and
+     fields (free projection), 1e-4 of the scale; wrap_stabilize=1e9 vs 1
+     slice by slice in complex128 (1e-8); U=0 exact on every row at
+     beta=2 (complex64) and beta=16 (complex128); the 2-site U=4 open
+     chain against grand-canonical ED (256 walkers, 48 paths,
+     |dE| < max(4 se, 0.05), |dN| < 0.05);
+ 19. the Generic thermal inner at phase 8's bench shape (64 walkers,
+     beta=0.5, one path): finite rows and the launches; the
+     generic_nmo11.npz Hamiltonian, 16 walkers, one path card vs host
+     within 1e-4;
+ 20. the thermal Hartree-Fock trial (examples/ftafqmc_thf: 3x3, U=4,
+     beta=1, nav=6, system mu 0.9, 128 walkers; the trial's Nav within
+     1e-3 of 6) and card vs host at 16 walkers; average_gf on phase 12's
+     system in 5 bins (the launches of G at every origin counted) card vs
+     host; low-rank with average_gf refused.
+Phase 3 also holds the cpqr kernel on the low-rank stack's masked input
+(``check_cpqr_masked``). Each phase line ends with its seconds. Then the
+card's name and power limit (nvidia-smi), one JSON line about the
+kernels, and last
 {"ok": true, "device": {...}}.
 """
 
@@ -286,20 +314,24 @@ def exx_work(x: int, n: int, m: int, w: int):
             w * x * (4 * n * n * m + 8 * n * n), torch.complex64)
 
 
-def cpqr_work(m: int, b: int, dtype=torch.complex64):
+def cpqr_work(m: int, b: int, dtype=torch.complex64, live: int | None = None):
     """The pivoted QR: a read once, q and r written once (and perm); per
     matrix the factor pass's trailing dot products and updates (8 FLOPs a
     complex multiply-add), the norms downdated by |r_kj|^2 (4 a column, as
     LAPACK and the plain version do; the kernel's exact recompute is its
     own choice, not the function's work), the Householder vectors, and the
     form-Q pass's reflector applications that touch each column
-    (16 (m - k) for reflector k <= column j)."""
+    (16 (m - k) for reflector k <= column j). With ``live`` (rank-deficient
+    input whose trailing columns are exactly zero) only the first ``live``
+    reflectors do work: the others have tau = 0."""
     c = 16 if dtype == torch.complex128 else C8
+    live = m if live is None else live
     flops = 0
-    for k in range(m):
+    for k in range(live):
         t = m - k
         flops += 16 * t * (t - 1) + 4 * (t - 1) + 4 * t + 6 * (t - 1)
-    flops += sum(16 * (m - k) for j in range(m) for k in range(j + 1))
+    flops += sum(16 * (m - k) for j in range(m)
+                 for k in range(min(j + 1, live)))
     return (3 * b * m * m * c + b * m * 8, b * flops, dtype)
 
 
@@ -490,6 +522,176 @@ def check_cpqr(cpqr_cuda, rng) -> tuple[float, str]:
         f"dR {plain[0]:.3e}, aligned dQ {plain[1]:.3e} (raw dQ "
         f"{plain[2]:.3e}); planted phase error 2^-8 dR >= "
         f"{wide['planted']:.3e}")
+
+
+def masked_core(rng, b: int, m: int, dead_rows: int, dead_cols: int):
+    """The low-rank stack's factors as its masks leave them,
+    diag(Dl) Q diag(D) (complex): Q unitary (QR of a Gaussian), D and Dl
+    decaying from 1 to 1e-2 with their last dead_cols and dead_rows entries
+    zeroed exactly (dead_rows <= dead_cols: in the stack both are the
+    high-energy directions; dead_rows = 0 is the boundary step's right
+    factor), then rows and columns relabelled by one permutation, so that
+    the dead columns are interspersed. The combine's G formula needs TQ
+    invertible on the live block, i.e. no live output direction in the
+    null space, which this structure keeps (independent row and column
+    shuffles would not). Returns (a [b, m, m], the live-row mask [b, m])."""
+    g = rng.normal(size=(b, m, m)) + 1j * rng.normal(size=(b, m, m))
+    q = np.linalg.qr(g)[0]
+    d = 1e-2 ** (np.arange(m) / (m - 1))
+    dl = d.copy()
+    d[m - dead_cols:] = 0.0
+    dl[m - dead_rows:] = 0.0
+    a = dl[None, :, None] * q * d[None, None, :]
+    perm = rng.permutation(m)
+    return (a[:, perm][:, :, perm],
+            np.ascontiguousarray(np.broadcast_to(dl[perm] != 0, (b, m))))
+
+
+def check_cpqr_masked(cpqr_cuda, low_rank, rng) -> str:
+    """The cpqr kernel on the low-rank stack's masked input at (512, 93),
+    complex64 and complex128: 20 dead columns zeroed exactly, with no dead
+    row (the boundary step's right factor) and with 10 (the combine's
+    core). The identities within 10 m eps, exact zeros below R's diagonal,
+    finite factors, R's diagonal exactly 0 on each dead column and nonzero
+    on every live one, in the kernel and in the plain version; then
+    G = (1 + A)^-1 and log det(1 + A) of the low-rank combine
+    (``_green_from_clcr``: the kernel and kernel B) against the same
+    function on the host (the plain versions, the card's type; the first
+    32 matrices, as a matrix's result does not depend on its neighbours)
+    and against float64 numpy, within TOL of max|G| (tol m for the log-det,
+    its phase modulo 2 pi, +-pi one value)."""
+    out = []
+    b, m, dead_cols, nhost = 512, 93, 20, 32
+    live = m - dead_cols
+    for dtype in (torch.complex64, torch.complex128):
+        tol, allow = TOL[dtype], 10 * m * CPQR_EPS[dtype]
+        worst = [0.0] * 6
+        for dead_rows in (0, 10):
+            a_np, mask_np = masked_core(rng, b, m, dead_rows, dead_cols)
+            a = torch.from_numpy(a_np).to("cuda", dtype)
+            where = f"{dtype} dead rows {dead_rows}"
+            before = cpqr_cuda.launches
+            q, r, p = cpqr_cuda.cpqr_lanes(a)
+            qp, rp, pp = cpqr_cuda.cpqr_lanes_plain(a)
+            torch.cuda.synchronize()
+            if cpqr_cuda.launches != before + 1:
+                raise AssertionError(f"cpqr on masked input at {where}: no "
+                                     f"launch")
+            for name, (qq, rr, pq) in (("kernel", (q, r, p)),
+                                       ("plain", (qp, rp, pp))):
+                rec, orth, low, _ = cpqr_identities(a, qq, rr, pq)
+                d = torch.diagonal(rr, dim1=-2, dim2=-1)
+                if not (torch.isfinite(qq).all() and torch.isfinite(rr).all()
+                        and rec <= allow and orth <= allow and low == 0.0
+                        and bool((d[:, live:] == 0).all())
+                        and bool((d[:, :live] != 0).all())):
+                    raise AssertionError(
+                        f"cpqr ({name}) on masked input at {where}: rec "
+                        f"{rec:.3e} orth {orth:.3e} below-diagonal {low}, "
+                        f"dead diagonal max "
+                        f"{d[:, live:].abs().max().item():.3e}, live "
+                        f"diagonal min {d[:, :live].abs().min().item():.3e}")
+                if name == "kernel":
+                    worst[:2] = [max(worst[0], rec / allow),
+                                 max(worst[1], orth / allow)]
+            eye = torch.eye(m, dtype=dtype, device="cuda").expand(b, m, m)
+            mask = torch.from_numpy(mask_np)
+            g_k, ld_k = low_rank._green_from_clcr(a, eye, mask.cuda(), 1e-6)
+            g_h, ld_h = low_rank._green_from_clcr(
+                a[:nhost].cpu(), eye[:nhost].cpu(), mask[:nhost], 1e-6)
+            one_a = np.eye(m) + a.cpu().to(torch.complex128).numpy()
+            sign, ld_64 = np.linalg.slogdet(one_a)
+            g_k = g_k.cpu().to(torch.complex128).numpy()
+            ld_k = ld_k.cpu().to(torch.complex128).numpy()
+            for i, (g_ref, ld_ref) in enumerate((
+                    (g_h.to(torch.complex128).numpy(),
+                     ld_h.to(torch.complex128).numpy()),
+                    (np.linalg.inv(one_a), ld_64 + 1j * np.angle(sign)))):
+                nb = len(g_ref)
+                dg = np.abs(g_k[:nb] - g_ref).max() / np.abs(g_ref).max()
+                dld = ld_k[:nb] - ld_ref
+                dre = np.abs(dld.real).max()
+                dim = phase_diff(dld.imag).max()
+                if not (np.isfinite(g_k).all() and dg <= tol
+                        and dre <= tol * m and dim <= tol * m):
+                    raise AssertionError(
+                        f"low-rank G on masked input at {where} against "
+                        f"{('the host', 'float64')[i]}: dG {dg:.3e}, "
+                        f"dlogdet {dre:.3e} / {dim:.3e} (tol {tol})")
+                worst[2 + 2 * i] = max(worst[2 + 2 * i], dg)
+                worst[3 + 2 * i] = max(worst[3 + 2 * i], dre)
+        out.append(f"{str(dtype).split('.')[-1]}: rec {worst[0]:.3f}, orth "
+                   f"{worst[1]:.3f} of 10 m eps; dG / dRe log det vs the "
+                   f"host {worst[2]:.2e} / {worst[3]:.2e}, vs float64 "
+                   f"{worst[4]:.2e} / {worst[5]:.2e}")
+    return "; ".join(out)
+
+
+def low_rank_launches(nslices: int, stack_size: int,
+                      npaths: int) -> tuple[int, int]:
+    """(cpqr, kernel B) launches of ThermalAFQMC.run() with the low-rank
+    walkers over npaths paths: the walker initialisation is a closed form
+    (none); each slice pivots the combined core once and, on a stack
+    boundary (ts % stack_size == stack_size - 1), the right factor once
+    more; two kernel B passes a slice (inverse and log-det of the padded
+    TQ, then of the core)."""
+    return (npaths * (nslices + nslices // stack_size),
+            2 * nslices * npaths)
+
+
+def discrete_thermal_launches(nbins: int, stack_size: int, nslices: int,
+                              npaths: int, free_projection: bool = False,
+                              wrap_stabilize: int = 10) -> tuple[int, int]:
+    """(cpqr, kernel B) launches of ThermalAFQMC.run() with the discrete
+    propagator over npaths paths: each walker initialisation (at
+    ThermalAFQMC's construction and the reset after every path) folds
+    nbins bins and assembles G with its log-det (5 kernel B launches);
+    the constrained path re-stratifies the nbins + 1 boundary factors (G
+    only: 2 launches) on every slice with ts % stack_size == 0 or
+    ts % wrap_stabilize == 0; free projection folds the stack and
+    assembles G and log det G every slice."""
+    if free_projection:
+        per = (nslices * nbins, 5 * nslices)
+    else:
+        refresh = sum(ts % stack_size == 0 or ts % wrap_stabilize == 0
+                      for ts in range(nslices))
+        per = (refresh * (nbins + 1), 2 * refresh)
+    return ((npaths + 1) * nbins + npaths * per[0],
+            5 * (npaths + 1) + npaths * per[1])
+
+
+def average_gf_launches(nbins: int, nmeasure: int) -> tuple[int, int]:
+    """(cpqr, kernel B) launches that average_gf adds to nmeasure
+    measurements: G at each of the nbins stack origins, nbins folds and two
+    kernel B passes each."""
+    return nmeasure * nbins * nbins, nmeasure * 2 * nbins
+
+
+def exact_grand_canonical_hubbard_2site(u: float, t: float, beta: float,
+                                        mu: float) -> tuple[float, float]:
+    """<H> and <N> of the open 2-site Hubbard chain in the grand-canonical
+    ensemble at beta, mu, by diagonalising its 16 Fock states (a numpy copy
+    of the JAX package's test oracle)."""
+    dim = 16
+
+    def occ(state, spin, site):
+        return (state >> (spin * 2 + site)) & 1
+
+    h = np.zeros((dim, dim))
+    nop = np.zeros(dim)
+    for s in range(dim):
+        nop[s] = sum(occ(s, sp, i) for sp in range(2) for i in range(2))
+        h[s, s] += u * sum(occ(s, 0, i) * occ(s, 1, i) for i in range(2))
+        h[s, s] -= mu * nop[s]
+        for sp in range(2):
+            for i, j in ((0, 1), (1, 0)):
+                if occ(s, sp, j) and not occ(s, sp, i):
+                    h[s ^ (1 << (sp * 2 + j)) ^ (1 << (sp * 2 + i)), s] -= t
+    w, v = np.linalg.eigh(h)
+    z = np.exp(-beta * w)
+    n_diag = (v.conj().T @ np.diag(nop) @ v).diagonal().real
+    return ((z * (w + mu * n_diag)).sum() / z.sum(),
+            (z * n_diag).sum() / z.sum())
 
 
 def check_batchla_thermal(batchla_cuda, clinalg, rng) -> str:
@@ -1208,7 +1410,8 @@ def main() -> None:
                                         make_hubbard, rhf_identity_trial,
                                         trial_from_orbitals)
     from pauxy_tpu_torch.models import trial as trial_module
-    from pauxy_tpu_torch.models.thermal_trial import make_one_body_trial
+    from pauxy_tpu_torch.models.thermal_trial import (make_mean_field_trial,
+                                                      make_one_body_trial)
     from pauxy_tpu_torch.models.ueg import make_ueg
     from pauxy_tpu_torch.ops import (batchla_cuda, clinalg, cpqr_cuda,
                                      cuda_build, exx_cuda, greens_cuda,
@@ -1219,6 +1422,7 @@ def main() -> None:
     from pauxy_tpu_torch.qmc.afqmc import run_block
     from pauxy_tpu_torch.qmc.hubbard_fast import BlockNoise
     from pauxy_tpu_torch.qmc.thermal_afqmc import PathNoise, ThermalAFQMC
+    from pauxy_tpu_torch.walkers import low_rank
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "pauxy_tpu")]
@@ -1277,6 +1481,7 @@ def main() -> None:
            "exx": exx_err}
     err["cpqr"], cpqr_readings = check_cpqr(cpqr_cuda, rng)
     b93_route = check_batchla_thermal(batchla_cuda, clinalg, rng)
+    masked = check_cpqr_masked(cpqr_cuda, low_rank, rng)
     greens_route = check_greens_route(greens_cuda, rng)
     taylor_route = check_taylor_route(taylor_cuda, GenericContinuous, gen)
     ill = check_batchla_ill(batchla_cuda, rng)
@@ -1437,6 +1642,15 @@ def main() -> None:
               "kernel": lambda: cpqr_cuda.cpqr_lanes(qd)},
              cpqr_work(93, 512, torch.complex128), reps=5, dev_key="cpqr")
     del qd
+    # The low-rank combine's masked input: 73 live columns, so 73
+    # reflectors do work.
+    qm = torch.from_numpy(masked_core(rng, 512, 93, 10, 20)[0]).to("cuda",
+                                                                   c64)
+    at_shape("cpqr", "(B,m)=(512,93) c64 masked (73 live)",
+             {"plain": lambda: cpqr_cuda.cpqr_lanes_plain(qm),
+              "kernel": lambda: cpqr_cuda.cpqr_lanes(qm)},
+             cpqr_work(93, 512, live=73), reps=10, dev_key="cpqr")
+    del qm
     # Kernel A with one walker and with a ragged 37: the chain of one
     # walker, not the card's width, sets its time.
     for gw in (1, 37):
@@ -1503,7 +1717,11 @@ def main() -> None:
         "norms the plain version's pivots and factors within tol, on "
         "Gaussian separated norms the factors against double precision, "
         "rank-7 "
-        f"input finite; largest readings: {cpqr_readings}; kernel B at "
+        f"input finite; largest readings: {cpqr_readings}; on the low-rank "
+        f"stack's masked input (512,93) with 20 dead columns and 0 or 10 "
+        f"dead rows: identities, exact zeros on the dead diagonal, no nan, "
+        f"and the low-rank G and log det(1 + A) within tol ({masked}); "
+        f"kernel B at "
         f"n=93 w=512 and at its cap (w=37) agrees with its plain version "
         f"and the augmented Gauss-Jordan's in every type and mode, and "
         f"cap + 1 goes to torch.linalg ({b93_route})")
@@ -1751,13 +1969,13 @@ def main() -> None:
         f"4 x naive se {4 * naive:.6f}" + lap("10"))
 
     # ---- 11. thermal UEG at the bench shape ------------------------------
-    def thermal_ueg(device, dtype, nwalkers, nblocks):
+    def thermal_ueg(device, dtype, nwalkers, nblocks, **options):
         ham = make_ueg(7, 7, rs=1.0, ecut=4.0, device=device, dtype=dtype)
         trial = make_one_body_trial(ham, 2.0, 0.05, mu=0.9, device=device,
                                     dtype=dtype)
         return ThermalAFQMC(ham, trial, QMCOpts(
             nwalkers=nwalkers, dt=0.05, nsteps=1, nblocks=nblocks, beta=2.0,
-            npop_control=1, rng_seed=8), device=device)
+            npop_control=1, rng_seed=8), device=device, **options)
 
     zero_counts()
     af = thermal_ueg("cuda", "single", 256, 2)
@@ -2192,6 +2410,359 @@ def main() -> None:
         f"{bpg_counts} as scheduled (Taylor 10 forward + 10 back); block "
         f"{af.block_seconds[0]:.2f} s" + lap("16"))
     del ham, trial, af
+
+    # ---- 17. low-rank thermal UEG at the bench shape ---------------------
+    lr_opts = {"walker_options": {"low_rank": True, "low_rank_thresh": 1e-6}}
+    zero_counts()
+    af = thermal_ueg("cuda", "single", 256, 2, **lr_opts)
+    rows = af.run()
+    torch.cuda.synchronize()
+    lr_counts = counts()
+    if not (np.isfinite(rows).all() and (rows[:, 10].real > 0).all()):
+        raise AssertionError(f"low-rank thermal UEG rows {rows}")
+    ncpqr, nkb = low_rank_launches(af.ntime_slices, af.trial.stack_size,
+                                   af.qmc.nblocks)
+    want = only(cpqr=ncpqr, inv_logdet_lanes=nkb)
+    if lr_counts != want:
+        raise AssertionError(f"low-rank thermal UEG launches {lr_counts}, "
+                             f"want {want}")
+    timed = af.block_seconds[1:]
+    rate_lr = af.qmc.nwalkers * af.ntime_slices * len(timed) / sum(timed)
+    say("17 low-rank UEG", f"phase 11's system with walker_options "
+        f"low_rank, thresh 1e-6: ETotal per row "
+        f"{np.array2string(rows[:, 5].real, precision=5)}, Nav "
+        f"{np.array2string(rows[:, 10].real, precision=5)}; launches "
+        f"{lr_counts}; {rate_lr:.1f} walker-slice-steps/s over "
+        f"{len(timed)} path(s) after a warm-up path (path seconds "
+        f"{', '.join(f'{t:.4f}' for t in af.block_seconds)}), beside "
+        f"phase 11's full-rank {rate_t:.1f} in this run")
+    # Card (complex64) against host (complex128), one path of 16 walkers
+    # with the same injected draws; the limit as phase 11's.
+    xi = draws.normal(size=(af.ntime_slices, 16, af.prop.nfields))
+    pop = draws.uniform(size=(af.ntime_slices, 1))
+    del af
+    card = thermal_injected(thermal_ueg("cuda", "single", 16, 1, **lr_opts),
+                            xi, pop, PathNoise)
+    host = thermal_injected(thermal_ueg("cpu", "double", 16, 1, **lr_opts),
+                            xi, pop, PathNoise)
+    d_e = abs(card[5] - host[5]) / abs(host[5])
+    d_n = abs(card[10] - host[10]) / abs(host[10])
+    if not (np.isfinite(card).all() and d_e <= 1e-4 and d_n <= 1e-4):
+        raise AssertionError(f"low-rank UEG: complex64 on the card {card} "
+                             f"vs complex128 on the host {host}: dE "
+                             f"{d_e:.3e}, dNav {d_n:.3e} > 1e-4")
+    # The anchor tests/data/thermal_ueg_lowrank.npz (the JAX package's
+    # test settings: nup = ndown = 1, ecut = 4, M = 93, the system's mu
+    # 0.245 in the sampled slices, the trial's bisected, beta = 0.5, 16
+    # walkers, seed 8), 160 paths in complex64.
+    ga = np.load(os.path.join(ROOT, "tests", "data",
+                              "thermal_ueg_lowrank.npz"))
+    ham = make_ueg(1, 1, rs=1.0, ecut=4.0, device="cuda", dtype="single")
+    trial = make_one_body_trial(ham, 0.5, 0.05, device="cuda",
+                                dtype="single")
+    af = ThermalAFQMC(ham, trial, QMCOpts(
+        nwalkers=16, dt=0.05, nsteps=1, nblocks=160, beta=0.5, rng_seed=8),
+        propagator_options={"mu": float(ga["mu"])}, device="cuda",
+        **lr_opts)
+    rows = af.run()
+    r0 = (abs(rows[0, 5].real / 5.97385568 - 1),
+          abs(rows[0, 10].real / 1.99999991 - 1))
+    et, nav = rows[1:, 5].real, rows[1:, 10].real
+    ref_e, ref_n = np.asarray(ga["etotal"])[1:], np.asarray(ga["nav"])[1:]
+    se_e = float(np.hypot(et.std(ddof=1) / np.sqrt(len(et)),
+                          ref_e.std(ddof=1) / np.sqrt(len(ref_e))))
+    se_n = float(np.hypot(nav.std(ddof=1) / np.sqrt(len(nav)),
+                          ref_n.std(ddof=1) / np.sqrt(len(ref_n))))
+    de, dn = abs(et.mean() - ref_e.mean()), abs(nav.mean() - ref_n.mean())
+    if not (ham.nbasis == 93 and np.isfinite(rows).all()
+            and max(r0) <= 1e-5 and de < 4 * se_e and dn < 4 * se_n):
+        raise AssertionError(f"low-rank UEG anchor: row 0 {rows[0, 5]} / "
+                             f"{rows[0, 10]}; E {et.mean()} vs "
+                             f"{ref_e.mean()} (se {se_e}), Nav {nav.mean()} "
+                             f"vs {ref_n.mean()} (se {se_n})")
+    say("17 low-rank UEG", f"16 walkers, one path with injected draws: "
+        f"complex64 on the card ETotal {card[5].real:.6f} Nav "
+        f"{card[10].real:.6f} vs complex128 on the host {host[5].real:.6f}"
+        f" / {host[10].real:.6f}: relative {d_e:.3e} / {d_n:.3e} <= 1e-4; "
+        f"anchor thermal_ueg_lowrank.npz (M=93, 16 walkers, 160 paths, "
+        f"complex64): row 0 ETotal {rows[0, 5].real:.8f} Nav "
+        f"{rows[0, 10].real:.8f} (relative {r0[0]:.2e} / {r0[1]:.2e} <= "
+        f"1e-5); E {et.mean():.6f} vs reference {ref_e.mean():.6f}, |d| "
+        f"{de:.6f} < 4 se {4 * se_e:.6f}; Nav {nav.mean():.6f} vs "
+        f"{ref_n.mean():.6f}, |d| {dn:.6f} < 4 se {4 * se_n:.6f}; "
+        f"{sum(af.block_seconds):.2f} s of paths" + lap("17"))
+    del ham, trial, af
+
+    # ---- 18. discrete thermal Hubbard ------------------------------------
+    def discrete_hubbard(device, dtype, nwalkers, nblocks, beta=2.0, U=4.0,
+                         **popts):
+        ham = make_hubbard(3, 3, U=U, nx=3, ny=3, device=device,
+                           dtype=dtype)
+        trial = make_one_body_trial(ham, beta, 0.05, mu=0.9, device=device,
+                                    dtype=dtype)
+        return ThermalAFQMC(ham, trial, QMCOpts(
+            nwalkers=nwalkers, dt=0.05, nsteps=1, nblocks=nblocks,
+            beta=beta, npop_control=2, rng_seed=8),
+            propagator_options={"hubbard_stratonovich": "discrete",
+                                **popts}, device=device)
+
+    zero_counts()
+    af = discrete_hubbard("cuda", "single", 128, 2)
+    rows = af.run()
+    torch.cuda.synchronize()
+    td_counts = counts()
+    nbins, ss, ns = af.trial.nbins, af.trial.stack_size, af.ntime_slices
+    ncpqr, nkb = discrete_thermal_launches(nbins, ss, ns, 2)
+    want = only(cpqr=ncpqr, inv_logdet_lanes=nkb)
+    if not (np.isfinite(rows).all() and td_counts == want):
+        raise AssertionError(f"discrete thermal rows {rows}, launches "
+                             f"{td_counts} (want {want})")
+    td_line = (f"3x3 U=4 mu=0.9 beta=2 dt=0.05 ({ns} slices, {nbins} bins "
+               f"of {ss}) complex64 128 walkers, pop control every 2: "
+               f"ETotal {np.array2string(rows[:, 5].real, precision=5)}, "
+               f"Nav {np.array2string(rows[:, 10].real, precision=5)}; "
+               f"launches {td_counts}; path seconds "
+               f"{', '.join(f'{t:.4f}' for t in af.block_seconds)}")
+    # Card vs host, 16 walkers, 2 paths: the heat-bath uniforms [M, w] of
+    # each slice (constrained path) or the fields [w, M] (free projection).
+    gaps18 = []
+    for fp in (False, True):
+        card_af = discrete_hubbard("cuda", "single", 16, 2,
+                                   free_projection=fp)
+        host_af = discrete_hubbard("cpu", "double", 16, 2,
+                                   free_projection=fp)
+        pairs = []
+        for _ in range(2):
+            if fp:
+                xi = (draws.uniform(size=(ns, 16, 9)) < 0.5).astype(float)
+            else:
+                xi = draws.uniform(size=(ns, 9, 16))
+            pop = draws.uniform(size=(ns, 1))
+            c = thermal_injected(card_af, xi, pop, PathNoise)
+            h = thermal_injected(host_af, xi, pop, PathNoise)
+            pairs.append([c[5].real, h[5].real, c[10].real, h[10].real])
+        pairs = np.array(pairs)
+        gap = max(np.abs(pairs[:, 0] - pairs[:, 1]).max()
+                  / np.abs(pairs[:, 1]).max(),
+                  np.abs(pairs[:, 2] - pairs[:, 3]).max()
+                  / np.abs(pairs[:, 3]).max())
+        if not (np.isfinite(pairs).all() and gap <= 1e-4):
+            raise AssertionError(f"discrete thermal (free projection {fp}):"
+                                 f" card vs host {pairs}")
+        gaps18.append(gap)
+    # The wrapped G (recomputed at bin boundaries only) against a
+    # recompute every slice, slice by slice with the same uniforms, in
+    # complex128: the wrap is an exact similarity transform, and in
+    # complex64 twenty chained wraps compound float32 rounding.
+    wraps = [discrete_hubbard("cuda", "double", 16, 1, wrap_stabilize=k)
+             for k in (1, 10 ** 9)]
+    states = [a.state for a in wraps]
+    wrap_gap = 0.0
+    for ts in range(ns):
+        rs = torch.from_numpy(draws.uniform(size=(9, 16))).to("cuda")
+        states = [a.prop.propagate(a.trial, st, ts, rs)
+                  for a, st in zip(wraps, states)]
+        g_ref = states[0].G
+        wrap_gap = max(wrap_gap, ((states[1].G - g_ref).abs().max()
+                                  / g_ref.abs().max()).item(),
+                       ((states[1].weight - states[0].weight).abs().max()
+                        / states[0].weight.abs().max()).item())
+    if wrap_gap > 1e-8:
+        raise AssertionError(f"discrete thermal wrap vs recompute "
+                             f"{wrap_gap:.3e} > 1e-8")
+    # U = 0: every row the exact grand-canonical E and N (16 walkers: the
+    # weights stay 1, under the 10% cap).
+    free = []
+    for beta, dtype, tol_e, tol_n in ((2.0, "single", 1e-4, 1e-4),
+                                      (16.0, "double", 1e-4, 1e-5)):
+        af = discrete_hubbard("cuda", dtype, 16, 1, beta=beta, U=0.0)
+        rows = af.run()
+        evals = np.linalg.eigvalsh(af.ham.T[0].cpu().double().numpy())
+        occ = 1.0 / (np.exp(beta * (evals - af.trial.mu)) + 1.0)
+        e_x, n_x = 2 * np.sum(evals * occ), 2 * occ.sum()
+        gap = (np.abs(rows[:, 5].real - e_x).max(),
+               np.abs(rows[:, 10].real - n_x).max())
+        if not (gap[0] <= tol_e and gap[1] <= tol_n):
+            raise AssertionError(f"discrete thermal U=0 beta={beta}: rows "
+                                 f"{rows[:, [5, 10]]} vs exact {e_x}, "
+                                 f"{n_x}")
+        free.append(f"beta={beta:g} {dtype} |dE| {gap[0]:.2e} |dN| "
+                    f"{gap[1]:.2e}")
+    # The 2-site open chain against grand-canonical ED.
+    ham = make_hubbard(1, 1, U=4.0, nx=2, ny=1, xpbc=False, device="cuda",
+                       dtype="single")
+    trial = make_one_body_trial(ham, 1.0, 0.025, mu=1.0, device="cuda",
+                                dtype="single")
+    af = ThermalAFQMC(ham, trial, QMCOpts(
+        nwalkers=256, dt=0.025, nsteps=1, nblocks=48, beta=1.0,
+        npop_control=5, rng_seed=11),
+        propagator_options={"hubbard_stratonovich": "discrete"},
+        device="cuda")
+    rows = af.run()
+    e_ed, n_ed = exact_grand_canonical_hubbard_2site(4.0, 1.0, 1.0, 1.0)
+    et, nav = rows[1:, 5].real, rows[1:, 10].real
+    se = float(et.std(ddof=1) / np.sqrt(len(et)))
+    if not (np.isfinite(rows).all() and abs(et.mean() - e_ed)
+            < max(4 * se, 0.05) and abs(nav.mean() - n_ed) < 0.05):
+        raise AssertionError(f"2-site ED anchor: E {et.mean()} vs {e_ed} "
+                             f"(se {se}), N {nav.mean()} vs {n_ed}")
+    say("18 discrete thermal", td_line + f"; 16 walkers, 2 paths with "
+        f"injected draws, card (complex64) vs host (complex128), max |d| "
+        f"over the scale: constrained path {gaps18[0]:.2e}, free "
+        f"projection {gaps18[1]:.2e} <= 1e-4; wrap_stabilize=1e9 vs 1, "
+        f"{ns} slices, complex128: max |dG|, |dw| over the scale "
+        f"{wrap_gap:.2e} <= 1e-8; U=0 exact on every row: "
+        f"{'; '.join(free)}; 2-site U=4 ED anchor (256 walkers, 48 "
+        f"paths, complex64): E {et.mean():.6f} vs ED {e_ed:.6f} (|d| "
+        f"{abs(et.mean() - e_ed):.6f} < max(4 se, 0.05), se {se:.6f}), "
+        f"N {nav.mean():.6f} vs {n_ed:.6f}"
+        + lap("18"))
+    del ham, trial, af, card_af, host_af, wraps, states
+
+    # ---- 19. the Generic thermal inner -----------------------------------
+    zero_counts()
+    ham = generic_model(128, 512, 16, make_generic)
+    trial = make_one_body_trial(ham, 0.5, 0.05, device="cuda",
+                                dtype="single")
+    af = ThermalAFQMC(ham, trial, QMCOpts(
+        nwalkers=64, dt=0.05, nsteps=1, nblocks=1, beta=0.5,
+        npop_control=1, rng_seed=8), device="cuda")
+    rows = af.run()
+    torch.cuda.synchronize()
+    tg_counts = counts()
+    tnb, tss = af.trial.nbins, af.trial.stack_size
+    ncpqr, nkb = thermal_launches(tnb, tss, af.ntime_slices, 1)
+    want = only(cpqr=ncpqr, inv_logdet_lanes=nkb)
+    if not (np.isfinite(rows).all() and (rows[:, 10].real > 0).all()
+            and tg_counts == want):
+        raise AssertionError(f"Generic thermal rows {rows}, launches "
+                             f"{tg_counts} (want {want})")
+    tg_line = (f"bench shape nmo=128 naux=512 (16,16) beta=0.5 dt=0.05 "
+               f"({af.ntime_slices} slices, {tnb} bins of {tss}) complex64 "
+               f"64 walkers: ETotal "
+               f"{np.array2string(rows[:, 5].real, precision=5)}, Nav "
+               f"{np.array2string(rows[:, 10].real, precision=5)}; launches "
+               f"{tg_counts}; path {af.block_seconds[0]:.4f} s")
+    del ham, trial, af
+
+    def generic_thermal(device, dtype):
+        ham = golden_generic_ham(device, dtype)
+        trial = make_one_body_trial(ham, 0.5, 0.05, device=device,
+                                    dtype=dtype)
+        return ThermalAFQMC(ham, trial, QMCOpts(
+            nwalkers=16, dt=0.05, nsteps=1, nblocks=1, beta=0.5,
+            npop_control=1, rng_seed=8), device=device)
+
+    xi = draws.normal(size=(10, 16, g_gen["chol"].shape[0]))
+    pop = draws.uniform(size=(10, 1))
+    card = thermal_injected(generic_thermal("cuda", "single"), xi, pop,
+                            PathNoise)
+    host = thermal_injected(generic_thermal("cpu", "double"), xi, pop,
+                            PathNoise)
+    d_e = abs(card[5] - host[5]) / abs(host[5])
+    d_n = abs(card[10] - host[10]) / abs(host[10])
+    if not (np.isfinite(card).all() and d_e <= 1e-4 and d_n <= 1e-4):
+        raise AssertionError(f"Generic thermal: card {card} vs host {host}")
+    say("19 Generic thermal", tg_line + f"; generic_nmo11.npz's "
+        f"Hamiltonian beta=0.5, 16 walkers, one path with injected draws: "
+        f"complex64 on the card ETotal {card[5].real:.6f} Nav "
+        f"{card[10].real:.6f} vs complex128 on the host "
+        f"{host[5].real:.6f} / {host[10].real:.6f}: relative {d_e:.3e} / "
+        f"{d_n:.3e} <= 1e-4" + lap("19"))
+
+    # ---- 20. the mean-field trial and average_gf -------------------------
+    def thf(device, dtype, nwalkers, nblocks):
+        ham = make_hubbard(3, 3, U=4.0, nx=3, ny=3, device=device,
+                           dtype=dtype)
+        trial = make_mean_field_trial(ham, 1.0, 0.05, nav=6.0,
+                                      device=device, dtype=dtype)
+        return ThermalAFQMC(ham, trial, QMCOpts(
+            nwalkers=nwalkers, dt=0.05, nsteps=1, nblocks=nblocks, beta=1.0,
+            npop_control=2, rng_seed=8), propagator_options={"mu": 0.9},
+            device=device)
+
+    zero_counts()
+    af = thf("cuda", "single", 128, 2)
+    rows = af.run()
+    torch.cuda.synchronize()
+    mf_counts = counts()
+    ncpqr, nkb = thermal_launches(af.trial.nbins, af.trial.stack_size,
+                                  af.ntime_slices, 2)
+    want = only(cpqr=ncpqr, inv_logdet_lanes=nkb)
+    if not (np.isfinite(rows).all() and abs(af.trial.nav - 6.0) <= 1e-3
+            and af.trial.name == "mean_field" and mf_counts == want):
+        raise AssertionError(f"mean-field trial: nav {af.trial.nav}, rows "
+                             f"{rows}, launches {mf_counts} (want {want})")
+    mf_line = (f"THF trial 3x3 U=4 beta=1 nav=6 (mu {af.trial.mu:.6f}, Nav "
+               f"{af.trial.nav:.6f}), system mu 0.9, complex64 128 "
+               f"walkers: ETotal "
+               f"{np.array2string(rows[:, 5].real, precision=5)}, Nav "
+               f"{np.array2string(rows[:, 10].real, precision=5)}; launches "
+               f"{mf_counts}")
+    xi = draws.normal(size=(af.ntime_slices, 16, 9))
+    pop = draws.uniform(size=(af.ntime_slices, 1))
+    card = thermal_injected(thf("cuda", "single", 16, 1), xi, pop,
+                            PathNoise)
+    host = thermal_injected(thf("cpu", "double", 16, 1), xi, pop,
+                            PathNoise)
+    gap_mf = max(abs(card[5] - host[5]) / abs(host[5]),
+                 abs(card[10] - host[10]) / abs(host[10]))
+    if not (np.isfinite(card).all() and gap_mf <= 1e-4):
+        raise AssertionError(f"mean-field trial: card {card} vs host {host}")
+    # average_gf on phase 12's full-rank path in 5 bins of 2 (so that the
+    # average runs over 5 origins): one path through run() on the card (its
+    # launches: the path's and, at the two measurements, G at every stack
+    # origin), then card vs host with injected draws.
+    avg_opts = {"estimator_options": {"mixed": {"average_gf": True}}}
+
+    def averaged(device, dtype, nblocks):
+        ham = make_hubbard(3, 3, U=4.0, nx=3, ny=3, device=device,
+                           dtype=dtype)
+        trial = make_one_body_trial(ham, tbeta, tdt, mu=float(g["mu"]),
+                                    stack_size=2, device=device,
+                                    dtype=dtype)
+        return ThermalAFQMC(ham, trial, QMCOpts(
+            nwalkers=tnw, dt=tdt, nsteps=1, nblocks=nblocks, beta=tbeta,
+            npop_control=2, rng_seed=8), device=device, **avg_opts)
+
+    zero_counts()
+    af = averaged("cuda", "single", 1)
+    rows = af.run()
+    torch.cuda.synchronize()
+    avg_counts = counts()
+    anb, ass = af.trial.nbins, af.trial.stack_size
+    path = thermal_launches(anb, ass, af.ntime_slices, 1)
+    extra = average_gf_launches(anb, 2)
+    want = only(cpqr=path[0] + extra[0],
+                inv_logdet_lanes=path[1] + extra[1])
+    if not (np.isfinite(rows).all() and avg_counts == want):
+        raise AssertionError(f"average_gf rows {rows}, launches "
+                             f"{avg_counts} (want {want})")
+    xi = draws.normal(size=(af.ntime_slices, tnw, 9))
+    pop = draws.uniform(size=(af.ntime_slices, 1))
+    card = thermal_injected(averaged("cuda", "single", 1), xi, pop,
+                            PathNoise)
+    host = thermal_injected(averaged("cpu", "double", 1), xi, pop,
+                            PathNoise)
+    gap_avg = max(abs(card[5] - host[5]) / abs(host[5]),
+                  abs(card[10] - host[10]) / abs(host[10]))
+    if not (np.isfinite(card).all() and gap_avg <= 1e-4):
+        raise AssertionError(f"average_gf: card {card} vs host {host}")
+    try:
+        thermal_ueg("cuda", "single", 2, 1, **lr_opts, **avg_opts)
+    except NotImplementedError as refusal:
+        refused = str(refusal)
+    else:
+        raise AssertionError("low-rank with average_gf was not refused")
+    say("20 THF + average_gf", mf_line + f"; 16 walkers, one path with "
+        f"injected draws, card (complex64) vs host (complex128): relative "
+        f"{gap_mf:.3e} <= 1e-4; average_gf on phase 12's system ({anb} "
+        f"bins of {ass}, {tnw} walkers): launches {avg_counts} (the path's "
+        f"and {extra[0]} cpqr + {extra[1]} kernel B for G at every origin "
+        f"of the 2 measurements), card vs host one path with injected "
+        f"draws: relative {gap_avg:.3e} <= 1e-4; low-rank with average_gf "
+        f"refused ({refused})" + lap("20"))
+    del af
     say("seconds", json.dumps(seconds))
 
     # ---- result ----------------------------------------------------------
@@ -2216,7 +2787,10 @@ def main() -> None:
                "generic_exx": exx_counts, "thermal_ueg": ueg_counts,
                "thermal_hubbard": hub_counts, "bp_discrete": bp_counts,
                "tutorial_3x3": tut_counts, "free_projection": fp_counts,
-               "bp_generic": bpg_counts}
+               "bp_generic": bpg_counts, "thermal_ueg_lowrank": lr_counts,
+               "thermal_discrete": td_counts, "thermal_generic": tg_counts,
+               "thermal_mean_field": mf_counts,
+               "thermal_average_gf": avg_counts}
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[k] for c in by_path.values()),

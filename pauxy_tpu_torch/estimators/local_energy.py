@@ -3,8 +3,7 @@
 Counterpart of ``local_energy_hubbard``, ``local_energy_generic_opt``,
 ``_exx``, ``local_energy_generic_cholesky_G``, the UEG gather kernels
 (``coulomb_greens_function_ueg``, ``exchange_greens_function_ueg``,
-``local_energy_ueg``) and the Hubbard
-and Generic branches of ``local_energy_G_host`` in
+``local_energy_ueg``) and ``local_energy_G_host`` in
 ``pauxy_tpu/estimators/local_energy.py``. The lanes block of
 ``qmc/hubbard_fast.py`` keeps its own fused energy.
 """
@@ -201,6 +200,12 @@ def local_energy_G_host(ham, G: np.ndarray):
         exx = 0.5 * (_exx_host(chol, G[0]) + _exx_host(chol, G[1]))
         e2b = ecoul - exx
         return e1b + e2b + ham.ecore, e1b + ham.ecore, e2b
+    if ham.name == "UEG":
+        # The batched kernel on one walker, in complex128.
+        g = torch.from_numpy(np.asarray(G, dtype=np.complex128)).to(
+            ham.H1.device)
+        return tuple(x[0].item() for x in local_energy_ueg(ham, g[0][None],
+                                                            g[1][None]))
     if ham.name != "Hubbard":
         raise NotImplementedError(f"no host local energy for {ham.name!r}")
     t = ham.T.cpu().numpy()

@@ -5,8 +5,9 @@ function G = (1 + B_L ... B_1)^-1 from a stack of propagator products by
 column-pivoted QDT stratification (``ops/cpqr``), batched over walkers and
 spins, with log det G from the QDT factors (never from an assembled G);
 the one-RDM and particle number; and the host numpy versions used by the
-trial set-up. The Db/Ds overflow splitting is applied as intended (the
-reference's is dead code, as the JAX docstring notes).
+trial set-up (with the mean-field entropy). The Db/Ds overflow splitting
+is applied as intended (the reference's is dead code, as the JAX
+docstring notes).
 """
 
 from __future__ import annotations
@@ -152,3 +153,16 @@ def one_rdm_stable_host(bt: np.ndarray, num_slices: int) -> np.ndarray:
 
 def particle_number_host(p: np.ndarray) -> float:
     return (p[0].trace() + p[1].trace()).real
+
+
+def entropy(beta: float, mu: float, h1: np.ndarray) -> float:
+    """Mean-field (grand-canonical, one-body, spin-restricted) entropy
+    S = -2 sum_i [p_i ln p_i + (1 - p_i) ln(1 - p_i)], p_i the Fermi
+    factors of the eigenvalues of h1 (the thermal Hartree-Fock trial's
+    grand-potential logging)."""
+    h1 = np.asarray(h1)
+    if np.linalg.norm(h1[0] - h1[1]) >= 1e-12:
+        raise ValueError("entropy needs a spin-restricted one-body matrix")
+    eigs = np.linalg.eigvalsh(h1[0])
+    p = np.clip(fermi_factor(eigs, beta, mu), 1e-300, 1.0 - 1e-16)
+    return float(-2.0 * np.sum(p * np.log(p) + (1 - p) * np.log1p(-p)))

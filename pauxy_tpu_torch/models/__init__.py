@@ -3,6 +3,7 @@
 from pauxy_tpu_torch.models.generic import Generic, make_generic
 from pauxy_tpu_torch.models.hubbard import Hubbard, make_hubbard
 from pauxy_tpu_torch.models.thermal_trial import (OneBodyTrial,
+                                                  make_mean_field_trial,
                                                   make_one_body_trial)
 from pauxy_tpu_torch.models.trial import (
     SingleDetTrial,
@@ -17,4 +18,5 @@ from pauxy_tpu_torch.models.ueg import UEG, make_ueg
 __all__ = ["Generic", "make_generic", "Hubbard", "make_hubbard",
            "SingleDetTrial", "free_electron_trial", "rhf_identity_trial",
            "spin_project_init", "trial_from_orbitals", "uhf_trial",
-           "OneBodyTrial", "make_one_body_trial", "UEG", "make_ueg"]
+           "OneBodyTrial", "make_one_body_trial", "make_mean_field_trial",
+           "UEG", "make_ueg"]

@@ -1,11 +1,11 @@
-"""Finite-temperature one-body trial density matrix.
+"""Finite-temperature trial density matrices.
 
-Counterpart of ``OneBodyTrial``, ``find_chemical_potential`` and
-``make_one_body_trial`` in ``pauxy_tpu/models/thermal_trial.py``. The
-set-up is host-side numpy and scipy, as in JAX; what reaches the device is
-the slice propagator B_T (including e^{dt mu}), its inverse, the
-within-bin left partial products and a full bin. The thermal Hartree-Fock
-(mean-field) trial is not ported.
+Counterpart of ``pauxy_tpu/models/thermal_trial.py``: the one-body trial,
+the chemical-potential bisection, the Fock matrices and the thermal
+Hartree-Fock (mean-field) trial. The set-up is host-side numpy and scipy,
+as in JAX; what reaches the device is the slice propagator B_T (including
+e^{dt mu}), its inverse, the within-bin left partial products and a full
+bin.
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ import scipy.linalg
 import torch
 
 from pauxy_tpu_torch import config
-from pauxy_tpu_torch.estimators.thermal import (one_rdm_stable_host,
+from pauxy_tpu_torch.estimators import local_energy as le
+from pauxy_tpu_torch.estimators.thermal import (entropy, one_rdm_stable_host,
                                                 particle_number_host)
 
 
@@ -95,7 +96,6 @@ def make_one_body_trial(ham, beta: float, dt: float, mu: float | None = None,
     follows JAX's heuristic cond(B_T)^stack <= 1e3, reduced until it
     divides the number of slices; mu is bisected to the electron count
     unless given."""
-    prec = config.get_precision(dtype)
     device = config.resolve_device(device)
     h1 = (ham.H1 if hasattr(ham, "H1") else ham.T).cpu().numpy()
     m = h1.shape[-1]
@@ -119,11 +119,22 @@ def make_one_body_trial(ham, beta: float, dt: float, mu: float | None = None,
                                      sign=sign)
 
     rho_mu = rho * np.exp(sign * dtau * mu)
-    p = one_rdm_stable_host(rho_mu, num_bins)
-    nav_actual = particle_number_host(p)
-    g = np.stack([np.eye(m) - p[0].T, np.eye(m) - p[1].T])
+    return _trial(dmat * np.exp(sign * dt * mu),
+                  one_rdm_stable_host(rho_mu, num_bins), mu=mu, beta=beta,
+                  dt=dt, stack_size=stack_size, name="one_body",
+                  device=device, dtype=dtype)
 
-    dmat_mu = dmat * np.exp(sign * dt * mu)
+
+def _trial(dmat_mu: np.ndarray, p: np.ndarray, *, mu: float, beta: float,
+           dt: float, stack_size: int, name: str, device,
+           dtype) -> OneBodyTrial:
+    """The trial of the slice propagator ``dmat_mu`` [2, M, M] (with mu)
+    and its 1-RDM ``p``: B_T^-1, the B_T powers of the within-bin left
+    factors and a full bin, on ``device``."""
+    prec = config.get_precision(dtype)
+    device = config.resolve_device(device)
+    m = dmat_mu.shape[-1]
+    g = np.stack([np.eye(m) - p[0].T, np.eye(m) - p[1].T])
     dmat_inv = np.stack([scipy.linalg.inv(dmat_mu[0]),
                          scipy.linalg.inv(dmat_mu[1])])
     powers = [np.stack([np.eye(m)] * 2)]
@@ -141,6 +152,99 @@ def make_one_body_trial(ham, beta: float, dt: float, mu: float | None = None,
         dmat=dev(dmat_mu), dmat_inv=dev(dmat_inv),
         left_table=dev(left_table), bin_full=dev(powers[stack_size]),
         mu=float(mu), beta=float(beta), dt=float(dt),
-        num_slices=num_slices, stack_size=int(stack_size),
-        nav=float(np.real(nav_actual)), P_host=p, G_host=g,
+        num_slices=int(round(beta / dt)), stack_size=int(stack_size),
+        nav=float(np.real(particle_number_host(p))), P_host=p, G_host=g,
+        name=name,
     )
+
+
+def fock_matrix(ham, p: np.ndarray) -> np.ndarray:
+    """F per spin from the 1-RDM p [2, M, M]: Hubbard T + U diag(n of the
+    other spin); Generic H1 + J - K from the Cholesky vectors; the UEG its
+    one-body part (a THF seed)."""
+    if ham.name == "Hubbard":
+        t = ham.T.cpu().numpy()
+        niu = np.diag(np.diagonal(p[0]))
+        nid = np.diag(np.diagonal(p[1]))
+        return t + ham.U * np.stack([nid, niu])
+    if ham.name == "Generic":
+        chol = ham.chol.cpu().numpy()
+        h1 = ham.H1.cpu().numpy()
+        xv = np.einsum("pqx,pq->x", chol, p[0] + p[1], optimize=True)
+        j = np.einsum("pqx,x->pq", chol, xv, optimize=True)
+        return np.stack([
+            h1[s] + j - np.einsum("prx,rs,sqx->pq", chol, p[s], chol,
+                                  optimize=True)
+            for s in (0, 1)])
+    if ham.name == "UEG":
+        return ham.H1.cpu().numpy()
+    raise NotImplementedError(f"no Fock matrix for {ham.name!r}")
+
+
+def make_mean_field_trial(ham, beta: float, dt: float,
+                          nav: float | None = None, mu: float | None = None,
+                          find_mu: bool = True,
+                          stack_size: int | None = None, alpha: float = 0.75,
+                          max_macro_it: int = 100, max_scf_it: int = 100,
+                          deps: float = 1e-6, verbose: bool = False, *,
+                          device=None, dtype=None) -> OneBodyTrial:
+    """Thermal Hartree-Fock trial on ``device``: macro-iterate the chemical
+    potential around an inner SCF on the Fock matrix at fixed mu (density
+    mixing ``alpha``); the converged mean-field Hamiltonian defines the
+    slice propagator. ``find_mu=False`` keeps the given mu (or the seed's)
+    fixed. With ``verbose``, logs the grand potential
+    Omega = E - mu N - S/beta of each macro iteration."""
+    device = config.resolve_device(device)
+    num_slices = int(round(beta / dt))
+    target = nav if nav is not None else (ham.nup + ham.ndown)
+    m = ham.nbasis
+    # Seed from the one-body trial (it also fixes the binning); only its
+    # host 1-RDM and mu are used.
+    seed = make_one_body_trial(ham, beta, dt, mu=mu, nav=nav,
+                               stack_size=stack_size, deps=deps,
+                               device="cpu", dtype="double")
+    stack_size = seed.stack_size
+    num_bins = num_slices // stack_size
+    dtau = stack_size * dt
+    p = seed.P_host
+    mu_old = seed.mu
+    mu_fixed = None if find_mu else (mu if mu is not None else seed.mu)
+    eye = np.eye(m)
+    hmf = fock_matrix(ham, p)
+    for _ in range(max_macro_it):
+        p_old = p
+        for _ in range(max_scf_it):
+            hmf = fock_matrix(ham, p_old)
+            rho = np.stack([scipy.linalg.expm(-dtau * (hmf[s] - mu_old * eye))
+                            for s in (0, 1)])
+            p_new = ((1 - alpha) * one_rdm_stable_host(rho, num_bins)
+                     + alpha * p_old)
+            converged = np.linalg.norm(p_new - p_old) < deps
+            p_old = p_new
+            if converged:
+                break
+        p = p_old
+        rho0 = np.stack([scipy.linalg.expm(-dtau * hmf[s]) for s in (0, 1)])
+        if mu_fixed is not None:
+            mu = mu_fixed
+        else:
+            mu = find_chemical_potential(rho0, dtau, num_bins, target,
+                                         deps=deps)
+        if verbose:
+            n_cur = float(np.real(particle_number_host(p)))
+            e_cur = float(np.real(le.local_energy_G_host(
+                ham, eye[None] - p.transpose(0, 2, 1))[0]))
+            omega = e_cur - mu * n_cur - entropy(beta, mu, hmf) / beta
+            print(f" # THF macro-iteration: mu = {mu:13.8e} "
+                  f"Omega = {omega:13.8e}")
+        done = abs(mu - mu_old) < deps
+        mu_old = mu
+        if done:
+            break
+    dmat = np.stack([scipy.linalg.expm(-dt * (hmf[s] - mu_old * eye))
+                     for s in (0, 1)])
+    rho_mu = np.stack([scipy.linalg.expm(-dtau * (hmf[s] - mu_old * eye))
+                       for s in (0, 1)])
+    return _trial(dmat, one_rdm_stable_host(rho_mu, num_bins), mu=mu_old,
+                  beta=beta, dt=dt, stack_size=stack_size, name="mean_field",
+                  device=device, dtype=dtype)

@@ -8,11 +8,12 @@ stack. Per slice
 with the force bias from the walker's 1-RDM P = 1 - G^T, the slice pushed
 into the binned stack, the Green's function re-stratified from the
 prefix-cached QDT fold (``ops/cpqr`` on every fold) and the phaseless
-weight from det G_old / det G_new = det(1 + A_new) / det(1 + A_old). The
-UEG inner's exp(VHS) is the plain order-6 series (``taylor_cuda.
-apply_taylor_plain``, batched matmuls), as JAX's is its einsum series. The
-Generic inner, the low-rank stack and the discrete thermal propagator are
-not ported and raise.
+weight from det G_old / det G_new = det(1 + A_new) / det(1 + A_old). On
+the low-rank stack (``walkers/low_rank.py``) G and det(1 + A) come from
+the masked QDT update instead. The UEG and Generic inners' exp(VHS) is the
+plain order-6 series (``taylor_cuda.apply_taylor_plain``, batched
+matmuls), as JAX's is its einsum series. The discrete thermal propagator
+is ``propagation/thermal_discrete.py``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from pauxy_tpu_torch.estimators import thermal as th
 from pauxy_tpu_torch.estimators.thermal import one_rdm_from_G
 from pauxy_tpu_torch.ops import ueg_sparse
 from pauxy_tpu_torch.ops.taylor_cuda import apply_taylor_plain
+from pauxy_tpu_torch.walkers import low_rank as lrw
 from pauxy_tpu_torch.walkers import thermal_state as tws
 
 
@@ -57,6 +59,29 @@ class ThermalHubbardInner:
         gauge = torch.exp(self.dt ** 0.5 * 1j * self.U ** 0.5 * xshifted)
         bv = torch.diag_embed(gauge)                      # [w, M, M]
         return torch.stack([bv, bv], dim=1)               # [w, 2, M, M]
+
+
+@dataclasses.dataclass
+class ThermalGenericInner:
+    """A Cholesky Hamiltonian at T > 0: VHS = i sqrt(dt) sum_x chol_x x_x."""
+
+    BH1: torch.Tensor        # [2, M, M], with the mean-field shift and mu
+    mf_shift: torch.Tensor   # [X]
+    chol: torch.Tensor       # [M, M, X] complex
+    dt: float
+    exp_order: int = 6
+
+    def force_bias_P(self, p: torch.Tensor) -> torch.Tensor:
+        vbias = torch.einsum("pqx,wpq->wx", self.chol, p[:, 0] + p[:, 1])
+        return -(self.dt ** 0.5) * (1j * vbias - self.mf_shift)
+
+    def dense_bv(self, xshifted: torch.Tensor) -> torch.Tensor:
+        vhs = (1j * self.dt ** 0.5) * torch.einsum("pqx,wx->wpq", self.chol,
+                                                   xshifted)
+        eye = torch.eye(vhs.shape[-1], dtype=vhs.dtype,
+                        device=vhs.device).expand(vhs.shape)
+        bv = apply_taylor_plain(vhs, eye, self.exp_order)
+        return torch.stack([bv, bv], dim=1)
 
 
 @dataclasses.dataclass
@@ -93,13 +118,15 @@ class ThermalUEGInner:
 
 @dataclasses.dataclass
 class ThermalContinuous:
-    inner: ThermalHubbardInner | ThermalUEGInner
+    inner: ThermalHubbardInner | ThermalGenericInner | ThermalUEGInner
     dt: float
     mf_const_fac: complex = 1.0 + 0j
     force_bias: bool = True
     # Force-bias clamp |xbar| <= fb_bound (the reference's option).
     fb_bound: float = 1.0
     free_projection: bool = False
+    low_rank: bool = False
+    low_rank_thresh: float = 1e-6
 
     @property
     def nfields(self) -> int:
@@ -150,12 +177,27 @@ class ThermalContinuous:
         return dataclasses.replace(state, weight=weight,
                                    hybrid_energy=-hybrid / self.dt, **extra)
 
+    def propagate_low_rank(self, trial, state: lrw.LowRankWalkerState,
+                           ts: int, xi: torch.Tensor | None = None,
+                           generator: torch.Generator | None = None):
+        """One time slice on the low-rank stack: G and det(1 + A) come
+        from the masked QDT update, the weight from the overlap ratio."""
+        b, cfb, cmf = self._sample_b(state, xi, generator)
+        new = lrw.update_low_rank(
+            torch.diagonal(trial.dmat_inv, dim1=-2, dim2=-1), state, b, ts,
+            stack_size=trial.stack_size, thresh=self.low_rank_thresh)
+        log_oratio = torch.sum(new.log_ovlp - state.log_ovlp, dim=-1)
+        return self._update_weight(new, log_oratio, cfb, cmf, {})
+
     def propagate(self, trial, state, ts: int, xi: torch.Tensor | None = None,
                   generator: torch.Generator | None = None):
-        """One time slice for the whole population. Bins below the active
+        """One time slice for the whole population (on the low-rank stack
+        when ``state`` is a ``LowRankWalkerState``). Bins below the active
         one are final for the rest of the beta sweep, so their QDT fold
         (the prefix carry pq/pd/pt) is refreshed once on entering a bin and
         each slice folds only bins block..nbins-1 on top of it."""
+        if isinstance(state, lrw.LowRankWalkerState):
+            return self.propagate_low_rank(trial, state, ts, xi, generator)
         b, cfb, cmf = self._sample_b(state, xi, generator)
         state = tws.update_stack(trial, state, b, ts)
         block, counter = divmod(ts, trial.stack_size)
@@ -174,14 +216,12 @@ class ThermalContinuous:
 
 def make_thermal_propagator(ham, trial, dt: float, options=None, *,
                             device=None, dtype=None) -> ThermalContinuous:
-    """The thermal propagator of a Hubbard or UEG Hamiltonian (host-side
-    set-up, as in JAX). The sampled slices carry the system's chemical
-    potential ``options["mu"]``, the trial's by default."""
+    """The thermal propagator of a Hubbard, Generic or UEG Hamiltonian
+    (host-side set-up, as in JAX). The sampled slices carry the system's
+    chemical potential ``options["mu"]``, the trial's by default."""
     prec = config.get_precision(dtype)
     device = config.resolve_device(device)
     opts = dict(options or {})
-    if opts.get("low_rank"):
-        raise NotImplementedError("the low-rank thermal stack is not ported")
     p_trial = np.asarray(trial.P_host)
     mu = float(trial.mu if opts.get("mu") is None else opts["mu"])
 
@@ -200,6 +240,18 @@ def make_thermal_propagator(ham, trial, dt: float, options=None, *,
         inner = ThermalHubbardInner(BH1=dev(bh1), mf_shift=dev(mf_shift),
                                     dt=float(dt), U=float(ham.U))
         mf_core = 0.5 * np.dot(mf_shift, mf_shift)
+    elif ham.name == "Generic":
+        chol = ham.chol.cpu().numpy()
+        mf_shift = 1j * np.einsum("pqx,pq->x", chol, p_trial[0] + p_trial[1],
+                                  optimize=True)
+        shift = 1j * np.einsum("pqx,x->pq", chol, mf_shift, optimize=True)
+        h1 = (ham.h1e_mod.cpu().numpy() - shift[None]
+              - mu * np.eye(m)[None])
+        bh1 = np.stack([scipy.linalg.expm(-0.5 * dt * h1[0]),
+                        scipy.linalg.expm(-0.5 * dt * h1[1])])
+        inner = ThermalGenericInner(BH1=dev(bh1), mf_shift=dev(mf_shift),
+                                    chol=dev(chol), dt=float(dt))
+        mf_core = ham.ecore + 0.5 * np.dot(mf_shift, mf_shift)
     elif ham.name == "UEG":
         h1 = ham.h1e_mod.cpu().numpy() - mu * np.eye(m)[None]
         bh1 = np.stack([np.diag(np.exp(-0.5 * dt * np.diagonal(h1[0]))),
@@ -211,9 +263,7 @@ def make_thermal_propagator(ham, trial, dt: float, options=None, *,
             dt=float(dt))
         mf_core = 0.0
     else:
-        raise NotImplementedError(
-            f"no ported thermal propagator for {ham.name!r} (the Generic "
-            "thermal inner is not ported)")
+        raise NotImplementedError(f"no thermal propagator for {ham.name!r}")
     return ThermalContinuous(
         inner=inner,
         dt=float(dt),
@@ -221,4 +271,6 @@ def make_thermal_propagator(ham, trial, dt: float, options=None, *,
         force_bias=opts.get("force_bias", True),
         fb_bound=float(opts.get("fb_bound", 1.0)),
         free_projection=opts.get("free_projection", False),
+        low_rank=opts.get("low_rank", False),
+        low_rank_thresh=float(opts.get("low_rank_thresh", 1e-6)),
     )

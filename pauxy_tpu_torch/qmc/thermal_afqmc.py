@@ -1,13 +1,15 @@
 """Finite-temperature AFQMC driver.
 
-Counterpart of ``pauxy_tpu/qmc/thermal_afqmc.py`` for the full-rank stack
-with the continuous Hubbard or UEG propagator. Each measurement block
-samples one full imaginary-time path (a Python loop over the beta/dt
-slices with per-slice weight capping and population control), then a
-mixed thermal measurement (energy and particle number from the 1-RDM) and
-a reset of the walkers to the trial density matrix. The discrete thermal
-propagator, the low-rank walkers and the tau-averaged Green's function
-(``average_gf``) are not ported and raise.
+Counterpart of ``pauxy_tpu/qmc/thermal_afqmc.py``: the continuous
+propagator (Hubbard, Generic or UEG) on the full-rank stack or the
+low-rank stack (``walker_options={"low_rank": True}``, diagonal trials
+only), or the discrete Hubbard propagator
+(``propagator_options={"hubbard_stratonovich": "discrete"}``). Each
+measurement block samples one full imaginary-time path (a Python loop over
+the beta/dt slices with per-slice weight capping and population control),
+then a mixed thermal measurement (energy and particle number from the
+1-RDM, or with ``average_gf`` their average over every cyclic stack
+origin) and a reset of the walkers to the trial density matrix.
 """
 
 from __future__ import annotations
@@ -23,11 +25,14 @@ import torch
 
 from pauxy_tpu_torch import config
 from pauxy_tpu_torch.estimators import mixed
+from pauxy_tpu_torch.estimators import thermal as th
 from pauxy_tpu_torch.estimators.thermal import one_rdm_from_G, particle_number
 from pauxy_tpu_torch.propagation.thermal import make_thermal_propagator
+from pauxy_tpu_torch.propagation.thermal_discrete import make_thermal_discrete
 from pauxy_tpu_torch.qmc.afqmc import check_population_alive
 from pauxy_tpu_torch.qmc.options import QMCOpts
 from pauxy_tpu_torch.utils.io import H5EstimatorHelper, create_estimates_file
+from pauxy_tpu_torch.walkers import low_rank as lrw
 from pauxy_tpu_torch.walkers import pop_control as pc
 from pauxy_tpu_torch.walkers import thermal_state as tws
 
@@ -42,9 +47,12 @@ THERMAL_HEADER = [
 
 @dataclasses.dataclass
 class PathNoise:
-    """Injected draws of one path: the HS fields xi [nslices, w, nfields]
-    and the population-control uniforms pop [nslices, k] (k = 1 for comb,
-    w // 2 for pair_branch); slice ts uses xi[ts] and pop[ts]."""
+    """Injected draws of one path: the propagator's draws xi and the
+    population-control uniforms pop [nslices, k] (k = 1 for comb, w // 2
+    for pair_branch); slice ts uses xi[ts] and pop[ts]. xi is
+    [nslices, w, nfields] normals for the continuous propagator,
+    [nslices, M, w] heat-bath uniforms for the discrete constrained path
+    and [nslices, w, M] fields in {0, 1} for discrete free projection."""
 
     xi: torch.Tensor
     pop: torch.Tensor
@@ -52,7 +60,8 @@ class PathNoise:
 
 def run_path(ham, trial, prop, state, generator, *, ntime_slices: int,
              npop_control: int, pop_method: str, target_weight: float,
-             calc_one_rdm: bool = False, noise: PathNoise | None = None):
+             calc_one_rdm: bool = False, average_gf: bool = False,
+             noise: PathNoise | None = None):
     """Propagate one full beta path and measure: per slice ts, propagate;
     cap weights at 10% of the total weight for ts > 0; population control
     when ts % npop_control == 0 and ts != 0. Returns (state, accumulator
@@ -71,21 +80,32 @@ def run_path(ham, trial, prop, state, generator, *, ntime_slices: int,
                 state, target_weight, pop_method,
                 uniforms=None if noise is None else noise.pop[ts],
                 generator=generator)
-    return state, measure_state(ham, trial, state, calc_one_rdm)
+    return state, measure_state(ham, trial, state, calc_one_rdm, average_gf)
 
 
-def measure_state(ham, trial, state,
-                  calc_one_rdm: bool = False) -> torch.Tensor:
+def measure_state(ham, trial, state, calc_one_rdm: bool = False,
+                  average_gf: bool = False) -> torch.Tensor:
     """Mixed thermal measurement from the current Green's function: the
     energy from the 1-RDM P = 1 - G^T, EHybrid the tracked per-slice hybrid
     energy, Overlap sum w (ot = 1 at T > 0), and with ``calc_one_rdm`` the
-    weighted P appended flat. Returns [2, len] (real and imaginary
-    parts). JAX's tau-averaged ``average_gf`` is not ported (the driver
-    refuses it)."""
+    weighted P appended flat. With ``average_gf`` (full-rank stack) the
+    same path is measured at every cyclic stack origin k, G from the stack
+    rolled by -k (a copy), and the energies, particle number and P are
+    averaged. Returns [2, len] (real and imaginary parts)."""
     e_fn = mixed.energy_estimator_G(ham)
-    p = one_rdm_from_G(state.G)
-    etot, e1b, e2b = e_fn(p[:, 0], p[:, 1])
-    nav = particle_number(p)
+
+    def measure(g):
+        p = one_rdm_from_G(g)
+        return (*e_fn(p[:, 0], p[:, 1]), particle_number(p), p)
+
+    if average_gf:
+        parts = [measure(th.greens_function_qdt(
+                     torch.roll(state.stack, -k, dims=1).transpose(1, 2)))
+                 for k in range(state.nbins)]
+        etot, e1b, e2b, nav, p = (sum(x) / state.nbins
+                                  for x in zip(*parts))
+    else:
+        etot, e1b, e2b, nav, p = measure(state.G)
     w = state.weight
     cdtype = state.G.dtype
     wsum = torch.sum(w)
@@ -131,23 +151,42 @@ class ThermalAFQMC:
         self.matmul_precision = config.check_matmul_precision(
             popts.get("matmul_precision"))
         wopts = dict(walker_options or {})
-        if wopts.get("low_rank", False) or popts.get("low_rank", False):
-            raise NotImplementedError("the low-rank thermal walkers are not "
-                                      "ported")
+        # The low-rank stack needs a diagonal trial density matrix.
+        self.low_rank = bool(wopts.get("low_rank", False))
+        if self.low_rank:
+            dmat = self.trial.dmat
+            if (dmat - torch.diag_embed(torch.diagonal(
+                    dmat, dim1=-2, dim2=-1))).abs().max() >= 1e-10:
+                raise ValueError("the low-rank stack requires a diagonal "
+                                 "trial density matrix")
+            popts.setdefault("low_rank", True)
+            popts.setdefault("low_rank_thresh",
+                             wopts.get("low_rank_thresh", 1e-6))
         if "discrete" in popts.get("hubbard_stratonovich", ""):
-            raise NotImplementedError("the discrete thermal propagator is "
-                                      "not ported")
-        self.prop = make_thermal_propagator(
-            self.ham, self.trial, qmc.dt, options=popts, device=self.device,
-            dtype=self.trial.dmat.dtype)
+            self.prop = make_thermal_discrete(
+                self.ham, self.trial, qmc.dt,
+                charge_decomposition=popts.get("charge_decomposition",
+                                               False),
+                free_projection=popts.get("free_projection", False),
+                mu=popts.get("mu"),
+                wrap_stabilize=popts.get("wrap_stabilize", 10),
+                device=self.device, dtype=self.trial.dmat.dtype)
+        else:
+            self.prop = make_thermal_propagator(
+                self.ham, self.trial, qmc.dt, options=popts,
+                device=self.device, dtype=self.trial.dmat.dtype)
+        self._init_walkers = (lrw.init_low_rank_walkers if self.low_rank
+                              else tws.init_thermal_walkers)
         mixed_opts = dict(estimator_options or {}).get("mixed", {})
         self.calc_one_rdm = bool(mixed_opts.get("one_rdm", False))
-        if mixed_opts.get("average_gf", False):
-            raise NotImplementedError("average_gf is not ported")
+        self.average_gf = bool(mixed_opts.get("average_gf", False))
+        if self.average_gf and self.low_rank:
+            raise NotImplementedError(
+                "average_gf needs the full-rank stack")
         if qmc.pop_control_method not in ("comb", "pair_branch"):
             raise ValueError(f"unknown population control method "
                              f"{qmc.pop_control_method!r}")
-        self.state = tws.init_thermal_walkers(self.trial, qmc.nwalkers)
+        self.state = self._init_walkers(self.trial, qmc.nwalkers)
         self.filename = filename
         self.output = None
         if filename is not None:
@@ -213,14 +252,15 @@ class ThermalAFQMC:
             npop_control=self.qmc.npop_control,
             pop_method=self.qmc.pop_control_method,
             target_weight=float(self.qmc.nwalkers),
-            calc_one_rdm=self.calc_one_rdm, noise=noise)
+            calc_one_rdm=self.calc_one_rdm, average_gf=self.average_gf,
+            noise=noise)
         acc = acc.cpu()
         self.block_seconds.append(time.perf_counter() - t0)
         self.block += 1
         # Liveness before the reset (the reference's abort on sum |w|).
         check_population_alive(self.state.weight, "reduce dt or beta")
         row = self._emit_row(acc, self.block)
-        self.state = tws.init_thermal_walkers(self.trial, self.qmc.nwalkers)
+        self.state = self._init_walkers(self.trial, self.qmc.nwalkers)
         return row
 
     def run(self) -> np.ndarray:
@@ -228,8 +268,8 @@ class ThermalAFQMC:
         returns [nblocks + 1, 12] complex."""
         if self.verbose:
             print("".join(f"{h:>17s}" for h in THERMAL_HEADER))
-        rows = [self._emit_row(measure_state(self.ham, self.trial,
-                                             self.state, self.calc_one_rdm),
-                               0)]
+        rows = [self._emit_row(measure_state(
+            self.ham, self.trial, self.state, self.calc_one_rdm,
+            self.average_gf), 0)]
         rows += [self.run_block() for _ in range(self.qmc.nblocks)]
         return np.array(rows)

@@ -22,8 +22,11 @@ from pauxy_tpu_torch.propagation.generic import GenericContinuous
 from pauxy_tpu_torch.propagation.hirsch import Hirsch
 from pauxy_tpu_torch.propagation.hubbard import HubbardContinuous
 from pauxy_tpu_torch.propagation.thermal import (ThermalContinuous,
+                                                 ThermalGenericInner,
                                                  ThermalHubbardInner,
                                                  ThermalUEGInner)
+from pauxy_tpu_torch.propagation.thermal_discrete import ThermalDiscrete
+from pauxy_tpu_torch.walkers.low_rank import LowRankWalkerState
 from pauxy_tpu_torch.walkers.state import WalkerState
 from pauxy_tpu_torch.walkers.thermal_state import ThermalWalkerState
 
@@ -156,30 +159,36 @@ def ueg(H1, h1e_mod, kpq_idx, kpq_mask, pmq_idx, pmq_mask, vqvec, *, basis,
 
 def one_body_trial(dmat, dmat_inv, left_table, bin_full, *, mu: float,
                    beta: float, dt: float, num_slices: int, stack_size: int,
-                   nav: float, P_host, G_host, device=None) -> OneBodyTrial:
-    """One-body thermal trial from the JAX trial's tensors and host 1-RDM
-    and Green's function."""
+                   nav: float, P_host, G_host, name: str = "one_body",
+                   device=None) -> OneBodyTrial:
+    """Thermal trial (one-body or mean-field, by ``name``) from the JAX
+    trial's tensors and host 1-RDM and Green's function."""
     device = config.resolve_device(device)
     return OneBodyTrial(_t(dmat, device), _t(dmat_inv, device),
                         _t(left_table, device), _t(bin_full, device),
                         mu=mu, beta=beta, dt=dt, num_slices=num_slices,
                         stack_size=stack_size, nav=nav,
-                        P_host=np.asarray(P_host), G_host=np.asarray(G_host))
+                        P_host=np.asarray(P_host), G_host=np.asarray(G_host),
+                        name=name)
 
 
 def thermal_propagator(inner: str, BH1, mf_shift, *, dt: float,
                        mf_const_fac: complex, U: float | None = None,
-                       ham: UEG | None = None, force_bias: bool = True,
-                       fb_bound: float = 1.0, free_projection: bool = False,
+                       ham: UEG | None = None, chol=None,
+                       force_bias: bool = True, fb_bound: float = 1.0,
+                       free_projection: bool = False, low_rank: bool = False,
+                       low_rank_thresh: float = 1e-6,
                        device=None) -> ThermalContinuous:
     """Thermal propagator from the JAX one's BH1 [2, M, M], mf_shift and
-    constants; ``inner`` "hubbard" (with U) or "ueg" (with the port's UEG
-    on ``device``, whose gather metadata is rebuilt here as JAX builds
-    it)."""
+    constants; ``inner`` "hubbard" (with U), "generic" (with its complex
+    chol [M, M, X]) or "ueg" (with the port's UEG on ``device``, whose
+    gather metadata is rebuilt here as JAX builds it)."""
     device = config.resolve_device(device)
     bh1, shift = _t(BH1, device), _t(mf_shift, device)
     if inner == "hubbard":
         inn = ThermalHubbardInner(bh1, shift, dt=dt, U=U)
+    elif inner == "generic":
+        inn = ThermalGenericInner(bh1, shift, _t(chol, device), dt=dt)
     elif inner == "ueg":
         inn = ThermalUEGInner(bh1, shift, ueg_sparse.make_sparse_rho(
             ham, config.real_dtype(bh1.dtype)), dt=dt)
@@ -187,7 +196,21 @@ def thermal_propagator(inner: str, BH1, mf_shift, *, dt: float,
         raise ValueError(f"unknown thermal inner {inner!r}")
     return ThermalContinuous(inn, dt=dt, mf_const_fac=mf_const_fac,
                              force_bias=force_bias, fb_bound=fb_bound,
-                             free_projection=free_projection)
+                             free_projection=free_projection,
+                             low_rank=low_rank,
+                             low_rank_thresh=low_rank_thresh)
+
+
+def thermal_discrete(BH1, BH1_inv, auxf, aux_wfac, delta, *, dt: float,
+                     charge: bool, free_projection: bool,
+                     wrap_stabilize: int, device=None) -> ThermalDiscrete:
+    """Discrete thermal propagator from the JAX one's tables."""
+    device = config.resolve_device(device)
+    return ThermalDiscrete(_t(BH1, device), _t(BH1_inv, device),
+                           _t(auxf, device), _t(aux_wfac, device),
+                           _t(delta, device), dt=dt, charge=charge,
+                           free_projection=free_projection,
+                           wrap_stabilize=wrap_stabilize)
 
 
 def thermal_walker_state(*, stack, right, G, log_m0, weight, unscaled_weight,
@@ -205,3 +228,19 @@ def thermal_walker_state(*, stack, right, G, log_m0, weight, unscaled_weight,
                                   dtype=rdtype, device=device),
         hybrid_energy=_t(hybrid_energy, device), pq=_t(pq, device),
         pd=_t(pd, device), pt=_t(pt, device))
+
+
+def low_rank_walker_state(*, Qr, Dr, Tr, Dl, G, log_ovlp, weight,
+                          unscaled_weight, phase, total_weight, hybrid_energy,
+                          device=None) -> LowRankWalkerState:
+    """LowRankWalkerState from the JAX state's fields."""
+    device = config.resolve_device(device)
+    rdtype = config.real_dtype(_t(log_ovlp, "cpu").dtype)
+    return LowRankWalkerState(
+        Qr=_t(Qr, device), Dr=_t(Dr, device), Tr=_t(Tr, device),
+        Dl=_t(Dl, device), G=_t(G, device), log_ovlp=_t(log_ovlp, device),
+        weight=_t(weight, device),
+        unscaled_weight=_t(unscaled_weight, device), phase=_t(phase, device),
+        total_weight=torch.tensor(float(np.asarray(total_weight)),
+                                  dtype=rdtype, device=device),
+        hybrid_energy=_t(hybrid_energy, device))

@@ -57,7 +57,14 @@ continuous and discrete free projection, the direct update, the
 momentum-space kinetic step, the local-energy update, Generic back
 propagation with EKT and the full 2-RDM through the Taylor kernel) run two
 blocks on the card and on the CPU with the same injected draws and agree
-at rtol 1e-8, atol 1e-10 in complex128, with their kernels launched.
+at rtol 1e-8, atol 1e-10 in complex128, with their kernels launched;
+so do two paths of each finite-temperature path added with the low-rank
+stack (the low-rank walkers, the discrete propagator's constrained path
+and free projection, the Generic inner, the mean-field trial,
+average_gf). The cpqr kernel on the low-rank stack's masked input (dead
+rows and columns zeroed exactly) keeps the identities, gives exact zeros
+on the dead columns' diagonal, and the low-rank G and log det(1 + A) on
+the card agree with the plain versions on the CPU within TOL.
 """
 
 import numpy as np
@@ -1154,3 +1161,126 @@ def test_run_mode_blocks_on_card_match_cpu(case):
     for c, h in zip(card, host):
         for a, b in zip(c, h):
             np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-10)
+
+
+def _thermal_extra_paths(case, device, draws):
+    """Two paths of the case's thermal configuration (8 walkers, complex128)
+    with the draws of ``draws(af, path)``; their rows."""
+    from pauxy_tpu_torch.models import (make_generic, make_hubbard,
+                                        make_mean_field_trial)
+    from pauxy_tpu_torch.models.thermal_trial import make_one_body_trial
+    from pauxy_tpu_torch.models.ueg import make_ueg
+    from pauxy_tpu_torch.qmc import QMCOpts
+    from pauxy_tpu_torch.qmc.thermal_afqmc import PathNoise, ThermalAFQMC
+
+    kw = dict(device=device, dtype="double")
+    beta, dt, options = 0.5, 0.05, {}
+    if case == "low_rank":
+        ham = make_ueg(1, 1, rs=1.0, ecut=1.0, **kw)
+        trial = make_one_body_trial(ham, beta, dt, mu=0.245, stack_size=2,
+                                    **kw)
+        options["walker_options"] = {"low_rank": True}
+    elif case == "generic":
+        rng = np.random.default_rng(0)
+        chol = 0.1 * rng.normal(size=(6, 6, 10))
+        ham = make_generic((2, 2), np.diag(np.linspace(-1.0, 1.0, 6)),
+                           chol + chol.transpose(1, 0, 2), **kw)
+        trial = make_one_body_trial(ham, beta, dt, stack_size=2, **kw)
+    else:
+        ham = make_hubbard(3, 3, U=4.0, nx=3, ny=3, **kw)
+        if case == "mean_field":
+            trial = make_mean_field_trial(ham, beta, dt, nav=6.0,
+                                          stack_size=2, **kw)
+            options["propagator_options"] = {"mu": 0.9}
+        else:
+            trial = make_one_body_trial(ham, beta, dt, mu=0.9, stack_size=2,
+                                        **kw)
+        if case.startswith("discrete"):
+            options["propagator_options"] = {
+                "hubbard_stratonovich": "discrete",
+                "free_projection": case == "discrete_fp"}
+        if case == "average_gf":
+            options["estimator_options"] = {"mixed": {"average_gf": True}}
+    af = ThermalAFQMC(ham, trial, QMCOpts(nwalkers=8, dt=dt, nsteps=1,
+                                          nblocks=2, beta=beta,
+                                          npop_control=2), device=device,
+                      **options)
+    rows = []
+    for path in range(2):
+        xi, pop = draws(af, path)
+        rows.append(af.run_block(PathNoise(torch.from_numpy(xi).to(device),
+                                           torch.from_numpy(pop).to(device))))
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["low_rank", "discrete", "discrete_fp",
+                                  "generic", "mean_field", "average_gf"])
+def test_thermal_extra_paths_on_card_match_cpu(case):
+    """The low-rank, discrete (constrained path and free projection),
+    Generic, mean-field-trial and average_gf thermal paths: two paths with
+    injected draws on the card (the cpqr kernel and kernel B launched) and
+    on the CPU in complex128, rows at rtol 1e-8."""
+    need_cuda()
+    rng = np.random.default_rng(12)
+    made = {}
+
+    def draws(af, path):
+        if path not in made:
+            m, w, ns = af.ham.nbasis, 8, af.ntime_slices
+            if case == "discrete_fp":
+                xi = (rng.uniform(size=(ns, w, m)) < 0.5).astype(float)
+            elif case == "discrete":
+                xi = rng.uniform(size=(ns, m, w))
+            else:
+                xi = rng.normal(size=(ns, w, af.prop.nfields))
+            made[path] = (xi, rng.uniform(size=(ns, 1)))
+        return made[path]
+
+    before = (cpqr_cuda.launches, batchla_cuda.launches)
+    card = _thermal_extra_paths(case, "cuda", draws)
+    torch.cuda.synchronize()
+    assert cpqr_cuda.launches > before[0]
+    assert batchla_cuda.launches > before[1]
+    host = _thermal_extra_paths(case, "cpu", draws)
+    for c, h in zip(card, host):
+        np.testing.assert_allclose(c[:11], h[:11], rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dead_rows", [0, 10])
+def test_cpqr_on_masked_input_matches_plain(dtype, dead_rows):
+    """The low-rank stack's masked input (20 dead columns, dead_rows dead
+    rows, zeroed exactly; ``chip_smoke.masked_core``) at (64, 93): the
+    identities, R's diagonal exactly 0 on the dead columns and nonzero on
+    the live ones, finite factors; and the low-rank combine's G and
+    log det(1 + A) on the card against the plain versions on the CPU
+    (TOL of max|G|, TOL m for the log-det)."""
+    need_cuda()
+    from chip_smoke import masked_core
+    from pauxy_tpu_torch.walkers import low_rank
+
+    tol, m, live = TOL[dtype], 93, 73
+    allow = 10 * m * CPQR_EPS[dtype]
+    a_np, mask_np = masked_core(np.random.default_rng(dead_rows), 64, m,
+                                dead_rows, m - live)
+    a = torch.from_numpy(a_np).to("cuda", dtype)
+    before = cpqr_cuda.launches
+    q, r, p = cpqr_cuda.cpqr_lanes(a)
+    assert cpqr_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    rec, orth, low, _ = cpqr_identities(a, q, r, p)
+    assert rec <= allow and orth <= allow and low == 0.0
+    assert torch.isfinite(q).all() and torch.isfinite(r).all()
+    d = torch.diagonal(r, dim1=-2, dim2=-1)
+    assert (d[:, live:] == 0).all() and (d[:, :live] != 0).all()
+    eye = torch.eye(m, dtype=dtype).expand(64, m, m)
+    mask = torch.from_numpy(mask_np)
+    g_k, ld_k = low_rank._green_from_clcr(a, eye.cuda(), mask.cuda(), 1e-6)
+    g_h, ld_h = low_rank._green_from_clcr(a.cpu(), eye, mask, 1e-6)
+    g_k, ld_k = g_k.cpu(), ld_k.cpu()
+    assert (g_k - g_h).abs().max().item() <= tol * g_h.abs().max().item()
+    dld = (ld_k - ld_h).numpy()
+    assert np.abs(dld.real).max() <= tol * m
+    assert phase_diff(dld.imag).max() <= tol * m

@@ -14,8 +14,10 @@
   criterion of tests/test_thermal_afqmc.py;
 * the HDF5 layout equal to the JAX driver's THERMAL_HEADER file, and the
   thermal options (beta, reduced units) read as in JAX;
-* the device rule, the options that are not ported, and no jax imported by
-  the port's thermal path.
+* the device rule, the options that still raise (no beta; low-rank with
+  average_gf, as in JAX), the options that raised before the low-rank,
+  discrete, Generic and average_gf paths were ported now running, and no
+  jax imported by the port's thermal path.
 """
 
 import json
@@ -208,34 +210,56 @@ def test_device_rule():
                                              beta=0.5))
 
 
-@pytest.mark.parametrize("case", ["discrete", "low_rank", "average_gf",
-                                  "no_beta", "generic"])
+@pytest.mark.parametrize("case", ["no_beta", "low_rank_with_average_gf"])
 def test_unported_options_raise(case):
-    _, ham, kw = systems("hubbard")
-    trial = make_one_body_trial(ham, 0.5, 0.05, mu=0.9, **CPU)
-    qmc = QMCOpts(nwalkers=2, dt=0.05, nsteps=1, nblocks=1, beta=0.5)
     kwargs = {}
     err = NotImplementedError
+    if case == "no_beta":
+        _, ham, kw = systems("hubbard")
+        trial = make_one_body_trial(ham, 0.5, 0.05, mu=0.9, **CPU)
+        qmc = QMCOpts(nwalkers=2, dt=0.05, nsteps=1, nblocks=1, beta=0.5)
+        qmc.beta, err = None, ValueError
+    else:
+        # As in JAX: the tau-averaged G needs the full-rank stack (on the
+        # UEG, whose diagonal trial the low-rank stack takes).
+        _, ham, kw = systems("ueg")
+        trial = make_one_body_trial(ham, **kw, **CPU)
+        qmc = QMCOpts(nwalkers=2, dt=kw["dt"], nsteps=1, nblocks=1,
+                      beta=kw["beta"])
+        kwargs = {"walker_options": {"low_rank": True},
+                  "estimator_options": {"mixed": {"average_gf": True}}}
+    with pytest.raises(err):
+        tta.ThermalAFQMC(ham, trial, qmc, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("case", ["discrete", "low_rank", "average_gf",
+                                  "generic"])
+def test_formerly_unported_thermal_options_run(case):
+    """The options that raised before this slice run: finite rows with a
+    positive particle number."""
+    _, ham, kw = systems("ueg" if case == "low_rank" else "hubbard")
+    kwargs = {}
     if case == "discrete":
         kwargs["propagator_options"] = {"hubbard_stratonovich": "discrete"}
     elif case == "low_rank":
         kwargs["walker_options"] = {"low_rank": True}
     elif case == "average_gf":
         kwargs["estimator_options"] = {"mixed": {"average_gf": True}}
-    elif case == "no_beta":
-        qmc.beta, err = None, ValueError
+        kw = dict(kw, stack_size=2)
     else:
-        from pauxy_tpu_torch.propagation.thermal import (
-            make_thermal_propagator)
+        from pauxy_tpu_torch.models import make_generic
 
-        class FakeGeneric:
-            name = "Generic"
-            nbasis = 9
-        with pytest.raises(NotImplementedError):
-            make_thermal_propagator(FakeGeneric(), trial, 0.05, **CPU)
-        return
-    with pytest.raises(err):
-        tta.ThermalAFQMC(ham, trial, qmc, device="cpu", **kwargs)
+        rng = np.random.default_rng(0)
+        chol = 0.1 * rng.normal(size=(3, 3, 4))
+        ham = make_generic((1, 1), np.diag([-1.0, 0.0, 1.0]),
+                           chol + chol.transpose(1, 0, 2), **CPU)
+        kw = dict(beta=0.25, dt=0.05, mu=0.0)
+    trial = make_one_body_trial(ham, **kw, **CPU)
+    rows = tta.ThermalAFQMC(ham, trial, QMCOpts(
+        nwalkers=4, dt=kw["dt"], nsteps=1, nblocks=2, beta=kw["beta"],
+        npop_control=2, rng_seed=5), device="cpu", **kwargs).run()
+    assert rows.shape == (3, 12)
+    assert np.isfinite(rows).all() and (rows[:, 10].real > 0).all()
 
 
 def test_thermal_path_imports_no_jax():
