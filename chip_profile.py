@@ -28,7 +28,15 @@ chip_smoke.py's phase 17 (phase 11's configuration with the low-rank
 walkers); and the discrete thermal Hubbard path of its phase 18 (3x3,
 U=4, mu=0.9, beta=2, dt=0.05, 128 walkers, population control every 2
 slices, complex64), whose site sweeps' synchronised wall time comes as
-``sweep_wall_ms``. For each it runs
+``sweep_wall_ms``; the zero-temperature UEG of chip_smoke.py's phase 21
+(make_ueg(7, 7, rs=1, ecut=8): M=257, 4216 fields, RHF trial, complex64,
+512 walkers, dt=0.005, re-orthogonalisation every 5 steps, the energy
+once a block) in the float32 and the bf16 Taylor tier (``ueg`` profiles
+both: paths ``ueg_pallas`` and ``ueg_pallas_bf16``), with the Taylor
+kernels' device time and launches as ``taylor_ms`` / ``taylor_launches``
+(float32, "taylor_kernel") and ``taylor_bf16_ms`` /
+``taylor_bf16_launches``; and PW_FFT at the same shape (chip_smoke.py's
+phase 23). For each it runs
 one warm-up block, then one block under
 torch.profiler (CPU and CUDA activity), and prints the block's wall time,
 the summed device time of its kernels, the device's idle share (1 - device
@@ -40,7 +48,8 @@ kernel A, the Cholesky-inverse kernel and the sweep kernel (``cpqr_ms``,
 by device time. The card's
 name and power limit (nvidia-smi) come first. --paths profiles only the
 named paths (continuous, discrete, bp_discrete, generic, generic_exx,
-thermal_ueg, thermal_hubbard, thermal_ueg_lowrank, thermal_discrete).
+thermal_ueg, thermal_hubbard, thermal_ueg_lowrank, thermal_discrete, ueg,
+pw_fft).
 With --trace the Chrome traces are written to PREFIX.<path>.json. Needs
 the card; there is no CPU fallback.
 """
@@ -82,7 +91,8 @@ def profile_block(af, name: str, trace: str | None, steps: int,
     rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
     nwalkers = af.qmc.nwalkers
     mine = {key: [t for k, v in by_name.items() if key in k for t in v]
-            for key in ("cpqr", "greens_lanes", "chol_inv", "hirsch_sweep")}
+            for key in ("cpqr", "greens_lanes", "chol_inv", "hirsch_sweep",
+                        "taylor_kernel", "taylor_bf16")}
     print(json.dumps({
         "path": name, "nwalkers": nwalkers, "nsteps": steps,
         "block_wall_ms": wall * 1e3, "device_ms": device_us / 1e3,
@@ -96,6 +106,10 @@ def profile_block(af, name: str, trace: str | None, steps: int,
         "chol_launches": len(mine["chol_inv"]),
         "sweep_ms": sum(mine["hirsch_sweep"]) / 1e3,
         "sweep_launches": len(mine["hirsch_sweep"]),
+        "taylor_ms": sum(mine["taylor_kernel"]) / 1e3,
+        "taylor_launches": len(mine["taylor_kernel"]),
+        "taylor_bf16_ms": sum(mine["taylor_bf16"]) / 1e3,
+        "taylor_bf16_launches": len(mine["taylor_bf16"]),
         metric: nwalkers * steps / wall,
         **(extra() if extra else {}),
     }))
@@ -122,7 +136,8 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from chip_smoke import generic_model
     from pauxy_tpu_torch.models import (free_electron_trial, make_generic,
-                                        make_hubbard, rhf_identity_trial)
+                                        make_hubbard, make_pw_fft,
+                                        rhf_identity_trial)
     from pauxy_tpu_torch.models.thermal_trial import make_one_body_trial
     from pauxy_tpu_torch.models.ueg import make_ueg
     from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
@@ -247,6 +262,30 @@ def main() -> None:
                               "sweeps": len(sweep_s)})
         finally:
             thermal_discrete.ThermalDiscrete._site_sweep = old
+        del ham, trial, af
+    uq = QMCOpts(nwalkers=512, dt=0.005, nsteps=10, nblocks=2, nstblz=5,
+                 npop_control=1, rng_seed=8)
+    ueg_eopts = {"mixed": {"energy_eval_freq": 10}}
+    if wanted("ueg"):
+        ham = make_ueg(7, 7, rs=1.0, ecut=8.0, device="cuda",
+                       dtype="single")
+        trial = rhf_identity_trial(ham, device="cuda", dtype="single")
+        for impl in ("pallas", "pallas_bf16"):
+            # The UEG's tier comes from the environment, as in JAX.
+            os.environ["PAUXY_TPU_TAYLOR_UEG"] = impl
+            af = AFQMC(ham, trial, uq, estimator_options=ueg_eopts,
+                       device="cuda")
+            profile_block(af, f"ueg_{impl}", args.trace, uq.nsteps)
+            del af
+        os.environ.pop("PAUXY_TPU_TAYLOR_UEG")
+        del ham, trial
+    if wanted("pw_fft"):
+        ham = make_pw_fft(7, 7, rs=1.0, ecut=8.0, device="cuda",
+                          dtype="single")
+        trial = free_electron_trial(ham, device="cuda", dtype="single")
+        af = AFQMC(ham, trial, uq, estimator_options=ueg_eopts,
+                   device="cuda")
+        profile_block(af, "pw_fft", args.trace, uq.nsteps)
         del ham, trial, af
     for name, wopts in (("thermal_ueg", None),
                         ("thermal_ueg_lowrank", {"low_rank": True,

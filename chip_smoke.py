@@ -10,7 +10,9 @@ non-zero and prints no result line:
   3. each kernel against its plain PyTorch version on the same card tensors,
      at the shapes the main paths and the larger lattices give it, and at
      each kernel's cap (kernel A, kernel B, Taylor, cpqr; one past the cap
-     takes the plain route by shape, without a launch), with
+     takes the plain route by shape, without a launch), the bf16 Taylor
+     kernel within 1e-3 of max|out| at (M, C) in {(33, 14), (128, 32),
+     (257, 14), (cap, 14)}, w in {1, 37, 512}, with
      median times at the main-path shape (kernel, plain version, and the
      one PyTorch call that computes the same function where there is one;
      for the Cholesky kernel the two calls of its route past the cap), and
@@ -126,7 +128,28 @@ non-zero and prints no result line:
      beta=1, nav=6, system mu 0.9, 128 walkers; the trial's Nav within
      1e-3 of 6) and card vs host at 16 walkers; average_gf on phase 12's
      system in 5 bins (the launches of G at every origin counted) card vs
-     host; low-rank with average_gf refused.
+     host; low-rank with average_gf refused;
+ 21. the UEG at the bench shape (bench.py:492-520: make_ueg(7, 7, rs=1,
+     ecut=8), M=257, 2108 q vectors, 4216 fields), RHF-identity trial,
+     complex64, 512 walkers, dt=0.005, re-orthogonalisation every 5 steps,
+     population control every step, the energy every 10 steps, one
+     warm-up block and 3 timed, through AFQMC(...).run() with
+     PAUXY_TPU_TAYLOR_UEG "pallas" and then "pallas_bf16": finite rows,
+     the launches of the step schedule (the float32 or the bf16 Taylor
+     kernel once a step), walker-steps/s of each tier; then 16 walkers, 2
+     blocks with injected draws, card (complex64, pallas) vs host
+     (complex128, xla) within 1e-4 of the scale;
+ 22. the UEG golden anchor tests/data/ueg_rs2.44_ecut2.npz (M=33, 40
+     walkers, 100 blocks, the energy every step) in complex64 in each
+     tier, |d| < max(4 se, 0.05) over the last two thirds
+     (tests/test_afqmc_driver.py:180-212): the float32 tier must hold it,
+     the bf16 tier's reading is reported as it falls (its end-to-end
+     validation); then back propagation with two_rdm="structure_factor"
+     on the golden system, 16 walkers, card vs host within 1e-4, and the
+     S(k) tail against the BP two-body energy;
+ 23. PW_FFT: make_pw_fft(7, 7, rs=1, ecut=8) (M=257), free-electron
+     trial, complex64, 512 walkers, one block: finite rows and the
+     launches; 16 walkers card vs host within 1e-4.
 Phase 3 also holds the cpqr kernel on the low-rank stack's masked input
 (``check_cpqr_masked``). Each phase line ends with its seconds. Then the
 card's name and power limit (nvidia-smi), one JSON line about the
@@ -151,10 +174,12 @@ TOL = {torch.complex64: 1e-4, torch.complex128: 1e-10, torch.float32: 1e-4,
        torch.float64: 1e-10}
 # One H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, and the fastest FLOP/s
 # of each element type at its own precision: float32 outside the tensor
-# cores, float64 on the FP64 tensor cores (DMMA; 34e12 outside them).
+# cores, float64 on the FP64 tensor cores (DMMA; 34e12 outside them), bf16
+# multiplicands with float32 sums on the tensor cores (dense).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.complex64: 67e12,
-              torch.float64: 67e12, torch.complex128: 67e12}
+              torch.float64: 67e12, torch.complex128: 67e12,
+              torch.bfloat16: 989e12}
 
 
 def say(phase: str, msg: str) -> None:
@@ -305,6 +330,14 @@ def taylor_work(m: int, c: int, w: int):
     complex [M, M] x [M, C] product (8 FLOPs a multiply-add)."""
     return ((w * m * m + 2 * w * m * c) * C8, 6 * 8 * m * m * c * w,
             torch.complex64)
+
+
+def taylor_bf16_work(m: int, c: int, w: int):
+    """The bf16 tier: V's float32 planes and phi read once, the result
+    written once; the same 6 orders of four real [M, M] x [M, C] products
+    (2 FLOPs a multiply-add), on the bf16 tensor cores."""
+    return ((w * m * m + 2 * w * m * c) * C8, 6 * 8 * m * m * c * w,
+            torch.bfloat16)
 
 
 def exx_work(x: int, n: int, m: int, w: int):
@@ -1096,6 +1129,59 @@ def check_taylor(taylor_cuda, gen) -> float:
     return main_err
 
 
+# The bf16 tier's shapes: the UEG golden (M = 33) and bench (M = 257)
+# classes with both spins' 14 columns, the Generic bench class, and the
+# bf16 kernel's cap (taylor_cuda.max_m_bf16).
+TAYLOR_BF16_SHAPES = ((33, 14), (128, 32), (257, 14), ("cap", 14))
+
+
+def check_taylor_bf16(taylor_cuda, gen) -> tuple[float, str]:
+    """The bf16 Taylor kernel against its plain version (the same bf16
+    roundings, float32 sums in another order) on the same card tensors:
+    max|d| <= 1e-3 max|out| at every shape and w in {1, 37, 512}
+    (complex64; complex128, cast to float32 planes as JAX casts it, at
+    M = 257); at M = cap + 1 the bf16 tier takes its plain series by
+    shape, without a launch. Returns the largest |d| at the bench shape
+    ((257, 14), w=512, complex64) and the readings."""
+    from pauxy_tpu_torch.propagation.generic import taylor_series
+
+    main_err, worst = None, {}
+    cases = [(m, c, torch.complex64) for m, c in TAYLOR_BF16_SHAPES]
+    cases.append((257, 14, torch.complex128))
+    for m, ncol, dtype in cases:
+        if m == "cap":
+            m = taylor_cuda.max_m_bf16()
+        for w in (1, 37, 512):
+            vhs, phi = taylor_inputs(gen, w, m, ncol, dtype)
+            before = taylor_cuda.launches_bf16
+            out_k = taylor_cuda.apply_taylor(vhs, phi, lowp=True)
+            if taylor_cuda.launches_bf16 != before + 1:
+                raise AssertionError(f"bf16 Taylor at M={m}: no launch")
+            out_p = taylor_cuda.apply_taylor_plain(vhs, phi, lowp=True)
+            torch.cuda.synchronize()
+            err = float((out_k - out_p).abs().max())
+            rel = err / float(out_p.abs().max())
+            if out_k.dtype != dtype or rel > 1e-3:
+                raise AssertionError(
+                    f"bf16 Taylor disagrees at {dtype} (M,C)=({m},{ncol}) "
+                    f"w={w}: {rel:.3e} of max|out|")
+            key = f"({m},{ncol}){'' if dtype == torch.complex64 else ' c128'}"
+            worst[key] = max(worst.get(key, 0.0), rel)
+            if (m, w, dtype) == (257, 512, torch.complex64):
+                main_err = err
+            del vhs, phi, out_k, out_p
+    m = taylor_cuda.max_m_bf16() + 1
+    vhs, phi = taylor_inputs(gen, 3, m, 14, torch.complex64)
+    before = taylor_cuda.launches_bf16
+    got = taylor_series(vhs, phi, 6, "pallas_bf16")
+    want = taylor_cuda.apply_taylor_plain(vhs, phi, lowp=True)
+    torch.cuda.synchronize()
+    if taylor_cuda.launches_bf16 != before or not torch.equal(got, want):
+        raise AssertionError(f"bf16 Taylor route at M={m}: launched or "
+                             f"not the plain series")
+    return main_err, ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+
+
 def check_taylor_route(taylor_cuda, GenericContinuous, gen) -> str:
     """The Generic propagator's "pallas" route at M = cap + 1 (each type):
     no launch, and the plain series' result within TOL."""
@@ -1412,6 +1498,7 @@ def main() -> None:
     from pauxy_tpu_torch.models import trial as trial_module
     from pauxy_tpu_torch.models.thermal_trial import (make_mean_field_trial,
                                                       make_one_body_trial)
+    from pauxy_tpu_torch.models.pw_fft import make_pw_fft
     from pauxy_tpu_torch.models.ueg import make_ueg
     from pauxy_tpu_torch.ops import (batchla_cuda, clinalg, cpqr_cuda,
                                      cuda_build, exx_cuda, greens_cuda,
@@ -1440,6 +1527,7 @@ def main() -> None:
                 "chol_inv_lanes": batchla_cuda.chol_launches,
                 "hirsch_sweep": sweep_cuda.launches,
                 "taylor_exp": taylor_cuda.launches,
+                "taylor_bf16": taylor_cuda.launches_bf16,
                 "exx": exx_cuda.launches,
                 "cpqr": cpqr_cuda.launches}
 
@@ -1449,6 +1537,7 @@ def main() -> None:
         batchla_cuda.chol_launches = 0
         sweep_cuda.launches = 0
         taylor_cuda.launches = 0
+        taylor_cuda.launches_bf16 = 0
         exx_cuda.launches = 0
         cpqr_cuda.launches = 0
 
@@ -1480,6 +1569,7 @@ def main() -> None:
            "taylor_exp": check_taylor(taylor_cuda, gen),
            "exx": exx_err}
     err["cpqr"], cpqr_readings = check_cpqr(cpqr_cuda, rng)
+    err["taylor_bf16"], bf16_readings = check_taylor_bf16(taylor_cuda, gen)
     b93_route = check_batchla_thermal(batchla_cuda, clinalg, rng)
     masked = check_cpqr_masked(cpqr_cuda, low_rank, rng)
     greens_route = check_greens_route(greens_cuda, rng)
@@ -1517,6 +1607,17 @@ def main() -> None:
         "plain": lambda: taylor_cuda.apply_taylor_plain(vt, pt),
         "kernel": lambda: taylor_cuda.apply_taylor(vt, pt),
         "library": lambda: apply_exponential_taylor(vt, pt)})
+    # The bf16 tier at the UEG bench shape (phase 21's); the yardstick is
+    # the "xla" route in complex64, as in row 5; the float32 kernel beside
+    # it.
+    bm, bc, bw = 257, 14, 512
+    vb16, pb16 = taylor_inputs(gen, bw, bm, bc, torch.complex64)
+    times["taylor_bf16"] = median_ms({
+        "plain": lambda: taylor_cuda.apply_taylor_plain(vb16, pb16,
+                                                        lowp=True),
+        "kernel": lambda: taylor_cuda.apply_taylor(vb16, pb16, lowp=True),
+        "f32_kernel": lambda: taylor_cuda.apply_taylor(vb16, pb16),
+        "library": lambda: apply_exponential_taylor(vb16, pb16)})
     # exx past the cap (the path that runs it); the yardstick is the einsum
     # route, which is also the plain version.
     ex, en, em, ew = 1024, 42, 228, 256
@@ -1548,6 +1649,7 @@ def main() -> None:
         "chol_inv_lanes": chol_work(n, w),
         "hirsch_sweep": sweep_work(m, n, n, w),
         "taylor_exp": taylor_work(tm, tc, tw),
+        "taylor_bf16": taylor_bf16_work(bm, bc, bw),
         "exx": exx_work(ex, en, em, ew),
         "cpqr": cpqr_work(93, 512),
     }
@@ -1594,6 +1696,12 @@ def main() -> None:
                   "kernel": lambda: batchla_cuda.chol_inv_lanes(hg),
                   "two_calls": lambda: chol_two_calls(hg)},
                  chol_work(gn, gw), dev_key="chol_inv")
+    at_shape("taylor_exp", "(M,C)=(257,14) w=512 c64 (the UEG bench class)",
+             {"plain": lambda: taylor_cuda.apply_taylor_plain(vb16, pb16),
+              "kernel": lambda: taylor_cuda.apply_taylor(vb16, pb16),
+              "library": lambda: apply_exponential_taylor(vb16, pb16)},
+             taylor_work(bm, bc, bw))
+    del vb16, pb16
     vb, pb = taylor_inputs(gen, 256, 228, 84, torch.complex64)
     at_shape("taylor_exp", "(M,C)=(228,84) w=256 c64",
              {"plain": lambda: taylor_cuda.apply_taylor_plain(vb, pb),
@@ -1676,6 +1784,8 @@ def main() -> None:
                else "")
             + (f" vs two library calls {t['two_calls']:.4f} ms"
                if "two_calls" in t else "")
+            + (f" vs the float32 kernel {t['f32_kernel']:.4f} ms"
+               if "f32_kernel" in t else "")
             + f", bound {bounds[k][0]:.5f} ms ({bounds[k][1]}), max abs err "
             f"{err[k]:.3e}" for k, t in times.items()))
     say("3 kernels", "at the other main-path shapes (kernel / plain / "
@@ -1710,6 +1820,13 @@ def main() -> None:
         "coherent phases): " + "; ".join(
             f"{k} {a:.3e}, {p:.3e} vs {b[0]:.3e} / {b[1]:.3e}"
             for k, (a, p, b) in exx_readings.items()))
+    say("3 kernels", "apply_taylor(lowp=True) (the bf16 tier, "
+        "csrc/taylor_bf16.cu) at (M,C) in {(33,14),(128,32),(257,14),(cap,"
+        "14)} complex64 and (257,14) complex128, w in {1,37,512}, launches "
+        "and agrees with its plain version within 1e-3 of max|out| (largest "
+        f"|d|/max|out|: {bf16_readings}); M = cap + 1 "
+        f"({taylor_cuda.max_m_bf16() + 1}) takes the plain bf16 series by "
+        "shape, without a launch")
     say("3 kernels", "cpqr at m in {9,16,36,48,93,cap} x B in {1,37,512} "
         "complex64 and complex128, and float32 at (512,93): identities "
         "within 10 m eps, exact zeros below R's diagonal, |r_kk| "
@@ -2763,6 +2880,259 @@ def main() -> None:
         f"draws: relative {gap_avg:.3e} <= 1e-4; low-rank with average_gf "
         f"refused ({refused})" + lap("20"))
     del af
+    # ---- 21. the UEG at the bench shape ----------------------------------
+    # bench.py:492-520's UEG class: (7, 7), rs=1, ecut=8 (M=257, 2108 q
+    # vectors, 4216 fields), RHF-identity trial, complex64, 512 walkers,
+    # dt=0.005, re-orthogonalisation every 5 steps, population control
+    # every step, the energy every 10; one warm-up block and 3 timed, in
+    # the float32 ("pallas") and the bf16 ("pallas_bf16") Taylor tier.
+    tiers = (("pallas", "taylor_exp"), ("pallas_bf16", "taylor_bf16"))
+
+    def set_tier(impl: str) -> None:
+        os.environ["PAUXY_TPU_TAYLOR_UEG"] = impl
+
+    uq = QMCOpts(nwalkers=512, dt=0.005, nsteps=10, nblocks=4, nstblz=5,
+                 npop_control=1, rng_seed=8)
+    usteps = uq.nblocks * uq.nsteps
+    ham = make_ueg(7, 7, rs=1.0, ecut=8.0, device="cuda", dtype="single")
+    trial = rhf_identity_trial(ham, device="cuda", dtype="single")
+    if (ham.nbasis, ham.nq, ham.nfields, ham.qmesh) != (257, 2108, 4216,
+                                                         (17, 17, 17)):
+        raise AssertionError(f"UEG bench shape {ham.nbasis} {ham.nq} "
+                             f"{ham.qmesh}")
+    ueg_tier, ueg_rates, ueg_e = {}, {}, {}
+    for impl, key in tiers:
+        set_tier(impl)
+        zero_counts()
+        af = AFQMC(ham, trial, uq,
+                   estimator_options={"mixed": {"energy_eval_freq": 10}},
+                   device="cuda")
+        if af.prop.inner.taylor_impl != impl:
+            raise AssertionError(f"UEG tier {af.prop.inner.taylor_impl}")
+        rows = af.run()
+        torch.cuda.synchronize()
+        ueg_tier[impl] = counts()
+        # Per step: the Taylor kernel once; kernel B 2 for the Green's
+        # functions and 2 for the new overlaps, 2 per energy; 2 at set-up.
+        # Cholesky: 2 spins x 2 passes a re-orthogonalisation.
+        want = only(**{key: usteps},
+                    inv_logdet_lanes=2 + 4 * usteps + 2 * (usteps // 10),
+                    chol_inv_lanes=4 * (usteps // uq.nstblz))
+        if ueg_tier[impl] != want:
+            raise AssertionError(f"UEG {impl} launches {ueg_tier[impl]}, "
+                                 f"want {want}")
+        if not (np.isfinite(rows.real).all()
+                and bool(torch.isfinite(af.state.weight).all())):
+            raise AssertionError(f"UEG {impl}: non-finite rows {rows}")
+        timed = af.block_seconds[1:]
+        ueg_rates[impl] = uq.nwalkers * uq.nsteps * len(timed) / sum(timed)
+        ueg_e[impl] = (rows[:, 5].real, af.block_seconds)
+    planewave_counts = {k: sum(c[k] for c in ueg_tier.values())
+                        for k in counts()}
+    del af
+    say("21 UEG path", f"(7,7) rs=1 ecut=8: M={ham.nbasis} nq={ham.nq} "
+        f"fields={ham.nfields} cube {ham.qmesh}, RHF trial (etrial "
+        f"{trial.etrial:.6f}), complex64 {uq.nwalkers} walkers {usteps} "
+        "steps: " + "; ".join(
+            f"{impl}: ETotal per block "
+            f"{np.array2string(ueg_e[impl][0], precision=5)}, launches "
+            f"{ueg_tier[impl]}, {ueg_rates[impl]:.1f} walker-steps/s over 3 "
+            f"blocks after a warm-up block (block seconds "
+            f"{', '.join(f'{t:.4f}' for t in ueg_e[impl][1])})"
+            for impl, _ in tiers))
+    del ham, trial
+
+    # The card's complex64 path (the float32 kernel) against the host's
+    # complex128 "xla" path with the same injected draws: 16 walkers, 2
+    # blocks, within 1e-4 of the block values' scale (float32 rounding).
+    def ueg_small(device, dtype, impl, nblocks=2):
+        set_tier(impl)
+        h = make_ueg(7, 7, rs=1.0, ecut=8.0, device=device, dtype=dtype)
+        t = rhf_identity_trial(h, device=device, dtype=dtype)
+        return AFQMC(h, t, QMCOpts(nwalkers=16, dt=0.005, nsteps=10,
+                                   nblocks=nblocks, nstblz=5,
+                                   npop_control=1, rng_seed=8),
+                     device=device)
+
+    draws = np.random.default_rng(21)
+    xi = draws.normal(size=(20, 16, 4216))
+    pop = draws.uniform(size=(20, 1))
+    zero_counts()
+    card = injected_blocks(ueg_small("cuda", "single", "pallas"), xi, pop, 2,
+                           run_block, BlockNoise, mixed)
+    inj_counts = counts()
+    host = injected_blocks(ueg_small("cpu", "double", "xla"), xi, pop, 2,
+                           run_block, BlockNoise, mixed)
+    gap_ueg = float((np.abs(card - host).max(axis=0)
+                     / np.abs(host).max(axis=0)).max())
+    if not (np.isfinite(card).all() and gap_ueg <= 1e-4
+            and inj_counts["taylor_exp"] == 20):
+        raise AssertionError(f"UEG card vs host: {card.tolist()} vs "
+                             f"{host.tolist()} ({gap_ueg:.3e}), launches "
+                             f"{inj_counts}")
+    say("21 UEG path", f"16 walkers, 2 blocks with injected draws: "
+        f"complex64 on the card (pallas, launches {inj_counts}) vs "
+        f"complex128 on the host (xla), block ETotal "
+        f"{np.array2string(card[:, 0], precision=6)} vs "
+        f"{np.array2string(host[:, 0], precision=6)}: max |d| over the "
+        f"block values' scale {gap_ueg:.3e} <= 1e-4" + lap("21"))
+
+    # ---- 22. the UEG golden anchor ---------------------------------------
+    # tests/data/ueg_rs2.44_ecut2.npz (M=33, 40 walkers, 100 blocks of 10
+    # steps, the energy every step) in complex64 on the card, in each tier;
+    # tests/test_afqmc_driver.py:180-212's criterion |d| < max(4 se, 0.05)
+    # over the last two thirds. The float32 tier must hold it; the bf16
+    # tier's reading is its end-to-end validation, reported as it falls.
+    g = np.load(os.path.join(ROOT, "tests", "data", "ueg_rs2.44_ecut2.npz"))
+
+    def ueg_golden(device, dtype, impl, nwalkers=int(g["nwalkers"]),
+                   nblocks=100, eopts=None):
+        set_tier(impl)
+        h = make_ueg(int(g["nup"]), int(g["ndown"]), rs=float(g["rs"]),
+                     ecut=float(g["ecut"]), device=device, dtype=dtype)
+        t = rhf_identity_trial(h, device=device, dtype=dtype)
+        return AFQMC(h, t, QMCOpts(nwalkers=nwalkers, dt=float(g["dt"]),
+                                   nsteps=int(g["nsteps"]), nblocks=nblocks,
+                                   nstblz=10, npop_control=1, rng_seed=8),
+                     estimator_options=eopts or {
+                         "mixed": {"energy_eval_freq": 1}},
+                     device=device)
+
+    theirs = np.asarray(g["etotal_blocks"])[len(g["etotal_blocks"]) // 3:]
+    gold, gold_tier = {}, {}
+    for impl, key in tiers:
+        zero_counts()
+        af = ueg_golden("cuda", "single", impl)
+        if abs(af.trial.etrial - float(g["etrial"])) > 1e-5:
+            raise AssertionError(f"UEG golden etrial {af.trial.etrial}")
+        rows = af.run()
+        torch.cuda.synchronize()
+        gold_tier[impl] = counts()
+        gsteps = 100 * int(g["nsteps"])
+        want = only(**{key: gsteps}, inv_logdet_lanes=2 + 6 * gsteps,
+                    chol_inv_lanes=4 * (gsteps // 10))
+        et = rows[:, 5].real
+        if gold_tier[impl] != want or not np.isfinite(et).all():
+            raise AssertionError(f"UEG golden {impl}: launches "
+                                 f"{gold_tier[impl]} (want {want}), {et}")
+        mine = et[len(et) // 3:]
+        se = float(np.hypot(mine.std(ddof=1) / np.sqrt(len(mine)),
+                            theirs.std(ddof=1) / np.sqrt(len(theirs))))
+        diff = float(abs(mine.mean() - theirs.mean()))
+        gold[impl] = (float(mine.mean()), diff, se,
+                      diff < max(4 * se, 0.05))
+    if not gold["pallas"][3]:
+        raise AssertionError(f"UEG golden missed in the float32 tier: "
+                             f"{gold['pallas']} vs {theirs.mean()}")
+    say("22 UEG golden", f"rs=2.44 ecut=2 (7,7) M=33, 40 walkers, 100 "
+        f"blocks, complex64, reference {theirs.mean():.6f}: " + "; ".join(
+            f"{impl} port {m:.6f}, |diff| {d:.6f} "
+            + ("<" if ok else "NOT <")
+            + f" max(4 se, 0.05) = {max(4 * se, 0.05):.6f} (se {se:.6f}): "
+            + ("holds" if ok else "MISSES")
+            for impl, (m, d, se, ok) in gold.items()))
+
+    # Back propagation with the structure factor on the golden system, 16
+    # walkers, 2 blocks with injected draws (tau_bp = 0.05: 2 measurements
+    # a block), card (pallas) against host (xla) within 1e-4 of the scale;
+    # on the card the S(k) tail contracts with v_q to the BP two-body
+    # energy.
+    bp_sf = {"mixed": {"energy_eval_freq": 1},
+             "back_propagation": {"tau_bp": 0.05, "evaluate_energy": True,
+                                  "two_rdm": "structure_factor"}}
+    probe = ueg_golden("cpu", "double", "xla", 16, 2, bp_sf)
+    xi = draws.normal(size=(20, 16, probe.ham.nfields))
+    pop = draws.uniform(size=(20, 1))
+    zero_counts()
+    card_af = ueg_golden("cuda", "single", "pallas", 16, 2, bp_sf)
+    card = extras_blocks(card_af, xi, pop, 2, run_block, BlockNoise)
+    bpsf_counts = counts()
+    host = extras_blocks(probe, xi, pop, 2, run_block, BlockNoise)
+    bp_gap = extras_gap(card, host)[1]
+    # The mixed sums as phase 21 reads them (block ETotal and unscaled
+    # weight): the hybrid-energy sum divides float32 log-overlap rounding
+    # by dt = 0.01 (8.5e-5 of the scale between the host's complex64 and
+    # complex128 runs), a reading of the step, not of the estimators.
+    et_gap = max(
+        max(abs(c[0][mixed.ENUMER] / c[0][mixed.EDENOM]
+                - h[0][mixed.ENUMER] / h[0][mixed.EDENOM])
+            / abs(h[0][mixed.ENUMER] / h[0][mixed.EDENOM]),
+            abs(c[0][mixed.UWEIGHT] - h[0][mixed.UWEIGHT])
+            / abs(h[0][mixed.UWEIGHT]))
+        for c, h in zip(card, host))
+    m33, nq33 = probe.ham.nbasis, probe.ham.nq
+    vq = probe.ham.vqvec.numpy()
+    e2_gap = 0.0
+    for blk in card:
+        a = blk[1]
+        sk = a[4 + 2 * m33 * m33:].reshape(2, 2, nq33)
+        pe = np.sum(vq * sk.sum(axis=(0, 1))) / (2 * probe.ham.vol)
+        e2_gap = max(e2_gap, abs(pe - a[2]) / abs(a[2]))
+    # Taylor: 20 forward steps and 4 measurements of 5 back steps.
+    if not (max(bp_gap, et_gap) <= 1e-4 and e2_gap <= 1e-3
+            and bpsf_counts["taylor_exp"] == 40):
+        raise AssertionError(f"UEG BP structure factor: BP {bp_gap:.3e}, "
+                             f"mixed {et_gap:.3e}, S(k) vs E2 "
+                             f"{e2_gap:.3e}, launches {bpsf_counts}")
+    ueg_gold_counts = {k: sum(c[k] for c in gold_tier.values())
+                       + bpsf_counts[k] for k in counts()}
+    say("22 UEG golden", f"BP two_rdm=structure_factor (tau_bp 0.05, "
+        f"[2, 2, {nq33}] a split), 16 walkers, 2 blocks with injected draws: "
+        f"card (complex64, pallas, launches {bpsf_counts}) vs host "
+        f"(complex128, xla), max |d| over the scale: BP sums {bp_gap:.3e}, "
+        f"block ETotal and weight {et_gap:.3e}, each <= 1e-4; S(k) . v_q / "
+        f"2V vs the BP E2 on the "
+        f"card {e2_gap:.3e} <= 1e-3" + lap("22"))
+    del probe, card_af
+
+    # ---- 23. PW_FFT ------------------------------------------------------
+    # The same (7, 7), rs=1, ecut=8 electron gas on its FFT mesh (M=257,
+    # 2109 q vectors with q = 0), free-electron trial, complex64, 512
+    # walkers, one block of 10 steps; then 16 walkers card vs host.
+    def pw_run(device, dtype, nwalkers, nblocks, energy_every):
+        h = make_pw_fft(7, 7, rs=1.0, ecut=8.0, device=device, dtype=dtype)
+        t = free_electron_trial(h, device=device, dtype=dtype)
+        return AFQMC(h, t, QMCOpts(nwalkers=nwalkers, dt=0.005, nsteps=10,
+                                   nblocks=nblocks, nstblz=5,
+                                   npop_control=1, rng_seed=8),
+                     estimator_options={"mixed": {
+                         "energy_eval_freq": energy_every}},
+                     device=device)
+
+    zero_counts()
+    af = pw_run("cuda", "single", 512, 1, 10)
+    rows = af.run()
+    torch.cuda.synchronize()
+    pw_counts = counts()
+    want = only(inv_logdet_lanes=2 + 4 * 10 + 2, chol_inv_lanes=4 * 2)
+    if not (np.isfinite(rows.real).all() and pw_counts == want
+            and bool(torch.isfinite(af.state.weight).all())):
+        raise AssertionError(f"PW_FFT rows {rows}, launches {pw_counts} "
+                             f"(want {want})")
+    pw_line = (f"M={af.ham.nbasis} nq={af.ham.nq} cube {af.ham.qmesh}, "
+               f"free-electron trial (etrial {af.trial.etrial:.6f}), "
+               f"complex64 512 walkers, one block of 10 steps: ETotal "
+               f"{rows[0, 5].real:.6f}, launches {pw_counts}, "
+               f"{5120 / af.block_seconds[0]:.1f} walker-steps/s (the first "
+               f"block, warm-up included)")
+    xi = draws.normal(size=(20, 16, af.ham.nfields))
+    pop = draws.uniform(size=(20, 1))
+    del af
+    card = injected_blocks(pw_run("cuda", "single", 16, 2, 1), xi, pop, 2,
+                           run_block, BlockNoise, mixed)
+    host = injected_blocks(pw_run("cpu", "double", 16, 2, 1), xi, pop, 2,
+                           run_block, BlockNoise, mixed)
+    gap_pw = float((np.abs(card - host).max(axis=0)
+                    / np.abs(host).max(axis=0)).max())
+    if not (np.isfinite(card).all() and gap_pw <= 1e-4):
+        raise AssertionError(f"PW_FFT card vs host: {card.tolist()} vs "
+                             f"{host.tolist()} ({gap_pw:.3e})")
+    os.environ.pop("PAUXY_TPU_TAYLOR_UEG", None)
+    say("23 PW_FFT", pw_line + f"; 16 walkers, 2 blocks with injected "
+        f"draws, card (complex64) vs host (complex128): block ETotal "
+        f"{np.array2string(card[:, 0], precision=6)} vs "
+        f"{np.array2string(host[:, 0], precision=6)}, max |d| over the "
+        f"scale {gap_pw:.3e} <= 1e-4" + lap("23"))
     say("seconds", json.dumps(seconds))
 
     # ---- result ----------------------------------------------------------
@@ -2778,6 +3148,8 @@ def main() -> None:
                          "pauxy_tpu/ops/sweep_pallas.py:54"),
         "taylor_exp": ("pauxy_tpu_torch/csrc/taylor.cu",
                        "pauxy_tpu/ops/taylor_pallas.py:47"),
+        "taylor_bf16": ("pauxy_tpu_torch/csrc/taylor_bf16.cu",
+                        "pauxy_tpu/ops/taylor_pallas.py:56"),
         "exx": ("pauxy_tpu_torch/csrc/exx.cu",
                 "pauxy_tpu/ops/exx_pallas.py:36"),
         "cpqr": ("pauxy_tpu_torch/csrc/cpqr.cu",
@@ -2790,7 +3162,8 @@ def main() -> None:
                "bp_generic": bpg_counts, "thermal_ueg_lowrank": lr_counts,
                "thermal_discrete": td_counts, "thermal_generic": tg_counts,
                "thermal_mean_field": mf_counts,
-               "thermal_average_gf": avg_counts}
+               "thermal_average_gf": avg_counts, "ueg": planewave_counts,
+               "ueg_golden": ueg_gold_counts, "pw_fft": pw_counts}
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[k] for c in by_path.values()),
@@ -2798,6 +3171,7 @@ def main() -> None:
          "max_abs_err": err[k],
          "ms": times[k]["kernel"], "device_ms": times[k].get("device"),
          "two_calls_ms": times[k].get("two_calls"),
+         "f32_kernel_ms": times[k].get("f32_kernel"),
          "plain_ms": times[k]["plain"],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
          "library_ms": times[k].get("library"), "at_shapes": at_shapes[k]}

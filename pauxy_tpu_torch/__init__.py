@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of pauxy-tpu's AFQMC: at zero temperature the Hubbard
-continuous and discrete paths and the Generic (Cholesky ab-initio) path,
-phaseless, local-energy or free-projection, with the mixed,
-back-propagated (with EKT), and ITCF estimators; at finite temperature the
-Hubbard and UEG continuous paths on the full-rank QDT stack
+continuous and discrete paths, the Generic (Cholesky ab-initio) path and
+the plane-wave electron gas (UEG and PW_FFT), phaseless, local-energy or
+free-projection, with the mixed, back-propagated (with EKT or the UEG
+structure factor), and ITCF estimators; at finite temperature the Hubbard,
+Generic and UEG paths on the full-rank or low-rank QDT stack
 (``qmc.ThermalAFQMC``).
 
 The JAX package ``pauxy_tpu`` stays the reference; this package mirrors its

@@ -13,8 +13,11 @@ Weight restoration (``restore_weights``):
   'partial' -> weight x prod(phase factors)
   'full'    -> weight x prod(phase factors) / prod(cosine factors)
 
-The UEG structure factor (``two_rdm='structure_factor'``) needs the
-zero-temperature UEG, which is not ported yet.
+The optional 2-RDM tail is the full spin-summed 2-RDM (``two_rdm='full'``)
+or, for the UEG, the structure factor S(k) blocks [2, 2, nq]
+(``'structure_factor'``): by FFT correlations with the per-walker
+back-propagated bra when the system has its cube maps, else by the gather
+kernels on the back-propagated G.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from pauxy_tpu_torch.estimators import ekt as ekt_mod
+from pauxy_tpu_torch.estimators import local_energy as le
 from pauxy_tpu_torch.ops import clinalg, greens
 
 
@@ -123,13 +127,14 @@ def bp_weights(state, restore_weights: str | None):
 
 
 def bp_two_rdm_size(ham, calc_two_rdm: str | None) -> int:
-    """Flat length of the optional 2-RDM tail: 'full' -> [M]^4."""
+    """Flat length of the optional 2-RDM tail: 'structure_factor' ->
+    [2, 2, nq] (UEG only), 'full' -> [M]^4."""
     if calc_two_rdm is None:
         return 0
     if calc_two_rdm == "structure_factor":
-        raise NotImplementedError(
-            "the back-propagated structure factor needs the zero-temperature "
-            "UEG, which is not ported yet")
+        if ham.name != "UEG":
+            raise NotImplementedError("structure_factor 2-RDM is UEG-only")
+        return 4 * ham.nq
     if calc_two_rdm == "full":
         return ham.nbasis ** 4
     raise NotImplementedError(f"unknown two_rdm mode {calc_two_rdm!r}")
@@ -182,7 +187,16 @@ def update(ham, trial, prop, state, energy_fn, *, nstblz: int,
     parts = [torch.stack([torch.sum(w * etot), torch.sum(w * e1b),
                           torch.sum(w * e2b), torch.sum(w)]),
              torch.einsum("w,wsmn->smn", w, g).reshape(-1)]
-    if calc_two_rdm is not None:
+    if calc_two_rdm == "structure_factor":
+        if getattr(ham, "gmap", None) is not None:
+            factors = (
+                (phia_bp, bp_half_greens_function(phia_bp, state.phia_old)),
+                (phib_bp, bp_half_greens_function(phib_bp, state.phib_old)))
+        else:
+            factors = ((ga, None), (gb, None))
+        sk = le.structure_factor_ueg(ham, factors)
+        parts.append(torch.einsum("w,wabq->abq", w, sk).reshape(-1))
+    elif calc_two_rdm is not None:
         parts.append(_two_rdm_full(ga, gb, w))
     if eval_ekt:
         m = ga.shape[-1]

@@ -1,20 +1,32 @@
-"""Hubbard, Generic and UEG local energies: walker-batched and host-side.
+"""Hubbard, Generic, UEG and PW_FFT local energies: walker-batched and
+host-side.
 
 Counterpart of ``local_energy_hubbard``, ``local_energy_generic_opt``,
 ``_exx``, ``local_energy_generic_cholesky_G``, the UEG gather kernels
 (``coulomb_greens_function_ueg``, ``exchange_greens_function_ueg``,
-``local_energy_ueg``) and ``local_energy_G_host`` in
-``pauxy_tpu/estimators/local_energy.py``. The lanes block of
-``qmc/hubbard_fast.py`` keeps its own fused energy.
+``local_energy_ueg``), the pseudo-spectral FFT energies
+(``fft_coulomb_terms``, ``_fft_spin_terms``, ``structure_factor_ueg``,
+``local_energy_ueg_half``, ``local_energy_pw_fft``) and
+``local_energy_G_host`` in ``pauxy_tpu/estimators/local_energy.py``. The
+lanes block of ``qmc/hubbard_fast.py`` keeps its own fused energy. JAX's
+cube scatter ``_pw_cubes`` is ``propagation/pw_fft.to_cube`` here.
+
+The FFT terms are correlations on the (4 nmax + 1)^3 cube, exact (the cube
+holds every k +/- q without aliasing). Their exchange sums are formed only
+at the q vectors' cube points (``qmap``), where JAX forms them on the whole
+cube and then gathers: the same values, without the cube-sized product.
 """
 
 from __future__ import annotations
+
+import types
 
 import numpy as np
 import torch
 
 from pauxy_tpu_torch.ops import exx_cuda
 from pauxy_tpu_torch.ops.contract import cr_einsum, rc_einsum
+from pauxy_tpu_torch.propagation.pw_fft import fft3, ifft3, neg_perm, to_cube
 
 # Elements of one chunk of the dense-G exchange intermediate
 # t[w, l, k, x] = sum_i G[w, i, l] L[i, k, x] (2^26: 512 MB in complex64).
@@ -173,6 +185,161 @@ def local_energy_ueg(ham, Ga: torch.Tensor, Gb: torch.Tensor):
     return ke + pe, ke, pe
 
 
+def fft_coulomb_terms(psi, gh, gmap, qmap, qmesh):
+    """(Gkpq, Gpmq) [w, nq] by FFT correlations (the Coulomb part of
+    ``_fft_spin_terms``), also the plane-wave force bias's expectations:
+    <rho_q> = factor Gkpq, <rho_q^T> = factor Gpmq. One correlation cube
+    C(Q) = sum_G ct(G) th(G - Q) gives Gkpq at Q and Gpmq at -Q."""
+    qmesh = tuple(qmesh)
+    ng = int(np.prod(qmesh))
+    ct = to_cube(psi.conj().transpose(0, 1), gmap, ng)     # [n, Ng]
+    th = to_cube(gh, gmap, ng)                             # [w, n, Ng]
+    cube = ifft3(torch.einsum("ig,wig->wg", fft3(ct, qmesh),
+                              ifft3(th, qmesh)) * ng, qmesh)
+    return cube[..., qmap], cube[..., neg_perm(qmesh, cube.device)[qmap]]
+
+
+def _fft_spin_terms(psi, gh, gmap, qmap, qmesh, pair_chunk: int = 8):
+    """(Gkpq, Gpmq, Gprod) [w, nq] of one spin channel by pseudo-spectral
+    correlations on the FFT cube. ``psi`` [M, n] is the trial's orbitals or
+    a per-walker bra [w, M, n] (back propagation); ``gh`` [w, n, M] the
+    half-rotated Green's function (G = psi* gh).
+
+    With P[i, j](Q) = sum_G CT_i(G + Q) theta_j(G): Gpmq(q) = sum_i
+    P[i, i](Q), Gkpq(q) = sum_i P[i, i](-Q) (the q labelling of the gather
+    kernels and the reference; S(k) depends on it, the energy does not),
+    and Gprod(Q) = sum_ij P[i, j](Q) P[j, i](-Q). With n > ``pair_chunk``
+    the pair tensor is formed in chunks of the first occupied index, the
+    exchange partner from its own transforms."""
+    qmesh = tuple(qmesh)
+    if psi.shape[-1] == 0:
+        # A fully polarised system's empty channel contributes nothing.
+        z = gh.new_zeros((gh.shape[0], qmap.shape[0]))
+        return z, z, z
+    ng = int(np.prod(qmesh))
+    wbra = psi.dim() == 3
+    ct = to_cube(psi.conj().transpose(-1, -2), gmap, ng)  # [(w,) n, Ng]
+    th = to_cube(gh, gmap, ng)                           # [w, n, Ng]
+    ct_f, th_if = fft3(ct, qmesh), ifft3(th, qmesh)
+    n = psi.shape[-1]
+    qneg = neg_perm(qmesh, gh.device)[qmap]
+    if n <= pair_chunk:
+        pair = (ct_f[:, :, None] if wbra else ct_f[None, :, None]) \
+            * th_if[:, None]
+        p = ifft3(pair.mul_(ng), qmesh)             # [w, i, j, Ng]
+        del pair
+        diag = torch.diagonal(p, dim1=1, dim2=2).sum(-1)
+        gprod = torch.sum(p[..., qmap] * p[..., qneg].transpose(1, 2),
+                          dim=(1, 2))
+        return diag[..., qneg], diag[..., qmap], gprod
+    ct_if, th_f = ifft3(ct, qmesh), fft3(th, qmesh)
+    e_kpq = "wig,wig->wg" if wbra else "ig,wig->wg"
+    cube = ifft3(torch.einsum(e_kpq, ct_f, th_if) * ng, qmesh)
+    gprod = None
+    for i0 in range(0, n, pair_chunk):
+        i1 = min(i0 + pair_chunk, n)
+        if wbra:
+            p = ifft3(ct_f[:, i0:i1, None] * th_if[:, None] * ng, qmesh)
+            r = ifft3(th_f[:, i0:i1, None] * ct_if[:, None] * ng, qmesh)
+        else:
+            p = ifft3(ct_f[None, i0:i1, None] * th_if[:, None] * ng, qmesh)
+            r = ifft3(th_f[:, i0:i1, None] * ct_if[None, None] * ng, qmesh)
+        part = torch.sum(p[..., qmap] * r[..., qmap], dim=(1, 2))
+        gprod = part if gprod is None else gprod + part
+    return cube[..., qneg], cube[..., qmap], gprod
+
+
+def structure_factor_ueg(ham, spin_factors):
+    """S(k) blocks [w, 2, 2, nq]. ``spin_factors`` is ((bra_a, gha),
+    (bra_b, ghb)) with G_s = bra_s* gh_s, the FFT route when the system has
+    its cube maps, or ((Ga, None), (Gb, None)) dense, the gather kernels."""
+    (bra_a, gha), (bra_b, ghb) = spin_factors
+    if getattr(ham, "gmap", None) is not None and gha is not None:
+        ka, pa, xa = _fft_spin_terms(bra_a, gha, ham.gmap, ham.qmap,
+                                     ham.qmesh)
+        kb, pb, xb = _fft_spin_terms(bra_b, ghb, ham.gmap, ham.qmap,
+                                     ham.qmesh)
+    else:
+        def dense(bra, gh):
+            if gh is None:
+                return bra
+            eq = "wmi,win->wmn" if bra.dim() == 3 else "mi,win->wmn"
+            return torch.einsum(eq, bra.conj(), gh)
+
+        ga, gb = dense(bra_a, gha), dense(bra_b, ghb)
+        ka, pa = coulomb_greens_function_ueg(ham, ga)
+        kb, pb = coulomb_greens_function_ueg(ham, gb)
+        xa = exchange_greens_function_ueg(ham, ga)
+        xb = exchange_greens_function_ueg(ham, gb)
+    return torch.stack([torch.stack([ka * pa - xa, ka * pb], 1),
+                        torch.stack([kb * pa, kb * pb - xb], 1)], 1)
+
+
+def _pw_energy(vol: float, vq, ke, terms_a, terms_b):
+    """(etot, e1b, e2b) from the kinetic energy and each spin's (Gkpq,
+    Gpmq, Gprod): pe = 1/(2 vol) sum_q v(q) [sum over spin pairs
+    Gkpq_s Gpmq_s' - Gprod_up - Gprod_dn]."""
+    ka, pa, xa = terms_a
+    kb, pb, xb = terms_b
+    vq = vq.to(ke.dtype)
+    ess = (torch.einsum("q,wq->w", vq, ka * pa - xa)
+           + torch.einsum("q,wq->w", vq, kb * pb - xb))
+    eos = (torch.einsum("q,wq->w", vq, ka * pb)
+           + torch.einsum("q,wq->w", vq, kb * pa))
+    pe = (1.0 / (2.0 * vol)) * (ess + eos)
+    return ke + pe, ke, pe
+
+
+def _half_kinetic(eig, trial, gha, ghb):
+    """sum_m eig_m (G_a + G_b)[m, m] from the half-rotated G."""
+    diag = (torch.einsum("mi,wim->wm", trial.psia.conj(), gha)
+            + torch.einsum("mi,wim->wm", trial.psib.conj(), ghb))
+    return torch.einsum("m,wm->w", eig.to(diag.dtype), diag)
+
+
+def local_energy_ueg_half(ham, trial, gha: torch.Tensor, ghb: torch.Tensor):
+    """(etot, e1b, e2b), each [w], of the UEG from the half-rotated
+    Green's functions by FFT correlations: O(w n^2 Ng log Ng) instead of
+    the gathers' O(w nq M^2)."""
+    ke = _half_kinetic(torch.diagonal(ham.H1[0]), trial, gha, ghb)
+    return _pw_energy(ham.vol, ham.vqvec, ke,
+                      _fft_spin_terms(trial.psia, gha, ham.gmap, ham.qmap,
+                                      ham.qmesh),
+                      _fft_spin_terms(trial.psib, ghb, ham.gmap, ham.qmap,
+                                      ham.qmesh))
+
+
+def local_energy_pw_fft(ham, trial, gha: torch.Tensor, ghb: torch.Tensor):
+    """(etot, e1b, e2b), each [w], of the PW_FFT system from the
+    half-rotated Green's functions:
+      Gkpq(Q) = sum_iG CT_i(G + Q) theta_i(G),
+      Gpmq(Q) = sum_iG CT_i(G - Q) theta_i(G),
+      Gprod(Q) = sum_ij [sum_G CT_i(G + Q) theta_j(G)]
+                        [sum_G CT_j(G - Q) theta_i(G)],
+    each a circular FFT correlation on the cube."""
+    qmesh = tuple(ham.qmesh)
+    ng = int(np.prod(qmesh))
+    gmap, qmap = ham.gmap, ham.qmap
+    ke = _half_kinetic(ham.sp_eigv, trial, gha, ghb)
+
+    def spin_terms(psi, gh):
+        ct = to_cube(psi.conj().transpose(0, 1), gmap, ng)   # [n, Ng]
+        th = to_cube(gh, gmap, ng)                           # [w, n, Ng]
+        ct_f, ct_if = fft3(ct, qmesh), ifft3(ct, qmesh)
+        th_f, th_if = fft3(th, qmesh), ifft3(th, qmesh)
+        gkpq = ifft3(torch.einsum("ig,wig->wg", ct_f, th_if) * ng,
+                     qmesh)[..., qmap]
+        gpmq = ifft3(torch.einsum("wig,ig->wg", th_f, ct_if) * ng,
+                     qmesh)[..., qmap]
+        p = ifft3(ct_f[None, :, None] * th_if[:, None] * ng, qmesh)
+        r = ifft3(th_f[:, :, None] * ct_if[None, None] * ng, qmesh)
+        gprod = torch.sum(p[..., qmap] * r[..., qmap], dim=(1, 2))
+        return gkpq, gpmq, gprod
+
+    return _pw_energy(ham.vol, ham.vqvec, ke, spin_terms(trial.psia, gha),
+                      spin_terms(trial.psib, ghb))
+
+
 def _exx_host(chol: np.ndarray, g: np.ndarray, max_elems: int = 1 << 22):
     """sum_x sum_ij t_ijx t_jix with t[:, :, x] = L_x g^T, as batched
     [M, M] products over chunks of the Cholesky axis (no [M, M, X]
@@ -205,6 +372,20 @@ def local_energy_G_host(ham, G: np.ndarray):
         g = torch.from_numpy(np.asarray(G, dtype=np.complex128)).to(
             ham.H1.device)
         return tuple(x[0].item() for x in local_energy_ueg(ham, g[0][None],
+                                                            g[1][None]))
+    if ham.name == "PW_FFT":
+        # The gather kernels on one walker in complex128, through the
+        # system's host gather maps (q = 0 carries v_q = 0).
+        from pauxy_tpu_torch.models.pw_fft import gather_maps
+
+        dev = ham.sp_eigv.device
+        maps = [torch.from_numpy(x).to(dev) for x in gather_maps(ham)]
+        view = types.SimpleNamespace(
+            H1=ham.T, vqvec=ham.vqvec, vol=ham.vol,
+            **dict(zip(("kpq_idx", "kpq_mask", "pmq_idx", "pmq_mask"),
+                       maps)))
+        g = torch.from_numpy(np.asarray(G, dtype=np.complex128)).to(dev)
+        return tuple(x[0].item() for x in local_energy_ueg(view, g[0][None],
                                                             g[1][None]))
     if ham.name != "Hubbard":
         raise NotImplementedError(f"no host local energy for {ham.name!r}")

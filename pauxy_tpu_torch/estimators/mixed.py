@@ -4,8 +4,8 @@ Counterpart of the header, accumulator layout, ``energy_estimator``,
 ``energy_estimator_G`` (the thermal path's and back propagation's),
 ``update`` and ``MixedReporter`` of ``pauxy_tpu/estimators/mixed.py``.
 ``update`` is the generic block's per-step accumulation (single-determinant
-trial, phaseless or free projection, Hubbard or Generic; the density
-matrices are not ported yet); the lanes block of ``qmc/hubbard_fast.py``
+trial, phaseless or free projection, Hubbard, Generic, UEG or PW_FFT; the
+density matrices are not ported yet); the lanes block of ``qmc/hubbard_fast.py``
 keeps its own. ``MixedReporter`` turns a block's
 sums into an output row, prints it and pushes it to the HDF5 file.
 """
@@ -43,14 +43,31 @@ def energy_estimator(ham, trial):
     """Batched ``(ga, gb) -> (etot, e1b, e2b)`` local energy from the two
     spins' ``SpinGreens``: Hubbard from G, Generic from Ghalf (the
     half-rotated Cholesky energy; its exact-ERI, PNO, stochastic-RI and
-    multi-determinant variants are not ported)."""
+    multi-determinant variants are not ported), the UEG from Ghalf by FFT
+    correlations when the system has its cube maps (else from G by the
+    gather kernels), PW_FFT from Ghalf."""
     if ham.name == "Hubbard":
         return lambda ga, gb: le.local_energy_hubbard(ham, ga.G, gb.G)
     if ham.name == "Generic":
         return lambda ga, gb: le.local_energy_generic_opt(
             trial, ga.Ghalf, gb.Ghalf, ham.ecore)
+    if ham.name == "UEG":
+        if getattr(ham, "gmap", None) is not None:
+            return lambda ga, gb: le.local_energy_ueg_half(
+                ham, trial, ga.Ghalf, gb.Ghalf)
+        return lambda ga, gb: le.local_energy_ueg(ham, ga.G, gb.G)
+    if ham.name == "PW_FFT":
+        return lambda ga, gb: le.local_energy_pw_fft(ham, trial, ga.Ghalf,
+                                                     gb.Ghalf)
     raise NotImplementedError(
         f"no ported local energy for system {ham.name!r}")
+
+
+def needs_full_g(ham) -> bool:
+    """Whether ``energy_estimator(ham, ...)`` reads the full G (else only
+    the half-rotated one is formed)."""
+    return ham.name == "Hubbard" or (
+        ham.name == "UEG" and getattr(ham, "gmap", None) is None)
 
 
 def energy_estimator_G(ham):
@@ -85,7 +102,7 @@ def update(ham, trial, state, eval_energy: bool,
     zero = torch.zeros((), dtype=cdtype, device=wfac.device)
     enumer = edenom = e1b = e2b = zero
     if eval_energy:
-        want_g = ham.name != "Generic"
+        want_g = needs_full_g(ham)
         ga = greens.greens_function(state.phia, trial.psia, want_g)
         gb = greens.greens_function(state.phib, trial.psib, want_g)
         etot, ke, pe = energy_estimator(ham, trial)(ga, gb)

@@ -2,6 +2,7 @@
 
 from pauxy_tpu_torch.models.generic import Generic, make_generic
 from pauxy_tpu_torch.models.hubbard import Hubbard, make_hubbard
+from pauxy_tpu_torch.models.pw_fft import PWFFT, make_pw_fft
 from pauxy_tpu_torch.models.thermal_trial import (OneBodyTrial,
                                                   make_mean_field_trial,
                                                   make_one_body_trial)
@@ -19,4 +20,4 @@ __all__ = ["Generic", "make_generic", "Hubbard", "make_hubbard",
            "SingleDetTrial", "free_electron_trial", "rhf_identity_trial",
            "spin_project_init", "trial_from_orbitals", "uhf_trial",
            "OneBodyTrial", "make_one_body_trial", "make_mean_field_trial",
-           "UEG", "make_ueg"]
+           "UEG", "make_ueg", "PWFFT", "make_pw_fft"]

@@ -7,8 +7,11 @@ the integer gather maps of the momentum-transfer density operators rho_q
 4 pi / q^2 as tensors; rho_q itself is never stored dense (see
 ``ops/ueg_sparse.py``). Units and conventions follow the reference: kfac =
 2 pi / L, energies in Hartree, ecut in scaled units, the q grid the 4 ecut
-sphere minus q = 0, the Madelung core energy. The FFT-cube maps of the JAX
-system (its pseudo-spectral energy path) are not ported.
+sphere minus q = 0, the Madelung core energy. The FFT-cube maps ``gmap``
+[M] and ``qmap`` [nq] place the basis and the q vectors on the
+(4 nmax + 1)^3 cube ``qmesh`` in FFT frequency order, for the
+pseudo-spectral energies and force bias: the cube holds every k +/- q
+without circular aliasing (|k|_inf <= nmax, |q|_inf <= 2 nmax).
 """
 
 from __future__ import annotations
@@ -26,14 +29,18 @@ class UEG(nn.Module):
     """UEG Hamiltonian. Buffers: ``H1`` [2, M, M] diagonal kinetic energy,
     ``h1e_mod`` [2, M, M] with the exchange-Fock diagonal shift,
     ``kpq_idx``/``pmq_idx`` [nq, M] long (index of k_i +/- q, 0 where
-    invalid), ``kpq_mask``/``pmq_mask`` [nq, M] bool, ``vqvec`` [nq]."""
+    invalid), ``kpq_mask``/``pmq_mask`` [nq, M] bool, ``vqvec`` [nq], and
+    the FFT-cube maps ``gmap`` [M] and ``qmap`` [nq] long on the cube
+    ``qmesh`` (None without them: the energies then take the gather
+    kernels)."""
 
     name = "UEG"
 
     def __init__(self, H1, h1e_mod, kpq_idx, kpq_mask, pmq_idx, pmq_mask,
                  vqvec, *, basis: np.ndarray, qvecs: np.ndarray, rs: float,
                  ecut: float, vol: float, kfac: float, ecore: float,
-                 nup: int, ndown: int):
+                 nup: int, ndown: int, gmap=None, qmap=None,
+                 qmesh: tuple | None = None):
         super().__init__()
         self.register_buffer("H1", H1)
         self.register_buffer("h1e_mod", h1e_mod)
@@ -42,6 +49,9 @@ class UEG(nn.Module):
         self.register_buffer("pmq_idx", pmq_idx)
         self.register_buffer("pmq_mask", pmq_mask)
         self.register_buffer("vqvec", vqvec)
+        self.register_buffer("gmap", gmap)
+        self.register_buffer("qmap", qmap)
+        self.qmesh = None if qmesh is None else tuple(qmesh)
         self.basis = np.asarray(basis)
         self.qvecs = np.asarray(qvecs)
         self.rs = float(rs)
@@ -126,6 +136,19 @@ def _index_map(basis: np.ndarray, nmax: int):
     return lookup_vec
 
 
+def fft_maps(basis: np.ndarray, qvecs: np.ndarray, nmax: int):
+    """(gmap [M], qmap [nq], qmesh): flat indices of the basis and q
+    vectors on the (4 nmax + 1)^3 cube in FFT frequency order."""
+    ngrid = 4 * nmax + 1
+
+    def fft_index(vecs):
+        w = np.mod(vecs, ngrid)
+        return ((w[:, 0] * ngrid + w[:, 1]) * ngrid + w[:, 2]).astype(
+            np.int64)
+
+    return fft_index(basis), fft_index(qvecs), (ngrid, ngrid, ngrid)
+
+
 def madelung(rs: float, ne: int) -> float:
     """Schoof et al.'s fit for the Madelung constant."""
     c1 = -2.837297
@@ -178,6 +201,7 @@ def make_ueg(nup: int, ndown: int, rs: float, ecut: float, ktwist=None, *,
             x if dt is None else x.astype(dt))).to(device)
 
     rdt = prec.np_real
+    gmap, qmap, qmesh = fft_maps(basis, qvecs, nmax)
     return UEG(
         tens(np.stack([t, t]), rdt), tens(np.stack([h1e_mod, h1e_mod]), rdt),
         tens(kpq_idx.reshape(nq, m), np.int64), tens(kpq_mask.reshape(nq, m)),
@@ -185,4 +209,5 @@ def make_ueg(nup: int, ndown: int, rs: float, ecut: float, ktwist=None, *,
         tens(vqvec, rdt),
         basis=basis, qvecs=qvecs, rs=rs, ecut=ecut, vol=vol, kfac=kfac,
         ecore=0.5 * ne * madelung(rs, ne), nup=nup, ndown=ndown,
+        gmap=tens(gmap), qmap=tens(qmap), qmesh=qmesh,
     )

@@ -21,7 +21,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pauxy_tpu_torch"
 SOURCES = ("gauss_jordan.cuh", "async_copy.cuh", "greens.cu", "batchla.cu",
-           "chol_inv.cu", "sweep.cu", "taylor.cu", "exx.cu", "cpqr.cu")
+           "chol_inv.cu", "sweep.cu", "taylor.cu", "taylor_bf16.cu", "exx.cu",
+           "cpqr.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,6 +52,7 @@ SIGNATURES = {
     "pauxy_hirsch_sweep_f64": (_P,) * 16 + (_I,) * 8 + (_P,),
     "pauxy_taylor_c64": (_P, _P, _P) + (_I,) * 6 + (_P,),
     "pauxy_taylor_c128": (_P, _P, _P) + (_I,) * 6 + (_P,),
+    "pauxy_taylor_bf16": (_P, _P, _P) + (_I,) * 5 + (_P,),
     "pauxy_exx_c64": (_P,) * 6 + (_I,) * 11 + (_P,),
     "pauxy_exx_c128": (_P,) * 6 + (_I,) * 11 + (_P,),
     "pauxy_cpqr_c64": (_P,) * 4 + (_I, _I, _P),

@@ -1,13 +1,21 @@
-"""The fused Taylor exp(VHS)-apply kernel and its plain version.
+"""The fused Taylor exp(VHS)-apply kernels and their plain versions.
 
 Counterpart of ``pauxy_tpu/ops/taylor_pallas.py:apply_taylor_pallas``:
 phi <- sum_{k <= order} VHS^k phi / k! per walker, the term kept on chip and
 VHS streamed once per order. ``apply_taylor`` launches the CUDA kernel of
 ``csrc/taylor.cu`` on a CUDA tensor with M up to ``max_m(dtype)`` and calls
 ``apply_taylor_plain`` on a CPU tensor; any other device, a larger M, or a
-CUDA tensor the kernel does not take, raises. The Generic propagator
-chooses by shape (``fits``) before any launch and sends a larger M to the
-plain series. The bf16 multiplicand option of the TPU kernel is not ported.
+CUDA tensor the kernel does not take, raises. The propagators choose by
+shape (``fits``) before any launch and send a larger M to the plain
+series.
+
+``lowp=True`` is the TPU kernel's bf16-multiplicand branch: V's planes
+rounded once to bf16, each order's term rounded to bf16, the four real
+products accumulated in float32, the term scaled by 1/k in float32 and
+summed in float32, the result cast to phi's type (a complex128 caller's
+inputs go in as float32 planes, as JAX's ``pad0`` casts them). Its kernel
+is ``csrc/taylor_bf16.cu`` (tensor-core ``mma.sync``), with its own cap
+``max_m_bf16`` and its own launch count ``launches_bf16``.
 """
 
 from __future__ import annotations
@@ -19,8 +27,10 @@ import torch
 from pauxy_tpu_torch.ops import cuda_build
 from pauxy_tpu_torch.ops.cuda_build import round_up
 
-# Kernel launches so far; a run can show that its path used the kernel.
+# Kernel launches so far (the float32 kernel's, the bf16 kernel's); a run
+# can show that its path used the kernel.
 launches = 0
+launches_bf16 = 0
 
 _SYMBOLS = {torch.complex64: "pauxy_taylor_c64",
             torch.complex128: "pauxy_taylor_c128"}
@@ -83,18 +93,85 @@ def max_m(dtype: torch.dtype) -> int:
     return m
 
 
-def fits(m: int, dtype: torch.dtype) -> bool:
-    """Whether the Generic propagator sends an [.., M, M] VHS of ``dtype``
-    to ``apply_taylor`` (a type the kernel does not take goes there too,
+# csrc/taylor_bf16.cu: M and the contraction padded to BF16_TILE rows, C
+# to BF16_COLS columns a column tile; a term row's stride in bf16 values is
+# M padded + BF16_SKEW (bank spread of the B-fragment loads).
+BF16_TILE = 16
+BF16_COLS = 8
+BF16_SKEW = 8
+BF16_TYPES = (torch.complex64, torch.complex128)
+
+
+def smem_bytes_bf16(m: int, cb: int) -> int:
+    """Shared memory of a bf16 block of ``cb`` columns: the term's two
+    bf16 planes twice (this order's and the next), [cb][MP + SKEW] each,
+    and the running sum's two float32 planes [MP][cb]."""
+    mp = round_up(m, BF16_TILE)
+    return 2 * 2 * cb * (mp + BF16_SKEW) * 2 + 2 * mp * cb * 4
+
+
+@functools.lru_cache(maxsize=None)
+def plan_bf16(m: int, ncol: int) -> int:
+    """Columns of a bf16 part, a multiple of BF16_COLS: all C columns in
+    one block when the shared memory allows, else the fewest equal parts
+    that fit. Raises ValueError past ``max_m_bf16``."""
+    parts = 1
+    while True:
+        cb = round_up(-(-ncol // parts), BF16_COLS)
+        if smem_bytes_bf16(m, cb) <= cuda_build.SMEM_MAX:
+            return cb
+        if cb == BF16_COLS:
+            raise ValueError(f"apply_taylor: M = {m} > {max_m_bf16()}, the "
+                             f"largest the bf16 kernel takes")
+        parts += 1
+
+
+@functools.lru_cache(maxsize=None)
+def max_m_bf16() -> int:
+    """Largest M the bf16 kernel launches for: one column tile's term and
+    sums fit a block (1808)."""
+    m = BF16_TILE
+    while smem_bytes_bf16(m + BF16_TILE, BF16_COLS) <= cuda_build.SMEM_MAX:
+        m += BF16_TILE
+    return m
+
+
+def fits(m: int, dtype: torch.dtype, lowp: bool = False) -> bool:
+    """Whether a propagator sends an [.., M, M] VHS of ``dtype`` to
+    ``apply_taylor`` (a type the kernel does not take goes there too,
     and is refused)."""
+    if lowp:
+        return dtype not in BF16_TYPES or m <= max_m_bf16()
     return dtype not in TILES or m <= max_m(dtype)
 
 
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to bf16 (nearest, ties to even), kept as
+    float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 def apply_taylor_plain(vhs: torch.Tensor, phi: torch.Tensor,
-                       order: int = 6) -> torch.Tensor:
-    """Plain version, also the Generic propagator's "xla" route: the
-    series as batched matmuls, each term scaled by 1/k as the kernel
-    scales it. vhs [w, M, M], phi [w, M, C]."""
+                       order: int = 6, lowp: bool = False) -> torch.Tensor:
+    """Plain version, also the propagators' "xla" route: the series as
+    batched matmuls, each term scaled by 1/k as the kernel scales it.
+    vhs [w, M, M], phi [w, M, C]. With ``lowp`` the bf16 tier: V and each
+    term rounded to bf16 and multiplied in float32 (a product of two bf16
+    values is exact in float32, so this is bf16 multiplicands with float32
+    sums), four real products an order."""
+    if lowp:
+        f32 = torch.float32
+        vr, vi = _round_bf16(vhs.real.to(f32)), _round_bf16(vhs.imag.to(f32))
+        tr, ti = phi.real.to(f32), phi.imag.to(f32)
+        accr, acci = tr, ti
+        for k in range(1, order + 1):
+            a, b = _round_bf16(tr), _round_bf16(ti)
+            inv = 1.0 / k
+            tr = (torch.matmul(vr, a) - torch.matmul(vi, b)) * inv
+            ti = (torch.matmul(vr, b) + torch.matmul(vi, a)) * inv
+            accr = accr + tr
+            acci = acci + ti
+        return torch.complex(accr, acci).to(phi.dtype)
     term = out = phi
     for k in range(1, order + 1):
         term = torch.matmul(vhs, term) * (1.0 / k)
@@ -102,13 +179,37 @@ def apply_taylor_plain(vhs: torch.Tensor, phi: torch.Tensor,
     return out
 
 
+def _apply_taylor_bf16(vhs: torch.Tensor, phi: torch.Tensor,
+                       order: int) -> torch.Tensor:
+    """The bf16 kernel's launch: complex64 planes in (a complex128 input
+    cast, as JAX casts it), the result cast to phi's type."""
+    global launches_bf16
+    m = vhs.shape[-1]
+    v64 = vhs.to(torch.complex64)
+    p64 = phi.to(torch.complex64)
+    w, _, ncol = phi.shape
+    out = torch.empty(p64.shape, dtype=torch.complex64, device=phi.device)
+    if w == 0 or m == 0 or ncol == 0:
+        return out.to(phi.dtype)
+    cb = plan_bf16(m, ncol)
+    fn = cuda_build.library().pauxy_taylor_bf16
+    with torch.cuda.device(phi.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(v64.data_ptr(), p64.data_ptr(), out.data_ptr(), w, m, ncol,
+                order, cb, stream)
+    cuda_build.check(rc, "apply_taylor(lowp=True)")
+    launches_bf16 += 1
+    return out.to(phi.dtype)
+
+
 def apply_taylor(vhs: torch.Tensor, phi: torch.Tensor,
-                 order: int = 6) -> torch.Tensor:
+                 order: int = 6, lowp: bool = False) -> torch.Tensor:
     """exp(vhs) phi to ``order``: vhs [w, M, M], phi [w, M, C], complex64
-    or complex128, contiguous, on one device. Returns [w, M, C]."""
+    or complex128, contiguous, on one device. Returns [w, M, C]. With
+    ``lowp`` the bf16 tier (``csrc/taylor_bf16.cu`` on the card)."""
     global launches
     if phi.device.type == "cpu":
-        return apply_taylor_plain(vhs, phi, order)
+        return apply_taylor_plain(vhs, phi, order, lowp)
     if phi.device.type != "cuda" or vhs.device != phi.device:
         raise ValueError(f"apply_taylor: tensors on {vhs.device} and "
                          f"{phi.device}, want one CUDA device")
@@ -123,6 +224,8 @@ def apply_taylor(vhs: torch.Tensor, phi: torch.Tensor,
         raise ValueError("apply_taylor: needs contiguous tensors")
     if order < 0:
         raise ValueError(f"apply_taylor: order {order} < 0")
+    if lowp:
+        return _apply_taylor_bf16(vhs, phi, order)
     w, m, ncol = phi.shape
     # 16-byte copies of VHS rows: complex128 always, complex64 when its
     # rows start on 16 bytes.

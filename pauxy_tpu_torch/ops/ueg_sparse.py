@@ -33,6 +33,13 @@ class SparseRho:
     nbasis: int
     nq: int
 
+    def to(self, device) -> "SparseRho":
+        """The same metadata on ``device``."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
 
 def make_sparse_rho(ham, real_dtype: torch.dtype) -> SparseRho:
     """The gather metadata from a UEG's ``basis`` [M, 3], ``qvecs``

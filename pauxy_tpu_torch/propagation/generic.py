@@ -10,9 +10,11 @@ series to both spins' columns at once.
 ``"xla"`` (the default) six batched matmuls, ``"pallas"`` the fused kernel
 (``ops/taylor_cuda``: the CUDA kernel on the card, its plain version on a
 CPU tensor; an M past the kernel's cap, ``taylor_cuda.max_m``, takes the
-six matmuls, chosen by shape before any launch). ``"pallas_interpret"`` (JAX's CPU test mode) is refused: here
-``"pallas"`` on a CPU tensor already takes the plain version.
-``"pallas_bf16"`` and ``"xla_3m"`` are not ported yet.
+six matmuls, chosen by shape before any launch), ``"pallas_bf16"`` the
+fused kernel's bf16-multiplicand tier (bf16 products, float32 sums; an M
+past its cap takes its plain version, by shape). ``"pallas_interpret"``
+(JAX's CPU test mode) is refused: here ``"pallas"`` on a CPU tensor
+already takes the plain version. ``"xla_3m"`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from pauxy_tpu_torch import config
 from pauxy_tpu_torch.ops import taylor_cuda
 from pauxy_tpu_torch.ops.contract import cr_einsum
 
-TAYLOR_IMPLS = ("xla", "pallas")
+TAYLOR_IMPLS = ("xla", "pallas", "pallas_bf16")
 
 # The "xla" route: the series as batched matmuls, which is the fused
 # kernel's plain version.
@@ -40,13 +42,28 @@ def _check_taylor_impl(taylor_impl: str | None) -> str:
         raise ValueError(
             "taylor_impl 'pallas_interpret' is JAX's CPU test mode; use "
             "'pallas', which takes the plain version on a CPU tensor")
-    if taylor_impl in ("pallas_bf16", "xla_3m"):
+    if taylor_impl == "xla_3m":
         raise NotImplementedError(
             f"taylor_impl {taylor_impl!r} is not ported yet")
     if taylor_impl not in TAYLOR_IMPLS:
         raise ValueError(f"taylor_impl {taylor_impl!r}, want one of "
                          f"{TAYLOR_IMPLS}")
     return taylor_impl
+
+
+def taylor_series(vhs: torch.Tensor, phi: torch.Tensor, order: int,
+                  taylor_impl: str) -> torch.Tensor:
+    """exp(vhs) phi to ``order`` by the route ``taylor_impl`` names: the
+    fused kernel (f32 or bf16 tier) where M is within its cap, else that
+    tier's plain series, chosen by shape before any launch."""
+    m = vhs.shape[-1]
+    if taylor_impl == "pallas" and taylor_cuda.fits(m, vhs.dtype):
+        return taylor_cuda.apply_taylor(vhs, phi, order)
+    if taylor_impl == "pallas_bf16":
+        if taylor_cuda.fits(m, vhs.dtype, lowp=True):
+            return taylor_cuda.apply_taylor(vhs, phi, order, lowp=True)
+        return taylor_cuda.apply_taylor_plain(vhs, phi, order, lowp=True)
+    return apply_exponential_taylor(vhs, phi, order)
 
 
 class GenericContinuous(nn.Module):
@@ -87,11 +104,7 @@ class GenericContinuous(nn.Module):
                         (1j * self.sqrt_dt) * xshifted).contiguous()
         na = phia.shape[-1]
         phi_in = torch.cat([phia, phib], dim=-1)
-        if self.taylor_impl == "pallas" and taylor_cuda.fits(vhs.shape[-1],
-                                                             vhs.dtype):
-            phi = taylor_cuda.apply_taylor(vhs, phi_in, self.exp_order)
-        else:
-            phi = apply_exponential_taylor(vhs, phi_in, self.exp_order)
+        phi = taylor_series(vhs, phi_in, self.exp_order, self.taylor_impl)
         return phi[..., :na], phi[..., na:]
 
     def bp_dagger_fields(self, x: torch.Tensor) -> torch.Tensor:

@@ -8,9 +8,10 @@ package's counterpart:
   hybrid phaseless);
 * ``run_block`` below, the generic [w, M, n] block, for everything else:
   the discrete-HS (Hirsch) propagator (constrained-path CPMC, the direct
-  update, free projection), the Hubbard and Generic continuous-HS
-  propagators (phaseless with the hybrid or the local-energy update, or
-  free projection), with the back-propagated and ITCF estimators.
+  update, free projection), the Hubbard, Generic, UEG (plane waves) and
+  PW_FFT continuous-HS propagators (phaseless with the hybrid or the
+  local-energy update, or free projection), with the back-propagated and
+  ITCF estimators.
 
 Block boundaries touch the host for the output rows, the HDF5 push and the
 eshift update. Multi-determinant and GHF trials, the stochastic-RI
@@ -36,6 +37,8 @@ from pauxy_tpu_torch.propagation.continuous import Continuous, is_single_det
 from pauxy_tpu_torch.propagation.generic import make_generic_continuous
 from pauxy_tpu_torch.propagation.hirsch import Hirsch, make_hirsch
 from pauxy_tpu_torch.propagation.hubbard import make_hubbard_continuous
+from pauxy_tpu_torch.propagation.planewave import make_planewave
+from pauxy_tpu_torch.propagation.pw_fft import make_pw_fft_inner
 from pauxy_tpu_torch.qmc import hubbard_fast
 from pauxy_tpu_torch.qmc.hubbard_fast import BlockNoise
 from pauxy_tpu_torch.qmc.options import QMCOpts
@@ -238,8 +241,9 @@ class AFQMC:
         if not (self.use_fast_block or generic):
             raise NotImplementedError(
                 "this configuration is not ported yet: the port runs Hubbard "
-                "(continuous or discrete HS) and Generic (Cholesky "
-                "ab-initio) AFQMC with a single-determinant trial, "
+                "(continuous or discrete HS), Generic (Cholesky "
+                "ab-initio), UEG and PW_FFT AFQMC with a single-determinant "
+                "trial, "
                 "phaseless, local-energy or free-projection, comb or "
                 "pair_branch population control, the mixed energy "
                 "estimator, back propagation and the ITCF"
@@ -266,8 +270,7 @@ class AFQMC:
                 None if filename is None
                 else H5EstimatorHelper(filename, "back_propagated"),
                 ex.nbp, ex.bp_eval_energy, nsplit=ex.bp_nsplit,
-                two_rdm_shape=((self.ham.nbasis,) * 4
-                               if ex.bp_two_rdm == "full" else None))
+                two_rdm_shape=self._two_rdm_shape(ex.bp_two_rdm))
         if ex.nitcf:
             kdims = None
             if itcf_opts.get("kspace", False) and hasattr(self.ham, "nx"):
@@ -282,6 +285,15 @@ class AFQMC:
         self.step = 0
         # Wall-clock seconds of each block, ending with its host readback.
         self.block_seconds: list[float] = []
+
+    def _two_rdm_shape(self, two_rdm: str | None):
+        """The back-propagated 2-RDM tail's shape in the output: the
+        spin-summed [M]^4, or the UEG's S(k) blocks [2, 2, nq]."""
+        if two_rdm == "full":
+            return (self.ham.nbasis,) * 4
+        if two_rdm == "structure_factor":
+            return (2, 2, self.ham.nq)
+        return None
 
     def _extras(self, bp_opts: dict | None, itcf_opts: dict | None
                 ) -> Extras:
@@ -323,8 +335,8 @@ class AFQMC:
 
     def _build_propagator(self, popts: dict) -> Continuous | Hirsch:
         hs = popts.get("hubbard_stratonovich", "continuous")
-        if self.ham.name not in ("Hubbard", "Generic") or (
-                self.ham.name == "Generic" and "discrete" in hs):
+        if self.ham.name not in ("Hubbard", "Generic", "UEG", "PW_FFT") or (
+                self.ham.name != "Hubbard" and "discrete" in hs):
             raise NotImplementedError(
                 f"no ported propagator for {self.ham.name!r} with {hs!r} HS"
             )
@@ -344,12 +356,18 @@ class AFQMC:
                 mesh=popts.get("mesh"),
                 device=self.device, dtype=self.trial.psia.dtype,
             )
+        dev = dict(device=self.device, dtype=self.trial.psia.dtype)
         if self.ham.name == "Generic":
             inner = make_generic_continuous(
                 self.ham, self.trial, self.qmc.dt,
-                taylor_impl=popts.get("taylor_impl"),
-                device=self.device, dtype=self.trial.psia.dtype,
-            )
+                taylor_impl=popts.get("taylor_impl"), **dev)
+        elif self.ham.name == "UEG":
+            # As in JAX, no taylor_impl is passed: PAUXY_TPU_TAYLOR_UEG.
+            inner = make_planewave(self.ham, self.trial, self.qmc.dt, **dev)
+        elif self.ham.name == "PW_FFT":
+            inner = make_pw_fft_inner(
+                self.ham, self.trial, self.qmc.dt,
+                exp_order=popts.get("expansion_order", 6), **dev)
         else:
             inner = make_hubbard_continuous(
                 self.ham, self.trial, self.qmc.dt,

@@ -16,11 +16,14 @@ from pauxy_tpu_torch.models.generic import Generic
 from pauxy_tpu_torch.models.hubbard import Hubbard, band_energies
 from pauxy_tpu_torch.models.thermal_trial import OneBodyTrial
 from pauxy_tpu_torch.models.trial import SingleDetTrial, trial_density_matrix
-from pauxy_tpu_torch.models.ueg import UEG
+from pauxy_tpu_torch.models.pw_fft import PWFFT
+from pauxy_tpu_torch.models.ueg import UEG, fft_maps
 from pauxy_tpu_torch.ops import ueg_sparse
 from pauxy_tpu_torch.propagation.generic import GenericContinuous
 from pauxy_tpu_torch.propagation.hirsch import Hirsch
 from pauxy_tpu_torch.propagation.hubbard import HubbardContinuous
+from pauxy_tpu_torch.propagation.planewave import PlaneWave
+from pauxy_tpu_torch.propagation.pw_fft import PWFFTInner
 from pauxy_tpu_torch.propagation.thermal import (ThermalContinuous,
                                                  ThermalGenericInner,
                                                  ThermalHubbardInner,
@@ -143,10 +146,18 @@ def walker_state(*, phia, phib, weight, unscaled_weight, log_ovlp,
 
 def ueg(H1, h1e_mod, kpq_idx, kpq_mask, pmq_idx, pmq_mask, vqvec, *, basis,
         qvecs, rs: float, ecut: float, vol: float, kfac: float,
-        ecore: float, nup: int, ndown: int, device=None) -> UEG:
+        ecore: float, nup: int, ndown: int, gmap=None, qmap=None,
+        qmesh=None, device=None) -> UEG:
     """UEG from the JAX system's tables ([nq, M] gather maps as integers
-    and masks, vqvec [nq]) and its host basis and q vectors."""
+    and masks, vqvec [nq]), its host basis and q vectors, and its FFT-cube
+    maps ``gmap`` [M], ``qmap`` [nq] on ``qmesh`` (derived from the basis,
+    the q vectors and ecut, as ``make_ueg`` derives them, when not
+    given)."""
     device = config.resolve_device(device)
+    if gmap is None:
+        nmax = int(np.ceil(np.sqrt(2 * ecut)))
+        gmap, qmap, qmesh = fft_maps(np.asarray(basis), np.asarray(qvecs),
+                                     nmax)
     return UEG(_t(H1, device), _t(h1e_mod, device),
                _t(np.asarray(kpq_idx).astype(np.int64), device),
                _t(np.asarray(kpq_mask).astype(bool), device),
@@ -154,7 +165,60 @@ def ueg(H1, h1e_mod, kpq_idx, kpq_mask, pmq_idx, pmq_mask, vqvec, *, basis,
                _t(np.asarray(pmq_mask).astype(bool), device),
                _t(vqvec, device), basis=np.asarray(basis),
                qvecs=np.asarray(qvecs), rs=rs, ecut=ecut, vol=vol,
-               kfac=kfac, ecore=ecore, nup=nup, ndown=ndown)
+               kfac=kfac, ecore=ecore, nup=nup, ndown=ndown,
+               gmap=_t(np.asarray(gmap).astype(np.int64), device),
+               qmap=_t(np.asarray(qmap).astype(np.int64), device),
+               qmesh=tuple(qmesh))
+
+
+def planewave(BH1, *, ham: UEG, dt: float, exp_order: int = 6,
+              taylor_impl: str | None = "xla", device=None) -> PlaneWave:
+    """The UEG propagator from the JAX one's BH1 [2, M] diagonal, with the
+    port's UEG ``ham`` on ``device`` (its gather metadata rebuilt as JAX
+    builds it, its FFT-cube maps when it has them)."""
+    device = config.resolve_device(device)
+    bh1 = _t(BH1, device)
+    fft = {}
+    if ham.gmap is not None:
+        fft = dict(gmap=ham.gmap.to(device), qmap_fft=ham.qmap.to(device),
+                   qmesh=ham.qmesh)
+    return PlaneWave(bh1, torch.zeros(2 * ham.nq, dtype=bh1.dtype,
+                                      device=device),
+                     ueg_sparse.make_sparse_rho(
+                         ham, config.real_dtype(bh1.dtype)).to(device),
+                     dt=dt, exp_order=exp_order,
+                     taylor_impl=taylor_impl, **fft)
+
+
+def pw_fft_system(sp_eigv, h1e_mod, vqvec, gmap, qmap, *, basis, qvecs,
+                  qmesh, rs: float, ecut: float, vol: float, kfac: float,
+                  ecore: float, nup: int, ndown: int, nmax: int,
+                  device=None) -> PWFFT:
+    """PW_FFT from the JAX system's diagonal one-body terms [M], vqvec
+    [nq], cube maps and host basis and q vectors."""
+    device = config.resolve_device(device)
+    return PWFFT(_t(sp_eigv, device), _t(h1e_mod, device), _t(vqvec, device),
+                 _t(np.asarray(gmap).astype(np.int64), device),
+                 _t(np.asarray(qmap).astype(np.int64), device),
+                 basis=np.asarray(basis), qvecs=np.asarray(qvecs),
+                 qmesh=tuple(qmesh), rs=rs, ecut=ecut, vol=vol, kfac=kfac,
+                 ecore=ecore, nup=nup, ndown=ndown, nmax=nmax)
+
+
+def pw_fft_inner(BH1, vqfac, vq_sqrtdt, gmap, qmap, ct_f_a, ct_if_a, ct_f_b,
+                 ct_if_b, *, qmesh, sqrt_dt: float, exp_order: int = 6,
+                 device=None) -> PWFFTInner:
+    """The PW_FFT inner propagator from the JAX one's tensors."""
+    device = config.resolve_device(device)
+    bh1 = _t(BH1, device)
+    return PWFFTInner(
+        bh1, torch.zeros(2 * np.asarray(qmap).shape[0], dtype=bh1.dtype,
+                         device=device),
+        _t(vqfac, device), _t(vq_sqrtdt, device),
+        _t(np.asarray(gmap).astype(np.int64), device),
+        _t(np.asarray(qmap).astype(np.int64), device),
+        *(_t(x, device) for x in (ct_f_a, ct_if_a, ct_f_b, ct_if_b)),
+        qmesh=qmesh, sqrt_dt=sqrt_dt, exp_order=exp_order)
 
 
 def one_body_trial(dmat, dmat_inv, left_table, bin_full, *, mu: float,

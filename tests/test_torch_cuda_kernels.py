@@ -42,7 +42,11 @@ and past it (no launch, the plain result); the cpqr kernel's two routes
 on ragged batches (a matrix's factors do not depend on its neighbours);
 the Taylor
 kernel at M = 257 and at its cap, and the Generic propagator's route past
-that cap (no launch, TOL against the plain series); and a
+that cap (no launch, TOL against the plain series); the bf16 Taylor
+kernel against its plain version (the same bf16 roundings, float32 sums
+in another order) within 1e-3 max|out| at (M, C) in {(33, 14), (128, 32),
+(257, 14), (cap, 14)}, and the plane-wave propagator's bf16 route past
+its cap (no launch, the plain bf16 series); and a
 thermal path on
 the card and on the CPU with the same injected draws agree at rtol 1e-8
 in complex128. The Cholesky kernel is checked on both of its routes and
@@ -523,6 +527,52 @@ def test_taylor_kernel_matches_plain(dtype, m, ncol):
         assert out_k.shape == out_p.shape and out_k.dtype == dtype
         err = (out_k - out_p).abs().max().item()
         assert err <= TOL[dtype] * out_p.abs().max().item()
+
+
+BF16_SHAPES = [(33, 14), (128, 32), (257, 14), ("cap", 14)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,ncol", BF16_SHAPES)
+def test_taylor_bf16_kernel_matches_plain(dtype, m, ncol):
+    need_cuda()
+    if m == "cap":
+        m = taylor_cuda.max_m_bf16()
+    gen = card_gen(3 * m + ncol)
+    for w in (1, 37, 512 if m < 1000 else 16):
+        vhs = (0.3 / m ** 0.5) * torch.randn((w, m, m), generator=gen,
+                                             dtype=dtype, device="cuda")
+        phi = torch.randn((w, m, ncol), generator=gen, dtype=dtype,
+                          device="cuda")
+        before = (taylor_cuda.launches, taylor_cuda.launches_bf16)
+        out_k = taylor_cuda.apply_taylor(vhs, phi, lowp=True)
+        assert (taylor_cuda.launches, taylor_cuda.launches_bf16) == (
+            before[0], before[1] + 1)
+        out_p = taylor_cuda.apply_taylor_plain(vhs, phi, lowp=True)
+        torch.cuda.synchronize()
+        assert out_k.shape == out_p.shape and out_k.dtype == dtype
+        err = (out_k - out_p).abs().max().item()
+        assert err <= 1e-3 * out_p.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_planewave_bf16_route_past_the_cap():
+    """Past the bf16 kernel's cap the bf16 tier takes its plain series on
+    the card, by shape, without a launch."""
+    need_cuda()
+    from pauxy_tpu_torch.propagation.generic import taylor_series
+    m = taylor_cuda.max_m_bf16() + 1
+    gen = card_gen(m)
+    vhs = (0.3 / m ** 0.5) * torch.randn((2, m, m), generator=gen,
+                                         dtype=torch.complex64, device="cuda")
+    phi = torch.randn((2, m, 14), generator=gen, dtype=torch.complex64,
+                      device="cuda")
+    before = taylor_cuda.launches_bf16
+    got = taylor_series(vhs, phi, 6, "pallas_bf16")
+    assert taylor_cuda.launches_bf16 == before
+    assert torch.equal(got, taylor_cuda.apply_taylor_plain(vhs, phi,
+                                                           lowp=True))
 
 
 EXX_TOL = {torch.complex64: 5e-6, torch.complex128: 1e-13}

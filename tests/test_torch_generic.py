@@ -161,6 +161,36 @@ def test_apply_vhs_matches_jax(impl):
     close(tb.numpy(), jb)
 
 
+def test_apply_vhs_bf16_tier_matches_jax_pallas_interpret():
+    """taylor_impl="pallas_bf16" on a CPU tensor takes the bf16 plain
+    series: within 1e-3 of JAX's Pallas bf16 branch (interpret mode) on
+    the same VHS, and within JAX's 5e-3 of the float64 series."""
+    from pauxy_tpu.ops.taylor_pallas import apply_taylor_pallas
+
+    jham, jt, tham, tt = systems("complex")
+    jprop = jgen.make_generic_continuous(jham, jt, 0.02, taylor_impl="xla")
+    tprop = tgen.make_generic_continuous(tham, tt, 0.02,
+                                         taylor_impl="pallas_bf16", **CPU)
+    phia, phib = walkers(jt, w=4, seed=5)
+    rng = np.random.default_rng(6)
+    xs = rng.normal(size=(4, jham.nchol)) + 0.3j * rng.normal(
+        size=(4, jham.nchol))
+    ta, tb = tprop.apply_vhs(torch.from_numpy(phia), torch.from_numpy(phib),
+                             torch.from_numpy(xs))
+    got = np.concatenate([ta.numpy(), tb.numpy()], -1)
+    vhs = np.einsum("pqx,wx->wpq", np.asarray(jham.chol),
+                    1j * 0.02 ** 0.5 * xs)
+    ref = np.asarray(apply_taylor_pallas(
+        jnp.asarray(vhs), jnp.asarray(np.concatenate([phia, phib], -1)), 6,
+        lowp=True, interpret=True))
+    ja, jb = jprop.apply_vhs(jnp.asarray(phia), jnp.asarray(phib),
+                             jnp.asarray(xs))
+    exact = np.concatenate([np.asarray(ja), np.asarray(jb)], -1)
+    scale = np.abs(exact).max()
+    assert np.abs(got - ref).max() <= 1e-3 * scale
+    assert np.abs(got - exact).max() <= 5e-3 * scale
+
+
 @pytest.mark.parametrize("w,m,n", [(1, 6, 3), (5, 9, 7), (3, 16, 5)])
 def test_apply_exponential_taylor_matches_jax(w, m, n):
     rng = np.random.default_rng(w + m + n)
@@ -216,10 +246,12 @@ def test_taylor_impl_values():
     with pytest.raises(ValueError, match="'pallas'"):
         tgen.make_generic_continuous(tham, tt, 0.01,
                                      taylor_impl="pallas_interpret", **CPU)
-    for impl in ("pallas_bf16", "xla_3m"):
-        with pytest.raises(NotImplementedError, match=impl):
-            tgen.make_generic_continuous(tham, tt, 0.01, taylor_impl=impl,
-                                         **CPU)
+    with pytest.raises(NotImplementedError, match="xla_3m"):
+        tgen.make_generic_continuous(tham, tt, 0.01, taylor_impl="xla_3m",
+                                     **CPU)
+    bf16 = tgen.make_generic_continuous(tham, tt, 0.01,
+                                        taylor_impl="pallas_bf16", **CPU)
+    assert bf16.taylor_impl == "pallas_bf16"
     with pytest.raises(ValueError):
         tgen.make_generic_continuous(tham, tt, 0.01, taylor_impl="fast",
                                      **CPU)

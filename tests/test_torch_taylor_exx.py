@@ -9,6 +9,12 @@
     |T_ij||T_ji| (exx sums X n^2 products that may cancel), and against
     JAX's ``_exx`` without a supermatrix (its einsum route on the CPU) in
     float64 at rtol 1e-10;
+  * the Taylor kernel's bf16 tier: ``apply_taylor_plain(lowp=True)``
+    against the Pallas kernel's bf16 branch in interpret mode at
+    tests/test_generic.py:336-349's inputs and two more shapes (complex64,
+    and complex128 whose planes go in as float32), max|d| <= 1e-3
+    max|out|, and both within JAX's own 5e-3 of the exact series
+    (complex128); the bf16 route's cap (``max_m_bf16``) and plan;
   * both wrappers take the plain version on a CPU tensor and launch nothing;
   * ``_exx`` sends every real rchol to the exchange kernel's wrapper,
     whatever its shape, and a complex one to the einsum route.
@@ -39,6 +45,12 @@ def taylor_inputs(w, m, ncol, seed):
     vhs = 0.15 * (rng.normal(size=(w, m, m)) + 1j * rng.normal(size=(w, m, m)))
     phi = rng.normal(size=(w, m, ncol)) + 1j * rng.normal(size=(w, m, ncol))
     return vhs, phi
+
+
+# (w, M, C, seed, dtype): tests/test_generic.py:336-349's inputs, the UEG
+# golden system's M = 33 with both spins' 14 columns, and an odd shape.
+BF16_CASES = [(6, 20, 7, 0, np.complex64), (5, 33, 14, 1, np.complex64),
+              (9, 17, 5, 2, np.complex128)]
 
 
 def exx_inputs(x, n, m, w, seed):
@@ -72,6 +84,53 @@ def test_taylor_plain_matches_xla_route(w, m, ncol):
     assert taylor_cuda.launches == before
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-10,
                                atol=1e-12)
+
+
+@pytest.mark.parametrize("w,m,ncol,seed,dtype", BF16_CASES)
+def test_taylor_bf16_plain_matches_pallas_interpret(w, m, ncol, seed, dtype):
+    rng = np.random.default_rng(seed)
+    vhs = (0.1 * (rng.normal(size=(w, m, m))
+                  + 1j * rng.normal(size=(w, m, m)))).astype(dtype)
+    phi = (rng.normal(size=(w, m, ncol))
+           + 1j * rng.normal(size=(w, m, ncol))).astype(dtype)
+    ref = np.asarray(apply_taylor_pallas(jnp.asarray(vhs), jnp.asarray(phi),
+                                         lowp=True, interpret=True))
+    before = (taylor_cuda.launches, taylor_cuda.launches_bf16)
+    out = taylor_cuda.apply_taylor(torch.from_numpy(vhs),
+                                   torch.from_numpy(phi), lowp=True).numpy()
+    assert (taylor_cuda.launches, taylor_cuda.launches_bf16) == before
+    assert out.dtype == dtype and out.shape == (w, m, ncol)
+    scale = np.abs(ref).max()
+    assert np.abs(out - ref).max() <= 1e-3 * scale
+    exact = np.asarray(apply_exponential_taylor(
+        jnp.asarray(vhs.astype(np.complex128)),
+        jnp.asarray(phi.astype(np.complex128))))
+    assert np.abs(out - exact).max() <= 5e-3 * scale
+    assert np.abs(ref - exact).max() <= 5e-3 * scale
+    # The float32 tier is far closer to the exact series.
+    f32 = taylor_cuda.apply_taylor_plain(torch.from_numpy(vhs),
+                                         torch.from_numpy(phi)).numpy()
+    assert np.abs(f32 - exact).max() < np.abs(out - exact).max()
+
+
+def test_taylor_bf16_cap_and_plan():
+    cap = taylor_cuda.max_m_bf16()
+    assert taylor_cuda.fits(cap, torch.complex64, lowp=True)
+    assert not taylor_cuda.fits(cap + 1, torch.complex64, lowp=True)
+    assert taylor_cuda.fits(cap + 1, torch.float32, lowp=True)
+    smem = taylor_cuda.cuda_build.SMEM_MAX
+    assert taylor_cuda.smem_bytes_bf16(cap, 8) <= smem
+    assert taylor_cuda.smem_bytes_bf16(cap + 1, 8) > smem
+    for m, ncol in ((257, 14), (33, 14), (128, 32), (228, 84), (cap, 14)):
+        cb = taylor_cuda.plan_bf16(m, ncol)
+        assert cb % 8 == 0 and taylor_cuda.smem_bytes_bf16(m, cb) <= smem
+        parts = -(-ncol // cb)
+        assert parts == 1 or taylor_cuda.smem_bytes_bf16(
+            m, taylor_cuda.cuda_build.round_up(-(-ncol // (parts - 1)),
+                                               8)) > smem
+    assert taylor_cuda.plan_bf16(257, 14) == 16
+    with pytest.raises(ValueError, match="bf16"):
+        taylor_cuda.plan_bf16(cap + 1, 14)
 
 
 @pytest.mark.parametrize("w", WALKERS)
