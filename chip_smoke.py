@@ -12,11 +12,18 @@ non-zero and prints no result line:
      each kernel's cap (kernel A, kernel B, Taylor, cpqr; one past the cap
      takes the plain route by shape, without a launch), the bf16 Taylor
      kernel within 1e-3 of max|out| at (M, C) in {(33, 14), (128, 32),
-     (257, 14), (cap, 14)}, w in {1, 37, 512}, with
+     (257, 14), (208, 14), (288, 14), (384, 14), (512, 14), (513, 14),
+     (257, 32), (cap, 14)}, w in {1, 37, 512}, each launch on the route
+     that route_bf16 names (V resident in a cluster up to the resident
+     cap, streaming past it), and the streaming route forced at (33, 14)
+     and (257, 14); with
      median times at the main-path shape (kernel, plain version, and the
      one PyTorch call that computes the same function where there is one;
-     for the Cholesky kernel the two calls of its route past the cap), and
-     for cpqr, kernel A, the Cholesky and the sweep kernels the kernel's own
+     for the Cholesky kernel the two calls of its route past the cap; for
+     the bf16 Taylor kernel at (257, 14) w=512 the resident and the
+     streaming kernel, the float32 kernel, the "xla" route and the plain
+     version, and both routes at (33, 14) w=40), and for cpqr, kernel A,
+     the Cholesky, the sweep and the bf16 Taylor kernels the kernel's own
      device time (profiler) beside the wrapper call's;
   4. the continuous main path at full width: 4x4 Hubbard (7, 7), U=4,
      free-electron trial, complex64, 1024 walkers, dt=0.01,
@@ -136,7 +143,8 @@ non-zero and prints no result line:
      warm-up block and 3 timed, through AFQMC(...).run() with
      PAUXY_TPU_TAYLOR_UEG "pallas" and then "pallas_bf16": finite rows,
      the launches of the step schedule (the float32 or the bf16 Taylor
-     kernel once a step), walker-steps/s of each tier; then 16 walkers, 2
+     kernel once a step, the bf16 one on its resident route),
+     walker-steps/s of each tier; then 16 walkers, 2
      blocks with injected draws, card (complex64, pallas) vs host
      (complex128, xla) within 1e-4 of the scale;
  22. the UEG golden anchor tests/data/ueg_rs2.44_ecut2.npz (M=33, 40
@@ -1130,9 +1138,20 @@ def check_taylor(taylor_cuda, gen) -> float:
 
 
 # The bf16 tier's shapes: the UEG golden (M = 33) and bench (M = 257)
-# classes with both spins' 14 columns, the Generic bench class, and the
-# bf16 kernel's cap (taylor_cuda.max_m_bf16).
-TAYLOR_BF16_SHAPES = ((33, 14), (128, 32), (257, 14), ("cap", 14))
+# classes with both spins' 14 columns, the Generic bench class, the upper
+# edge of each cluster size of the resident route at C = 14 (208: 1 CTA a
+# walker, 288: 2, 384: 4, 512: 8), just past its cap (513, streaming), a
+# wider column part at the bench M, and the bf16 kernel's cap
+# (taylor_cuda.max_m_bf16, streaming).
+TAYLOR_BF16_SHAPES = ((33, 14), (128, 32), (257, 14), (208, 14), (288, 14),
+                      (384, 14), (512, 14), (513, 14), (257, 32), ("cap", 14))
+# Where the resident route also runs the streaming kernel, forced.
+TAYLOR_BF16_STREAMING = ((33, 14), (257, 14))
+
+
+def bf16_routes(taylor_cuda) -> tuple[int, int]:
+    return (taylor_cuda.launches_bf16_resident,
+            taylor_cuda.launches_bf16_streaming)
 
 
 def check_taylor_bf16(taylor_cuda, gen) -> tuple[float, str]:
@@ -1140,23 +1159,37 @@ def check_taylor_bf16(taylor_cuda, gen) -> tuple[float, str]:
     roundings, float32 sums in another order) on the same card tensors:
     max|d| <= 1e-3 max|out| at every shape and w in {1, 37, 512}
     (complex64; complex128, cast to float32 planes as JAX casts it, at
-    M = 257); at M = cap + 1 the bf16 tier takes its plain series by
-    shape, without a launch. Returns the largest |d| at the bench shape
-    ((257, 14), w=512, complex64) and the readings."""
+    M = 257), each launch on the route route_bf16 names (and the
+    streaming kernel forced where the resident route runs); at M = cap + 1
+    the bf16 tier takes its plain series by shape, without a launch.
+    Returns the largest |d| at the bench shape ((257, 14), w=512,
+    complex64) and the readings."""
     from pauxy_tpu_torch.propagation.generic import taylor_series
 
     main_err, worst = None, {}
-    cases = [(m, c, torch.complex64) for m, c in TAYLOR_BF16_SHAPES]
-    cases.append((257, 14, torch.complex128))
-    for m, ncol, dtype in cases:
+    cases = [(m, c, torch.complex64, None) for m, c in TAYLOR_BF16_SHAPES]
+    cases.append((257, 14, torch.complex128, None))
+    cases += [(m, c, torch.complex64, "streaming")
+              for m, c in TAYLOR_BF16_STREAMING]
+    for m, ncol, dtype, forced in cases:
         if m == "cap":
             m = taylor_cuda.max_m_bf16()
+        route = forced or taylor_cuda.route_bf16(m, ncol).route
         for w in (1, 37, 512):
             vhs, phi = taylor_inputs(gen, w, m, ncol, dtype)
-            before = taylor_cuda.launches_bf16
-            out_k = taylor_cuda.apply_taylor(vhs, phi, lowp=True)
-            if taylor_cuda.launches_bf16 != before + 1:
-                raise AssertionError(f"bf16 Taylor at M={m}: no launch")
+            before = (taylor_cuda.launches_bf16, *bf16_routes(taylor_cuda))
+            if forced:
+                out_k = taylor_cuda._apply_taylor_bf16(vhs, phi, 6,
+                                                       route=forced)
+            else:
+                out_k = taylor_cuda.apply_taylor(vhs, phi, lowp=True)
+            resident = route == "resident"
+            want = (before[0] + 1, before[1] + resident,
+                    before[2] + (not resident))
+            if (taylor_cuda.launches_bf16,
+                    *bf16_routes(taylor_cuda)) != want:
+                raise AssertionError(f"bf16 Taylor at M={m}: no launch on "
+                                     f"the {route} route")
             out_p = taylor_cuda.apply_taylor_plain(vhs, phi, lowp=True)
             torch.cuda.synchronize()
             err = float((out_k - out_p).abs().max())
@@ -1165,9 +1198,10 @@ def check_taylor_bf16(taylor_cuda, gen) -> tuple[float, str]:
                 raise AssertionError(
                     f"bf16 Taylor disagrees at {dtype} (M,C)=({m},{ncol}) "
                     f"w={w}: {rel:.3e} of max|out|")
-            key = f"({m},{ncol}){'' if dtype == torch.complex64 else ' c128'}"
+            key = (f"({m},{ncol}){'' if dtype == torch.complex64 else ' c128'}"
+                   f" {route}")
             worst[key] = max(worst.get(key, 0.0), rel)
-            if (m, w, dtype) == (257, 512, torch.complex64):
+            if (m, w, dtype, forced) == (257, 512, torch.complex64, None):
                 main_err = err
             del vhs, phi, out_k, out_p
     m = taylor_cuda.max_m_bf16() + 1
@@ -1528,6 +1562,8 @@ def main() -> None:
                 "hirsch_sweep": sweep_cuda.launches,
                 "taylor_exp": taylor_cuda.launches,
                 "taylor_bf16": taylor_cuda.launches_bf16,
+                "taylor_bf16_resident": taylor_cuda.launches_bf16_resident,
+                "taylor_bf16_streaming": taylor_cuda.launches_bf16_streaming,
                 "exx": exx_cuda.launches,
                 "cpqr": cpqr_cuda.launches}
 
@@ -1538,6 +1574,8 @@ def main() -> None:
         sweep_cuda.launches = 0
         taylor_cuda.launches = 0
         taylor_cuda.launches_bf16 = 0
+        taylor_cuda.launches_bf16_resident = 0
+        taylor_cuda.launches_bf16_streaming = 0
         exx_cuda.launches = 0
         cpqr_cuda.launches = 0
 
@@ -1607,15 +1645,21 @@ def main() -> None:
         "plain": lambda: taylor_cuda.apply_taylor_plain(vt, pt),
         "kernel": lambda: taylor_cuda.apply_taylor(vt, pt),
         "library": lambda: apply_exponential_taylor(vt, pt)})
-    # The bf16 tier at the UEG bench shape (phase 21's); the yardstick is
-    # the "xla" route in complex64, as in row 5; the float32 kernel beside
-    # it.
+    # The bf16 tier at the UEG bench shape (phase 21's): the resident
+    # kernel (the route there), the streaming kernel forced, the float32
+    # kernel; the yardstick is the "xla" route in complex64, as in row 5.
     bm, bc, bw = 257, 14, 512
     vb16, pb16 = taylor_inputs(gen, bw, bm, bc, torch.complex64)
+
+    def bf16_streaming(v, p):
+        return lambda: taylor_cuda._apply_taylor_bf16(v, p, 6,
+                                                      route="streaming")
+
     times["taylor_bf16"] = median_ms({
         "plain": lambda: taylor_cuda.apply_taylor_plain(vb16, pb16,
                                                         lowp=True),
         "kernel": lambda: taylor_cuda.apply_taylor(vb16, pb16, lowp=True),
+        "streaming": bf16_streaming(vb16, pb16),
         "f32_kernel": lambda: taylor_cuda.apply_taylor(vb16, pb16),
         "library": lambda: apply_exponential_taylor(vb16, pb16)})
     # exx past the cap (the path that runs it); the yardstick is the einsum
@@ -1642,6 +1686,11 @@ def main() -> None:
         lambda: batchla_cuda.chol_inv_lanes(g), "chol_inv")
     times["hirsch_sweep"]["device"] = device_ms(
         lambda: sweep_cuda.hirsch_sweep_real(*sw), "hirsch_sweep")
+    times["taylor_bf16"]["device"] = device_ms(
+        lambda: taylor_cuda.apply_taylor(vb16, pb16, lowp=True),
+        "taylor_bf16_resident")
+    times["taylor_bf16"]["streaming_device"] = device_ms(
+        bf16_streaming(vb16, pb16), "taylor_bf16_kernel")
     del qa
     work = {
         "greens_lanes": greens_work(m, n, w),
@@ -1702,6 +1751,19 @@ def main() -> None:
               "library": lambda: apply_exponential_taylor(vb16, pb16)},
              taylor_work(bm, bc, bw))
     del vb16, pb16
+    # The bf16 kernel's two routes at the UEG golden's shape (phase 22).
+    vg16, pg16 = taylor_inputs(gen, 40, 33, 14, torch.complex64)
+    at_shape("taylor_bf16", "(M,C)=(33,14) w=40 c64 (the UEG golden class)",
+             {"plain": lambda: taylor_cuda.apply_taylor_plain(vg16, pg16,
+                                                              lowp=True),
+              "kernel": lambda: taylor_cuda.apply_taylor(vg16, pg16,
+                                                         lowp=True),
+              "streaming": bf16_streaming(vg16, pg16),
+              "library": lambda: apply_exponential_taylor(vg16, pg16)},
+             taylor_bf16_work(33, 14, 40), dev_key="taylor_bf16_resident")
+    at_shapes["taylor_bf16"][-1]["streaming_device_ms"] = device_ms(
+        bf16_streaming(vg16, pg16), "taylor_bf16_kernel")
+    del vg16, pg16
     vb, pb = taylor_inputs(gen, 256, 228, 84, torch.complex64)
     at_shape("taylor_exp", "(M,C)=(228,84) w=256 c64",
              {"plain": lambda: taylor_cuda.apply_taylor_plain(vb, pb),
@@ -1784,6 +1846,8 @@ def main() -> None:
                else "")
             + (f" vs two library calls {t['two_calls']:.4f} ms"
                if "two_calls" in t else "")
+            + (f" vs the streaming route {t['streaming']:.4f} ms (device "
+               f"{t['streaming_device']:.4f} ms)" if "streaming" in t else "")
             + (f" vs the float32 kernel {t['f32_kernel']:.4f} ms"
                if "f32_kernel" in t else "")
             + f", bound {bounds[k][0]:.5f} ms ({bounds[k][1]}), max abs err "
@@ -1800,6 +1864,8 @@ def main() -> None:
                if "supermatrix_ms" in e else "")
             + (f" two library calls {e['two_calls']:.4f}"
                if "two_calls" in e else "")
+            + (f" streaming route {e['streaming']:.4f} (device "
+               f"{e['streaming_device_ms']:.4f})" if "streaming" in e else "")
             for k, es in at_shapes.items() for e in es)
         + f" (supermatrix vs kernel max |d|/S {sup_err:.3e})")
     say("3 kernels", "apply_taylor at (M,C) in {(16,14),(128,32),(228,84),"
@@ -1821,9 +1887,12 @@ def main() -> None:
             f"{k} {a:.3e}, {p:.3e} vs {b[0]:.3e} / {b[1]:.3e}"
             for k, (a, p, b) in exx_readings.items()))
     say("3 kernels", "apply_taylor(lowp=True) (the bf16 tier, "
-        "csrc/taylor_bf16.cu) at (M,C) in {(33,14),(128,32),(257,14),(cap,"
-        "14)} complex64 and (257,14) complex128, w in {1,37,512}, launches "
-        "and agrees with its plain version within 1e-3 of max|out| (largest "
+        "csrc/taylor_bf16.cu) at (M,C) in {(33,14),(128,32),(257,14),"
+        "(208,14),(288,14),(384,14),(512,14),(513,14),(257,32),(cap,14)} "
+        "complex64 and (257,14) complex128, w in {1,37,512}, launches on "
+        "the route route_bf16 names (and the streaming route forced at "
+        "(33,14) and (257,14)) and agrees with its plain version within "
+        "1e-3 of max|out| (largest "
         f"|d|/max|out|: {bf16_readings}); M = cap + 1 "
         f"({taylor_cuda.max_m_bf16() + 1}) takes the plain bf16 series by "
         "shape, without a launch")
@@ -2886,7 +2955,8 @@ def main() -> None:
     # dt=0.005, re-orthogonalisation every 5 steps, population control
     # every step, the energy every 10; one warm-up block and 3 timed, in
     # the float32 ("pallas") and the bf16 ("pallas_bf16") Taylor tier.
-    tiers = (("pallas", "taylor_exp"), ("pallas_bf16", "taylor_bf16"))
+    tiers = (("pallas", ("taylor_exp",)),
+             ("pallas_bf16", ("taylor_bf16", "taylor_bf16_resident")))
 
     def set_tier(impl: str) -> None:
         os.environ["PAUXY_TPU_TAYLOR_UEG"] = impl
@@ -2901,7 +2971,7 @@ def main() -> None:
         raise AssertionError(f"UEG bench shape {ham.nbasis} {ham.nq} "
                              f"{ham.qmesh}")
     ueg_tier, ueg_rates, ueg_e = {}, {}, {}
-    for impl, key in tiers:
+    for impl, keys in tiers:
         set_tier(impl)
         zero_counts()
         af = AFQMC(ham, trial, uq,
@@ -2915,7 +2985,7 @@ def main() -> None:
         # Per step: the Taylor kernel once; kernel B 2 for the Green's
         # functions and 2 for the new overlaps, 2 per energy; 2 at set-up.
         # Cholesky: 2 spins x 2 passes a re-orthogonalisation.
-        want = only(**{key: usteps},
+        want = only(**dict.fromkeys(keys, usteps),
                     inv_logdet_lanes=2 + 4 * usteps + 2 * (usteps // 10),
                     chol_inv_lanes=4 * (usteps // uq.nstblz))
         if ueg_tier[impl] != want:
@@ -3000,7 +3070,7 @@ def main() -> None:
 
     theirs = np.asarray(g["etotal_blocks"])[len(g["etotal_blocks"]) // 3:]
     gold, gold_tier = {}, {}
-    for impl, key in tiers:
+    for impl, keys in tiers:
         zero_counts()
         af = ueg_golden("cuda", "single", impl)
         if abs(af.trial.etrial - float(g["etrial"])) > 1e-5:
@@ -3009,7 +3079,8 @@ def main() -> None:
         torch.cuda.synchronize()
         gold_tier[impl] = counts()
         gsteps = 100 * int(g["nsteps"])
-        want = only(**{key: gsteps}, inv_logdet_lanes=2 + 6 * gsteps,
+        want = only(**dict.fromkeys(keys, gsteps),
+                    inv_logdet_lanes=2 + 6 * gsteps,
                     chol_inv_lanes=4 * (gsteps // 10))
         et = rows[:, 5].real
         if gold_tier[impl] != want or not np.isfinite(et).all():
@@ -3168,10 +3239,15 @@ def main() -> None:
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[k] for c in by_path.values()),
          "launches_by_path": {p: c[k] for p, c in by_path.items()},
+         "launches_by_route": ({r: sum(c[f"{k}_{r}"] for c in by_path.values())
+                                for r in ("resident", "streaming")}
+                               if k == "taylor_bf16" else None),
          "max_abs_err": err[k],
          "ms": times[k]["kernel"], "device_ms": times[k].get("device"),
          "two_calls_ms": times[k].get("two_calls"),
          "f32_kernel_ms": times[k].get("f32_kernel"),
+         "streaming_ms": times[k].get("streaming"),
+         "streaming_device_ms": times[k].get("streaming_device"),
          "plain_ms": times[k]["plain"],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
          "library_ms": times[k].get("library"), "at_shapes": at_shapes[k]}

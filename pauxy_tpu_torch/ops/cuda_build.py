@@ -53,6 +53,7 @@ SIGNATURES = {
     "pauxy_taylor_c64": (_P, _P, _P) + (_I,) * 6 + (_P,),
     "pauxy_taylor_c128": (_P, _P, _P) + (_I,) * 6 + (_P,),
     "pauxy_taylor_bf16": (_P, _P, _P) + (_I,) * 5 + (_P,),
+    "pauxy_taylor_bf16_resident": (_P, _P, _P) + (_I,) * 6 + (_P,),
     "pauxy_exx_c64": (_P,) * 6 + (_I,) * 11 + (_P,),
     "pauxy_exx_c128": (_P,) * 6 + (_I,) * 11 + (_P,),
     "pauxy_cpqr_c64": (_P,) * 4 + (_I, _I, _P),

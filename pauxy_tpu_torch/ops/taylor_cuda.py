@@ -15,12 +15,17 @@ products accumulated in float32, the term scaled by 1/k in float32 and
 summed in float32, the result cast to phi's type (a complex128 caller's
 inputs go in as float32 planes, as JAX's ``pad0`` casts them). Its kernel
 is ``csrc/taylor_bf16.cu`` (tensor-core ``mma.sync``), with its own cap
-``max_m_bf16`` and its own launch count ``launches_bf16``.
+``max_m_bf16`` and its own launch count ``launches_bf16``. It has two
+routes, chosen by shape in ``route_bf16`` before any launch: "resident"
+(each walker's V read once and held on chip by a cluster of 1, 2, 4 or 8
+CTAs, up to ``max_m_resident(C)``) and "streaming" (V read once an order,
+past that cap up to ``max_m_bf16``); each counts its launches apart.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +36,9 @@ from pauxy_tpu_torch.ops.cuda_build import round_up
 # can show that its path used the kernel.
 launches = 0
 launches_bf16 = 0
+# The bf16 kernel's launches by route (they sum to launches_bf16).
+launches_bf16_resident = 0
+launches_bf16_streaming = 0
 
 _SYMBOLS = {torch.complex64: "pauxy_taylor_c64",
             torch.complex128: "pauxy_taylor_c128"}
@@ -136,6 +144,69 @@ def max_m_bf16() -> int:
     return m
 
 
+# The resident route: at most BF16_RES_TILES row tiles of BF16_TILE a CTA
+# (a warp each), clusters of BF16_CLUSTERS CTAs, at most BF16_RES_COLS
+# columns (the accumulators and the running sum live in registers).
+BF16_RES_TILES = 16
+BF16_CLUSTERS = (1, 2, 4, 8)
+BF16_RES_COLS = 32
+
+
+def smem_bytes_resident(m: int, cb: int, tiles: int) -> int:
+    """Shared memory of a resident CTA: the term's two bf16 planes twice,
+    [cb][MP + SKEW] each, and V's slab of ``tiles`` row tiles, two bf16
+    planes [tiles * TILE][MP + SKEW]."""
+    kp = round_up(m, BF16_TILE) + BF16_SKEW
+    return 2 * 2 * cb * kp * 2 + 2 * tiles * BF16_TILE * kp * 2
+
+
+class Bf16Route(NamedTuple):
+    """How the bf16 kernel takes a shape: ``route`` "resident" or
+    "streaming"; ``cb`` the columns of a part (C padded to 8 when
+    resident, ``plan_bf16``'s when streaming); ``cluster`` the CTAs a
+    walker and ``tiles`` the row tiles a CTA (resident; 1 and 0 when
+    streaming)."""
+    route: str
+    cb: int
+    cluster: int
+    tiles: int
+
+
+def resident_plan(m: int, ncol: int, cluster: int) -> Bf16Route | None:
+    """The resident route with ``cluster`` CTAs a walker, or None where a
+    CTA's share of V and the term do not fit (or C > BF16_RES_COLS)."""
+    cb = round_up(ncol, BF16_COLS)
+    tiles = -(-round_up(m, BF16_TILE) // BF16_TILE // cluster)
+    if (cb <= BF16_RES_COLS and tiles <= BF16_RES_TILES
+            and smem_bytes_resident(m, cb, tiles) <= cuda_build.SMEM_MAX):
+        return Bf16Route("resident", cb, cluster, tiles)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def route_bf16(m: int, ncol: int) -> Bf16Route:
+    """The bf16 kernel's route for [.., M, M] x [.., M, C]: resident with
+    the smallest cluster that holds V when one does, else streaming
+    (raises ValueError past ``max_m_bf16``). Derived once per shape."""
+    for cluster in BF16_CLUSTERS:
+        plan = resident_plan(m, ncol, cluster)
+        if plan is not None:
+            return plan
+    return Bf16Route("streaming", plan_bf16(m, ncol), 1, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def max_m_resident(ncol: int) -> int:
+    """Largest M the resident route takes at C = ``ncol`` (0 for none):
+    592 at C <= 8, 512 at C <= 16, 496 at C <= 24, 432 at C <= 32.
+    Feasibility falls monotonically with M, so the route is resident
+    exactly up to here."""
+    m = 0
+    while resident_plan(m + 1, ncol, BF16_CLUSTERS[-1]) is not None:
+        m += 1
+    return m
+
+
 def fits(m: int, dtype: torch.dtype, lowp: bool = False) -> bool:
     """Whether a propagator sends an [.., M, M] VHS of ``dtype`` to
     ``apply_taylor`` (a type the kernel does not take goes there too,
@@ -179,11 +250,13 @@ def apply_taylor_plain(vhs: torch.Tensor, phi: torch.Tensor,
     return out
 
 
-def _apply_taylor_bf16(vhs: torch.Tensor, phi: torch.Tensor,
-                       order: int) -> torch.Tensor:
+def _apply_taylor_bf16(vhs: torch.Tensor, phi: torch.Tensor, order: int,
+                       route: str | None = None) -> torch.Tensor:
     """The bf16 kernel's launch: complex64 planes in (a complex128 input
-    cast, as JAX casts it), the result cast to phi's type."""
-    global launches_bf16
+    cast, as JAX casts it), the result cast to phi's type. The route is
+    ``route_bf16``'s; ``route="streaming"`` forces the streaming kernel,
+    for the tests and the card's timings only."""
+    global launches_bf16, launches_bf16_resident, launches_bf16_streaming
     m = vhs.shape[-1]
     v64 = vhs.to(torch.complex64)
     p64 = phi.to(torch.complex64)
@@ -191,14 +264,27 @@ def _apply_taylor_bf16(vhs: torch.Tensor, phi: torch.Tensor,
     out = torch.empty(p64.shape, dtype=torch.complex64, device=phi.device)
     if w == 0 or m == 0 or ncol == 0:
         return out.to(phi.dtype)
-    cb = plan_bf16(m, ncol)
-    fn = cuda_build.library().pauxy_taylor_bf16
+    if route not in (None, "streaming"):
+        raise ValueError(f"apply_taylor: route {route!r}")
+    plan = (route_bf16(m, ncol) if route is None
+            else Bf16Route("streaming", plan_bf16(m, ncol), 1, 0))
+    lib = cuda_build.library()
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(v64.data_ptr(), p64.data_ptr(), out.data_ptr(), w, m, ncol,
-                order, cb, stream)
-    cuda_build.check(rc, "apply_taylor(lowp=True)")
+        if plan.route == "resident":
+            rc = lib.pauxy_taylor_bf16_resident(
+                v64.data_ptr(), p64.data_ptr(), out.data_ptr(), w, m, ncol,
+                order, plan.cluster, plan.tiles, stream)
+        else:
+            rc = lib.pauxy_taylor_bf16(v64.data_ptr(), p64.data_ptr(),
+                                       out.data_ptr(), w, m, ncol, order,
+                                       plan.cb, stream)
+    cuda_build.check(rc, f"apply_taylor(lowp=True) {plan.route}")
     launches_bf16 += 1
+    if plan.route == "resident":
+        launches_bf16_resident += 1
+    else:
+        launches_bf16_streaming += 1
     return out.to(phi.dtype)
 
 

@@ -529,7 +529,18 @@ def test_taylor_kernel_matches_plain(dtype, m, ncol):
         assert err <= TOL[dtype] * out_p.abs().max().item()
 
 
-BF16_SHAPES = [(33, 14), (128, 32), (257, 14), ("cap", 14)]
+# The UEG golden and bench classes, the Generic bench class, the upper edge
+# of each cluster size of the resident route at C = 14 (208: 1 CTA, 288: 2,
+# 384: 4, 512: 8), just past its cap (513, streaming), a wider column part
+# at the bench M, and the streaming route's cap.
+BF16_SHAPES = [(33, 14), (128, 32), (257, 14), (208, 14), (288, 14),
+               (384, 14), (512, 14), (513, 14), (257, 32), ("cap", 14)]
+
+
+def bf16_launches():
+    return (taylor_cuda.launches, taylor_cuda.launches_bf16,
+            taylor_cuda.launches_bf16_resident,
+            taylor_cuda.launches_bf16_streaming)
 
 
 @pytest.mark.cuda
@@ -539,19 +550,45 @@ def test_taylor_bf16_kernel_matches_plain(dtype, m, ncol):
     need_cuda()
     if m == "cap":
         m = taylor_cuda.max_m_bf16()
+    resident = taylor_cuda.route_bf16(m, ncol).route == "resident"
     gen = card_gen(3 * m + ncol)
     for w in (1, 37, 512 if m < 1000 else 16):
         vhs = (0.3 / m ** 0.5) * torch.randn((w, m, m), generator=gen,
                                              dtype=dtype, device="cuda")
         phi = torch.randn((w, m, ncol), generator=gen, dtype=dtype,
                           device="cuda")
-        before = (taylor_cuda.launches, taylor_cuda.launches_bf16)
+        before = bf16_launches()
         out_k = taylor_cuda.apply_taylor(vhs, phi, lowp=True)
-        assert (taylor_cuda.launches, taylor_cuda.launches_bf16) == (
-            before[0], before[1] + 1)
+        assert bf16_launches() == (before[0], before[1] + 1,
+                                   before[2] + resident,
+                                   before[3] + (not resident))
         out_p = taylor_cuda.apply_taylor_plain(vhs, phi, lowp=True)
         torch.cuda.synchronize()
         assert out_k.shape == out_p.shape and out_k.dtype == dtype
+        err = (out_k - out_p).abs().max().item()
+        assert err <= 1e-3 * out_p.abs().max().item()
+        del vhs, phi, out_k, out_p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,ncol", [(33, 14), (257, 14), (128, 32)])
+def test_taylor_bf16_streaming_route_matches_plain(m, ncol):
+    """The streaming kernel, forced at shapes the resident route takes,
+    agrees with the plain version too (it remains the route past the
+    resident cap)."""
+    need_cuda()
+    gen = card_gen(5 * m + ncol)
+    for w in (1, 37, 512):
+        vhs = (0.3 / m ** 0.5) * torch.randn(
+            (w, m, m), generator=gen, dtype=torch.complex64, device="cuda")
+        phi = torch.randn((w, m, ncol), generator=gen, dtype=torch.complex64,
+                          device="cuda")
+        before = bf16_launches()
+        out_k = taylor_cuda._apply_taylor_bf16(vhs, phi, 6, route="streaming")
+        assert bf16_launches() == (before[0], before[1] + 1, before[2],
+                                   before[3] + 1)
+        out_p = taylor_cuda.apply_taylor_plain(vhs, phi, lowp=True)
+        torch.cuda.synchronize()
         err = (out_k - out_p).abs().max().item()
         assert err <= 1e-3 * out_p.abs().max().item()
 

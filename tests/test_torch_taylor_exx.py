@@ -186,3 +186,75 @@ def test_exx_kernel_shapes(monkeypatch):
         out = tle._exx(torch.from_numpy(crc), torch.from_numpy(gh))
         np.testing.assert_allclose(out.numpy(), ref, rtol=1e-10, atol=1e-12)
     assert len(calls) == 3
+
+
+# The resident route's caps by C (C padded to 8: at most 592, 512, 496 and
+# 432 rows), worked out by hand from the shared-memory budget
+# 8 cb (MP + 8) + 64 T (MP + 8) <= 232448 with T = ceil(MP / 16 / 8).
+RESIDENT_CAPS = {1: 592, 7: 592, 8: 592, 14: 512, 16: 512, 32: 432}
+
+
+@pytest.mark.parametrize("ncol", sorted(RESIDENT_CAPS))
+def test_taylor_bf16_route_every_m(ncol):
+    """For every M the bf16 kernel takes, route_bf16 picks the resident
+    route with the smallest cluster whose CTA fits (shared memory, at most
+    16 row tiles, the tiles covering M) up to the cap, and the streaming
+    route with plan_bf16's columns from just past it to max_m_bf16."""
+    tc = taylor_cuda
+    smem = tc.cuda_build.SMEM_MAX
+    cap = tc.max_m_resident(ncol)
+    assert cap == RESIDENT_CAPS[ncol]
+    assert tc.max_m_bf16() == 1808
+    for m in range(1, tc.max_m_bf16() + 1):
+        r = tc.route_bf16(m, ncol)
+        assert tc.fits(m, torch.complex64, lowp=True)
+        if m > cap:
+            assert r == (("streaming", tc.plan_bf16(m, ncol), 1, 0))
+            assert tc.smem_bytes_bf16(m, r.cb) <= smem
+            continue
+        mp = tc.cuda_build.round_up(m, 16)
+        assert r.route == "resident" and r.cluster in (1, 2, 4, 8)
+        assert r.cb == tc.cuda_build.round_up(ncol, 8) <= 32
+        assert 1 <= r.tiles <= 16 and r.tiles == -(-mp // 16 // r.cluster)
+        assert r.cluster * r.tiles * 16 >= mp
+        assert tc.smem_bytes_resident(m, r.cb, r.tiles) <= smem
+        for smaller in (1, 2, 4, 8):
+            if smaller < r.cluster:
+                assert tc.resident_plan(m, ncol, smaller) is None
+    assert tc.route_bf16(cap, ncol).route == "resident"
+    assert tc.route_bf16(cap + 1, ncol).route == "streaming"
+    assert not tc.fits(tc.max_m_bf16() + 1, torch.complex64, lowp=True)
+
+
+def test_taylor_bf16_route_edges():
+    """The bench shape's plan and budget, the edge of each cluster size at
+    C = 14, and C past 32 streaming at every M."""
+    tc = taylor_cuda
+    assert tc.route_bf16(257, 14) == ("resident", 16, 2, 9)
+    assert tc.smem_bytes_resident(257, 16, 9) == 35840 + 161280
+    assert tc.route_bf16(33, 14) == ("resident", 16, 1, 3)
+    assert tc.route_bf16(128, 32) == ("resident", 32, 1, 8)
+    assert tc.route_bf16(257, 32) == ("resident", 32, 4, 5)
+    for edge, cluster, past in ((208, 1, 2), (288, 2, 4), (384, 4, 8)):
+        assert tc.route_bf16(edge, 14).cluster == cluster
+        assert tc.route_bf16(edge + 1, 14).cluster == past
+    assert tc.route_bf16(512, 14) == ("resident", 16, 8, 4)
+    assert tc.route_bf16(513, 14).route == "streaming"
+    assert tc.max_m_resident(33) == 0
+    assert tc.route_bf16(17, 33).route == "streaming"
+    assert tc.route_bf16(228, 84) == ("streaming", tc.plan_bf16(228, 84), 1,
+                                      0)
+
+
+def test_taylor_bf16_forced_route_checked_before_launch():
+    """The internal route argument takes only "streaming": another value
+    raises before anything is launched."""
+    vhs = torch.zeros(2, 33, 33, dtype=torch.complex64)
+    phi = torch.zeros(2, 33, 14, dtype=torch.complex64)
+    before = (taylor_cuda.launches_bf16, taylor_cuda.launches_bf16_resident,
+              taylor_cuda.launches_bf16_streaming)
+    for route in ("resident", "fast"):
+        with pytest.raises(ValueError, match=f"route '{route}'"):
+            taylor_cuda._apply_taylor_bf16(vhs, phi, 6, route=route)
+    assert (taylor_cuda.launches_bf16, taylor_cuda.launches_bf16_resident,
+            taylor_cuda.launches_bf16_streaming) == before

@@ -1,24 +1,31 @@
 """Where a block of the cpqr kernel, kernel A, the Cholesky-inverse
-kernel and the sweep kernel spends its cycles, on one CUDA card.
+kernel, the sweep kernel and the bf16 Taylor kernel spends its cycles, on
+one CUDA card.
 
-    python3 tools/kernel_stamps.py [--csrc DIR] [--only chol,sweep]
+    python3 tools/kernel_stamps.py [--csrc DIR] [--only chol,sweep,taylor_bf16]
 
-Copies csrc/cpqr.cu, csrc/greens.cu, csrc/chol_inv.cu and csrc/sweep.cu
-(or those in DIR, e.g. another build of the same kernels) into
-build/stamps/, puts clock64() stamps between their phases (thread 0 of
-block 0 adds each phase's cycles to a device array), builds each copy with
-nvcc like ops/cuda_build.py, and prints the cycles by phase and the call's
-time (CUDA events) at the thermal UEG shape (512, 93), one matrix (1, 93)
-and the thermal Hubbard shape (64, 9) in both types; kernel A at (16, 7)
-with W = 1 and 1024; the Cholesky kernel at the discrete and Generic
-paths' shapes (n = 7 and 16 with 1024 matrices, n = 42 with 256 and 1);
-the sweep at (16, 7, 7) with W = 1024 and 1, with every seventh walker
-dead and with none. --only names the kernels to stamp (cpqr, greens,
-chol, sweep). The stamps are inserted by matching the sources' text, so
-the script fails loudly when a phase it marks has been rewritten: adapt
-the markers then. A cpqr or kernel A stamp costs a few cycles and a global
-add, so their sums run a little above the unstamped kernel; the Cholesky
-and sweep stamps add into registers, written once at the end. The card's
+Copies csrc/cpqr.cu, csrc/greens.cu, csrc/chol_inv.cu, csrc/sweep.cu and
+csrc/taylor_bf16.cu (or those in DIR, e.g. another build of the same
+kernels) into build/stamps/, puts clock64() stamps between their phases
+(thread 0 of block 0 adds each phase's cycles to a device array), builds
+each copy with nvcc like ops/cuda_build.py, and prints the cycles by phase
+and the call's time (CUDA events) at the thermal UEG shape (512, 93), one
+matrix (1, 93) and the thermal Hubbard shape (64, 9) in both types; kernel
+A at (16, 7) with W = 1 and 1024; the Cholesky kernel at the discrete and
+Generic paths' shapes (n = 7 and 16 with 1024 matrices, n = 42 with 256
+and 1); the sweep at (16, 7, 7) with W = 1024 and 1, with every seventh
+walker dead and with none; the bf16 Taylor kernel's resident route at the
+UEG bench class (M, C) = (257, 14) with w = 512 and 1 (and w = 512 in
+clusters of 4 and 8), and the golden's (33, 14) with w = 40 (there every
+CTA's thread 0 adds its phases, and the mean a CTA is printed: the V
+load, each order's products, the exchange of the term through
+distributed shared memory, the cluster barrier). --only names the
+kernels to stamp (cpqr, greens, chol, sweep, taylor_bf16). The stamps
+are inserted by matching the sources' text, so the script fails loudly
+when a phase it marks has been rewritten: adapt the markers then. A cpqr
+or kernel A stamp costs a few cycles and a global add, so their sums run
+a little above the unstamped kernel; the Cholesky, sweep and bf16 Taylor
+stamps add into registers, written once at the end. The card's
 name and power limit come first.
 """
 
@@ -37,7 +44,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 from pauxy_tpu_torch.ops import (batchla_cuda, cuda_build,  # noqa: E402
-                                 greens_cuda, sweep_cuda)
+                                 greens_cuda, sweep_cuda, taylor_cuda)
 
 OUT = os.path.join(ROOT, "build", "stamps")
 STAMP = ("__device__ long long g_prof[32];\n"
@@ -66,6 +73,20 @@ CHOL_PHASES = ["load", "phase A", "barrier A", "phase B", "barrier B",
                "out"]
 SWEEP_PHASES = ["load", "prefetch", "G_ii", "decision", "row", "t1 t2 dot",
                 "sync 1", "update", "sync 2"]
+# The bf16 Taylor kernel's resident route: every CTA's thread 0 adds its
+# register-accumulated phases to the device array once, at its end, and
+# counts itself in slot 31.
+STAMP_ALL = ("__device__ unsigned long long g_prof[32];\n"
+             "#define STAMP(i) do { long long _t = clock64(); "
+             "_acc[i] += _t - _t0; _t0 = _t; } while (0)\n"
+             "#define STAMP_FLUSH() do { if (threadIdx.x == 0) { "
+             "for (int _q = 0; _q < 16; ++_q) atomicAdd(&g_prof[_q], "
+             "(unsigned long long)_acc[_q]); atomicAdd(&g_prof[31], 1ull); "
+             "} } while (0)\n")
+BF16_PHASES = ["V issue, phi, sums", "V load and round", "products order 1",
+               "products own rows", "products other rows", "start wait",
+               "cluster wait", "term to own buffer", "term to other CTAs",
+               "arrive + CTA barrier", "out"]
 CSRC = cuda_build.CSRC
 
 
@@ -157,6 +178,33 @@ def stamped_sweep() -> str:
     return s + GET
 
 
+def stamped_bf16() -> str:
+    s = open(os.path.join(CSRC, "taylor_bf16.cu")).read()
+    s = s.replace("namespace {\n", "namespace {\n" + STAMP_ALL, 1)
+    s = put(s, "  const bool active = r0 < mp;\n", STAMP_INIT)
+    s = put(s, "  if (active) vl.finish(sr, si, lane);\n", "  STAMP(0);\n",
+            after=False)
+    s = put(s, "  if (active) vl.finish(sr, si, lane);\n  __syncwarp();\n",
+            "  STAMP(1);\n")
+    s = put(s, "    if (k > 1 && c > 1) {\n      cluster_wait();\n",
+            "    if (k == 1) STAMP(2); else STAMP(3);\n", after=False)
+    s = put(s, "    if (k > 1 && c > 1) {\n      cluster_wait();\n",
+            "      STAMP(6);\n")
+    s = put(s, "    // Every CTA of the cluster has started",
+            "    STAMP(4);\n", after=False)
+    s = put(s, "    if (k == 1) cluster_wait();\n", "    STAMP(5);\n")
+    s = put(s, "      if (c > 1) {\n        __syncwarp();", "      STAMP(7);\n",
+            after=False)
+    s = put(s, "    // This order's term is in every CTA before any reads it",
+            "    STAMP(8);\n", after=False)
+    s = put(s, "  }\n  if (order == 0) cluster_wait();\n", "    STAMP(9);\n",
+            after=False)
+    s = put(s, "              make_float2(sumr[j][i], sumi[j][i]);\n"
+               "        }\n      }\n    }\n  }\n",
+            "  STAMP(10);\n  STAMP_FLUSH();\n")
+    return s + GET
+
+
 def build(name: str, src: str) -> ctypes.CDLL:
     os.makedirs(OUT, exist_ok=True)
     for h in ("gauss_jordan.cuh",):
@@ -177,7 +225,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--csrc", default=str(CSRC),
                     help="directory of the kernel sources to stamp")
-    ap.add_argument("--only", default="cpqr,greens,chol,sweep")
+    ap.add_argument("--only", default="cpqr,greens,chol,sweep,taylor_bf16")
     args = ap.parse_args()
     CSRC = args.csrc
     only = set(args.only.split(","))
@@ -212,6 +260,8 @@ def main() -> None:
         stamp_chol(run, P, I)
     if "sweep" in only:
         stamp_sweep(run, P, I)
+    if "taylor_bf16" in only:
+        stamp_bf16(P, I, buf)
 
 
 def stamp_cpqr(run, P, I) -> None:
@@ -286,6 +336,46 @@ def stamp_sweep(run, P, I) -> None:
                 pl.walkers, pl.lda, pl.ldb, None),
             SWEEP_PHASES, f"sweep (16,7,7) W={w} "
             f"{'every seventh walker dead' if dead else 'all alive'} {pl}")
+
+
+def stamp_bf16(P, I, buf) -> None:
+    tb = build("taylor_bf16_stamped", stamped_bf16())
+    fn = tb.pauxy_taylor_bf16_resident
+    fn.argtypes = (P, P, P) + (I,) * 6 + (P,)
+    for m, ncol, w, cluster in ((257, 14, 512, None), (257, 14, 1, None),
+                                (33, 14, 40, None), (257, 14, 512, 4),
+                                (257, 14, 512, 8)):
+        plan = taylor_cuda.route_bf16(m, ncol)
+        if cluster is not None:
+            plan = taylor_cuda.resident_plan(m, ncol, cluster)
+        vhs = (0.3 / m ** 0.5) * torch.randn(w, m, m, dtype=torch.complex64,
+                                             device="cuda")
+        phi = torch.randn(w, m, ncol, dtype=torch.complex64, device="cuda")
+        out = torch.empty_like(phi)
+
+        def call():
+            rc = fn(vhs.data_ptr(), phi.data_ptr(), out.data_ptr(), w, m,
+                    ncol, 6, plan.cluster, plan.tiles, None)
+            if rc:
+                raise SystemExit(f"kernel_stamps: bf16 launch failed {rc}")
+
+        call()
+        torch.cuda.synchronize()
+        tb.prof_zero()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        end.record()
+        end.synchronize()
+        tb.prof_get(buf)
+        ctas = max(buf[31], 1)
+        cycles = {k: round(v / ctas, 1) for k, v in
+                  zip(BF16_PHASES, list(buf)[:len(BF16_PHASES)])}
+        print(f"taylor_bf16 resident (M,C)=({m},{ncol}) w={w} {plan} "
+              f"{start.elapsed_time(end):.4f} ms, {ctas} CTAs, mean cycles "
+              f"a CTA {round(sum(cycles.values()), 1)}: {cycles}",
+              flush=True)
 
 
 if __name__ == "__main__":
