@@ -36,7 +36,15 @@ both: paths ``ueg_pallas`` and ``ueg_pallas_bf16``), with the Taylor
 kernels' device time and launches as ``taylor_ms`` / ``taylor_launches``
 (float32, "taylor_kernel") and ``taylor_bf16_ms`` /
 ``taylor_bf16_launches``; and PW_FFT at the same shape (chip_smoke.py's
-phase 23). For each it runs
+phase 23); the NOMSD path of chip_smoke.py's phase 25 (``msd_generic``:
+the Generic bench shape with the D = 8 rotated expansion, 1024 walkers,
+taylor_impl="pallas", energy every step), whose per-determinant exchange
+calls (``local_energy._exx``: the einsum route's cuBLAS product and
+transposed trace) come with their synchronised wall time as
+``exx_wall_ms``;
+and the GHF path of its phase 27 (``ghf``: the 4x4 (7, 7) discrete
+lattice with the D = 2 GHF trial, 1024 walkers), whose site sweeps'
+synchronised wall time comes as ``sweep_wall_ms``. For each it runs
 one warm-up block, then one block under
 torch.profiler (CPU and CUDA activity), and prints the block's wall time,
 the summed device time of its kernels, the device's idle share (1 - device
@@ -49,7 +57,7 @@ by device time. The card's
 name and power limit (nvidia-smi) come first. --paths profiles only the
 named paths (continuous, discrete, bp_discrete, generic, generic_exx,
 thermal_ueg, thermal_hubbard, thermal_ueg_lowrank, thermal_discrete, ueg,
-pw_fft).
+pw_fft, msd_generic, ghf).
 With --trace the Chrome traces are written to PREFIX.<path>.json. Needs
 the card; there is no CPU fallback.
 """
@@ -134,9 +142,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from chip_smoke import generic_model
+    from chip_smoke import generic_model, rotated_msd_psi, spin_flip_psi
     from pauxy_tpu_torch.models import (free_electron_trial, make_generic,
-                                        make_hubbard, make_pw_fft,
+                                        make_ghf_trial, make_hubbard,
+                                        make_pw_fft, multi_slater_trial,
                                         rhf_identity_trial)
     from pauxy_tpu_torch.models.thermal_trial import make_one_body_trial
     from pauxy_tpu_torch.models.ueg import make_ueg
@@ -226,6 +235,57 @@ def main() -> None:
                    propagator_options={"taylor_impl": "pallas"},
                    estimator_options=eopts, device="cuda")
         profile_block(af, "generic", args.trace, qmc.nsteps)
+        del ham, trial, af
+    if wanted("msd_generic"):
+        from pauxy_tpu_torch.estimators import local_energy
+
+        ham = generic_model(128, 512, 16, make_generic)
+        psi, coeffs = rotated_msd_psi(128, 16, 16, 8, seed=25)
+        trial = multi_slater_trial(ham, psi, coeffs, device="cuda",
+                                   dtype="single")
+        qmc = QMCOpts(nwalkers=1024, dt=0.005, nsteps=10, nblocks=2,
+                      nstblz=5, npop_control=1, rng_seed=8)
+        af = AFQMC(ham, trial, qmc,
+                   propagator_options={"taylor_impl": "pallas"},
+                   estimator_options=eopts, device="cuda")
+        exx_s = []
+        af.run_block()
+        old = timed(local_energy, "_exx", exx_s)
+        try:
+            profile_block(af, "msd_generic", args.trace, qmc.nsteps,
+                          warmup=0, extra=lambda: {
+                              "exx_wall_ms": 1e3 * sum(exx_s),
+                              "exx_calls": len(exx_s)})
+        finally:
+            local_energy._exx = old
+        del ham, trial, af
+    if wanted("ghf"):
+        import numpy as np
+
+        from pauxy_tpu_torch.propagation.hirsch import Hirsch
+
+        gd = np.load(os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tests", "data", "hubbard4x4_uhf_discrete.npz"))
+        ua, ub = gd["psi"][:, :7], gd["psi"][:, 7:]
+        ham = make_hubbard(7, 7, U=4.0, nx=4, ny=4, device="cuda",
+                           dtype="single")
+        trial = make_ghf_trial(ham, spin_flip_psi(ua, ub),
+                               np.full(2, 2 ** -0.5), init=(ua, ub),
+                               device="cuda", dtype="single")
+        qmc = QMCOpts(nwalkers=1024, dt=0.01, nsteps=10, nblocks=2,
+                      nstblz=10, npop_control=1, rng_seed=8)
+        af = AFQMC(ham, trial, qmc,
+                   propagator_options={"hubbard_stratonovich": "discrete"},
+                   estimator_options=eopts, device="cuda")
+        sweep_s = []
+        af.run_block()
+        old = timed(Hirsch, "_site_sweep_ghf", sweep_s)
+        try:
+            profile_block(af, "ghf", args.trace, qmc.nsteps, warmup=0,
+                          extra=lambda: {"sweep_wall_ms": 1e3 * sum(sweep_s),
+                                         "sweeps": len(sweep_s)})
+        finally:
+            Hirsch._site_sweep_ghf = old
         del ham, trial, af
     if wanted("generic_exx"):
         ham = generic_model(228, 1024, 42, make_generic)

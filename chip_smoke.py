@@ -157,9 +157,44 @@ non-zero and prints no result line:
      S(k) tail against the BP two-body energy;
  23. PW_FFT: make_pw_fft(7, 7, rs=1, ecut=8) (M=257), free-electron
      trial, complex64, 512 walkers, one block: finite rows and the
-     launches; 16 walkers card vs host within 1e-4.
+     launches; 16 walkers card vs host within 1e-4;
+ 24. the mixed estimator's density matrices: phase 4's system with
+     one_rdm (1024 walkers, 2 blocks, the generic block): each block's
+     Tr G_s within 1e-4 of 7 and E1B from the 1-RDM within 1e-3 of the
+     E1Body column (tests/test_mixed_rdm.py:26-52), and the launches; the
+     UEG golden's shape (M=33, 40 walkers, 3 blocks) with
+     two_rdm="structure_factor": S(k) . v_q / 2V within 1e-4 of E2Body;
+     card (complex64) vs host (complex128), 16 walkers, 2 blocks with
+     injected draws, within 1e-4 of the scale (the UEG's hybrid-energy sum
+     aside);
+ 25. NOMSD at full width: phase 8's Generic bench shape with a D = 8
+     expansion (the RHF identity and 7 rotations exp(0.1 K),
+     ``rotated_msd_psi``), 1024 walkers, a warm-up block and 2 of 10 steps
+     (depth cut), taylor_impl="pallas": finite rows, the launches of
+     ``msd_schedule``, walker-steps/s beside phase 8's; 16 walkers card vs
+     host within 2e-4 (phase 10's limit); on phase 4's Hubbard a D = 2
+     expansion (the continuous golden's UHF determinant and its spin flip)
+     one block with its launches, and D = 1 against the single-determinant
+     block with the same draws (1e-4 of the scale);
+ 26. the PHMSD zero-variance anchor: generate_hamiltonian(6, (2, 2)), the
+     full space of 225 determinants with recompute_ci_coeffs, 256
+     walkers, 3 blocks, complex128 and complex64 on the card: every
+     walker's energy at each block's end and every block's ETotal equal
+     E_FCI (ci.simple_fci) within 1e-8 (complex128) and 1e-4 (complex64)
+     relative; walkers exactly on a determinant (224 exactly singular
+     S_d): finite G, weights, overlap and energy, the overlap conj(c_0);
+ 27. GHF at full width: phase 6's system with a D = 2 GHF trial (the
+     discrete golden's UHF determinant embedded and its spin flip), 1024
+     walkers, a warm-up block and one timed: finite rows, the launches of
+     ``ghf_schedule``, walker-steps/s; the D = 1 embedding against the UHF
+     run (sweep kernel) with the same uniforms, block ETotal within rtol
+     5e-4 (tests/test_ghf.py:207-231); the discrete golden through the
+     D = 1 GHF trial (40 walkers, 100 blocks), |diff| < max(4 se, 0.05);
+     16 walkers card vs host within 1e-4.
 Phase 3 also holds the cpqr kernel on the low-rank stack's masked input
-(``check_cpqr_masked``). Each phase line ends with its seconds. Then the
+(``check_cpqr_masked``) and kernels A and B on exactly singular matrices
+(``check_zero_pivot``: log|det| -inf, JAX's phase where JAX's is finite).
+Each phase line ends with its seconds. Then the
 card's name and power limit (nvidia-smi), one JSON line about the
 kernels, and last
 {"ok": true, "device": {...}}.
@@ -167,6 +202,7 @@ kernels, and last
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -797,6 +833,81 @@ def pivot_cases(rng, w: int, n: int, complex_: bool) -> np.ndarray:
     return s
 
 
+# Exactly singular matrices and the log-determinant every route of the
+# port gives them (a zero pivot: log 0 = -inf, a unit phase, nothing
+# eliminated): name, matrix, arg det (mod 2 pi), whether JAX's CPU slogdet
+# gives the same (a zero pivot before the last makes its later pivots 0/0).
+ZERO_PIVOT_CASES = (
+    ("[[1,0],[0,0]]", ((1, 0), (0, 0)), 0.0, True),
+    ("[[2,1],[4,2]]", ((2, 1), (4, 2)), np.pi, True),
+    ("[[i,2],[2i,4]]", ((1j, 2), (2j, 4)), -0.5 * np.pi, True),
+    ("zeros", ((0, 0), (0, 0)), 0.0, False),
+    ("diag(1,0,1)", ((1, 0, 0), (0, 0, 0), (0, 0, 1)), 0.0, False),
+)
+
+
+def zero_pivot_batch(dtype, w: int = 37):
+    """[w, n, n] of ``dtype``: the cases of size n (complex ones only for a
+    complex type) in the first slots, 2 I after; with the expected args."""
+    out = []
+    for n in (2, 3):
+        cases = [(m, arg) for _, m, arg, _ in ZERO_PIVOT_CASES
+                 if len(m) == n and (dtype.is_complex
+                                     or not np.iscomplexobj(np.array(m)))]
+        s = np.broadcast_to(2.0 * np.eye(n), (w, n, n)).astype(complex)
+        for i, (m, _) in enumerate(cases):
+            s[i] = np.array(m)
+        s = torch.from_numpy(s if dtype.is_complex else s.real.copy())
+        out.append((s.to(dtype), [arg for _, arg in cases]))
+    return out
+
+
+def check_zero_pivot(batchla_cuda, greens_cuda) -> str:
+    """Kernel B (both modes, every type) on the exactly singular
+    ZERO_PIVOT_CASES: log|det| -inf and arg det as listed, the 2 I after
+    them exact; kernel A (complex, S = phi^T conj(psi) with psi the
+    identity's first n columns; its two modes eliminate S and S^T, whose
+    zero pivots give other phases) against its plain version: -inf with
+    the same phase."""
+    seen = 0
+
+    def bad(ld, k, args, rest):
+        return (not np.all(np.isneginf(ld.real[:k]))
+                or phase_diff(ld.imag[:k] - np.asarray(args)).max() > 1e-6
+                or np.abs(ld.real[k:] - rest).max() > 1e-5
+                or np.abs(ld.imag[k:]).max() > 1e-6)
+
+    for dtype in (torch.complex64, torch.complex128, torch.float32,
+                  torch.float64):
+        for s, args in zero_pivot_batch(dtype):
+            s = s.to("cuda")
+            k, n = len(args), s.shape[-1]
+            for want_inv in (True, False):
+                ld = batchla_cuda.inv_logdet_lanes(s, want_inv)[0]
+                ld = ld.cpu().numpy()
+                if bad(ld, k, args, n * np.log(2.0)):
+                    raise AssertionError(
+                        f"kernel B zero pivot {dtype} n={n} want_inv="
+                        f"{want_inv}: {ld[:k + 1]}, want -inf, args {args}")
+                seen += k
+            if not dtype.is_complex:
+                continue
+            psi = torch.eye(5, n, dtype=dtype, device="cuda")
+            phi = torch.zeros(5, n, s.shape[0], dtype=dtype, device="cuda")
+            phi[:n] = s.permute(2, 1, 0)
+            for want_gh in (True, False):
+                ld = greens_cuda.greens_lanes(psi, phi, want_gh)[0]
+                ld_p = greens_cuda.greens_lanes_plain(psi, phi, want_gh)[0]
+                ld, ld_p = ld.cpu().numpy(), ld_p.cpu().numpy()
+                if bad(ld, k, ld_p.imag[:k], n * np.log(2.0)) or not \
+                        np.all(np.isneginf(ld_p.real[:k])):
+                    raise AssertionError(
+                        f"kernel A zero pivot {dtype} n={n} want_gh="
+                        f"{want_gh}: {ld[:k + 1]} vs plain {ld_p[:k + 1]}")
+                seen += k
+    return f"{seen} singular log-dets -inf with their phases"
+
+
 def against_plains(batchla_cuda, s, want_inv, ld_k, inv_k):
     """(max |dRe logdet|, max |dIm logdet| mod 2 pi, max |d inv| / max|inv|)
     of the kernel's output against its plain version (in-place
@@ -1348,17 +1459,18 @@ def check_exx(exx_cuda, gen) -> tuple[float, dict]:
     return main_err, readings
 
 
-def generic_model(nmo: int, naux: int, nel: int, make_generic):
+def generic_model(nmo: int, naux: int, nel: int, make_generic,
+                  device: str = "cuda", dtype: str = "single"):
     """bench.py:317-330's random Hamiltonian (numpy default_rng(7), chol
-    scale 0.01 and h1 scale 0.1, both symmetrised, ecore 0) on the card in
-    complex64/float32."""
+    scale 0.01 and h1 scale 0.1, both symmetrised, ecore 0), by default on
+    the card in complex64/float32."""
     rng = np.random.default_rng(7)
     chol = rng.normal(scale=0.01, size=(nmo, nmo, naux))
     chol = 0.5 * (chol + chol.transpose(1, 0, 2))
     h1 = rng.normal(scale=0.1, size=(nmo, nmo))
     h1 = 0.5 * (h1 + h1.T)
     return make_generic((nel, nel), np.stack([h1, h1]), chol, ecore=0.0,
-                        device="cuda", dtype="single")
+                        device=device, dtype=dtype)
 
 
 def reblocked_se(x: np.ndarray) -> float:
@@ -1426,8 +1538,9 @@ def extras_blocks(af, xi: np.ndarray, pop: np.ndarray, nblocks: int,
             npop_control=q.npop_control, pop_method=q.pop_control_method,
             target_weight=float(q.nwalkers),
             energy_eval_freq=af.energy_eval_freq,
-            free_projection=af.free_projection, extras=af.extras,
-            noise=noise)
+            free_projection=af.free_projection,
+            calc_one_rdm=af.calc_one_rdm, calc_two_rdm=af.calc_two_rdm,
+            extras=af.extras, noise=noise)
         out.append([(lambda z: z[0] + 1j * z[1])(a.cpu().double().numpy())
                     for a in accs])
     return out
@@ -1444,6 +1557,73 @@ def extras_gap(card: list, host: list) -> list:
         gaps.append(float(np.abs(c - h).max() / np.abs(h).max())
                     if h.size else 0.0)
     return gaps
+
+
+class Pushed:
+    """A stand-in for the HDF5 output of MixedReporter: keeps each block's
+    pushed arrays by dataset name (the card's machine has no h5py)."""
+
+    def __init__(self):
+        self.blocks = [{}]
+
+    def push(self, data, name: str) -> None:
+        self.blocks[-1][name] = np.asarray(data)
+
+    def increment(self) -> None:
+        self.blocks.append({})
+
+
+def rotated_msd_psi(m: int, na: int, nb: int, ndets: int, seed: int):
+    """(psi [D, M, na + nb], coeffs [D]) of an NOMSD expansion: determinant
+    0 the RHF identity (the first na / nb orbitals), determinant d > 0 that
+    identity rotated by exp(0.1 K_d), K_d anti-Hermitian with entries of
+    variance 1/M (spectral norm ~2 whatever M: a rotation of ~0.2 rad);
+    complex coefficients, seeded, normalised."""
+    import scipy.linalg
+
+    rng = np.random.default_rng(seed)
+    eye = np.eye(m)
+    base = np.concatenate([eye[:, :na], eye[:, :nb]], axis=1)
+    psi = [base]
+    for _ in range(ndets - 1):
+        k = (rng.normal(size=(m, m)) + 1j * rng.normal(size=(m, m))) / (
+            np.sqrt(2.0 * m))
+        psi.append(scipy.linalg.expm(0.1 * (k - k.conj().T)) @ base)
+    c = rng.normal(size=ndets) + 1j * rng.normal(size=ndets)
+    return np.stack(psi), c / np.linalg.norm(c)
+
+
+def spin_flip_psi(psia: np.ndarray, psib: np.ndarray):
+    """The 2M x ne GHF embeddings of a UHF pair and of its spin flip
+    (up block psib, down block psia; nup = ndown), [2, 2M, ne]."""
+    m, na = psia.shape
+    nb = psib.shape[1]
+    psi = np.zeros((2, 2 * m, na + nb), dtype=complex)
+    psi[0, :m, :na], psi[0, m:, na:] = psia, psib
+    psi[1, :m, :na], psi[1, m:, na:] = psib, psia
+    return psi
+
+
+def msd_schedule(nsteps: int, nstblz: int, energy_every: int,
+                 taylor: bool) -> dict:
+    """Launches of a continuous run of ``nsteps`` steps with a
+    multi-determinant trial: kernel B 2 at set-up (the walkers' overlaps),
+    a step 2 for the per-determinant S^-1 and log-dets of the force bias,
+    2 for the new overlaps, 2 per energy (one [w D, n, n] batch a spin
+    each time); Cholesky 4 per re-orthogonalisation; the Taylor kernel
+    once a step on the Generic path."""
+    return {"inv_logdet_lanes": 2 + 4 * nsteps + 2 * (nsteps // energy_every),
+            "chol_inv_lanes": 4 * (nsteps // nstblz),
+            "taylor_exp": nsteps if taylor else 0}
+
+
+def ghf_schedule(nsteps: int, nstblz: int, energy_every: int) -> dict:
+    """Launches of a discrete run with a GHF trial: kernel B 1 at set-up,
+    a step 2 in the kinetic half-steps (log-det), 1 for the sweep's
+    S_d^-1, 1 per energy (one [w D, ne, ne] batch each); Cholesky 4 per
+    re-orthogonalisation; no sweep kernel (the GHF sweep has none)."""
+    return {"inv_logdet_lanes": 1 + 3 * nsteps + nsteps // energy_every,
+            "chol_inv_lanes": 4 * (nsteps // nstblz)}
 
 
 def orthos(n: int, nstblz: int) -> int:
@@ -1525,10 +1705,15 @@ def main() -> None:
     if os.path.dirname(pkg_dir) != ROOT:
         raise SystemExit(f"chip_smoke: pauxy_tpu_torch found at {pkg_dir}, "
                          f"not beside this script in {ROOT}")
-    from pauxy_tpu_torch.estimators import local_energy, mixed
+    from pauxy_tpu_torch.estimators import ci, local_energy, mixed
     from pauxy_tpu_torch.models import (free_electron_trial, make_generic,
-                                        make_hubbard, rhf_identity_trial,
+                                        make_ghf_trial, make_hubbard,
+                                        multi_slater_trial, phmsd_trial,
+                                        rhf_identity_trial,
                                         trial_from_orbitals)
+    from pauxy_tpu_torch.models.multi_slater import (
+        greens_function_multi_det, log_overlap_multi_det,
+        recompute_ci_coeffs)
     from pauxy_tpu_torch.models import trial as trial_module
     from pauxy_tpu_torch.models.thermal_trial import (make_mean_field_trial,
                                                       make_one_body_trial)
@@ -1537,12 +1722,14 @@ def main() -> None:
     from pauxy_tpu_torch.ops import (batchla_cuda, clinalg, cpqr_cuda,
                                      cuda_build, exx_cuda, greens_cuda,
                                      sweep_cuda, taylor_cuda)
+    from pauxy_tpu_torch.propagation.continuous import trial_greens
     from pauxy_tpu_torch.propagation.generic import (GenericContinuous,
                                                      apply_exponential_taylor)
     from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
     from pauxy_tpu_torch.qmc.afqmc import run_block
     from pauxy_tpu_torch.qmc.hubbard_fast import BlockNoise
     from pauxy_tpu_torch.qmc.thermal_afqmc import PathNoise, ThermalAFQMC
+    from pauxy_tpu_torch.utils.testing import generate_hamiltonian
     from pauxy_tpu_torch.walkers import low_rank
 
     bad = [m for m in sys.modules
@@ -1613,6 +1800,7 @@ def main() -> None:
     greens_route = check_greens_route(greens_cuda, rng)
     taylor_route = check_taylor_route(taylor_cuda, GenericContinuous, gen)
     ill = check_batchla_ill(batchla_cuda, rng)
+    zero_pivot = check_zero_pivot(batchla_cuda, greens_cuda)
     m, n, w = 16, 7, 1024
     c64, f32 = torch.complex64, torch.float32
     psi = torch.from_numpy(rng.normal(size=(m, n)) + 0j).to("cuda", c64)
@@ -1916,7 +2104,13 @@ def main() -> None:
         "within max(tol, 2 n eps kappa) of its "
         "plain version and of the float64 inverse, matrix by matrix; "
         "float32 error against the float64 inverse in units of "
-        f"eps kappa max|S^-1|: {ill}" + lap("3"))
+        f"eps kappa max|S^-1|: {ill}")
+    say("3 kernels", "kernel B (every type, both modes) on exactly "
+        "singular matrices (" + ", ".join(c[0] for c in ZERO_PIVOT_CASES)
+        + "; the 2 I beside them exact): log|det| -inf and arg det as "
+        "JAX's CPU slogdet gives it where it is finite, a zero pivot "
+        "eliminating nothing; kernel A the same as its plain version: "
+        + zero_pivot + lap("3"))
     del vt, pt
 
     # ---- 4. the continuous main path at full width -----------------------
@@ -3204,6 +3398,369 @@ def main() -> None:
         f"{np.array2string(card[:, 0], precision=6)} vs "
         f"{np.array2string(host[:, 0], precision=6)}, max |d| over the "
         f"scale {gap_pw:.3e} <= 1e-4" + lap("23"))
+    # ---- 24. the mixed estimator's density matrices ----------------------
+    # Phase 4's system with the mixed 1-RDM (the generic [w, M, n] block,
+    # as in JAX); the limits of tests/test_mixed_rdm.py.
+    rq = QMCOpts(nwalkers=1024, dt=0.01, nsteps=10, nblocks=2, nstblz=10,
+                 npop_control=1, rng_seed=8)
+    rsteps = rq.nblocks * rq.nsteps
+    rdm_opts = {"mixed": {"energy_eval_freq": 1, "one_rdm": True}}
+    zero_counts()
+    ham = make_hubbard(7, 7, U=4.0, nx=4, ny=4, device="cuda",
+                       dtype="single")
+    trial = free_electron_trial(ham, device="cuda", dtype="single")
+    af = AFQMC(ham, trial, rq, estimator_options=rdm_opts, device="cuda")
+    af.reporter.output = Pushed()
+    rows = af.run()
+    torch.cuda.synchronize()
+    rdm_counts = counts()
+    want = only(inv_logdet_lanes=2 + 6 * rsteps,
+                chol_inv_lanes=4 * (rsteps // rq.nstblz))
+    tmat = ham.T.cpu().numpy()
+    tr_gap = e1_gap = 0.0
+    for b, pushed in enumerate(af.reporter.output.blocks[:rq.nblocks]):
+        g1 = pushed["one_rdm"]
+        tr_gap = max(tr_gap, *(abs(np.trace(g1[s]).real - 7.0)
+                               for s in (0, 1)))
+        e1_gap = max(e1_gap, abs(np.sum(tmat[0] * g1[0] + tmat[1] * g1[1])
+                                 .real - rows[b, 6].real))
+    if af.use_fast_block or rdm_counts != want or not (
+            np.isfinite(rows).all() and tr_gap <= 1e-4 and e1_gap <= 1e-3):
+        raise AssertionError(f"one_rdm: launches {rdm_counts} (want {want}),"
+                             f" |tr - 7| {tr_gap:.3e}, |dE1| {e1_gap:.3e}")
+    rdm_line = (f"one_rdm on phase 4's system, 1024 walkers, {rsteps} steps "
+                f"(the generic block): max |Tr G_s - 7| {tr_gap:.2e} <= "
+                f"1e-4, max |E1B(G) - E1Body| {e1_gap:.2e} <= 1e-3, launches "
+                f"{rdm_counts}, {1024 * rq.nsteps / af.block_seconds[-1]:.1f}"
+                f" walker-steps/s (the second block)")
+    del af
+    # The UEG golden's shape with the structure factor (FFT route).
+    sk_opts = {"mixed": {"energy_eval_freq": 1,
+                         "two_rdm": "structure_factor"}}
+    zero_counts()
+    af = ueg_golden("cuda", "single", "pallas", 40, 3, sk_opts)
+    af.reporter.output = Pushed()
+    rows = af.run()
+    torch.cuda.synchronize()
+    sk_counts = counts()
+    vq = af.ham.vqvec.cpu().numpy()
+    pe_gap = max(abs(np.sum(vq * p["two_rdm"].sum(axis=(0, 1))).real
+                     / (2.0 * af.ham.vol) - rows[b, 7].real)
+                 for b, p in enumerate(af.reporter.output.blocks[:3]))
+    if not (np.isfinite(rows).all() and pe_gap <= 1e-4
+            and sk_counts["taylor_exp"] == 3 * af.qmc.nsteps):
+        raise AssertionError(f"two_rdm S(k): |dE2| {pe_gap:.3e}, launches "
+                             f"{sk_counts}")
+    del af
+    # Card (complex64) vs host (complex128), injected draws, 16 walkers:
+    # every mixed sum with the 1-RDM tail; the UEG's without the hybrid
+    # energy sum (float32 log-overlap rounding over dt, as phase 22 says),
+    # with the S(k) tail.
+    rdm_gap = card_vs_host(None, rdm_opts, draws.normal(size=(20, 16, 16)))
+    probe = ueg_golden("cpu", "double", "xla", 16, 2, sk_opts)
+    xi = draws.normal(size=(20, 16, probe.ham.nfields))
+    pop = draws.uniform(size=(20, 1))
+    card = extras_blocks(ueg_golden("cuda", "single", "pallas", 16, 2,
+                                    sk_opts), xi, pop, 2, run_block,
+                         BlockNoise)
+    host = extras_blocks(probe, xi, pop, 2, run_block, BlockNoise)
+    keep = [i for i in range(len(host[0][0])) if i != mixed.EHYB]
+    sk_gap = float(max(np.abs(c[0][keep] - h[0][keep]).max()
+                       / np.abs(h[0][keep]).max()
+                       for c, h in zip(card, host)))
+    os.environ.pop("PAUXY_TPU_TAYLOR_UEG", None)
+    if not sk_gap <= 1e-4:
+        raise AssertionError(f"UEG S(k) card vs host {sk_gap:.3e}")
+    rdm_counts = {k: rdm_counts[k] + sk_counts[k] for k in counts()}
+    say("24 mixed RDMs", rdm_line + f"; two_rdm=structure_factor on the UEG "
+        f"golden's shape (M=33, 40 walkers, 3 blocks, pallas): S(k) . v_q "
+        f"/ 2V vs E2Body max |d| {pe_gap:.2e} <= 1e-4, launches "
+        f"{sk_counts}; 16 walkers, 2 blocks with injected draws, card "
+        f"(complex64) vs host (complex128), max |d| over the scale: Hubbard "
+        f"mixed sums with the 1-RDM {rdm_gap[0][0]:.2e}, UEG mixed sums "
+        f"(hybrid sum aside) with S(k) {sk_gap:.2e}, each <= 1e-4" + lap("24"))
+    del probe, card, host
+
+    # ---- 25. NOMSD at full width -----------------------------------------
+    # Phase 8's Generic bench shape with a D = 8 non-orthogonal expansion;
+    # depth cut to 2 timed blocks of 10 steps after a warm-up block.
+    mq = QMCOpts(nwalkers=1024, dt=0.005, nsteps=10, nblocks=3, nstblz=5,
+                 npop_control=1, rng_seed=8)
+    msteps = mq.nblocks * mq.nsteps
+    zero_counts()
+    ham = generic_model(128, 512, 16, make_generic)
+    mpsi, mcoef = rotated_msd_psi(128, 16, 16, 8, seed=25)
+    trial = multi_slater_trial(ham, mpsi, mcoef, device="cuda",
+                               dtype="single")
+    af = AFQMC(ham, trial, mq, propagator_options=pallas,
+               estimator_options=eopts, device="cuda")
+    rows = af.run()
+    torch.cuda.synchronize()
+    msd_counts = counts()
+    want = only(**msd_schedule(msteps, mq.nstblz, 1, True))
+    if msd_counts != want or not (
+            np.isfinite(rows.real).all()
+            and bool(torch.isfinite(af.state.weight).all())):
+        raise AssertionError(f"NOMSD bench: launches {msd_counts} (want "
+                             f"{want}), rows {rows}")
+    timed = af.block_seconds[1:]
+    rate_m = mq.nwalkers * mq.nsteps * len(timed) / sum(timed)
+    msd_line = (f"nmo=128 naux=512 (16,16), D=8 NOMSD (RHF identity and 7 "
+                f"rotations exp(0.1 K), etrial {trial.etrial:.5f}), "
+                f"complex64 taylor_impl=pallas 1024 walkers, {msteps} steps "
+                f"(depth cut: a warm-up block and 2 of 10 steps): ETotal "
+                f"{np.array2string(rows[:, 5].real, precision=5)}; launches "
+                f"{msd_counts} as msd_schedule says; {rate_m:.1f} "
+                f"walker-steps/s (phase 8, one determinant: {rate_g:.1f}; "
+                f"block seconds "
+                f"{', '.join(f'{t:.4f}' for t in af.block_seconds)})")
+    del ham, trial, af
+
+    def msd_bench(device, dtype, nwalkers):
+        h = generic_model(128, 512, 16, make_generic, device, dtype)
+        t = multi_slater_trial(h, mpsi, mcoef, device=device, dtype=dtype)
+        return AFQMC(h, t, QMCOpts(nwalkers=nwalkers, dt=0.005, nsteps=10,
+                                   nblocks=2, nstblz=5, npop_control=1),
+                     propagator_options=pallas, estimator_options=eopts,
+                     device=device)
+
+    xi = draws.normal(size=(20, 16, 512))
+    pop = draws.uniform(size=(20, 1))
+    card = injected_blocks(msd_bench("cuda", "single", 16), xi, pop, 2,
+                           run_block, BlockNoise, mixed)
+    host = injected_blocks(msd_bench("cpu", "double", 16), xi, pop, 2,
+                           run_block, BlockNoise, mixed)
+    msd_gap = float((np.abs(card - host).max(axis=0)
+                     / np.abs(host).max(axis=0)).max())
+    if not (np.isfinite(card).all() and msd_gap <= 2e-4):
+        raise AssertionError(f"NOMSD card vs host {card.tolist()} vs "
+                             f"{host.tolist()}: {msd_gap:.3e} > 2e-4")
+    # MSD on phase 4's Hubbard: the UHF determinant of the continuous
+    # golden and its spin flip, 1/sqrt(2) each; one block.
+    uhf_c = np.asarray(np.load(os.path.join(
+        ROOT, "tests", "data", "hubbard4x4_uhf_continuous.npz"))["psi"])
+    flip = np.concatenate([uhf_c[:, 7:], uhf_c[:, :7]], axis=1)
+    hq = QMCOpts(nwalkers=1024, dt=0.01, nsteps=10, nblocks=1, nstblz=10,
+                 npop_control=1, rng_seed=8)
+    ham = make_hubbard(7, 7, U=4.0, nx=4, ny=4, device="cuda",
+                       dtype="single")
+    zero_counts()
+    af = AFQMC(ham, multi_slater_trial(ham, np.stack([uhf_c, flip]),
+                                       np.full(2, 2 ** -0.5),
+                                       device="cuda", dtype="single"),
+               hq, estimator_options=eopts, device="cuda")
+    rows = af.run()
+    torch.cuda.synchronize()
+    hub_msd = counts()
+    want = only(**msd_schedule(10, 10, 1, False))
+    if af.use_fast_block or hub_msd != want or not np.isfinite(rows).all():
+        raise AssertionError(f"Hubbard MSD: launches {hub_msd} (want "
+                             f"{want}), rows {rows}")
+    del af
+    # D = 1 of phase 4's trial against the single-determinant block, the
+    # same draws, both complex64 on the card (another order of rounding).
+    fe = free_electron_trial(ham, device="cuda", dtype="single")
+    one = multi_slater_trial(
+        ham, torch.cat([fe.psia, fe.psib], 1).cpu().numpy()[None],
+        init=torch.cat([fe.psia, fe.psib], 1).cpu().numpy(), device="cuda",
+        dtype="single")
+    xi = draws.normal(size=(20, 1024, 16))
+    pop = draws.uniform(size=(20, 1))
+    d1 = [injected_blocks(AFQMC(ham, t, QMCOpts(
+        nwalkers=1024, dt=0.01, nsteps=10, nblocks=2, nstblz=10,
+        npop_control=1), estimator_options=eopts, device="cuda"), xi, pop,
+        2, run_block, BlockNoise, mixed) for t in (one, fe)]
+    d1_gap = float((np.abs(d1[0] - d1[1]).max(axis=0)
+                    / np.abs(d1[1]).max(axis=0)).max())
+    if not d1_gap <= 1e-4:
+        raise AssertionError(f"D=1 MSD vs single determinant {d1}")
+    msd_counts = {k: msd_counts[k] + hub_msd[k] for k in counts()}
+    say("25 NOMSD", msd_line + f"; 16 walkers, 2 blocks with injected draws,"
+        f" card (complex64) vs host (complex128), block ETotal "
+        f"{np.array2string(card[:, 0], precision=6)} vs "
+        f"{np.array2string(host[:, 0], precision=6)}: max |d| over the "
+        f"scale {msd_gap:.3e} <= 2e-4; Hubbard 4x4 (7,7) D=2 (the "
+        f"continuous golden's UHF determinant and its spin flip) 1024 "
+        f"walkers one block: ETotal {rows[0, 5].real:.5f}, launches "
+        f"{hub_msd}; D=1 vs the single-determinant block, same draws, "
+        f"complex64: max |d| over the scale {d1_gap:.2e} <= 1e-4" + lap("25"))
+    del ham, fe, one
+
+    # ---- 26. PHMSD zero-variance anchor ----------------------------------
+    h1e, chol, enuc, _ = generate_hamiltonian(6, (2, 2))
+    occ = list(itertools.combinations(range(6), 2))
+    occa = [o for o in occ for _ in occ]
+    occb = [o for _ in occ for o in occ]
+    zhost = make_generic((2, 2), h1e, chol, enuc, device="cpu",
+                         dtype="double")
+    e_fci = float(ci.simple_fci(zhost)[0][0])
+    coeffs, e0 = recompute_ci_coeffs(zhost, occa=occa, occb=occb)
+    zv = {}
+    for dtype, tol in (("double", 1e-8), ("single", 1e-4)):
+        zham = make_generic((2, 2), h1e, chol, enuc, device="cuda",
+                            dtype=dtype)
+        ztrial = phmsd_trial(zham, coeffs, occa, occb, device="cuda",
+                             dtype=dtype)
+        zero_counts()
+        af = AFQMC(zham, ztrial, QMCOpts(nwalkers=256, dt=0.01, nsteps=10,
+                                         nblocks=1, nstblz=5,
+                                         npop_control=1, rng_seed=8),
+                   propagator_options=pallas, estimator_options=eopts,
+                   device="cuda")
+        # The path's launches are read around the set-up and each block
+        # only: the per-walker check after a block launches kernel B too.
+        walker_gap = row_gap = 0.0
+        z_counts = dict.fromkeys(counts(), 0)
+        for _ in range(3):
+            row = af.run_block()
+            torch.cuda.synchronize()
+            z_counts = {k: z_counts[k] + v for k, v in counts().items()}
+            ew = mixed.energy_estimator(zham, ztrial)(
+                *trial_greens(ztrial, af.state.phia, af.state.phib)[:2])[0]
+            walker_gap = max(walker_gap, float(
+                ((ew - e_fci).abs() / abs(e_fci)).max()))
+            row_gap = max(row_gap, abs(row[5].real - e_fci) / abs(e_fci))
+            zero_counts()
+        want = only(**msd_schedule(30, 5, 1, True))
+        # Walkers exactly on determinant 0: S_d is exactly singular for the
+        # 224 others (zero rows and, past single excitations, zero pivots
+        # before the last). G and the overlap must be finite, the overlap
+        # conj(c_0). The energy there is a reading, not E_FCI: the
+        # orthogonal determinants' <D_d|H|phi> are 0 x inf limits that the
+        # per-determinant formula drops (JAX's overlap is nan there).
+        pa = ztrial.psia[0].expand(8, -1, -1).contiguous()
+        pb = ztrial.psib[0].expand(8, -1, -1).contiguous()
+        md = greens_function_multi_det(ztrial, pa, pb)
+        lo = log_overlap_multi_det(ztrial, pa, pb)
+        e_on = local_energy.local_energy_generic_opt_multi(
+            ztrial, md.Ghalfa, md.Ghalfb, md.det_weights, zham.ecore)[0]
+        on_gap = float((torch.exp(lo) - ztrial.coeffs[0].conj()).abs().max()
+                       / abs(coeffs[0]))
+        finite = all(bool(torch.isfinite(x).all()) for x in
+                     (md.G, md.det_weights, md.log_ovlp, lo, e_on))
+        if not (finite and walker_gap <= tol and row_gap <= tol
+                and on_gap <= tol and z_counts == want
+                and abs(e0 - e_fci) <= 1e-10):
+            raise AssertionError(
+                f"PHMSD zero variance {dtype}: walkers {walker_gap:.3e}, "
+                f"blocks {row_gap:.3e}, overlap on a determinant "
+                f"{on_gap:.3e}, finite {finite}, limit {tol}; launches "
+                f"{z_counts} (want {want})")
+        zv[dtype] = (walker_gap, row_gap, on_gap,
+                     float(e_on[0].real), z_counts)
+        del af, zham, ztrial, md
+    say("26 PHMSD zero variance", f"generate_hamiltonian(6, (2, 2)), the "
+        f"full space of {len(occa)} determinants with recompute_ci_coeffs "
+        f"(E0 = E_FCI {e_fci:.10f}, ci.simple_fci, float64 host), 256 "
+        f"walkers, 3 blocks of 10 steps, taylor_impl=pallas: max relative "
+        f"|E - E_FCI| (every walker at each block's end, every block's "
+        f"ETotal) and, for walkers exactly on determinant 0 (224 S_d "
+        f"exactly singular; G, weights, overlap and energy finite), "
+        f"|<psi_T|phi> - conj(c_0)| / |c_0|: " + "; ".join(
+            f"{k} {w:.2e}, {r:.2e}, {o:.2e} (limit "
+            f"{1e-8 if k == 'double' else 1e-4:g}), the energy on the "
+            f"determinant {e:.8f} (a reading), launches {c} as "
+            f"msd_schedule says"
+            for k, (w, r, o, e, c) in zv.items()) + lap("26"))
+
+    # ---- 27. GHF at full width -------------------------------------------
+    gd = np.load(os.path.join(ROOT, "tests", "data",
+                              "hubbard4x4_uhf_discrete.npz"))
+    uhf_d = np.asarray(gd["psi"])
+    ua, ub = uhf_d[:, :7], uhf_d[:, 7:]
+    gq = QMCOpts(nwalkers=1024, dt=0.01, nsteps=10, nblocks=2, nstblz=10,
+                 npop_control=1, rng_seed=8)
+    gsteps2 = gq.nblocks * gq.nsteps
+    ham = make_hubbard(7, 7, U=4.0, nx=4, ny=4, device="cuda",
+                       dtype="single")
+    zero_counts()
+    gtrial = make_ghf_trial(ham, spin_flip_psi(ua, ub),
+                            np.full(2, 2 ** -0.5), init=(ua, ub),
+                            device="cuda", dtype="single")
+    af = AFQMC(ham, gtrial, gq, propagator_options=discrete,
+               estimator_options=eopts, device="cuda")
+    rows = af.run()
+    torch.cuda.synchronize()
+    ghf_counts = counts()
+    want = only(**ghf_schedule(gsteps2, gq.nstblz, 1))
+    if ghf_counts != want or not (np.isfinite(rows).all() and bool(
+            torch.isfinite(af.state.weight).all())):
+        raise AssertionError(f"GHF: launches {ghf_counts} (want {want}), "
+                             f"rows {rows}")
+    rate_ghf = gq.nwalkers * gq.nsteps / af.block_seconds[-1]
+    del af
+    # D = 1: the UHF embedding against the UHF run (its sweep kernel),
+    # the walkers starting from the UHF determinant in both, the same
+    # uniforms, complex64 on the card.
+    uhf_t = trial_from_orbitals(ham, uhf_d, device="cuda", dtype="single")
+    emb = make_ghf_trial(ham, spin_flip_psi(ua, ub)[:1], np.ones(1),
+                         init=(ua, ub), device="cuda", dtype="single")
+    if abs(emb.etrial - uhf_t.etrial) > 1e-4 * abs(uhf_t.etrial):
+        raise AssertionError(f"GHF embedding etrial {emb.etrial} vs UHF "
+                             f"{uhf_t.etrial}")
+    xi = draws.uniform(size=(20, 16, 1024))
+    pop = draws.uniform(size=(20, 1))
+    d1 = [injected_blocks(AFQMC(ham, t, QMCOpts(
+        nwalkers=1024, dt=0.01, nsteps=10, nblocks=2, nstblz=10,
+        npop_control=1), propagator_options=discrete,
+        estimator_options=eopts, device="cuda"), xi, pop, 2, run_block,
+        BlockNoise, mixed) for t in (emb, uhf_t)]
+    ghf_d1 = float(np.abs(d1[0][:, 0] / d1[1][:, 0] - 1).max())
+    if not ghf_d1 <= 5e-4:
+        raise AssertionError(f"D=1 GHF vs UHF block ETotal {d1}")
+    # The discrete golden through the GHF embedding of its UHF trial.
+    zero_counts()
+    grows = AFQMC(ham, make_ghf_trial(ham, spin_flip_psi(ua, ub)[:1],
+                                      np.ones(1), init=(ua, ub),
+                                      device="cuda", dtype="single"),
+                  QMCOpts(nwalkers=int(gd["nwalkers"]), dt=float(gd["dt"]),
+                          nsteps=int(gd["nsteps"]), nblocks=100, nstblz=10,
+                          npop_control=1, rng_seed=8),
+                  propagator_options=discrete, estimator_options=eopts,
+                  device="cuda").run()
+    gold_ghf = counts()
+    et = grows[:, 5].real
+    ref = np.asarray(gd["etotal_blocks"])
+    mine, theirs = et[len(et) // 3:], ref[len(ref) // 3:]
+    gse = float(np.hypot(mine.std(ddof=1) / np.sqrt(len(mine)),
+                         theirs.std(ddof=1) / np.sqrt(len(theirs))))
+    gdiff = float(abs(mine.mean() - theirs.mean()))
+    if not (np.isfinite(et).all() and gdiff < max(4 * gse, 0.05)):
+        raise AssertionError(f"GHF discrete golden: port {mine.mean()} "
+                             f"reference {theirs.mean()} se {gse}")
+    # Card vs host, D = 2, 16 walkers, injected uniforms.
+
+    def ghf_small(device, dtype):
+        h = make_hubbard(7, 7, U=4.0, nx=4, ny=4, device=device, dtype=dtype)
+        t = make_ghf_trial(h, spin_flip_psi(ua, ub), np.full(2, 2 ** -0.5),
+                           init=(ua, ub), device=device, dtype=dtype)
+        return AFQMC(h, t, QMCOpts(**sq), propagator_options=discrete,
+                     estimator_options=eopts, device=device)
+
+    xi = draws.uniform(size=(20, 16, 16))
+    card = extras_blocks(ghf_small("cuda", "single"), xi, pop16, 2,
+                         run_block, BlockNoise)
+    host = extras_blocks(ghf_small("cpu", "double"), xi, pop16, 2,
+                         run_block, BlockNoise)
+    ghf_gap = extras_gap(card, host)[0]
+    if not ghf_gap <= 1e-4:
+        raise AssertionError(f"GHF card vs host {ghf_gap:.3e}")
+    ghf_counts = {k: ghf_counts[k] + gold_ghf[k] for k in counts()}
+    say("27 GHF", f"4x4 (7,7) U=4 discrete, D=2 GHF (the discrete golden's "
+        f"UHF determinant embedded and its spin flip, etrial "
+        f"{gtrial.etrial:.5f}), complex64 1024 walkers {gsteps2} steps "
+        f"(scan sweep): ETotal {np.array2string(rows[:, 5].real, precision=5)}"
+        f", launches as ghf_schedule says, {rate_ghf:.1f} walker-steps/s "
+        f"(the second block; phase 6, one UHF determinant: {rate_d:.1f}); "
+        f"D=1 embedding vs the UHF run (sweep kernel), same uniforms: max "
+        f"|ETotal ratio - 1| {ghf_d1:.2e} <= 5e-4; the discrete golden "
+        f"through the D=1 GHF trial (40 walkers, 100 blocks): port "
+        f"{mine.mean():.6f} vs reference {theirs.mean():.6f}, |diff| "
+        f"{gdiff:.6f} < max(4 se, 0.05) with se {gse:.6f}; 16 walkers, 2 "
+        f"blocks with injected uniforms, card (complex64) vs host "
+        f"(complex128), max |d| over the scale {ghf_gap:.2e} <= 1e-4"
+        + lap("27"))
+    del ham, gtrial, uhf_t, emb
     say("seconds", json.dumps(seconds))
 
     # ---- result ----------------------------------------------------------
@@ -3234,7 +3791,11 @@ def main() -> None:
                "thermal_discrete": td_counts, "thermal_generic": tg_counts,
                "thermal_mean_field": mf_counts,
                "thermal_average_gf": avg_counts, "ueg": planewave_counts,
-               "ueg_golden": ueg_gold_counts, "pw_fft": pw_counts}
+               "ueg_golden": ueg_gold_counts, "pw_fft": pw_counts,
+               "mixed_rdm": rdm_counts, "msd": msd_counts,
+               "phmsd_zero_variance": {k: sum(v[-1][k] for v in zv.values())
+                                       for k in counts()},
+               "ghf": ghf_counts}
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[k] for c in by_path.values()),

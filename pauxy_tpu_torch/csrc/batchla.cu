@@ -113,21 +113,26 @@ __device__ __forceinline__ cplx<T> msub(cplx<T> a, cplx<T> f, cplx<T> r) {
   return o;
 }
 
+// 1 / p, and 0 for a zero pivot: its column is zero from row k down, so
+// the step eliminates nothing and the later pivots stay finite (the matrix
+// is singular; its log|det| is -inf whatever they are).
 template <typename T>
 __device__ __forceinline__ T recip(T p) {
-  return T(1) / p;
+  return p != T(0) ? T(1) / p : T(0);
 }
 template <typename T>
 __device__ __forceinline__ cplx<T> recip(cplx<T> p) {
   const T den = mag2(p);
   cplx<T> o;
-  o.re = p.re / den;
-  o.im = -p.im / den;
+  o.re = den != T(0) ? p.re / den : T(0);
+  o.im = den != T(0) ? -p.im / den : T(0);
   return o;
 }
 
 // Folds the pivot p into log|det| (ldr) and the phase (phr, phi), negating
-// the phase when the step swapped rows.
+// the phase when the step swapped rows. A zero pivot adds log 0 = -inf to
+// log|det| and leaves the phase as it is (unit phase), as the JAX package's
+// log of a complex zero does: p rsqrt(|p|^2) would be 0 * inf = nan.
 template <typename T>
 __device__ __forceinline__ void fold_pivot(T& ldr, T& phr, T& phi, T p,
                                            bool swapped) {
@@ -140,10 +145,16 @@ __device__ __forceinline__ void fold_pivot(T& ldr, T& phr, T& phi,
                                            cplx<T> p, bool swapped) {
   const T den = mag2(p);
   ldr += T(0.5) * pauxy::dlog(den);
-  T rn = pauxy::drsqrt(den);
-  if (swapped) rn = -rn;
-  const T ur = p.re * rn;
-  const T ui = p.im * rn;
+  T ur = T(1), ui = T(0);
+  if (den != T(0)) {
+    const T rn = pauxy::drsqrt(den);
+    ur = p.re * rn;
+    ui = p.im * rn;
+  }
+  if (swapped) {
+    ur = -ur;
+    ui = -ui;
+  }
   const T nr = phr * ur - phi * ui;
   phi = phr * ui + phi * ur;
   phr = nr;

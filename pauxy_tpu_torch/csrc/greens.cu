@@ -191,14 +191,21 @@ __global__ void __launch_bounds__(kGreensThreads)
     const cplx<T> p = a[k * ld + k];
     const T den = p.re * p.re + p.im * p.im;
     ldr += T(0.5) * pauxy::dlog(den);
-    const T rn = pauxy::drsqrt(den);
-    const T ur = p.re * rn;
-    const T ui = p.im * rn;
+    // A zero pivot leaves the phase as it is (log 0 = -inf in ldr): the
+    // unit p rsqrt(|p|^2) would be 0 * inf = nan.
+    T ur = T(1), ui = T(0);
+    if (den != T(0)) {
+      const T rn = pauxy::drsqrt(den);
+      ur = p.re * rn;
+      ui = p.im * rn;
+    }
     const T nr = ph_re * ur - ph_im * ui;
     ph_im = ph_re * ui + ph_im * ur;
     ph_re = nr;
-    const T ir = p.re / den;  // 1 / p
-    const T ii = -p.im / den;
+    // 1 / p, and 0 for a zero pivot: its column is zero from row k down,
+    // so the step eliminates nothing (S is singular, log|det| -inf).
+    const T ir = den != T(0) ? p.re / den : T(0);
+    const T ii = den != T(0) ? -p.im / den : T(0);
     // Each lane eliminates column k from its own rows with the pivot row
     // as it stands (rows above k too when S^-1 is wanted).
     for (int i = lane; i < n; i += G) {

@@ -1,8 +1,9 @@
 """Hubbard, Generic, UEG and PW_FFT local energies: walker-batched and
-host-side.
+host-side, for single- and multi-determinant trials.
 
 Counterpart of ``local_energy_hubbard``, ``local_energy_generic_opt``,
-``_exx``, ``local_energy_generic_cholesky_G``, the UEG gather kernels
+``_exx``, ``local_energy_generic_opt_multi``, ``local_energy_hubbard_ghf``,
+``local_energy_generic_cholesky_G``, the UEG gather kernels
 (``coulomb_greens_function_ueg``, ``exchange_greens_function_ueg``,
 ``local_energy_ueg``), the pseudo-spectral FFT energies
 (``fft_coulomb_terms``, ``_fft_spin_terms``, ``structure_factor_ueg``,
@@ -82,6 +83,51 @@ def _exx(rchol: torch.Tensor, ghalf: torch.Tensor,
     if not rchol.is_complex() and ghalf.is_complex():
         return exx_cuda.exx(rchol, ghalf.contiguous())
     return exx_cuda.exx_plain(rchol, ghalf)
+
+
+def local_energy_generic_opt_multi(trial, Ghalfa: torch.Tensor,
+                                   Ghalfb: torch.Tensor,
+                                   det_weights: torch.Tensor, ecore: float):
+    """(etot, e1b, e2b), each [w], of a Generic system with a
+    multi-determinant trial: :func:`local_energy_generic_opt` per
+    determinant (rchol_s [D, X, n, M], rh1_s [D, n, M], Ghalf_s
+    [w, D, n, M]), averaged with the weights det_weights [w, D]. The
+    per-determinant rchol is complex, so each exchange takes the einsum
+    route, chunked over the Cholesky axis (``exx_cuda.exx_plain``)."""
+    rca, rcb = trial.rchola, trial.rcholb
+    e1_d = (cr_einsum("dim,wdim->wd", trial.rh1a, Ghalfa)
+            + cr_einsum("dim,wdim->wd", trial.rh1b, Ghalfb))
+    x = (cr_einsum("dxim,wdim->wdx", rca, Ghalfa)
+         + cr_einsum("dxim,wdim->wdx", rcb, Ghalfb))
+    ecoul_d = torch.einsum("wdx,wdx->wd", x, x)
+    exx_d = torch.stack([_exx(rca[d], Ghalfa[:, d]) + _exx(rcb[d],
+                                                           Ghalfb[:, d])
+                         for d in range(rca.shape[0])], dim=1)
+    e2_d = 0.5 * (ecoul_d - exx_d)
+    e1b = torch.sum(det_weights * e1_d, dim=-1) + ecore
+    e2b = torch.sum(det_weights * e2_d, dim=-1)
+    return e1b + e2b, e1b, e2b
+
+
+def local_energy_hubbard_ghf(ham, Gi: torch.Tensor,
+                             det_weights: torch.Tensor):
+    """(etot, e1b, e2b), each [w], of the Hubbard model with a GHF trial
+    from the per-determinant Gi [w, D, 2M, 2M] and the normalised weights
+    det_weights [w, D]:
+      ke = sum_d w_d Tr(Gi_d blockdiag(T_up, T_dn)),
+      pe = U sum_d w_d sum_i (Guu_ii Gdd_ii - Gud_ii Gdu_ii)."""
+    t = ham.T.to(Gi.dtype)
+    m = t.shape[-1]
+    ke = (torch.einsum("wd,wdkl,kl->w", det_weights, Gi[:, :, :m, :m], t[0])
+          + torch.einsum("wd,wdkl,kl->w", det_weights, Gi[:, :, m:, m:],
+                         t[1]))
+    guu = torch.diagonal(Gi[:, :, :m, :m], dim1=-2, dim2=-1)
+    gdd = torch.diagonal(Gi[:, :, m:, m:], dim1=-2, dim2=-1)
+    gud = torch.diagonal(Gi[:, :, m:, :m], dim1=-2, dim2=-1)
+    gdu = torch.diagonal(Gi[:, :, :m, m:], dim1=-2, dim2=-1)
+    pe = ham.U * torch.einsum("wd,wdi->w", det_weights,
+                              guu * gdd - gud * gdu)
+    return ke + pe, ke, pe
 
 
 def local_energy_generic_cholesky_G(ham, Ga: torch.Tensor, Gb: torch.Tensor,

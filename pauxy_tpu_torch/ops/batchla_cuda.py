@@ -86,7 +86,9 @@ def inv_logdet_plain(s: torch.Tensor, want_inv: bool = True):
     the lowest row attaining the largest |a_ik|^2; with the inverse,
     in-place Gauss-Jordan (column k of the working matrix becomes column k
     of the inverse, the row swaps undone as a column permutation at the
-    end); without it, LU below the diagonal only. Real input stays real."""
+    end); without it, LU below the diagonal only. Real input stays real.
+    A zero pivot adds -inf to log|det|, leaves the phase unchanged and
+    eliminates nothing (its reciprocal is taken as 0)."""
     w, n, _ = s.shape
     cdtype = config.get_precision(s.dtype).cplx
     a = s.clone(memory_format=torch.contiguous_format)
@@ -102,9 +104,11 @@ def inv_logdet_plain(s: torch.Tensor, want_inv: bool = True):
         p = a[:, k, k]
         den = _mag2(p)
         ldr = ldr + 0.5 * torch.log(den)
-        unit = p * torch.rsqrt(den)
+        # A zero pivot keeps the phase (log 0 = -inf goes to ldr alone).
+        unit = torch.where(den == 0, torch.ones_like(p), p * torch.rsqrt(den))
         phase = phase * torch.where(piv != k, -unit, unit)
         pinv = p.conj() / den if p.is_complex() else 1.0 / p
+        pinv = torch.where(den == 0, torch.zeros_like(pinv), pinv)
         if want_inv:
             rowk = a[:, k] * pinv[:, None]
             rowk[:, k] = pinv

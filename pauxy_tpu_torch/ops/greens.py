@@ -23,6 +23,9 @@ class SpinGreens(NamedTuple):
     G: torch.Tensor | None  # [w, M, M] full Green's function
     Ghalf: torch.Tensor     # [w, n, M] half-rotated Green's function
     log_ovlp: torch.Tensor  # [w] complex log det(phi^T conj(psi))
+    # Multi-determinant trials: Ghalf is [w, D, n, M] per determinant, G
+    # the det-weighted one, and these the weights [w, D].
+    det_weights: torch.Tensor | None = None
 
 
 def overlap_matrix(phi: torch.Tensor, psi: torch.Tensor) -> torch.Tensor:

@@ -101,10 +101,15 @@ def uses_kernel(phi: torch.Tensor, want_gh: bool = True) -> bool:
 def greens_lanes_plain(psi: torch.Tensor, phi: torch.Tensor,
                        want_gh: bool = True):
     """Plain version: overlap_lanes + lanelinalg.gauss + a transpose (the
-    'xla' branch of ``pauxy_tpu/qmc/hubbard_fast._greens_lanes``)."""
-    if not want_gh:
-        return ll.slogdet(ll.overlap_lanes(psi, phi)), None
+    'xla' branch of ``pauxy_tpu/qmc/hubbard_fast._greens_lanes``). Both
+    modes eliminate S = phi^T conj(psi), as the kernel does: an exactly
+    singular S and its transpose give other phases to log 0. The log-det
+    only mode therefore differs from the 'xla' branch of
+    ``_log_overlap_lanes``, which eliminates S^T, in rounding and in
+    multiples of 2 pi in the imaginary part."""
     s = ll.overlap_lanes(psi, phi).transpose(0, 1)       # [n, n, W]
+    if not want_gh:
+        return ll.slogdet(s), None
     logdet, gh = ll.gauss(s, phi.transpose(0, 1))         # gh [n, M, W]
     return logdet, gh.transpose(0, 1)
 

@@ -41,12 +41,25 @@ def overlap_lanes(psi: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
     return matmul_left(psi.conj().T, phi)
 
 
+def cadd(*terms: torch.Tensor) -> torch.Tensor:
+    """Complex sum, real and imaginary parts added apart, left to right:
+    torch's complex add turns a -inf + 0j operand into -inf + nan j."""
+    re = terms[0].real
+    im = terms[0].imag
+    for t in terms[1:]:
+        re = re + t.real
+        im = im + t.imag
+    return torch.complex(re, im)
+
+
 def gauss(s: torch.Tensor, rhs: torch.Tensor | None = None):
     """Partial-pivot Gaussian elimination, unrolled over the static n.
 
     s [n, n, W]; rhs [n, k, W] or None. Returns (logdet [W] complex,
     x [n, k, W] or None) with s @ x = rhs. The pivot is the first row
-    attaining max |s_ik|; every swap adds i*pi to the log-determinant.
+    attaining max |s_ik|; every swap adds i*pi to the log-determinant, a
+    zero pivot -inf to its real part and nothing to its phase, and
+    eliminates nothing.
     """
     n = s.shape[0]
     w = s.shape[-1]
@@ -73,9 +86,10 @@ def gauss(s: torch.Tensor, rhs: torch.Tensor | None = None):
         rows = torch.cat([sel, swapped[1:]], dim=0)
         logdet = logdet + torch.where(piv > 0, ipi, zero)
         pivval = rows[0, k]                          # [W]
-        logdet = logdet + torch.log(pivval)
+        logdet = cadd(logdet, torch.log(pivval))          # log 0 = -inf + 0j
         if r > 1:
-            factors = rows[1:, k] / pivval           # [r-1, W]
+            # A zero pivot's column is zero below it: nothing to eliminate.
+            factors = torch.where(pivval == 0, zero, rows[1:, k] / pivval)
             rows = torch.cat(
                 [rows[0:1], rows[1:] - factors[:, None, :] * rows[0:1]], dim=0
             )

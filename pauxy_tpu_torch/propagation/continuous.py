@@ -10,9 +10,11 @@ step) and the batched steps
 ``propagate_phaseless`` with the hybrid weight update or, with
 ``hybrid=False``, the local-energy update; ``propagate_free`` for free
 projection. With a back-propagation buffer the phaseless step records its
-shifted fields and weight factors at ``bp_ix``. Not ported yet, each
-raising ``NotImplementedError``: the stochastic-RI one-body step and
-multi-determinant trials.
+shifted fields and weight factors at ``bp_ix``. The trial is a single
+determinant or a multi-determinant expansion (``models/multi_slater``:
+the Green's functions det-weighted, the overlap a log-sum-exp over the
+determinants). Not ported yet, raising ``NotImplementedError``: the
+stochastic-RI one-body step.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import NamedTuple
 import torch
 
 from pauxy_tpu_torch.estimators import mixed
+from pauxy_tpu_torch.models import ghf
+from pauxy_tpu_torch.models import multi_slater as msd
 from pauxy_tpu_torch.ops import greens
 
 
@@ -53,12 +57,14 @@ class Continuous:
         (tests); otherwise they come from ``generator``. ``bp_ix`` is the
         back-propagation buffer's slot for this step; ``ham`` is needed by
         the local-energy update (``hybrid=False``)."""
-        missing = {"stochastic_ri": self.stochastic_ri,
-                   "multi-determinant trials": not is_single_det(trial)}
-        if any(missing.values()):
+        if self.stochastic_ri:
             raise NotImplementedError(
                 "not ported yet for the continuous propagator: "
-                + ", ".join(k for k, v in missing.items() if v))
+                "stochastic_ri")
+        if isinstance(trial, ghf.GHFTrial):
+            raise NotImplementedError(
+                "the continuous propagator takes single- and "
+                "multi-determinant trials, not a GHF trial")
         if self.free_projection:
             return propagate_free(self, trial, state, generator, eshift, xi)
         return propagate_phaseless(self, trial, state, generator, eshift, xi,
@@ -66,7 +72,7 @@ class Continuous:
 
 
 def is_single_det(trial) -> bool:
-    return getattr(trial, "psia", None) is not None and trial.psia.dim() == 2
+    return not isinstance(trial, (msd.MultiSlaterTrial, ghf.GHFTrial))
 
 
 def _bound_hybrid(ehyb: torch.Tensor, eshift: float, ebound: float
@@ -79,14 +85,29 @@ def _bound_hybrid(ehyb: torch.Tensor, eshift: float, ebound: float
 
 
 def trial_greens(trial, phia, phib, want_g: bool = False):
-    """(ga, gb, log overlap) of a single-determinant trial; the full
-    Green's functions are formed only with ``want_g``."""
+    """(ga, gb, log overlap) of a single- or multi-determinant trial; the
+    full Green's functions are formed only with ``want_g``. For a
+    multi-determinant trial Ghalf is per determinant [w, D, n, M], G the
+    det-weighted one, ``det_weights`` [w, D] rides on both spins and the
+    whole log overlap on ga (gb's is 0)."""
+    if isinstance(trial, msd.MultiSlaterTrial):
+        md = msd.greens_function_multi_det(trial, phia, phib, want_g)
+        ga = greens.SpinGreens(
+            G=None if md.G is None else md.G[:, 0], Ghalf=md.Ghalfa,
+            log_ovlp=md.log_ovlp, det_weights=md.det_weights)
+        gb = greens.SpinGreens(
+            G=None if md.G is None else md.G[:, 1], Ghalf=md.Ghalfb,
+            log_ovlp=torch.zeros_like(md.log_ovlp),
+            det_weights=md.det_weights)
+        return ga, gb, md.log_ovlp
     ga = greens.greens_function(phia, trial.psia, want_g=want_g)
     gb = greens.greens_function(phib, trial.psib, want_g=want_g)
     return ga, gb, ga.log_ovlp + gb.log_ovlp
 
 
 def trial_log_overlap(trial, phia, phib) -> torch.Tensor:
+    if isinstance(trial, msd.MultiSlaterTrial):
+        return msd.log_overlap_multi_det(trial, phia, phib)
     return (greens.log_overlap(phia, trial.psia)
             + greens.log_overlap(phib, trial.psib))
 

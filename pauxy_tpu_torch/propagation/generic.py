@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from pauxy_tpu_torch import config
+from pauxy_tpu_torch.models import multi_slater as msd
 from pauxy_tpu_torch.ops import taylor_cuda
 from pauxy_tpu_torch.ops.contract import cr_einsum
 
@@ -87,13 +88,21 @@ class GenericContinuous(nn.Module):
 
     def force_bias(self, trial, ga, gb) -> torch.Tensor:
         """xbar = -sqrt(dt) (i vbias - mf_shift), vbias [w, X] from the
-        half-rotated Cholesky tensors of a single-determinant trial."""
-        if getattr(trial, "rchola", None) is None or ga.Ghalf.dim() != 3:
-            raise NotImplementedError(
-                "the Generic force bias is ported for single-determinant "
-                "trials with half-rotated Cholesky tensors only")
-        vbias = (cr_einsum("xim,wim->wx", trial.rchola, ga.Ghalf)
-                 + cr_einsum("xim,wim->wx", trial.rcholb, gb.Ghalf))
+        trial's half-rotated Cholesky tensors: per determinant and
+        det-weighted for a multi-determinant trial (vbias = sum_d w_d
+        tr(rchol_d Ghalf_d)); from the full G (sum_pq L_pq (Ga + Gb)_pq)
+        where there is no half rotation."""
+        rca = getattr(trial, "rchola", None)
+        if ga.Ghalf is None or rca is None:
+            vbias = cr_einsum("pqx,wpq->wx", self.chol, ga.G + gb.G)
+        elif isinstance(trial, msd.MultiSlaterTrial):
+            wd = ga.det_weights[..., None, None]          # [w, D, 1, 1]
+            vbias = (cr_einsum("dxim,wdim->wx", rca, wd * ga.Ghalf)
+                     + cr_einsum("dxim,wdim->wx", trial.rcholb,
+                                 wd * gb.Ghalf))
+        else:
+            vbias = (cr_einsum("xim,wim->wx", rca, ga.Ghalf)
+                     + cr_einsum("xim,wim->wx", trial.rcholb, gb.Ghalf))
         return -self.sqrt_dt * (1j * vbias - self.mf_shift)
 
     def apply_vhs(self, phia: torch.Tensor, phib: torch.Tensor,

@@ -20,8 +20,12 @@ records at ``bp_ix``. Besides the sweep: the whole-lattice
 ``two_body_mode='direct'`` update (dynamic force bias), free projection
 (fields 50/50, |aux_wfac| into the weight, its phase into the walker's) and
 ``kinetic_kspace`` (B_{T/2} diagonal in momentum space, by ``torch.fft``).
-Not ported yet, each raising ``NotImplementedError``: the GHF
-(multi-determinant) variants and a walker ``mesh``.
+A GHF trial (``models/ghf``) takes its own step, as in JAX: dense kinetic
+half-steps with the GHF overlap, and a site sweep batched over walkers and
+determinants (the joint two-row ratio of each determinant, then two
+sequential Sherman-Morrison updates of S_d^-1), a Python loop over sites
+of small batched operations with no kernel (JAX's is a ``lax.scan``). Not
+ported yet, raising ``NotImplementedError``: a walker ``mesh``.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ import torch
 from torch import nn
 
 from pauxy_tpu_torch import config
+from pauxy_tpu_torch.models import ghf
+from pauxy_tpu_torch.models import multi_slater as msd
 from pauxy_tpu_torch.ops import clinalg, greens, sweep_cuda
 
 SWEEP_KERNELS = ("scan", "kernel")
@@ -246,14 +252,18 @@ class Hirsch(nn.Module):
 
     def _propagate_constrained(self, trial, state, generator, eshift: float,
                                rs=None, bp_ix: int | None = None):
-        """Kinetic half, site sweep (or the direct update), kinetic half,
-        eshift growth; the fields go into the buffer at ``bp_ix``."""
-        state = self._kinetic_half_step(trial, state)
-        if self.two_body_mode == "direct":
-            state, fields = self._two_body_direct(trial, state, generator, rs)
+        """Kinetic half, site sweep (or the direct update; with a GHF trial
+        the GHF half-steps and sweep), kinetic half, eshift growth; the
+        fields go into the buffer at ``bp_ix``."""
+        if isinstance(trial, ghf.GHFTrial):
+            half, two_body = self._kinetic_half_step_ghf, self._site_sweep_ghf
+        elif self.two_body_mode == "direct":
+            half, two_body = self._kinetic_half_step, self._two_body_direct
         else:
-            state, fields = self._site_sweep(trial, state, generator, rs)
-        state = self._kinetic_half_step(trial, state)
+            half, two_body = self._kinetic_half_step, self._site_sweep
+        state = half(trial, state)
+        state, fields = two_body(trial, state, generator, rs)
+        state = half(trial, state)
         growth = math.exp(self.dt * float(np.real(eshift)))
         state = dataclasses.replace(state, weight=state.weight * growth)
         if state.configs is not None and bp_ix is not None:
@@ -288,17 +298,114 @@ class Hirsch(nn.Module):
                 state.phase.dtype),
             log_ovlp=log_new)
 
+    # ---- GHF trials -------------------------------------------------
+    def _kinetic_half_step_ghf(self, trial, state):
+        """Dense B_{T/2} phi and the constraint, with the GHF overlap."""
+        phia = torch.matmul(self.BT2[0], state.phia)
+        phib = torch.matmul(self.BT2[1], state.phib)
+        log_new = ghf.ghf_log_overlap(trial, phia, phib).to(
+            state.log_ovlp.dtype)
+        ratio = torch.exp(log_new - state.log_ovlp)
+        phase_ok = torch.angle(ratio).abs() < 0.5 * math.pi
+        weight = torch.where(phase_ok, state.weight * ratio.real,
+                             torch.zeros_like(state.weight))
+        return dataclasses.replace(state, phia=phia, phib=phib,
+                                   weight=weight, log_ovlp=log_new)
+
+    def _site_sweep_ghf(self, trial, state, generator=None, rs=None):
+        """Sequential single-site updates against a GHF trial, batched over
+        walkers and determinants. Per site i and determinant d: the joint
+        ratio of the two rows i (up) and i + M (down) of S_d for each
+        field, r = (1 + d_up Guu)(1 + d_dn Gdd) - d_up d_dn Gud Gdu; the
+        heat-bath choice from sum_d conj(c_d) r det S_d / <psi_T|phi>; the
+        rows scaled; S_d^-1 updated for the up row, then (with the updated
+        inverse) for the down row. Returns (state, fields [w, M])."""
+        rs = self._draws(state, generator, rs)
+        m = state.nbasis
+        na = trial.nup
+        delta = self.delta
+        cconj = trial.coeffs.conj()                       # [D]
+        tpsi = trial.psi.conj()                           # [D, 2M, ne]
+        s = ghf.ghf_overlap_matrices(trial, state.phia, state.phib)
+        logdets, binv = clinalg.inv_logdet(s)             # [w, D], S^-1
+        ref = torch.amax(logdets.real, dim=-1, keepdim=True)
+        ots = torch.exp(logdets - ref)                    # scale-free dets
+        ot = torch.einsum("d,wd->w", cconj, ots)
+        phia = state.phia.clone()
+        phib = state.phib.clone()
+        weight = state.weight
+        dlog = torch.zeros_like(state.log_ovlp)
+        zero = torch.zeros_like(dlog)
+        d_up, d_dn = delta[:, 0], delta[:, 1]             # [2] by field
+        fields = []
+        for i in range(m):
+            row_a = phia[:, i, :].clone()                 # [w, na]
+            row_b = phib[:, i, :].clone()
+            tup, tdn = tpsi[:, i], tpsi[:, i + m]         # [D, ne]
+            u_a = torch.einsum("we,wdek->wdk", row_a, binv[:, :, :na])
+            u_b = torch.einsum("we,wdek->wdk", row_b, binv[:, :, na:])
+            guu = torch.einsum("wdk,dk->wd", u_a, tup)
+            gdu = torch.einsum("wdk,dk->wd", u_a, tdn)
+            gud = torch.einsum("wdk,dk->wd", u_b, tup)
+            gdd = torch.einsum("wdk,dk->wd", u_b, tdn)
+            r_d = ((1 + d_up * guu[..., None]) * (1 + d_dn * gdd[..., None])
+                   - d_up * d_dn * (gud * gdu)[..., None])   # [w, D, 2]
+            rtot = torch.einsum("d,wdx,wd->wx", cconj, r_d, ots) / ot[:, None]
+            probs = 0.5 * rtot * self.aux_wfac[None, :]
+            pr = torch.clamp_min(probs.real, 0.0)
+            norm = pr.sum(-1)
+            alive = (norm > 0) & (weight.abs() > 0)
+            safe = torch.where(alive, norm, torch.ones_like(norm))
+            xi = (rs[i] >= pr[:, 0] / safe).long()
+            weight = torch.where(alive, weight * norm,
+                                 torch.zeros_like(weight))
+            chosen = torch.gather(rtot, 1, xi[:, None])[:, 0]
+            dlog = dlog + torch.where(alive, torch.log(chosen.to(dlog.dtype)),
+                                      zero)
+            da = torch.where(alive, delta[xi, 0], zero)
+            db = torch.where(alive, delta[xi, 1], zero)
+            chosen_rd = torch.gather(
+                r_d, 2, xi[:, None, None].expand(-1, r_d.shape[1], 1))[..., 0]
+            ots = torch.where(alive[:, None], ots * chosen_rd, ots)
+            ot = torch.einsum("d,wd->w", cconj, ots)
+            vta = row_a * da[:, None]
+            vtb = row_b * db[:, None]
+            phia[:, i, :] += vta
+            phib[:, i, :] += vtb
+            bu = torch.einsum("wdek,dk->wde", binv, tup)
+            denom1 = 1.0 + da[:, None] * guu
+            binv = binv - (bu[..., None]
+                           * (da[:, None, None] * u_a)[:, :, None, :]
+                           / denom1[:, :, None, None])
+            u_b2 = torch.einsum("we,wdek->wdk", row_b, binv[:, :, na:])
+            gdd2 = torch.einsum("wdk,dk->wd", u_b2, tdn)
+            bu2 = torch.einsum("wdek,dk->wde", binv, tdn)
+            denom2 = 1.0 + db[:, None] * gdd2
+            binv = binv - (bu2[..., None]
+                           * (db[:, None, None] * u_b2)[:, :, None, :]
+                           / denom2[:, :, None, None])
+            fields.append(xi.to(torch.int32))
+        return (dataclasses.replace(state, phia=phia, phib=phib,
+                                    weight=weight,
+                                    log_ovlp=state.log_ovlp + dlog),
+                torch.stack(fields, dim=1))
+
     def propagate(self, trial, state, generator, eshift: float, rs=None, *,
                   bp_ix: int | None = None, ham=None):
         """One step. ``rs`` injects the step's draws (tests): the sweep's
-        uniforms [M, w], the direct update's uniforms [w, M] or free
-        projection's field bits [w, M]; otherwise they come from
-        ``generator``. ``bp_ix`` is the back-propagation buffer's slot;
-        ``ham`` is unused (the continuous propagator's signature)."""
-        if getattr(trial, "psia", None) is None or trial.psia.dim() != 2:
+        uniforms [M, w] (also the GHF sweep's), the direct update's
+        uniforms [w, M] or free projection's field bits [w, M]; otherwise
+        they come from ``generator``. ``bp_ix`` is the back-propagation
+        buffer's slot; ``ham`` is unused (the continuous propagator's
+        signature). A GHF trial takes the GHF step whatever the options,
+        as in JAX."""
+        if isinstance(trial, ghf.GHFTrial):
+            return self._propagate_constrained(trial, state, generator,
+                                               eshift, rs, bp_ix)
+        if isinstance(trial, msd.MultiSlaterTrial):
             raise NotImplementedError(
-                "the discrete propagator is ported for single-determinant "
-                "trials only (no GHF)")
+                "the discrete propagator takes single-determinant and GHF "
+                "trials only")
         if self.free_projection:
             return self._propagate_free(trial, state, generator, eshift, rs)
         return self._propagate_constrained(trial, state, generator, eshift,

@@ -8,15 +8,18 @@ package's counterpart:
   hybrid phaseless);
 * ``run_block`` below, the generic [w, M, n] block, for everything else:
   the discrete-HS (Hirsch) propagator (constrained-path CPMC, the direct
-  update, free projection), the Hubbard, Generic, UEG (plane waves) and
-  PW_FFT continuous-HS propagators (phaseless with the hybrid or the
-  local-energy update, or free projection), with the back-propagated and
+  update, free projection; with a GHF trial its GHF sweep), the Hubbard,
+  Generic, UEG (plane waves) and PW_FFT continuous-HS propagators
+  (phaseless with the hybrid or the local-energy update, or free
+  projection; Hubbard and Generic also with a multi-determinant trial),
+  with the mixed estimator's density matrices and the back-propagated and
   ITCF estimators.
 
 Block boundaries touch the host for the output rows, the HDF5 push and the
-eshift update. Multi-determinant and GHF trials, the stochastic-RI
-one-body step, the mixed estimator's density matrices and a walker mesh
-raise ``NotImplementedError``.
+eshift update. The stochastic-RI one-body step and a walker mesh raise
+``NotImplementedError``; so do back propagation and the ITCF with a
+multi-determinant or GHF trial, and a GHF trial with the continuous
+propagator, as in JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ import torch
 from pauxy_tpu_torch import config
 from pauxy_tpu_torch.estimators import back_prop, mixed
 from pauxy_tpu_torch.estimators import itcf as itcf_mod
+from pauxy_tpu_torch.models import ghf
+from pauxy_tpu_torch.models import multi_slater as msd
 from pauxy_tpu_torch.propagation.continuous import Continuous, is_single_det
 from pauxy_tpu_torch.propagation.generic import make_generic_continuous
 from pauxy_tpu_torch.propagation.hirsch import Hirsch, make_hirsch
@@ -103,7 +108,8 @@ def _reset(state, old: str):
 def run_block(ham, trial, prop, state, generator, eshift: float,
               step0: int, *, nsteps: int, nstblz: int, npop_control: int,
               pop_method: str, target_weight: float, energy_eval_freq: int,
-              free_projection: bool = False, extras: Extras = Extras(),
+              free_projection: bool = False, calc_one_rdm: bool = False,
+              calc_two_rdm: str | None = None, extras: Extras = Extras(),
               noise: BlockNoise | None = None):
     """Advance ``state`` by one block of ``nsteps`` steps in the
     [w, M, n] layout, in the JAX step order
@@ -115,14 +121,16 @@ def run_block(ham, trial, prop, state, generator, eshift: float,
     ``step % energy_eval_freq == 0``; a back-propagation measurement when
     the buffer count ``(step - 1) % nhist + 1`` reaches a split point, and
     the history reset after the last split; the ITCF measurement and its
-    snapshot reset on ``step % nhist == 0``.
+    snapshot reset on ``step % nhist == 0``. With ``calc_one_rdm`` /
+    ``calc_two_rdm`` the mixed accumulator carries the density-matrix tail.
 
     Returns (state, mixed, bp, itcf): each accumulator [2, n] real, the
     block sums' real and imaginary parts (n = 0 for an estimator that is
     off). Draws come from ``generator`` unless ``noise`` is given
     (``noise.xi[i]`` is step i's propagator draw: the site sweep's
-    uniforms [M, w], the direct update's uniforms [w, M], discrete free
-    projection's field bits [w, M], or the continuous HS fields [w, X]).
+    uniforms [M, w] (the GHF sweep's too), the direct update's uniforms
+    [w, M], discrete free projection's field bits [w, M], or the
+    continuous HS fields [w, X]).
     """
     discrete = isinstance(prop, Hirsch)
     nhist = extras.nhist
@@ -159,7 +167,8 @@ def run_block(ham, trial, prop, state, generator, eshift: float,
                 generator=generator)
         accs.append(mixed.update(ham, trial, state,
                                  step % energy_eval_freq == 0,
-                                 free_projection))
+                                 free_projection, calc_one_rdm,
+                                 calc_two_rdm))
         if extras.nbp:
             buffcount = (step - 1) % nhist + 1
             for k, s in enumerate(extras.splits):
@@ -215,27 +224,36 @@ class AFQMC:
         self.hybrid = getattr(self.prop, "hybrid", self.hybrid)
         mixed_opts = eopts.get("mixed", {})
         self.energy_eval_freq = mixed_opts.get("energy_eval_freq", qmc.nsteps)
-        if (bool(mixed_opts.get("one_rdm", False))
-                or mixed_opts.get("two_rdm") is not None):
-            raise NotImplementedError(
-                "the mixed estimator's one_rdm / two_rdm are not ported yet")
+        # The mixed estimator's density matrices: the 1-RDM [2, M, M] and
+        # the UEG's structure factor [2, 2, nq].
+        self.calc_one_rdm = bool(mixed_opts.get("one_rdm", False))
+        self.calc_two_rdm = mixed_opts.get("two_rdm", None)
+        mixed.check_dms(self.ham, self.trial, self.free_projection,
+                        self.calc_one_rdm, self.calc_two_rdm)
+        dms_shapes = []
+        if self.calc_one_rdm:
+            dms_shapes.append(("one_rdm", (2, ham.nbasis, ham.nbasis)))
+        if self.calc_two_rdm is not None:
+            dms_shapes.append(("two_rdm", (2, 2, ham.nq)))
         bp_opts = eopts.get("back_propagation",
                             eopts.get("back_propagated"))
         itcf_opts = eopts.get("itcf")
         if (bp_opts is not None or itcf_opts is not None) and not \
                 is_single_det(self.trial):
             raise NotImplementedError(
-                "back propagation and the ITCF are single-determinant only")
+                "back propagation and the ITCF are single-determinant only "
+                "(no multi-determinant or GHF trial)")
         self.extras = self._extras(bp_opts, itcf_opts)
         self.use_fast_block = hubbard_fast.eligible(
             self.ham, self.trial, self.prop,
             free_projection=self.free_projection,
             pop_method=qmc.pop_control_method, nbp=self.extras.nbp,
-            nitcf=self.extras.nitcf, calc_one_rdm=False, calc_two_rdm=None,
+            nitcf=self.extras.nitcf, calc_one_rdm=self.calc_one_rdm,
+            calc_two_rdm=self.calc_two_rdm,
         )
         generic_prop = isinstance(self.prop, Hirsch) or (
             isinstance(self.prop, Continuous)
-            and not self.prop.stochastic_ri and is_single_det(self.trial))
+            and not self.prop.stochastic_ri)
         generic = (generic_prop
                    and qmc.pop_control_method in ("comb", "pair_branch"))
         if not (self.use_fast_block or generic):
@@ -243,10 +261,11 @@ class AFQMC:
                 "this configuration is not ported yet: the port runs Hubbard "
                 "(continuous or discrete HS), Generic (Cholesky "
                 "ab-initio), UEG and PW_FFT AFQMC with a single-determinant "
-                "trial, "
+                "trial, Hubbard and Generic with a multi-determinant one, "
+                "discrete Hubbard with a GHF one; "
                 "phaseless, local-energy or free-projection, comb or "
-                "pair_branch population control, the mixed energy "
-                "estimator, back propagation and the ITCF"
+                "pair_branch population control, the mixed estimator "
+                "with its density matrices, back propagation and the ITCF"
             )
 
         ex = self.extras
@@ -263,7 +282,8 @@ class AFQMC:
                                   metadata=self._metadata())
             output = H5EstimatorHelper(filename, "basic")
         self.reporter = mixed.MixedReporter(qmc.nsteps, output=output,
-                                            verbose=verbose)
+                                            verbose=verbose,
+                                            dms_shapes=dms_shapes)
         self.bp_reporter = self.itcf_reporter = None
         if ex.nbp:
             self.bp_reporter = back_prop.BPReporter(
@@ -335,11 +355,21 @@ class AFQMC:
 
     def _build_propagator(self, popts: dict) -> Continuous | Hirsch:
         hs = popts.get("hubbard_stratonovich", "continuous")
+        if isinstance(self.trial, ghf.GHFTrial) and "discrete" not in hs:
+            # As in JAX: a GHF trial pairs with the discrete propagator.
+            raise NotImplementedError(
+                "GHF trials require hubbard_stratonovich='discrete'")
         if self.ham.name not in ("Hubbard", "Generic", "UEG", "PW_FFT") or (
                 self.ham.name != "Hubbard" and "discrete" in hs):
             raise NotImplementedError(
                 f"no ported propagator for {self.ham.name!r} with {hs!r} HS"
             )
+        if isinstance(self.trial, msd.MultiSlaterTrial) and (
+                "discrete" in hs or self.ham.name not in ("Hubbard",
+                                                          "Generic")):
+            raise NotImplementedError(
+                "multi-determinant trials run with the continuous Hubbard "
+                "and Generic propagators only")
         if "discrete" in hs:
             return make_hirsch(
                 self.ham, self.trial, self.qmc.dt,
@@ -354,9 +384,9 @@ class AFQMC:
                     else "direct"),
                 kinetic_kspace=popts.get("kinetic_kspace", False),
                 mesh=popts.get("mesh"),
-                device=self.device, dtype=self.trial.psia.dtype,
+                device=self.device, dtype=self.trial.inita.dtype,
             )
-        dev = dict(device=self.device, dtype=self.trial.psia.dtype)
+        dev = dict(device=self.device, dtype=self.trial.inita.dtype)
         if self.ham.name == "Generic":
             inner = make_generic_continuous(
                 self.ham, self.trial, self.qmc.dt,
@@ -372,7 +402,7 @@ class AFQMC:
             inner = make_hubbard_continuous(
                 self.ham, self.trial, self.qmc.dt,
                 charge_decomposition=popts.get("charge_decomposition", True),
-                device=self.device, dtype=self.trial.psia.dtype,
+                device=self.device, dtype=self.trial.inita.dtype,
             )
         return Continuous(
             inner=inner,
@@ -427,7 +457,8 @@ class AFQMC:
             self.state, acc, bp_acc, itcf_acc = run_block(
                 self.ham, self.trial, self.prop, self.state, self.generator,
                 self.eshift, self.step, free_projection=self.free_projection,
-                extras=self.extras, **kw)
+                calc_one_rdm=self.calc_one_rdm,
+                calc_two_rdm=self.calc_two_rdm, extras=self.extras, **kw)
         acc = acc.cpu().numpy()
         self.block_seconds.append(time.perf_counter() - t0)
         self.step += self.qmc.nsteps

@@ -23,7 +23,8 @@ from pauxy_tpu_torch import config
 from pauxy_tpu_torch.estimators import mixed
 from pauxy_tpu_torch.ops import greens_cuda
 from pauxy_tpu_torch.ops import lanelinalg as ll
-from pauxy_tpu_torch.propagation.continuous import Continuous, _bound_hybrid
+from pauxy_tpu_torch.propagation.continuous import (Continuous, _bound_hybrid,
+                                                    is_single_det)
 from pauxy_tpu_torch.propagation.hubbard import HubbardContinuous
 from pauxy_tpu_torch.walkers import pop_control as pc
 
@@ -51,8 +52,7 @@ def eligible(ham, trial, prop, *, free_projection, nbp, nitcf,
         and not prop.stochastic_ri
         and not free_projection
         and not (nbp or nitcf or calc_one_rdm or calc_two_rdm)
-        and getattr(trial, "psia", None) is not None
-        and trial.psia.dim() == 2
+        and is_single_det(trial)
         and pop_method in ("comb", "pair_branch")
     )
 

@@ -13,7 +13,9 @@ import torch
 
 from pauxy_tpu_torch import config
 from pauxy_tpu_torch.models.generic import Generic
+from pauxy_tpu_torch.models.ghf import GHFTrial
 from pauxy_tpu_torch.models.hubbard import Hubbard, band_energies
+from pauxy_tpu_torch.models.multi_slater import MultiSlaterTrial
 from pauxy_tpu_torch.models.thermal_trial import OneBodyTrial
 from pauxy_tpu_torch.models.trial import SingleDetTrial, trial_density_matrix
 from pauxy_tpu_torch.models.pw_fft import PWFFT
@@ -74,6 +76,31 @@ def trial(psia, psib, etrial: float, *, name: str = "single_det",
     return SingleDetTrial(_t(psia, device), _t(psib, device),
                           G_host=trial_density_matrix(psia, psib),
                           etrial=etrial, name=name, **tensors)
+
+
+def multi_slater_trial(psia, psib, coeffs, inita, initb, *, G_host,
+                       etrial: float, device=None,
+                       **generic) -> MultiSlaterTrial:
+    """Multi-determinant trial from the JAX one's psia [D, M, na], psib
+    [D, M, nb], coeffs [D], initial walker inita / initb and host density
+    matrix G_host [2, M, M]; for a Generic system also its per-determinant
+    ``rchola``, ``rcholb``, ``rh1a``, ``rh1b`` (None entries skipped)."""
+    device = config.resolve_device(device)
+    tensors = {k: _t(v, device) for k, v in generic.items()
+               if v is not None}
+    return MultiSlaterTrial(_t(psia, device), _t(psib, device),
+                            _t(coeffs, device), _t(inita, device),
+                            _t(initb, device), G_host=np.asarray(G_host),
+                            etrial=etrial, **tensors)
+
+
+def ghf_trial(psi, coeffs, inita, initb, *, etrial: float,
+              device=None) -> GHFTrial:
+    """GHF trial from the JAX one's psi [D, 2M, ne], coeffs [D] and
+    initial block-diagonal walker inita [M, nup] / initb [M, ndown]."""
+    device = config.resolve_device(device)
+    return GHFTrial(_t(psi, device), _t(coeffs, device), _t(inita, device),
+                    _t(initb, device), etrial=etrial)
 
 
 def generic_continuous(BH1, mf_shift, chol, *, dt: float, exp_order: int = 6,

@@ -1,10 +1,11 @@
 """Struct-of-arrays walker state.
 
-Counterpart of ``pauxy_tpu/walkers/state.py`` for single-determinant
-trials: the whole population is one dataclass of tensors with a leading
-walker axis. The back-propagation / ITCF buffers (the auxiliary-field
-history and the historic wavefunctions) are optional and ride along as
-[w, ...] fields, so population control moves them with their walkers.
+Counterpart of ``pauxy_tpu/walkers/state.py``: the whole population is one
+dataclass of tensors with a leading walker axis, whatever the trial (a
+multi-determinant or GHF trial changes only the overlaps). The
+back-propagation / ITCF buffers (the auxiliary-field history and the
+historic wavefunctions) are optional and ride along as [w, ...] fields, so
+population control moves them with their walkers.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import dataclasses
 import torch
 
 from pauxy_tpu_torch import config
+from pauxy_tpu_torch.models import ghf
+from pauxy_tpu_torch.models import multi_slater as msd
 from pauxy_tpu_torch.ops import greens
 
 
@@ -55,7 +58,8 @@ def init_walkers(trial, nwalkers: int, total_weight: float | None = None,
 
     ``total_weight`` seeds the 10% weight cap before the first population
     control (the target weight by default). The log-overlaps go through
-    ``clinalg.slogdet``: kernel B on the card. With ``nprop_tot`` the
+    ``clinalg.slogdet``: kernel B on the card; a multi-determinant or GHF
+    trial's are its log-sum-exp over determinants. With ``nprop_tot`` the
     back-propagation buffers are added (fields zero, factors one, the
     historic wavefunction the initial one), with ``itcf`` also the ITCF
     snapshot.
@@ -66,8 +70,13 @@ def init_walkers(trial, nwalkers: int, total_weight: float | None = None,
     cdtype = inita.dtype
     rdtype = config.real_dtype(cdtype)
     dev = inita.device
-    log_o = (greens.log_overlap(phia, trial.psia)
-             + greens.log_overlap(phib, trial.psib))
+    if isinstance(trial, ghf.GHFTrial):
+        log_o = ghf.ghf_log_overlap(trial, phia, phib)
+    elif isinstance(trial, msd.MultiSlaterTrial):
+        log_o = msd.log_overlap_multi_det(trial, phia, phib)
+    else:
+        log_o = (greens.log_overlap(phia, trial.psia)
+                 + greens.log_overlap(phib, trial.psib))
     if total_weight is None:
         total_weight = float(nwalkers)
     extras = {}

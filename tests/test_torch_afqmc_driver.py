@@ -96,7 +96,6 @@ def test_no_file_without_filename(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("popts,eopts", [
-    (None, {"mixed": {"one_rdm": True}}),
     (None, {"mixed": {"two_rdm": "structure_factor"}}),
     (None, {"back_propagation": {"tau_bp": 0.05,
                                  "two_rdm": "structure_factor"}}),
@@ -116,11 +115,14 @@ def test_unported_configurations_raise(popts, eopts):
     ({"free_projection": True}, None),
     ({"hybrid": False}, None),
     (None, {"back_propagation": {"tau_bp": 0.05}}),
+    (None, {"mixed": {"one_rdm": True}}),
 ])
 def test_formerly_unported_configurations_run(popts, eopts):
     """The configurations of earlier slices' refusals now run (their
-    trajectories are held against JAX in test_torch_run_modes.py and
-    test_torch_back_prop.py)."""
+    trajectories are held against JAX in test_torch_run_modes.py,
+    test_torch_back_prop.py and test_torch_mixed_rdm.py); with the mixed
+    1-RDM the continuous Hubbard run takes the generic block, as in
+    JAX."""
     ham = make_hubbard(2, 2, U=4.0, nx=2, ny=2, **CPU)
     af = AFQMC(ham, free_electron_trial(ham, **CPU),
                QMCOpts(nwalkers=4, dt=0.01, nsteps=5, nblocks=2, nstblz=5),
@@ -128,7 +130,9 @@ def test_formerly_unported_configurations_run(popts, eopts):
                device="cpu")
     rows = af.run()
     assert rows.shape == (2, 11) and np.isfinite(rows).all()
-    if eopts is not None:
+    if eopts is not None and "mixed" in eopts:
+        assert not af.use_fast_block
+    if eopts is not None and "back_propagation" in eopts:
         bp = af.bp_reporter.rows
         assert len(bp) == 2 and np.isfinite(bp[-1]["energies_5"]).all()
 

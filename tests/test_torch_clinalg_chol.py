@@ -18,7 +18,13 @@ inverse and solve, and kernel B on real input, against the JAX package.
   steps, the forward substitution fused into the Cholesky, row i holding
   X[i, :k] beside its trailing row), against chol_inv_lanes_plain in
   float64 at 1e-12 of the scale, on both of the kernel's routes and their
-  edges; the strict upper triangle of S is never read.
+  edges; the strict upper triangle of S is never read;
+* exactly singular matrices (``chip_smoke.ZERO_PIVOT_CASES``): every
+  log-det route of the port (clinalg.slogdet, kernel B's plain version in
+  both modes, the augmented Gauss-Jordan, kernel A's plain version)
+  gives log|det| = -inf and JAX's CPU slogdet's phase (mod 2 pi) where
+  that is finite, -inf with a finite phase where JAX's is nan (a zero
+  pivot before the last); a zero pivot eliminates nothing.
 """
 
 import jax.numpy as jnp
@@ -28,8 +34,9 @@ import torch
 
 from pauxy_tpu.ops import batchla_pallas as jbp
 from pauxy_tpu.ops import clinalg as jcl
-from chip_smoke import pivot_cases
-from pauxy_tpu_torch.ops import batchla_cuda, clinalg
+from chip_smoke import ZERO_PIVOT_CASES, pivot_cases
+from pauxy_tpu_torch.ops import batchla_cuda, clinalg, greens_cuda
+from pauxy_tpu_torch.ops import lanelinalg
 
 torch.set_num_threads(1)
 
@@ -357,3 +364,42 @@ def test_chol_mirror_reads_only_the_lower_triangle():
         ld, linv = fn(s)
         ld_n, linv_n = fn(poisoned)
         assert torch.equal(ld, ld_n) and torch.equal(linv, linv_n)
+
+
+@pytest.mark.parametrize("case,dtype", [
+    (c[0], dtype) for c in ZERO_PIVOT_CASES
+    for dtype in (torch.complex128, torch.complex64, torch.float64)
+    if dtype.is_complex or not np.iscomplexobj(np.array(c[1]))])
+def test_zero_pivot_log_det_matches_jax(case, dtype):
+    _, m, arg, jax_finite = next(c for c in ZERO_PIVOT_CASES
+                                 if c[0] == case)
+    m = np.array(m, dtype=complex)
+    if not dtype.is_complex:
+        m = m.real
+    s = torch.from_numpy(m[None].copy()).to(dtype)
+    n = m.shape[-1]
+    routes = {
+        "clinalg": clinalg.slogdet(s),
+        "inv_logdet": clinalg.inv_logdet(s)[0],
+        "plain_lu": batchla_cuda.inv_logdet_plain(s, False)[0],
+        "plain_gj": batchla_cuda.inv_logdet_plain(s, True)[0],
+        "lanes_gj": batchla_cuda.inv_logdet_lanes_plain(s, True)[0],
+        "lanes_lu": lanelinalg.slogdet(lanelinalg.to_lanes(s)),
+    }
+    if dtype.is_complex:
+        # Kernel A's plain version with S = phi^T conj(psi) = s.
+        psi = torch.eye(4, n, dtype=dtype)
+        phi = torch.zeros(4, n, 1, dtype=dtype)
+        phi[:n] = s.permute(2, 1, 0)
+        for want_gh in (True, False):
+            routes[f"greens_{want_gh}"] = greens_cuda.greens_lanes_plain(
+                psi, phi, want_gh)[0]
+    want = np.asarray(jcl.slogdet(jnp.asarray(m[None])))[0]
+    assert (np.isneginf(want.real) and np.isfinite(want.imag)) == jax_finite
+    for name, ld in routes.items():
+        ld = complex(ld.numpy()[0])
+        assert np.isneginf(ld.real), (name, ld)
+        assert np.isfinite(ld.imag), (name, ld)
+        target = want.imag if jax_finite else arg
+        assert abs(np.angle(np.exp(1j * (ld.imag - target)))) < 1e-6, (
+            name, ld, want)

@@ -1371,3 +1371,109 @@ def test_cpqr_on_masked_input_matches_plain(dtype, dead_rows):
     dld = (ld_k - ld_h).numpy()
     assert np.abs(dld.real).max() <= tol * m
     assert phase_diff(dld.imag).max() <= tol * m
+
+
+@pytest.mark.cuda
+def test_zero_pivot_log_dets_on_card():
+    """Kernels A and B on exactly singular matrices: log|det| -inf with
+    JAX's phase where JAX's is finite (``chip_smoke.check_zero_pivot``,
+    phase 3's check), and a zero pivot eliminating nothing."""
+    need_cuda()
+    from chip_smoke import check_zero_pivot
+
+    assert "singular" in check_zero_pivot(batchla_cuda, greens_cuda)
+
+
+def _multi_det_af(case, device):
+    """A 16-walker complex128 run of the case: NOMSD / PHMSD Generic, MSD
+    Hubbard (continuous), GHF Hubbard (discrete), the mixed 1-RDM on
+    Hubbard and the UEG's structure factor."""
+    from chip_smoke import rotated_msd_psi, spin_flip_psi
+    from pauxy_tpu_torch.models import (free_electron_trial, make_generic,
+                                        make_ghf_trial, make_hubbard,
+                                        multi_slater_trial, phmsd_trial,
+                                        rhf_identity_trial)
+    from pauxy_tpu_torch.models.multi_slater import recompute_ci_coeffs
+    from pauxy_tpu_torch.models.ueg import make_ueg
+    from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
+    from pauxy_tpu_torch.utils.testing import generate_hamiltonian
+
+    kw = dict(device=device, dtype="double")
+    popts, mixed_opts = None, {"energy_eval_freq": 1}
+    if case in ("nomsd_generic", "phmsd_generic"):
+        h1e, chol, enuc, _ = generate_hamiltonian(8, (2, 2), seed=3)
+        ham = make_generic((2, 2), h1e, chol, enuc, **kw)
+        popts = {"taylor_impl": "pallas"}
+        if case == "nomsd_generic":
+            psi, coeffs = rotated_msd_psi(8, 2, 2, 4, seed=5)
+            trial = multi_slater_trial(ham, psi, coeffs, **kw)
+        else:
+            occ = [(0, 1), (0, 2), (1, 2), (0, 3)]
+            occa = [o for o in occ for _ in occ]
+            occb = [o for _ in occ for o in occ]
+            coeffs, _ = recompute_ci_coeffs(
+                make_generic((2, 2), h1e, chol, enuc, device="cpu",
+                             dtype="double"), occa=occa, occb=occb)
+            trial = phmsd_trial(ham, coeffs, occa, occb, **kw)
+    elif case == "sk_ueg":
+        ham = make_ueg(2, 2, rs=1.0, ecut=1.0, **kw)
+        trial = rhf_identity_trial(ham, **kw)
+        mixed_opts.update(one_rdm=True, two_rdm="structure_factor")
+    else:
+        ham = make_hubbard(3, 3, U=4.0, nx=3, ny=3, **kw)
+        fe = free_electron_trial(ham, **kw)
+        base = torch.cat([fe.psia, fe.psib], dim=1).cpu().numpy()
+        if case == "msd_hubbard":
+            flip = np.concatenate([base[:, 3:], base[:, :3]], axis=1)
+            trial = multi_slater_trial(
+                ham, np.stack([base, flip + 0.05]), np.array([0.9, 0.1]),
+                **kw)
+        elif case == "ghf":
+            trial = make_ghf_trial(ham, spin_flip_psi(base[:, :3],
+                                                      base[:, 3:]),
+                                   np.array([0.8, 0.2]),
+                                   init=(base[:, :3], base[:, 3:]), **kw)
+            popts = {"hubbard_stratonovich": "discrete"}
+        else:
+            trial = fe
+            mixed_opts["one_rdm"] = True
+    return AFQMC(ham, trial, QMCOpts(nwalkers=16, dt=0.01, nsteps=10,
+                                     nblocks=2, nstblz=5, npop_control=1),
+                 propagator_options=popts,
+                 estimator_options={"mixed": mixed_opts}, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nomsd_generic", "phmsd_generic",
+                                  "msd_hubbard", "ghf", "rdm_hubbard",
+                                  "sk_ueg"])
+def test_multi_det_and_rdm_blocks_on_card_match_cpu(case):
+    """Two blocks of each of this slice's paths on the card (kernels) and
+    on the CPU (plain versions) with the same injected draws, complex128:
+    the mixed sums (with their density-matrix tails) at rtol 1e-8, atol
+    1e-10; kernel B launched (and the Taylor kernel on the
+    Generic paths)."""
+    need_cuda()
+    from chip_smoke import extras_blocks
+    from pauxy_tpu_torch.qmc.afqmc import run_block
+    from pauxy_tpu_torch.qmc.hubbard_fast import BlockNoise
+
+    rng = np.random.default_rng(13)
+    out = {}
+    for device in ("cuda", "cpu"):
+        af = _multi_det_af(case, device)
+        if case == "ghf":
+            xi = rng.uniform(size=(20, af.ham.nbasis, 16))
+        else:
+            xi = rng.normal(size=(20, 16, af.ham.nfields))
+        pop = rng.uniform(size=(20, 1))
+        rng = np.random.default_rng(13)
+        before = (batchla_cuda.launches, taylor_cuda.launches)
+        blocks = extras_blocks(af, xi, pop, 2, run_block, BlockNoise)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert batchla_cuda.launches > before[0]
+            assert (taylor_cuda.launches > before[1]) == ("generic" in case)
+        out[device] = [b[0] for b in blocks]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-10)
