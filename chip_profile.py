@@ -44,7 +44,18 @@ transposed trace) come with their synchronised wall time as
 ``exx_wall_ms``;
 and the GHF path of its phase 27 (``ghf``: the 4x4 (7, 7) discrete
 lattice with the D = 2 GHF trial, 1024 walkers), whose site sweeps'
-synchronised wall time comes as ``sweep_wall_ms``. For each it runs
+synchronised wall time comes as ``sweep_wall_ms``; the Hubbard-Holstein
+paths of its phase 28 (``hh``: the 4x4 (7, 7) lattice, U=4, w0=1,
+lambda=0.25, the coherent-state trial, 1024 walkers, dt=0.005,
+re-orthogonalisation and population control every 5 steps, the energy
+every 2 steps; ``hh_mc``: the same with the translation-symmetrised
+multi-coherent trial, P = 16), whose site sweeps' synchronised wall time
+comes as ``sweep_wall_ms``; and the Generic energy variants of its phase
+30 (``generic_variants``: the bench shape with the exact-ERI, PNO (1e-13)
+and stochastic-RI (20 probes) energies, and taylor_impl="xla_3m"; paths
+``generic_exact_eri``, ``generic_pno``, ``generic_stochastic_ri``,
+``generic_xla_3m``), whose energy evaluations' synchronised wall time
+comes as ``energy_wall_ms``. For each it runs
 one warm-up block, then one block under
 torch.profiler (CPU and CUDA activity), and prints the block's wall time,
 the summed device time of its kernels, the device's idle share (1 - device
@@ -57,7 +68,7 @@ by device time. The card's
 name and power limit (nvidia-smi) come first. --paths profiles only the
 named paths (continuous, discrete, bp_discrete, generic, generic_exx,
 thermal_ueg, thermal_hubbard, thermal_ueg_lowrank, thermal_discrete, ueg,
-pw_fft, msd_generic, ghf).
+pw_fft, msd_generic, ghf, hh, hh_mc, generic_variants).
 With --trace the Chrome traces are written to PREFIX.<path>.json. Needs
 the card; there is no CPU fallback.
 """
@@ -287,6 +298,67 @@ def main() -> None:
         finally:
             Hirsch._site_sweep_ghf = old
         del ham, trial, af
+    for name in ("hh", "hh_mc"):
+        if not wanted(name):
+            continue
+        from pauxy_tpu_torch.models.hubbard_holstein import (
+            coherent_state_trial, make_hubbard_holstein)
+        from pauxy_tpu_torch.models.multi_coherent import (
+            multi_coherent_trial)
+        from pauxy_tpu_torch.propagation.hirsch import Hirsch
+        from pauxy_tpu_torch.propagation.hirsch_dmc import HirschDMC
+
+        ham = make_hubbard_holstein(7, 7, U=4.0, nx=4, ny=4, w0=1.0,
+                                    lmbda=0.25, device="cuda",
+                                    dtype="single")
+        trial = (multi_coherent_trial if name == "hh_mc"
+                 else coherent_state_trial)(ham, device="cuda",
+                                            dtype="single")
+        qmc = QMCOpts(nwalkers=1024, dt=0.005, nsteps=10, nblocks=2,
+                      nstblz=5, npop_control=5, rng_seed=8)
+        af = AFQMC(ham, trial, qmc,
+                   estimator_options={"mixed": {"energy_eval_freq": 2}},
+                   device="cuda")
+        owner, fname = ((HirschDMC, "_site_sweep_mc") if name == "hh_mc"
+                        else (Hirsch, "_site_sweep"))
+        sweep_s = []
+        af.run_block()
+        old = timed(owner, fname, sweep_s)
+        try:
+            profile_block(af, name, args.trace, qmc.nsteps, warmup=0,
+                          extra=lambda: {"sweep_wall_ms": 1e3 * sum(sweep_s),
+                                         "sweeps": len(sweep_s)})
+        finally:
+            setattr(owner, fname, old)
+        del ham, trial, af
+    if wanted("generic_variants"):
+        from pauxy_tpu_torch.estimators import mixed
+
+        qmc = QMCOpts(nwalkers=1024, dt=0.005, nsteps=10, nblocks=2,
+                      nstblz=5, npop_control=1, rng_seed=8)
+        for name, flags, popts in (
+                ("exact_eri", {"exact_eri": True}, {"taylor_impl": "pallas"}),
+                ("pno", {"pno": True, "thresh_pno": 1e-13},
+                 {"taylor_impl": "pallas"}),
+                ("stochastic_ri", {"stochastic_ri": True, "nsamples": 20},
+                 {"taylor_impl": "pallas"}),
+                ("xla_3m", {}, {"taylor_impl": "xla_3m"})):
+            ham = generic_model(128, 512, 16, lambda *a, **kw: make_generic(
+                *a, **flags, **kw))
+            trial = rhf_identity_trial(ham, device="cuda", dtype="single")
+            af = AFQMC(ham, trial, qmc, propagator_options=popts,
+                       estimator_options=eopts, device="cuda")
+            energy_s = []
+            af.run_block()
+            old = timed(mixed, "_energies", energy_s)
+            try:
+                profile_block(af, f"generic_{name}", args.trace, qmc.nsteps,
+                              warmup=0, extra=lambda: {
+                                  "energy_wall_ms": 1e3 * sum(energy_s),
+                                  "energies": len(energy_s)})
+            finally:
+                mixed._energies = old
+            del ham, trial, af
     if wanted("generic_exx"):
         ham = generic_model(228, 1024, 42, make_generic)
         trial = rhf_identity_trial(ham, device="cuda", dtype="single")

@@ -8,7 +8,9 @@ non-zero and prints no result line:
   2. build the CUDA kernels of pauxy_tpu_torch/csrc from this checkout, one
      nvcc per source, all at once;
   3. each kernel against its plain PyTorch version on the same card tensors,
-     at the shapes the main paths and the larger lattices give it, and at
+     at the shapes the main paths and the larger lattices give it (the
+     sweep kernel also at the Hubbard-Holstein anchors' (M, na, nb) =
+     (1, 1, 1), (3, 1, 1), (4, 2, 2), W in {1, 37, 200}), and at
      each kernel's cap (kernel A, kernel B, Taylor, cpqr; one past the cap
      takes the plain route by shape, without a launch), the bf16 Taylor
      kernel within 1e-3 of max|out| at (M, C) in {(33, 14), (128, 32),
@@ -190,7 +192,34 @@ non-zero and prints no result line:
      run (sweep kernel) with the same uniforms, block ETotal within rtol
      5e-4 (tests/test_ghf.py:207-231); the discrete golden through the
      D = 1 GHF trial (40 walkers, 100 blocks), |diff| < max(4 se, 0.05);
-     16 walkers card vs host within 1e-4.
+     16 walkers card vs host within 1e-4;
+ 28. Hubbard-Holstein at full width: 4x4 periodic (7, 7), U=4, w0=1,
+     lambda=0.25 (g = 1), complex64, 1024 walkers, dt=0.005,
+     re-orthogonalisation and population control every 5 steps, the
+     energy every 2 steps, a warm-up block and a timed one of 10 steps:
+     the coherent-state trial (the sweep kernel's route) and the
+     translation-symmetrised multi-coherent trial (P = 16, the Python site
+     loop), finite rows, the launches of ``hh_schedule``, walker-steps/s;
+     a Lang-Firsov block (U_eff tables); 16 walkers, 2 blocks with
+     injected draws and phonon start (coherent, multi-coherent,
+     symmetric_trotter), card (complex64) vs host (complex128) within
+     1e-4 of the scale;
+ 29. the Hubbard-Holstein anchors of tests/test_hubbard_holstein.py in
+     complex64 on the card: the single-site polaron E = U - 4 g^2 / w0
+     within 0.05 (plain and symmetric_trotter), the 3-site multi-coherent
+     polaron within 0.2 of ci.simple_fci_bose_fermi, g = 0 on the 4-site
+     chain within 0.3 of the Hubbard FCI, a finite Lang-Firsov run with
+     positive weights;
+ 30. the Generic energy variants at phase 8's bench shape, 1024 walkers,
+     a warm-up block and a timed one: exact ERIs, PNO (thresh 1e-13),
+     stochastic RI (20 probes, with and without the control variate), the
+     sketched one-body step (S = 2048) and taylor_impl="xla_3m": finite
+     rows, phase 8's launch schedule (no Taylor kernel with xla_3m),
+     walker-steps/s; on one population the exact-ERI and PNO energies
+     within 1e-4 relative of the fast path's, stochastic RI's mean over 64
+     probe sets within 4 se of the exact mean; the golden Generic system,
+     16 walkers, 2 blocks with injected draws (fields, sketches, probes),
+     card vs host within 1e-4 of the scale for each.
 Phase 3 also holds the cpqr kernel on the low-rank stack's masked input
 (``check_cpqr_masked``) and kernels A and B on exactly singular matrices
 (``check_zero_pivot``: log|det| -inf, JAX's phase where JAX's is finite).
@@ -1145,37 +1174,47 @@ def sweep_inputs(rng, m, na, nb, w, dtype):
     return [torch.from_numpy(a).to("cuda", dtype) for a in args]
 
 
+# (M, na, nb) of the sweep kernel's check at W in {1, 37, 1024, 1031}; the
+# Hubbard-Holstein anchors' small lattices (the single-site polaron, the
+# 3-site ring, the 4-site chain) at W in {1, 37, 200}.
+SWEEP_SHAPES = (((9, 3, 3), (16, 7, 7), (9, 4, 2), (36, 18, 18),
+                 (36, 17, 5), (36, 32, 32)), (1, 37, 1024, 1031))
+SWEEP_SHAPES_HH = (((1, 1, 1), (3, 1, 1), (4, 2, 2)), (1, 37, 200))
+
+
 def check_sweep(sweep_cuda, rng) -> float:
     """The sweep kernel against its plain version, up to na = nb = 32
-    (one warp a walker) and at na != nb: outputs within the tolerance,
-    fields identical; returns the largest absolute difference
-    at the main-path shape (float32, (16, 7, 7), W=1024)."""
+    (one warp a walker), at na != nb and at the Hubbard-Holstein anchors'
+    shapes: outputs within the tolerance, fields identical; returns the
+    largest absolute difference at the main-path shape (float32,
+    (16, 7, 7), W=1024)."""
     main_err = None
     for dtype in (torch.float32, torch.float64):
         tol = TOL[dtype]
-        for m, na, nb in ((9, 3, 3), (16, 7, 7), (9, 4, 2), (36, 18, 18),
-                          (36, 17, 5), (36, 32, 32)):
-            for w in (1, 37, 1024, 1031):
-                args = sweep_inputs(rng, m, na, nb, w, dtype)
-                out_k = sweep_cuda.hirsch_sweep_real(*args)
-                out_p = sweep_cuda.hirsch_sweep_real_plain(*args)
-                torch.cuda.synchronize()
-                err = 0.0
-                for k, p in zip(out_k[:4], out_p[:4]):
-                    d = float((k - p).abs().max())
-                    err = max(err, d)
-                    if d > tol * max(float(p.abs().max()), 1.0):
-                        raise AssertionError(
-                            f"hirsch_sweep disagrees at {dtype} "
-                            f"(M,na,nb)=({m},{na},{nb}) W={w}: {d:.3e}")
-                if not torch.equal(out_k[4], out_p[4]):
-                    nd = int((out_k[4] != out_p[4]).sum())
+        for m, na, nb, w in ((m, na, nb, w)
+                             for shapes, ws in (SWEEP_SHAPES,
+                                                SWEEP_SHAPES_HH)
+                             for m, na, nb in shapes for w in ws):
+            args = sweep_inputs(rng, m, na, nb, w, dtype)
+            out_k = sweep_cuda.hirsch_sweep_real(*args)
+            out_p = sweep_cuda.hirsch_sweep_real_plain(*args)
+            torch.cuda.synchronize()
+            err = 0.0
+            for k, p in zip(out_k[:4], out_p[:4]):
+                d = float((k - p).abs().max())
+                err = max(err, d)
+                if d > tol * max(float(p.abs().max()), 1.0):
                     raise AssertionError(
-                        f"hirsch_sweep fields differ at {dtype} "
-                        f"(M,na,nb)=({m},{na},{nb}) W={w}: {nd} of "
-                        f"{m * w}")
-                if dtype == torch.float32 and (m, na, w) == (16, 7, 1024):
-                    main_err = err
+                        f"hirsch_sweep disagrees at {dtype} "
+                        f"(M,na,nb)=({m},{na},{nb}) W={w}: {d:.3e}")
+            if not torch.equal(out_k[4], out_p[4]):
+                nd = int((out_k[4] != out_p[4]).sum())
+                raise AssertionError(
+                    f"hirsch_sweep fields differ at {dtype} "
+                    f"(M,na,nb)=({m},{na},{nb}) W={w}: {nd} of "
+                    f"{m * w}")
+            if dtype == torch.float32 and (m, na, w) == (16, 7, 1024):
+                main_err = err
     return main_err
 
 
@@ -1517,21 +1556,28 @@ def injected_blocks(af, xi: np.ndarray, pop: np.ndarray, nblocks: int,
     return np.array(out)
 
 
-def extras_blocks(af, xi: np.ndarray, pop: np.ndarray, nblocks: int,
-                  run_block, BlockNoise) -> list:
+def extras_blocks(af, xi, pop: np.ndarray, nblocks: int, run_block,
+                  BlockNoise, est: np.ndarray | None = None) -> list:
     """``af``'s path driven through run_block with injected draws, with its
     back-propagation / ITCF settings and free projection: per block the
     (mixed, BP, ITCF) sums as complex numpy arrays. ``xi`` holds one
-    propagator draw per step (the sweep's uniforms [M, w], the direct
-    update's [w, M], free-projection bits [w, M] or HS fields [w, X]),
-    ``pop`` one comb uniform per step; the shift is the trial energy."""
+    propagator draw per step: an array (the sweep's uniforms [M, w], the
+    direct update's [w, M], free-projection bits [w, M] or HS fields
+    [w, X]) or a list of NamedTuples of arrays (``DMCDraws``,
+    ``RIDraws``); ``pop`` one comb uniform per step; ``est`` the
+    stochastic-RI energy's probes [steps, X, S]; the shift is the trial
+    energy."""
     q = af.qmc
     dev, rdt = af.state.weight.device, af.state.weight.dtype
     state, out = af.state, []
     for b in range(nblocks):
         steps = slice(b * q.nsteps, (b + 1) * q.nsteps)
-        noise = BlockNoise(torch.from_numpy(xi[steps]).to(dev, rdt),
-                           torch.from_numpy(pop[steps]).to(dev, rdt))
+        xs = xi[steps]
+        noise = BlockNoise(
+            to_device(xs, dev, rdt) if isinstance(xs, np.ndarray)
+            else [to_device(x, dev, rdt) for x in xs],
+            to_device(pop[steps], dev, rdt),
+            None if est is None else to_device(est[steps], dev, rdt))
         state, *accs = run_block(
             af.ham, af.trial, af.prop, state, None, float(af.trial.etrial),
             b * q.nsteps, nsteps=q.nsteps, nstblz=q.nstblz,
@@ -1557,6 +1603,41 @@ def extras_gap(card: list, host: list) -> list:
         gaps.append(float(np.abs(c - h).max() / np.abs(h).max())
                     if h.size else 0.0)
     return gaps
+
+
+def to_device(x, dev, rdt):
+    """A numpy array, or a NamedTuple of them (None entries kept), as
+    tensors of the real type ``rdt`` on ``dev``."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return type(x)(*(to_device(a, dev, rdt) for a in x))
+    return torch.from_numpy(np.asarray(x)).to(dev, rdt)
+
+
+def hh_schedule(nsteps: int, nstblz: int, energy_every: int,
+                mc: bool) -> dict:
+    """Launches of a Hubbard-Holstein run of ``nsteps`` steps. Coherent
+    state: the discrete step's (``discrete_schedule``; the phonon moves
+    launch no kernel). Multi-coherent (one [w P, n, n] batch a spin each
+    time): kernel B 2 at set-up, 4 in the half-steps, 2 for the sweep's
+    S_p^-1, 2 per phonon move (the electron log-dets, shared by X and X'),
+    2 per energy (the Green's functions, whose weights give the phonon
+    mixture too); no sweep kernel. Cholesky 4 per re-orthogonalisation."""
+    if not mc:
+        return discrete_schedule(nsteps, nstblz, energy_every, 0, 0, True,
+                                 True)
+    kb = 2 + 8 * nsteps + 2 * (nsteps // energy_every)
+    return {"inv_logdet_lanes": kb, "chol_inv_lanes": 4 * (nsteps // nstblz)}
+
+
+def hh_draws(rng, nsteps: int, nw: int, m: int, symmetric: bool,
+             DMCDraws) -> list:
+    """One ``DMCDraws`` of numpy arrays a step: the sweep's uniforms
+    [M, w] and the phonon moves' normals [w, M]."""
+    return [DMCDraws(rng.uniform(size=(m, nw)), rng.normal(size=(nw, m)),
+                     rng.normal(size=(nw, m)) if symmetric else None)
+            for _ in range(nsteps)]
 
 
 class Pushed:
@@ -1715,6 +1796,13 @@ def main() -> None:
         greens_function_multi_det, log_overlap_multi_det,
         recompute_ci_coeffs)
     from pauxy_tpu_torch.models import trial as trial_module
+    from pauxy_tpu_torch.models.hubbard_holstein import (
+        coherent_state_trial, lang_firsov_trial, make_hubbard_holstein)
+    from pauxy_tpu_torch.models.multi_coherent import multi_coherent_trial
+    from pauxy_tpu_torch.ops import greens
+    from pauxy_tpu_torch.propagation.continuous import RIDraws
+    from pauxy_tpu_torch.propagation.hirsch_dmc import DMCDraws
+    from pauxy_tpu_torch.walkers import init_walkers
     from pauxy_tpu_torch.models.thermal_trial import (make_mean_field_trial,
                                                       make_one_body_trial)
     from pauxy_tpu_torch.models.pw_fft import make_pw_fft
@@ -3761,6 +3849,314 @@ def main() -> None:
         f"(complex128), max |d| over the scale {ghf_gap:.2e} <= 1e-4"
         + lap("27"))
     del ham, gtrial, uhf_t, emb
+
+    # ---- 28. Hubbard-Holstein at full width ------------------------------
+    # The north-star lattice: 4x4 periodic, (7, 7), U=4, w0=1, lambda=0.25
+    # (g = 1 in 2-D), dt=0.005, 1024 walkers, re-orthogonalisation and
+    # population control every 5 steps, the energy every 2 steps; a
+    # warm-up block and a timed one of 10 steps (depth cut).
+    hq = QMCOpts(nwalkers=1024, dt=0.005, nsteps=10, nblocks=2, nstblz=5,
+                 npop_control=5, rng_seed=8)
+    hsteps = hq.nblocks * hq.nsteps
+    eo2 = {"mixed": {"energy_eval_freq": 2}}
+
+    def hh_model(device, dtype, **kw):
+        return make_hubbard_holstein(7, 7, U=4.0, nx=4, ny=4, w0=1.0,
+                                     lmbda=0.25, device=device, dtype=dtype,
+                                     **kw)
+
+    hham = hh_model("cuda", "single")
+    hh_runs = {}
+    for tag, trial in (("coherent", coherent_state_trial(
+            hham, device="cuda", dtype="single")),
+                       ("multi_coherent", multi_coherent_trial(
+                           hham, device="cuda", dtype="single"))):
+        zero_counts()
+        af = AFQMC(hham, trial, hq, estimator_options=eo2, device="cuda")
+        rows = af.run()
+        torch.cuda.synchronize()
+        c = counts()
+        mc = tag == "multi_coherent"
+        want = only(**hh_schedule(hsteps, hq.nstblz, 2, mc))
+        kernel_route = af.prop.hirsch.sweep_kernel == "kernel"
+        if c != want or kernel_route == mc or not (
+                np.isfinite(rows).all()
+                and bool(torch.isfinite(af.state.weight).all())):
+            raise AssertionError(f"HH {tag}: launches {c} (want {want}), "
+                                 f"sweep route {af.prop.hirsch.sweep_kernel}"
+                                 f", rows {rows}")
+        hh_runs[tag] = (rows[:, 5].real, c,
+                        hq.nwalkers * hq.nsteps / af.block_seconds[-1],
+                        af.block_seconds, getattr(trial, "nperms", 1),
+                        trial.etrial)
+        del af, trial
+    # A short Lang-Firsov run at full width (U_eff in the Hirsch tables).
+    lf_trial, _ = lang_firsov_trial(hham, device="cuda", dtype="single")
+    zero_counts()
+    lq = QMCOpts(nwalkers=1024, dt=0.005, nsteps=10, nblocks=1, nstblz=5,
+                 npop_control=5, rng_seed=8)
+    af = AFQMC(hham, lf_trial, lq, propagator_options={"lang_firsov": True},
+               estimator_options=eo2, device="cuda")
+    lf_rows = af.run()
+    torch.cuda.synchronize()
+    lf_counts = counts()
+    want = only(**hh_schedule(lq.nsteps, 5, 2, False))
+    if lf_counts != want or not (np.isfinite(lf_rows).all()
+                                 and lf_rows[0, 2].real > 0):
+        raise AssertionError(f"HH Lang-Firsov: launches {lf_counts} (want "
+                             f"{want}), rows {lf_rows}")
+    lf_rate = lq.nwalkers * lq.nsteps / af.block_seconds[-1]
+    del af
+    # Card (complex64) against host (complex128): 16 walkers, 2 blocks of
+    # 10 steps, the same phonon start X0 and the same draws.
+    draws = np.random.default_rng(28)
+    hsq = dict(nwalkers=16, dt=0.005, nsteps=10, nblocks=2, nstblz=5,
+               npop_control=1, rng_seed=8)
+    hh_gaps = {}
+    for tag in ("coherent", "multi_coherent", "symmetric"):
+        xi = hh_draws(draws, 20, 16, 16, tag == "symmetric", DMCDraws)
+        pop = draws.uniform(size=(20, 1))
+        x0 = draws.normal(size=(16, 16))
+        out = []
+        for device, dtype in (("cuda", "single"), ("cpu", "double")):
+            h = hh_model(device, dtype)
+            t = (multi_coherent_trial if tag == "multi_coherent"
+                 else coherent_state_trial)(h, device=device, dtype=dtype)
+            af = AFQMC(h, t, QMCOpts(**hsq), propagator_options={
+                "symmetric_trotter": tag == "symmetric"},
+                estimator_options=eopts, device=device)
+            rdt = af.state.weight.dtype
+            af.state = init_walkers(
+                t, 16, total_weight=16.0,
+                X0=t.shift.to(rdt) + torch.from_numpy(x0).to(device, rdt)
+                / (2.0 * h.m * h.w0) ** 0.5)
+            out.append(extras_blocks(af, xi, pop, 2, run_block, BlockNoise))
+        hh_gaps[tag] = extras_gap(*out)[0]
+    if not max(hh_gaps.values()) <= 1e-4:
+        raise AssertionError(f"HH card vs host {hh_gaps}")
+    hh_counts = {k: hh_runs["coherent"][1][k] + lf_counts[k]
+                 for k in counts()}
+    hh_mc_counts = hh_runs["multi_coherent"][1]
+    say("28 Hubbard-Holstein", "4x4 periodic (7,7) U=4 w0=1 lambda=0.25 "
+        f"(g={hham.g:.4f}), complex64 {hq.nwalkers} walkers {hsteps} steps, "
+        "dt=0.005, energy every 2 steps: " + "; ".join(
+            f"{tag} (P={p}, etrial {et:.5f}) ETotal "
+            f"{np.array2string(e, precision=5)}, launches {c} as "
+            f"hh_schedule says, {r:.1f} walker-steps/s (the second block; "
+            f"block seconds {', '.join(f'{b:.4f}' for b in bs)})"
+            for tag, (e, c, r, bs, p, et) in hh_runs.items())
+        + f"; Lang-Firsov (etrial {lf_trial.etrial:.5f}, U_eff tables) one "
+        f"block: ETotal {lf_rows[0, 5].real:.5f}, launches {lf_counts}, "
+        f"{lf_rate:.1f} walker-steps/s (with the warm-up); every sweep "
+        f"launch through csrc/sweep.cu on the coherent paths; 16 walkers, "
+        f"2 blocks with injected draws and X0, card (complex64) vs host "
+        f"(complex128), max |d| over the scale " + ", ".join(
+            f"{k} {v:.2e}" for k, v in hh_gaps.items()) + " <= 1e-4"
+        + lap("28"))
+    del hham, lf_trial
+
+    # ---- 29. Hubbard-Holstein anchors on the card ------------------------
+    zero_counts()
+    anchors = {}
+    pol = make_hubbard_holstein(1, 1, U=4.0, nx=1, g=0.5, w0=1.0,
+                                xpbc=False, device="cuda", dtype="single")
+    exact = 4.0 - 4 * 0.5 ** 2 / 1.0
+    for sym in (False, True):
+        rows = AFQMC(pol, coherent_state_trial(pol, device="cuda",
+                                               dtype="single"),
+                     QMCOpts(nwalkers=200, dt=0.01, nsteps=20, nblocks=8,
+                             nstblz=10, npop_control=10, rng_seed=7),
+                     propagator_options={"symmetric_trotter": sym},
+                     estimator_options=eo2, device="cuda").run()
+        e = float(rows[3:, 5].real.mean())
+        anchors[f"polaron{' symmetric' if sym else ''}"] = (e, exact, 0.05)
+    ring = make_hubbard_holstein(1, 1, U=4.0, nx=3, w0=0.8, lmbda=0.5,
+                                 device="cuda", dtype="single")
+    e_bf = float(ci.simple_fci_bose_fermi(make_hubbard_holstein(
+        1, 1, U=4.0, nx=3, w0=0.8, lmbda=0.5, device="cpu",
+        dtype="double"), nboson_max=12)[0][0])
+    rows = AFQMC(ring, multi_coherent_trial(ring, device="cuda",
+                                            dtype="single"),
+                 QMCOpts(nwalkers=100, dt=0.005, nsteps=20, nblocks=15,
+                         nstblz=5, npop_control=5, rng_seed=7),
+                 estimator_options=eo2, device="cuda").run()
+    anchors["3-site multi-coherent (P=3)"] = (float(rows[5:, 5].real.mean()),
+                                             e_bf, 0.2)
+    chain = make_hubbard_holstein(2, 2, U=4.0, nx=4, g=0.0, w0=1.0,
+                                  xpbc=False, device="cuda", dtype="single")
+    e_hub = float(ci.simple_fci(make_hubbard(2, 2, U=4.0, nx=4, xpbc=False,
+                                             device="cpu",
+                                             dtype="double"))[0][0])
+    rows = AFQMC(chain, coherent_state_trial(chain, device="cuda",
+                                             dtype="single"),
+                 QMCOpts(nwalkers=100, dt=0.01, nsteps=20, nblocks=12,
+                         nstblz=5, npop_control=5, rng_seed=5),
+                 estimator_options=eo2, device="cuda").run()
+    anchors["g=0 vs Hubbard FCI"] = (float(rows[6:, 5].real.mean()), e_hub,
+                                     0.3)
+    lf_ham = make_hubbard_holstein(2, 2, U=4.0, nx=4, w0=1.0, lmbda=0.25,
+                                   device="cuda", dtype="single")
+    lf_rows = AFQMC(lf_ham, lang_firsov_trial(lf_ham, device="cuda",
+                                              dtype="single")[0],
+                    QMCOpts(nwalkers=16, dt=0.01, nsteps=5, nblocks=3,
+                            rng_seed=2),
+                    propagator_options={"lang_firsov": True},
+                    estimator_options={"mixed": {"energy_eval_freq": 5}},
+                    device="cuda").run()
+    torch.cuda.synchronize()
+    hh_anchor_counts = counts()
+    missed = {k: v for k, v in anchors.items() if not abs(v[0] - v[1])
+              < v[2]}
+    if missed or not (np.isfinite(lf_rows).all()
+                      and (lf_rows[:, 2].real > 0).all()) \
+            or hh_anchor_counts["hirsch_sweep"] == 0:
+        raise AssertionError(f"HH anchors missed {missed}; Lang-Firsov rows "
+                             f"{lf_rows}; launches {hh_anchor_counts}")
+    say("29 HH anchors", "complex64 on the card: " + "; ".join(
+        f"{k} {v[0]:.5f} vs {v[1]:.5f} (|d| {abs(v[0] - v[1]):.4f} < "
+        f"{v[2]})" for k, v in anchors.items())
+        + " (the polaron: 1 site, (1,1), U=4, g=0.5, 200 walkers, 160 "
+        "steps, E = U - 4 g^2/w0; the ring: 3 sites, U=4, w0=0.8, "
+        "lambda=0.5, 100 walkers, 300 steps of 0.005 against "
+        "ci.simple_fci_bose_fermi with 12 bosons; the chain: 4 sites open, "
+        "(2,2), 100 walkers, 240 steps); Lang-Firsov 4-site ring, 16 "
+        f"walkers, 3 blocks: weights "
+        f"{np.array2string(lf_rows[:, 2].real, precision=3)} > 0; launches "
+        f"{hh_anchor_counts}" + lap("29"))
+    del pol, ring, chain, lf_ham
+
+    # ---- 30. the Generic energy variants at the bench shape --------------
+    vq = QMCOpts(nwalkers=1024, dt=0.005, nsteps=10, nblocks=2, nstblz=5,
+                 npop_control=1, rng_seed=8)
+    vsteps = vq.nblocks * vq.nsteps
+    variants = {
+        "exact_eri": ({"exact_eri": True}, pallas),
+        "pno": ({"pno": True, "thresh_pno": 1e-13}, pallas),
+        "stochastic_ri": ({"stochastic_ri": True, "nsamples": 20}, pallas),
+        "stochastic_ri_cv": ({"stochastic_ri": True, "nsamples": 20,
+                              "control_variate": True}, pallas),
+        # The sketched one-body step needs S well above M to stay near the
+        # exact step: S = 2048 = 16 M here.
+        "ri_step": ({}, {"taylor_impl": "pallas", "stochastic_ri": True,
+                         "nsamples": 2048}),
+        "xla_3m": ({}, {"taylor_impl": "xla_3m"}),
+    }
+
+    def variant_model(flags, device="cuda", dtype="single"):
+        return generic_model(128, 512, 16, lambda *a, **kw: make_generic(
+            *a, **flags, **kw), device=device, dtype=dtype)
+
+    var_runs, var_counts = {}, dict.fromkeys(counts(), 0)
+    for name, (flags, popts) in variants.items():
+        vham = variant_model(flags)
+        vtrial = rhf_identity_trial(vham, device="cuda", dtype="single")
+        zero_counts()
+        af = AFQMC(vham, vtrial, vq, propagator_options=popts,
+                   estimator_options=eopts, device="cuda")
+        rows = af.run()
+        torch.cuda.synchronize()
+        c = counts()
+        taylor = popts.get("taylor_impl") == "pallas"
+        want = only(taylor_exp=vsteps if taylor else 0,
+                    inv_logdet_lanes=2 + 6 * vsteps,
+                    chol_inv_lanes=4 * (vsteps // vq.nstblz))
+        if c != want or not np.isfinite(rows).all():
+            raise AssertionError(f"Generic {name}: launches {c} (want "
+                                 f"{want}), rows {rows}")
+        var_counts = {k: var_counts[k] + c[k] for k in c}
+        var_runs[name] = (rows[:, 5].real, vq.nwalkers * vq.nsteps
+                          / af.block_seconds[-1])
+        if name == "xla_3m":
+            pop_state = af.state
+        del af, vham, vtrial
+    # The energies on one population (the walkers after the xla_3m run,
+    # the fast path with the plain series): exact ERIs and PNO (1e-13)
+    # against the fast path per walker; stochastic RI's mean over 64 probe
+    # sets against the exact mean.
+    fast_ham = variant_model({})
+    fast_trial = rhf_identity_trial(fast_ham, device="cuda", dtype="single")
+    ga = greens.greens_function(pop_state.phia, fast_trial.psia, False)
+    gb = greens.greens_function(pop_state.phib, fast_trial.psib, False)
+    e_fast = local_energy.local_energy_generic_opt(
+        fast_trial, ga.Ghalf, gb.Ghalf, 0.0)[0].real
+    var_gap = {}
+    for name in ("exact_eri", "pno"):
+        vt = rhf_identity_trial(variant_model(variants[name][0]),
+                                device="cuda", dtype="single")
+        e = getattr(local_energy, "local_energy_generic_" + name)(
+            vt, ga.Ghalf, gb.Ghalf, 0.0)[0].real
+        var_gap[name] = float(((e - e_fast).abs() / e_fast.abs()).max())
+        del vt
+    sri = {}
+    gen_sri = torch.Generator(device="cuda")
+    gen_sri.manual_seed(30)
+    for cv in (False, True):
+        vt = rhf_identity_trial(variant_model(
+            {"stochastic_ri": True, "nsamples": 20, "control_variate": cv}),
+            device="cuda", dtype="single")
+        means = torch.stack([local_energy.local_energy_generic_stochastic_ri(
+            vt, ga.Ghalf, gb.Ghalf, 0.0, local_energy.rademacher(
+                (512, 20), torch.float32, gen_sri, "cuda"), cv)[0].real.mean()
+            for _ in range(64)]).double()
+        se = float(means.std() / 8.0)
+        d = abs(float(means.mean()) - float(e_fast.double().mean()))
+        sri["control variate" if cv else "plain"] = (d, se)
+        del vt
+    sri_bad = {k: v for k, v in sri.items() if not v[0] <= 4 * v[1]}
+    if max(var_gap.values()) > 1e-4 or sri_bad:
+        raise AssertionError(f"Generic variants: relative gaps {var_gap}, "
+                             f"stochastic RI {sri}")
+    del pop_state, fast_trial, ga, gb, e_fast
+    # Card (complex64) against host (complex128) on the golden system, 16
+    # walkers, 2 blocks with injected draws (the fields, the sketches and
+    # the energy's probes).
+    vdraws = np.random.default_rng(30)
+    n11 = g_gen["h1e"].shape[-1]
+    naux11 = np.asarray(g_gen["chol"]).shape[0]
+    var_gaps = {}
+    for name, (flags, popts) in variants.items():
+        step = popts.get("stochastic_ri", False)
+        fields = vdraws.normal(size=(20, 16, naux11))
+        xi = ([RIDraws(fields[i], *(vdraws.choice([-1.0, 1.0],
+                                                  size=(n11, 20))
+                                    for _ in range(2)))
+               for i in range(20)] if step else list(fields))
+        est = (vdraws.choice([-1.0, 1.0], size=(20, naux11, 20))
+               if flags.get("stochastic_ri") else None)
+        pop = vdraws.uniform(size=(20, 1))
+        out = []
+        for device, dtype in (("cuda", "single"), ("cpu", "double")):
+            h = make_generic((3, 3), np.stack([g_gen["h1e"], g_gen["h1e"]]),
+                             np.asarray(g_gen["chol"]).reshape(-1, n11, n11)
+                             .transpose(1, 2, 0), ecore=float(g_gen["enuc"]),
+                             device=device, dtype=dtype, **flags)
+            t = trial_from_orbitals(h, np.asarray(g_gen["psi"]),
+                                    device=device, dtype=dtype)
+            af = AFQMC(h, t, QMCOpts(**sq), propagator_options=popts,
+                       estimator_options=eopts, device=device)
+            out.append(extras_blocks(af, xi, pop, 2, run_block, BlockNoise,
+                                   est))
+        var_gaps[name] = extras_gap(*out)[0]
+    if not max(var_gaps.values()) <= 1e-4:
+        raise AssertionError(f"Generic variants card vs host {var_gaps}")
+    say("30 Generic variants", f"nmo=128 naux=512 (16,16) RHF complex64 "
+        f"{vq.nwalkers} walkers {vsteps} steps (a warm-up block and a timed "
+        f"one): " + "; ".join(
+            f"{k} ETotal {np.array2string(e, precision=5)}, {r:.1f} "
+            f"walker-steps/s" for k, (e, r) in var_runs.items())
+        + f" (phase 8's fast path {rate_g:.1f}); launches as phase 8's "
+        f"schedule says (no Taylor kernel with xla_3m); on one population "
+        f"the exact_eri and pno (1e-13) energies against the fast path's, "
+        f"max relative |d| " + ", ".join(f"{k} {v:.2e}"
+                                          for k, v in var_gap.items())
+        + " <= 1e-4; stochastic RI (20 probes) mean over 64 probe sets vs "
+        "the exact mean: " + ", ".join(f"{k} |d| {d:.2e} (se {s:.2e})"
+                                       for k, (d, s) in sri.items())
+        + " within 4 se; the golden system, 16 walkers, 2 blocks with "
+        "injected draws, "
+        f"card (complex64) vs host (complex128), max |d| over the scale "
+        + ", ".join(f"{k} {v:.2e}" for k, v in var_gaps.items())
+        + " <= 1e-4" + lap("30"))
     say("seconds", json.dumps(seconds))
 
     # ---- result ----------------------------------------------------------
@@ -3795,7 +4191,9 @@ def main() -> None:
                "mixed_rdm": rdm_counts, "msd": msd_counts,
                "phmsd_zero_variance": {k: sum(v[-1][k] for v in zv.values())
                                        for k in counts()},
-               "ghf": ghf_counts}
+               "ghf": ghf_counts, "hh": hh_counts, "hh_mc": hh_mc_counts,
+               "hh_anchors": hh_anchor_counts,
+               "generic_variants": var_counts}
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[k] for c in by_path.values()),

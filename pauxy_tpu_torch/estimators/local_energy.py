@@ -1,8 +1,11 @@
-"""Hubbard, Generic, UEG and PW_FFT local energies: walker-batched and
-host-side, for single- and multi-determinant trials.
+"""Hubbard, Hubbard-Holstein, Generic, UEG and PW_FFT local energies:
+walker-batched and host-side, for single- and multi-determinant trials.
 
-Counterpart of ``local_energy_hubbard``, ``local_energy_generic_opt``,
-``_exx``, ``local_energy_generic_opt_multi``, ``local_energy_hubbard_ghf``,
+Counterpart of ``local_energy_hubbard``, ``local_energy_hubbard_holstein``,
+``local_energy_multi_coherent``, ``local_energy_generic_opt``,
+``_exx``, ``local_energy_generic_opt_multi``, the Generic variants
+(``local_energy_generic_exact_eri``, ``_stochastic_ri``, ``_pno``),
+``local_energy_hubbard_ghf``,
 ``local_energy_generic_cholesky_G``, the UEG gather kernels
 (``coulomb_greens_function_ueg``, ``exchange_greens_function_ueg``,
 ``local_energy_ueg``), the pseudo-spectral FFT energies
@@ -48,6 +51,44 @@ def local_energy_hubbard(ham, Ga: torch.Tensor, Gb: torch.Tensor):
     else:
         pe = ham.U * torch.sum(da * db, dim=-1)
     return ke + pe, ke, pe
+
+
+def local_energy_hubbard_holstein(ham, Ga: torch.Tensor, Gb: torch.Tensor,
+                                  X: torch.Tensor, shift: torch.Tensor):
+    """(etot, e_el, e_ph), each [w], of the Hubbard-Holstein model: the
+    Hubbard energy of G, the phonon potential and kinetic (trial-laplacian)
+    energies at X [w, M], and the coupling -g sqrt(2 m w0) sum_i rho_i X_i.
+    """
+    from pauxy_tpu_torch.models import hubbard_holstein as hh
+
+    etot_el, ke, pe = local_energy_hubbard(ham, Ga, Gb)
+    pe_ph = 0.5 * ham.m * ham.w0 ** 2 * torch.sum(X * X, dim=-1)
+    lap = hh.ho_laplacian(X, ham.m, ham.w0, shift)
+    ke_ph = -0.5 * torch.sum(lap, dim=-1) / ham.m - 0.5 * ham.w0 * ham.nbasis
+    rho = (torch.diagonal(Ga, dim1=-2, dim2=-1)
+           + torch.diagonal(Gb, dim1=-2, dim2=-1))
+    e_eph = -ham.gsq2mw * torch.sum(rho * X, dim=-1)
+    return etot_el + pe_ph + ke_ph + e_eph, ke + pe, pe_ph + ke_ph + e_eph
+
+
+def local_energy_multi_coherent(ham, Gi: torch.Tensor, comp_w: torch.Tensor,
+                                X: torch.Tensor, lap: torch.Tensor):
+    """(etot, e_el, e_ph), each [w], of the Hubbard-Holstein model with a
+    multi-coherent trial: the electron and coupling terms of each
+    component's Gi [w, P, 2, M, M] weighted by comp_w [w, P], and the
+    phonon kinetic term from the mixture's laplacian lap [w, M]."""
+    t = ham.T.to(Gi.dtype)
+    ke_p = (torch.einsum("mn,wpmn->wp", t[0], Gi[:, :, 0])
+            + torch.einsum("mn,wpmn->wp", t[1], Gi[:, :, 1]))
+    da = torch.diagonal(Gi[:, :, 0], dim1=-2, dim2=-1)      # [w, P, M]
+    db = torch.diagonal(Gi[:, :, 1], dim1=-2, dim2=-1)
+    pe_p = ham.U * torch.sum(da * db, dim=-1)
+    e_eph_p = -ham.gsq2mw * torch.sum((da + db) * X[:, None, :], dim=-1)
+    e_el = torch.sum(comp_w * (ke_p + pe_p), dim=-1)
+    e_eph = torch.sum(comp_w * e_eph_p, dim=-1)
+    pe_ph = 0.5 * ham.m * ham.w0 ** 2 * torch.sum(X * X, dim=-1)
+    ke_ph = -0.5 * torch.sum(lap, dim=-1) / ham.m - 0.5 * ham.w0 * ham.nbasis
+    return e_el + pe_ph + ke_ph + e_eph, e_el, pe_ph + ke_ph + e_eph
 
 
 def local_energy_generic_opt(trial, Ghalfa: torch.Tensor,
@@ -106,6 +147,115 @@ def local_energy_generic_opt_multi(trial, Ghalfa: torch.Tensor,
     e2_d = 0.5 * (ecoul_d - exx_d)
     e1b = torch.sum(det_weights * e1_d, dim=-1) + ecore
     e2b = torch.sum(det_weights * e2_d, dim=-1)
+    return e1b + e2b, e1b, e2b
+
+
+def _e1b_half(trial, Ghalfa, Ghalfb, ecore: float) -> torch.Tensor:
+    return (cr_einsum("im,wim->w", trial.rh1a, Ghalfa)
+            + cr_einsum("im,wim->w", trial.rh1b, Ghalfb) + ecore)
+
+
+def local_energy_generic_exact_eri(trial, Ghalfa: torch.Tensor,
+                                   Ghalfb: torch.Tensor, ecore: float):
+    """(etot, e1b, e2b), each [w], with E2 from the trial's half-rotated
+    ERIs v_ipjq [n, M, n', M]: the Coulomb terms v_ipjq G_ip G_jq and the
+    same-spin exchange -v_ipjq G_iq G_jp."""
+    e1b = _e1b_half(trial, Ghalfa, Ghalfb, ecore)
+
+    def pair(eri, g1, g2, exchange: bool):
+        # Coulomb: sum_ipjq v_ipjq g1[w,i,p] g2[w,j,q], one [w, nM] x
+        # [nM, n'M] product; exchange: sum_ipjq v_ipjq g1[w,i,q] g2[w,j,p].
+        if exchange:
+            tmp = torch.einsum("ipjq,wjp->wiq", eri, g2)
+            return torch.sum(tmp * g1, dim=(1, 2))
+        w = g1.shape[0]
+        n1, m, n2, _ = eri.shape
+        tmp = g1.reshape(w, n1 * m) @ eri.reshape(n1 * m, n2 * m)
+        return torch.sum(tmp * g2.reshape(w, n2 * m), dim=-1)
+
+    e2b = (0.5 * pair(trial.eri_aa, Ghalfa, Ghalfa, False)
+           + 0.5 * pair(trial.eri_bb, Ghalfb, Ghalfb, False)
+           + pair(trial.eri_ab, Ghalfa, Ghalfb, False)
+           - 0.5 * pair(trial.eri_aa, Ghalfa, Ghalfa, True)
+           - 0.5 * pair(trial.eri_bb, Ghalfb, Ghalfb, True))
+    return e1b + e2b, e1b, e2b
+
+
+def rademacher(shape, dtype, generator=None, device=None) -> torch.Tensor:
+    """+1 / -1 draws with equal probability, of ``dtype``."""
+    bits = torch.randint(0, 2, shape, generator=generator, device=device)
+    return (2 * bits - 1).to(dtype)
+
+
+def local_energy_generic_stochastic_ri(trial, Ghalfa: torch.Tensor,
+                                       Ghalfb: torch.Tensor, ecore: float,
+                                       theta: torch.Tensor,
+                                       control_variate: bool):
+    """(etot, e1b, e2b), each [w], with the exact Coulomb term and the
+    exchange estimated from the Rademacher probes theta [X, nsamples]
+    shared by every walker:
+
+      exx_s = (1/S) sum_s sum_kl (G_k . ra_l,s)(G_l . ra_k,s),
+      ra[i, p, s] = sum_X rchol[X, i, p] theta[X, s];
+
+    with ``control_variate`` the trial's exact exchange plus the walker's
+    estimate minus the trial's estimate from the same probes."""
+    rca, rcb = trial.rchola, trial.rcholb
+    e1b = _e1b_half(trial, Ghalfa, Ghalfb, ecore)
+    x = (cr_einsum("xim,wim->wx", rca, Ghalfa)
+         + cr_einsum("xim,wim->wx", rcb, Ghalfb))
+    ecoul = torch.sum(x * x, dim=-1)
+    theta = theta.to(rca.dtype)
+    scale = 1.0 / theta.shape[1]
+
+    def exx_stoch(rc, ghalf):
+        ra = torch.einsum("xip,xs->ips", rc, theta).to(ghalf.dtype)
+        gra = torch.einsum("wkq,lqs->wlks", ghalf, ra)
+        return scale * torch.einsum("wlks,wkls->w", gra, gra)
+
+    exxa = exx_stoch(rca, Ghalfa)
+    exxb = exx_stoch(rcb, Ghalfb)
+    if control_variate:
+        _, exxa0, exxb0 = trial.e0_terms
+        exxa = exxa0 + (exxa - exx_stoch(rca, trial.ghalf0a[None])[0])
+        exxb = exxb0 + (exxb - exx_stoch(rcb, trial.ghalf0b[None])[0])
+    e2b = 0.5 * (ecoul - exxa - exxb)
+    return e1b + e2b, e1b, e2b
+
+
+def local_energy_generic_pno(trial, Ghalfa: torch.Tensor,
+                             Ghalfb: torch.Tensor, ecore: float):
+    """(etot, e1b, e2b), each [w], with E2 the trial's exact two-body
+    energy plus the PNO-truncated pair corrections relative to the trial
+    (each pair's SVD factors U, VT from ``trial.pno_*``)."""
+    e1b = _e1b_half(trial, Ghalfa, Ghalfb, ecore)
+
+    def channel(pno, ga, gb, g0a, g0b, exchange: bool):
+        idx_i, idx_j, coeff, u, vt = pno
+
+        def dot_uv(a, b):                                # [..., n]
+            tu = torch.einsum("...np,npk->...nk", a, u)
+            tv = torch.einsum("...np,nkp->...nk", b, vt)
+            return torch.sum(tu * tv, dim=-1)
+
+        gi, gj = ga[:, idx_i, :], gb[:, idx_j, :]
+        g0i, g0j = g0a[idx_i, :], g0b[idx_j, :]
+        ej = torch.einsum("n,wn->w", coeff,
+                          dot_uv(gi, gj) - dot_uv(g0i, g0j)[None])
+        if not exchange:
+            return ej, 0.0
+        ek = -torch.einsum("n,wn->w", coeff,
+                           dot_uv(gj, gi) - dot_uv(g0j, g0i)[None])
+        return ej, ek
+
+    ejaa, ekaa = channel(trial.pno_aa, Ghalfa, Ghalfa, trial.ghalf0a,
+                         trial.ghalf0a, True)
+    ejbb, ekbb = channel(trial.pno_bb, Ghalfb, Ghalfb, trial.ghalf0b,
+                         trial.ghalf0b, True)
+    ejab, _ = channel(trial.pno_ab, Ghalfa, Ghalfb, trial.ghalf0a,
+                      trial.ghalf0b, False)
+    ecoul0, exxa0, exxb0 = trial.e0_terms
+    e2b = 0.5 * (ecoul0 - exxa0 - exxb0) + ejaa + ejbb + ejab + ekaa + ekbb
     return e1b + e2b, e1b, e2b
 
 
@@ -433,7 +583,9 @@ def local_energy_G_host(ham, G: np.ndarray):
         g = torch.from_numpy(np.asarray(G, dtype=np.complex128)).to(dev)
         return tuple(x[0].item() for x in local_energy_ueg(view, g[0][None],
                                                             g[1][None]))
-    if ham.name != "Hubbard":
+    if ham.name not in ("Hubbard", "HubbardHolstein"):
+        # Hubbard-Holstein: the electronic Hubbard energy (the phonon terms
+        # need walker coordinates).
         raise NotImplementedError(f"no host local energy for {ham.name!r}")
     t = ham.T.cpu().numpy()
     ke = np.sum(t[0] * G[0] + t[1] * G[1])

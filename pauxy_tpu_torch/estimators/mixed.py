@@ -5,9 +5,11 @@ Counterpart of the header, accumulator layout, ``energy_estimator``,
 ``dms_size``, ``update`` and ``MixedReporter`` of
 ``pauxy_tpu/estimators/mixed.py``. ``update`` is the generic block's
 per-step accumulation: phaseless or free projection; a single-determinant
-trial (Hubbard, Generic, UEG or PW_FFT), a multi-determinant one (the
-det-weighted energy: per-determinant half-rotated for a Generic system,
-else the dense-G energy of each determinant) or a GHF one (Hubbard); and
+trial (Hubbard, Hubbard-Holstein, Generic with its energy variants, UEG or
+PW_FFT), a multi-determinant one (the det-weighted energy:
+per-determinant half-rotated for a Generic system, else the dense-G
+energy of each determinant), a GHF one (Hubbard) or a multi-coherent one
+(Hubbard-Holstein, component-weighted); and
 the optional density-matrix tail, the weighted 1-RDM [2, M, M] and the
 UEG's structure factor S(k) [2, 2, nq], summed on energy steps. The lanes
 block of ``qmc/hubbard_fast.py`` keeps its own. ``MixedReporter`` turns a
@@ -24,6 +26,7 @@ import torch
 
 from pauxy_tpu_torch.estimators import local_energy as le
 from pauxy_tpu_torch.models import ghf
+from pauxy_tpu_torch.models import multi_coherent as mcoh
 from pauxy_tpu_torch.models import multi_slater as msd
 from pauxy_tpu_torch.ops import greens
 
@@ -46,20 +49,42 @@ HEADER = [
 ]
 
 
-def energy_estimator(ham, trial):
+def energy_estimator(ham, trial, ri_theta=None, x=None):
     """Batched ``(ga, gb) -> (etot, e1b, e2b)`` local energy from the two
-    spins' ``SpinGreens``: Hubbard from G, Generic from Ghalf (the
-    half-rotated Cholesky energy, per determinant and det-weighted for a
-    multi-determinant trial; the exact-ERI, PNO and stochastic-RI variants
-    are not ported), the UEG from Ghalf by FFT correlations when the system
-    has its cube maps (else from G by the gather kernels), PW_FFT from
-    Ghalf."""
+    spins' ``SpinGreens``: Hubbard from G, Hubbard-Holstein from G and the
+    phonon coordinates ``x`` [w, M] about the trial's shift, Generic from
+    Ghalf (the half-rotated Cholesky energy, per determinant and
+    det-weighted for a multi-determinant trial; else the system's variant,
+    in JAX's order: PNO, exact ERIs, stochastic RI with the probes
+    ``ri_theta`` [X, S]),
+    the UEG from Ghalf by FFT correlations when the system has its cube
+    maps (else from G by the gather kernels), PW_FFT from Ghalf."""
     if ham.name == "Hubbard":
         return lambda ga, gb: le.local_energy_hubbard(ham, ga.G, gb.G)
+    if ham.name == "HubbardHolstein":
+        if x is None:
+            raise ValueError(
+                "the Hubbard-Holstein local energy needs the phonon "
+                "coordinates")
+        return lambda ga, gb: le.local_energy_hubbard_holstein(
+            ham, ga.G, gb.G, x, trial.shift)
     if ham.name == "Generic":
         if isinstance(trial, msd.MultiSlaterTrial):
             return lambda ga, gb: le.local_energy_generic_opt_multi(
                 trial, ga.Ghalf, gb.Ghalf, ga.det_weights, ham.ecore)
+        if ham.pno:
+            return lambda ga, gb: le.local_energy_generic_pno(
+                trial, ga.Ghalf, gb.Ghalf, ham.ecore)
+        if ham.exact_eri:
+            return lambda ga, gb: le.local_energy_generic_exact_eri(
+                trial, ga.Ghalf, gb.Ghalf, ham.ecore)
+        if ham.stochastic_ri:
+            if ri_theta is None:
+                raise ValueError(
+                    "the stochastic-RI local energy needs its probes")
+            return lambda ga, gb: le.local_energy_generic_stochastic_ri(
+                trial, ga.Ghalf, gb.Ghalf, ham.ecore, ri_theta,
+                ham.control_variate)
         return lambda ga, gb: le.local_energy_generic_opt(
             trial, ga.Ghalf, gb.Ghalf, ham.ecore)
     if ham.name == "UEG":
@@ -75,9 +100,9 @@ def energy_estimator(ham, trial):
 
 
 def needs_full_g(ham) -> bool:
-    """Whether ``energy_estimator(ham, ...)`` reads the full G (else only
-    the half-rotated one is formed)."""
-    return ham.name == "Hubbard" or (
+    """Whether the system's local energy reads the full G (else only the
+    half-rotated one is formed)."""
+    return ham.name in ("Hubbard", "HubbardHolstein") or (
         ham.name == "UEG" and getattr(ham, "gmap", None) is None)
 
 
@@ -114,21 +139,36 @@ def dms_size(ham, calc_one_rdm: bool, calc_two_rdm: str | None) -> int:
 def check_dms(ham, trial, free_projection: bool, calc_one_rdm: bool,
               calc_two_rdm: str | None) -> int:
     """``dms_size`` with the refusals JAX keeps: no density matrices with
-    free projection or with a GHF trial (its G is 2M x 2M)."""
+    free projection or with a GHF trial (its G is 2M x 2M), no S(k) with a
+    multi-coherent trial."""
     ndms = dms_size(ham, calc_one_rdm, calc_two_rdm)
     if ndms and free_projection:
         raise NotImplementedError("RDM accumulation not defined for FP")
     if ndms and isinstance(trial, ghf.GHFTrial):
         raise NotImplementedError(
             "GHF G is 2M x 2M; one_rdm output is spin-blocked")
+    if calc_two_rdm is not None and isinstance(trial,
+                                               mcoh.MultiCoherentTrial):
+        raise NotImplementedError(
+            "two_rdm (S(k)) is UEG-only; multi-coherent trials are "
+            "Hubbard-Holstein")
     return ndms
 
 
-def _energies(ham, trial, state, want_g2: bool):
+def _energies(ham, trial, state, want_g2: bool, ri_theta=None):
     """(etot, e1b, e2b, g2) of every walker: the local energies [w] and,
-    with ``want_g2``, its (det-weighted) Green's functions [w, 2, M, M]
-    with the half-rotated factors of a single determinant (None
-    otherwise)."""
+    with ``want_g2``, its (det- or component-weighted) Green's functions
+    [w, 2, M, M] with the half-rotated factors of a single determinant
+    (None otherwise)."""
+    if isinstance(trial, mcoh.MultiCoherentTrial):
+        gi, comp_w = mcoh.mc_greens_function(trial, state.phia, state.phib,
+                                             state.X)
+        _, lap = mcoh.phonon_terms(trial, comp_w, state.X)
+        g2 = None
+        if want_g2:
+            g2 = (torch.einsum("wp,wpsmn->wsmn", comp_w, gi), None)
+        return (*le.local_energy_multi_coherent(ham, gi, comp_w, state.X,
+                                                lap), g2)
     if isinstance(trial, ghf.GHFTrial):
         gi, det_weights = ghf.ghf_greens_function(trial, state.phia,
                                                   state.phib)
@@ -152,7 +192,7 @@ def _energies(ham, trial, state, want_g2: bool):
     gb = greens.greens_function(state.phib, trial.psib, want_g)
     g2 = (torch.stack([ga.G, gb.G], dim=1), (ga.Ghalf, gb.Ghalf)) \
         if want_g2 else None
-    return (*energy_estimator(ham, trial)(ga, gb), g2)
+    return (*energy_estimator(ham, trial, ri_theta, state.X)(ga, gb), g2)
 
 
 def _dms_flat(ham, trial, wfac, g2, calc_one_rdm: bool,
@@ -180,12 +220,13 @@ def _dms_flat(ham, trial, wfac, g2, calc_one_rdm: bool,
 
 def update(ham, trial, state, eval_energy: bool,
            free_projection: bool = False, calc_one_rdm: bool = False,
-           calc_two_rdm: str | None = None) -> torch.Tensor:
+           calc_two_rdm: str | None = None, ri_theta=None) -> torch.Tensor:
     """One step's contribution to the block accumulator, [NACC + ndms]
     complex: UWEIGHT, WEIGHT, ENUMER, EDENOM, E1B, E2B, EHYB, OVLP, then
     the density-matrix tail (``_dms_flat``). The energy terms and the tail
     are zero unless ``eval_energy``. Free projection weighs each walker by
-    weight x overlap x phase and keeps the energies complex."""
+    weight x overlap x phase and keeps the energies complex. ``ri_theta``
+    [X, S] are the stochastic-RI energy's probes (that variant only)."""
     ndms = check_dms(ham, trial, free_projection, calc_one_rdm, calc_two_rdm)
     cdtype = state.log_ovlp.dtype
     if free_projection:
@@ -199,7 +240,8 @@ def update(ham, trial, state, eval_energy: bool,
     enumer = edenom = e1b = e2b = zero
     dms = torch.zeros(ndms, dtype=cdtype, device=wfac.device)
     if eval_energy:
-        etot, ke, pe, g2 = _energies(ham, trial, state, bool(ndms))
+        etot, ke, pe, g2 = _energies(ham, trial, state, bool(ndms),
+                                     ri_theta)
         if not free_projection:
             etot, ke, pe = etot.real, ke.real, pe.real
         enumer = torch.sum(wfac * etot)

@@ -4,6 +4,12 @@ from pauxy_tpu_torch.models.generic import Generic, make_generic
 from pauxy_tpu_torch.models.ghf import (GHFTrial, ghf_trial_from_uhf,
                                         make_ghf_trial)
 from pauxy_tpu_torch.models.hubbard import Hubbard, make_hubbard
+from pauxy_tpu_torch.models.hubbard_holstein import (HubbardHolstein,
+                                                     coherent_state_trial,
+                                                     lang_firsov_trial,
+                                                     make_hubbard_holstein)
+from pauxy_tpu_torch.models.multi_coherent import (MultiCoherentTrial,
+                                                   multi_coherent_trial)
 from pauxy_tpu_torch.models.multi_slater import (MultiSlaterTrial,
                                                  multi_slater_trial,
                                                  phmsd_trial)
@@ -27,4 +33,6 @@ __all__ = ["Generic", "make_generic", "Hubbard", "make_hubbard",
            "OneBodyTrial", "make_one_body_trial", "make_mean_field_trial",
            "UEG", "make_ueg", "PWFFT", "make_pw_fft", "MultiSlaterTrial",
            "multi_slater_trial", "phmsd_trial", "GHFTrial", "make_ghf_trial",
-           "ghf_trial_from_uhf"]
+           "ghf_trial_from_uhf", "HubbardHolstein", "make_hubbard_holstein",
+           "coherent_state_trial", "lang_firsov_trial", "MultiCoherentTrial",
+           "multi_coherent_trial"]

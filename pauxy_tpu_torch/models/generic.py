@@ -4,8 +4,11 @@ Counterpart of ``pauxy_tpu/models/generic.py``. The two-electron integrals
 enter as Cholesky vectors L with (ik|jl) = sum_x L[i,k,x] L[j,l,x], one
 auxiliary field per vector. Built host-side with numpy (setup) and held as
 module buffers: ``H1`` and ``h1e_mod`` [2, M, M], ``chol`` [M, M, X] at
-their natural type (real for molecular data). The exact-ERI, PNO and
-stochastic-RI energy variants are not ported yet.
+their natural type (real for molecular data). The local-energy variant
+flags are JAX's: ``exact_eri`` (the half-rotated four-index ERIs),
+``stochastic_ri`` with ``nsamples`` Rademacher probes and an optional
+``control_variate`` (the exchange estimated), ``pno`` with ``thresh_pno``
+(the pair ERIs truncated by SVD); the trial builds their tensors.
 """
 
 from __future__ import annotations
@@ -23,7 +26,10 @@ class Generic(nn.Module):
     name = "Generic"
 
     def __init__(self, H1, h1e_mod, chol, *, ecore: float, nup: int,
-                 ndown: int):
+                 ndown: int, exact_eri: bool = False,
+                 stochastic_ri: bool = False, nsamples: int = 0,
+                 control_variate: bool = False, pno: bool = False,
+                 thresh_pno: float = 0.0):
         super().__init__()
         self.register_buffer("H1", H1)
         self.register_buffer("h1e_mod", h1e_mod)
@@ -31,6 +37,12 @@ class Generic(nn.Module):
         self.ecore = float(ecore)
         self.nup = int(nup)
         self.ndown = int(ndown)
+        self.exact_eri = bool(exact_eri)
+        self.stochastic_ri = bool(stochastic_ri)
+        self.nsamples = int(nsamples)
+        self.control_variate = bool(control_variate)
+        self.pno = bool(pno)
+        self.thresh_pno = float(thresh_pno or 0.0)
 
     @property
     def nbasis(self) -> int:
@@ -56,19 +68,20 @@ def construct_h1e_mod(h1e: np.ndarray, chol: np.ndarray) -> np.ndarray:
 
 def make_generic(nelec: tuple[int, int], h1e: np.ndarray, chol: np.ndarray,
                  ecore: float = 0.0, *, exact_eri: bool = False,
-                 stochastic_ri: bool = False, pno: bool = False,
-                 device=None, dtype=None) -> Generic:
+                 stochastic_ri: bool = False, nsamples: int = 0,
+                 control_variate: bool = False, pno: bool = False,
+                 thresh_pno: float = 0.0, device=None,
+                 dtype=None) -> Generic:
     """Build a Generic system on ``device`` at precision ``dtype``.
 
     ``h1e``: [M, M] (spin-restricted) or [2, M, M]; ``chol``: [M, M, X] or
     flat [M*M, X] (the reference's layout). Real data stays real.
+    Stochastic RI needs ``nsamples`` > 0, PNO ``thresh_pno`` > 0.
     """
-    variants = {"exact_eri": exact_eri, "stochastic_ri": stochastic_ri,
-                "pno": pno}
-    if any(variants.values()):
-        raise NotImplementedError(
-            "not ported yet for Generic: "
-            + ", ".join(k for k, v in variants.items() if v))
+    if stochastic_ri and nsamples <= 0:
+        raise ValueError("stochastic_ri needs nsamples > 0")
+    if pno and not thresh_pno:
+        raise ValueError("pno needs thresh_pno > 0")
     prec = config.get_precision(dtype)
     device = config.resolve_device(device)
     h1e = np.asarray(h1e)
@@ -86,4 +99,7 @@ def make_generic(nelec: tuple[int, int], h1e: np.ndarray, chol: np.ndarray,
     return Generic(torch.from_numpy(h1e).to(device),
                    torch.from_numpy(h1e_mod).to(device),
                    torch.from_numpy(chol).to(device),
-                   ecore=ecore, nup=nelec[0], ndown=nelec[1])
+                   ecore=ecore, nup=nelec[0], ndown=nelec[1],
+                   exact_eri=exact_eri, stochastic_ri=stochastic_ri,
+                   nsamples=nsamples, control_variate=control_variate,
+                   pno=pno, thresh_pno=thresh_pno)

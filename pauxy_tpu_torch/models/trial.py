@@ -23,9 +23,19 @@ from pauxy_tpu_torch.estimators import local_energy as le
 
 # Generic precomputes, None for lattice models: the half-rotated Cholesky
 # tensors rchol_s [X, n_s, M], the half-rotated one-body rh1_s [n_s, M] and
-# the exchange supermatrices [n_s M, n_s M] (absent past the size cap).
+# the exchange supermatrices [n_s M, n_s M] (absent past the size cap). The
+# local-energy variants add the half-rotated ERIs eri_ss' [n_s, M, n_s', M]
+# (exact_eri) and the trial's own Ghalf0_s [n_s, M] (pno, and stochastic RI
+# with its control variate).
 GENERIC_BUFFERS = ("rchola", "rcholb", "rh1a", "rh1b", "exx_supera",
-                   "exx_superb")
+                   "exx_superb", "eri_aa", "eri_bb", "eri_ab", "ghalf0a",
+                   "ghalf0b")
+
+# A PNO channel: pair indices idx_i, idx_j [n], coefficients [n] and the
+# pairs' truncated SVD factors U [n, M, k], VT [n, k, M], zero-padded to the
+# largest kept rank k.
+PNO_FIELDS = ("i", "j", "coeff", "u", "vt")
+PNO_CHANNELS = ("pno_aa", "pno_bb", "pno_ab")
 
 # Elements cap of one exchange supermatrix: (n M)^2 <= 2^26, as in
 # pauxy_tpu/models/trial.py:159. Past it the energy takes the exchange
@@ -37,24 +47,55 @@ class SingleDetTrial(nn.Module):
     """|psi_T> = |psi_a> x |psi_b>; ``inita``/``initb`` seed the walkers.
 
     ``G_host`` is the trial density matrix [2, M, M] as a numpy array
-    (setup-only: the propagator's mean-field shift reads it).
+    (setup-only: the propagator's mean-field shift reads it). ``shift``
+    [M], real, is a Hubbard-Holstein trial's coherent-state phonon
+    displacement (None otherwise). A Generic trial for the PNO energy
+    carries its channels (``pno_aa``, ``pno_bb``, ``pno_ab``, each a tuple
+    of the ``PNO_FIELDS`` tensors, held as buffers ``pno_aa_i``, ...) and,
+    for PNO or the control variate, ``e0_terms`` = (ecoul0, exxa0, exxb0),
+    the trial's own energy terms (host numbers).
     """
 
     def __init__(self, psia, psib, *, G_host: np.ndarray, etrial: float,
-                 name: str = "single_det", **generic):
+                 name: str = "single_det", shift=None, e0_terms=None,
+                 **generic):
         super().__init__()
-        unknown = set(generic) - set(GENERIC_BUFFERS)
+        unknown = set(generic) - set(GENERIC_BUFFERS) - set(PNO_CHANNELS)
         if unknown:
             raise TypeError(f"unknown trial tensors {sorted(unknown)}")
         self.register_buffer("psia", psia)
         self.register_buffer("psib", psib)
         self.register_buffer("inita", psia.clone())
         self.register_buffer("initb", psib.clone())
+        self.register_buffer("shift", shift)
         for key in GENERIC_BUFFERS:
             self.register_buffer(key, generic.get(key))
+        for ch in PNO_CHANNELS:
+            parts = generic.get(ch)
+            for k, f in enumerate(PNO_FIELDS):
+                self.register_buffer(f"{ch}_{f}",
+                                     None if parts is None else parts[k])
+        self.e0_terms = None if e0_terms is None else tuple(
+            complex(x) for x in e0_terms)
         self.G_host = G_host
         self.etrial = float(etrial)
         self.name = name
+
+    def _pno(self, ch: str):
+        parts = tuple(getattr(self, f"{ch}_{f}") for f in PNO_FIELDS)
+        return None if parts[0] is None else parts
+
+    @property
+    def pno_aa(self):
+        return self._pno("pno_aa")
+
+    @property
+    def pno_bb(self):
+        return self._pno("pno_bb")
+
+    @property
+    def pno_ab(self):
+        return self._pno("pno_ab")
 
 
 def trial_density_matrix(psia: np.ndarray, psib: np.ndarray) -> np.ndarray:
@@ -95,9 +136,12 @@ def _half_rotate(psi: np.ndarray, chol: np.ndarray) -> np.ndarray:
     return out.reshape(-1, m, nx).transpose(2, 0, 1)
 
 
-def _generic_precomputes(ham, psia, psib, prec) -> dict:
+def _generic_precomputes(ham, psia, psib, prec):
     """The half-rotated tensors of pauxy_tpu/models/trial.py:108-140, each
-    stored real when it is genuinely real (molecular data)."""
+    stored real when it is genuinely real (molecular data), and the
+    local-energy variants' (``_generic_variant_precomputes``, from the
+    complex half-rotated tensors as in JAX). Returns (arrays, channels,
+    e0_terms)."""
     chol = ham.chol.cpu().numpy()
     h1 = ham.H1.cpu().numpy()
 
@@ -107,8 +151,9 @@ def _generic_precomputes(ham, psia, psib, prec) -> dict:
         return arr.astype(prec.np_cplx if np.iscomplexobj(arr)
                           else prec.np_real)
 
-    rca = natural(_half_rotate(psia, chol).astype(prec.np_cplx))
-    rcb = natural(_half_rotate(psib, chol).astype(prec.np_cplx))
+    rca_c = _half_rotate(psia, chol).astype(prec.np_cplx)
+    rcb_c = _half_rotate(psib, chol).astype(prec.np_cplx)
+    rca, rcb = natural(rca_c), natural(rcb_c)
     host = {"rchola": rca, "rcholb": rcb,
             "rh1a": natural(psia.conj().T @ h1[0]),
             "rh1b": natural(psib.conj().T @ h1[1])}
@@ -116,7 +161,77 @@ def _generic_precomputes(ham, psia, psib, prec) -> dict:
         sup = _exx_supermatrix(rc)
         if sup is not None:
             host[key] = natural(sup)
-    return host
+    arrays, channels, e0_terms = _generic_variant_precomputes(
+        ham, psia, psib, rca_c, rcb_c, prec)
+    host.update(arrays)
+    return host, channels, e0_terms
+
+
+def _pno_channel(eri: np.ndarray, ni: int, nj: int, symmetric: bool,
+                 thresh: float) -> tuple:
+    """One PNO channel: for each pair (i, j) (i <= j when ``symmetric``)
+    the SVD of eri[i, :, j, :] kept above ``thresh``, U sqrt(s) and
+    sqrt(s) VT zero-padded to the largest kept rank."""
+    idx_i, idx_j, coeff, us, vts = [], [], [], [], []
+    for i in range(ni):
+        for j in range(i if symmetric else 0, nj):
+            u, s, vt = np.linalg.svd(eri[i, :, j, :])
+            keep = s > thresh
+            idx_i.append(i)
+            idx_j.append(j)
+            coeff.append(0.5 if (symmetric and i == j) else 1.0)
+            us.append(u[:, keep] * np.sqrt(s[keep])[None, :])
+            vts.append(np.sqrt(s[keep])[:, None] * vt[keep, :])
+    kmax = max(max(u.shape[1] for u in us), 1)
+    n, m = len(idx_i), eri.shape[1]
+    upad = np.zeros((n, m, kmax), dtype=eri.dtype)
+    vpad = np.zeros((n, kmax, m), dtype=eri.dtype)
+    for t, (u, vt) in enumerate(zip(us, vts)):
+        upad[t, :, :u.shape[1]] = u
+        vpad[t, :vt.shape[0], :] = vt
+    return (np.asarray(idx_i, np.int64), np.asarray(idx_j, np.int64),
+            np.asarray(coeff).astype(eri.dtype), upad, vpad)
+
+
+def _generic_variant_precomputes(ham, psia, psib, rca, rcb, prec):
+    """The local-energy variants' host tensors, as in
+    pauxy_tpu/models/trial.py:182: the half-rotated ERIs
+    v_ipjq = sum_x rchol[x, i, p] rchol'[x, j, q] (exact_eri, and the PNO
+    channels' source), the trial's Ghalf0 = (psi^H psi)^-1 psi^H and its
+    energy terms (ecoul0, exxa0, exxb0) (pno, or stochastic RI with the
+    control variate), and the padded PNO channels. Returns (arrays,
+    channels, e0_terms)."""
+    arrays, channels, e0_terms = {}, {}, None
+    pno = getattr(ham, "pno", False)
+    need_g0 = pno or (getattr(ham, "stochastic_ri", False)
+                      and getattr(ham, "control_variate", False))
+    cdtype = prec.np_cplx
+    if getattr(ham, "exact_eri", False) or pno:
+        eri = {key: np.einsum("xip,xjq->ipjq", a, b, optimize=True)
+               for key, a, b in (("eri_aa", rca, rca), ("eri_bb", rcb, rcb),
+                                 ("eri_ab", rca, rcb))}
+        if getattr(ham, "exact_eri", False):
+            arrays.update({k: v.astype(cdtype) for k, v in eri.items()})
+    if need_g0:
+        g0a = np.linalg.solve(psia.conj().T @ psia, psia.conj().T)
+        g0b = (np.linalg.solve(psib.conj().T @ psib, psib.conj().T)
+               if psib.shape[1] else np.zeros((0, psib.shape[0]), cdtype))
+        x = (np.einsum("xam,am->x", rca, g0a, optimize=True)
+             + np.einsum("xam,am->x", rcb, g0b, optimize=True))
+        ta = np.einsum("xim,jm->xij", rca, g0a, optimize=True)
+        tb = np.einsum("xim,jm->xij", rcb, g0b, optimize=True)
+        e0_terms = (complex(np.dot(x, x)),
+                    complex(np.einsum("xij,xji->", ta, ta, optimize=True)),
+                    complex(np.einsum("xij,xji->", tb, tb, optimize=True)))
+        arrays.update(ghalf0a=g0a.astype(cdtype), ghalf0b=g0b.astype(cdtype))
+    if pno:
+        na, nb = psia.shape[1], psib.shape[1]
+        for key, ni, nj, sym in (("aa", na, na, True), ("bb", nb, nb, True),
+                                 ("ab", na, nb, False)):
+            ch = _pno_channel(eri[f"eri_{key}"], ni, nj, sym, ham.thresh_pno)
+            channels[f"pno_{key}"] = (ch[0], ch[1],
+                                      *(a.astype(cdtype) for a in ch[2:]))
+    return arrays, channels, e0_terms
 
 
 def _finalize(ham, psia, psib, prec, name: str, device) -> SingleDetTrial:
@@ -124,16 +239,20 @@ def _finalize(ham, psia, psib, prec, name: str, device) -> SingleDetTrial:
     psib = np.asarray(psib, dtype=prec.np_cplx)
     g = trial_density_matrix(psia, psib)
     etrial = float(np.real(le.local_energy_G_host(ham, g)[0]))
-    generic = {}
+    generic, e0_terms = {}, None
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
     if ham.name == "Generic":
-        generic = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                   for k, v in _generic_precomputes(ham, psia, psib,
-                                                    prec).items()}
-    return SingleDetTrial(
-        torch.from_numpy(np.ascontiguousarray(psia)).to(device),
-        torch.from_numpy(np.ascontiguousarray(psib)).to(device),
-        G_host=g.astype(prec.np_cplx), etrial=etrial, name=name, **generic,
-    )
+        arrays, channels, e0_terms = _generic_precomputes(ham, psia, psib,
+                                                          prec)
+        generic = {k: dev(v) for k, v in arrays.items()}
+        generic.update({k: tuple(dev(a) for a in v)
+                        for k, v in channels.items()})
+    return SingleDetTrial(dev(psia), dev(psib),
+                          G_host=g.astype(prec.np_cplx), etrial=etrial,
+                          name=name, e0_terms=e0_terms, **generic)
 
 
 def trial_from_orbitals(ham, psi: np.ndarray, name: str = "file", *,

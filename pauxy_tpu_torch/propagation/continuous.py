@@ -13,8 +13,10 @@ projection. With a back-propagation buffer the phaseless step records its
 shifted fields and weight factors at ``bp_ix``. The trial is a single
 determinant or a multi-determinant expansion (``models/multi_slater``:
 the Green's functions det-weighted, the overlap a log-sum-exp over the
-determinants). Not ported yet, raising ``NotImplementedError``: the
-stochastic-RI one-body step.
+determinants). With ``stochastic_ri`` each one-body half-step is
+sketched: phi <- (B theta)(theta^T phi) / S with a fresh Rademacher
+sketch theta [M, S] a half-step, shared by the walkers (exact in
+expectation; a diagonal B is applied exactly).
 """
 
 from __future__ import annotations
@@ -25,7 +27,9 @@ from typing import NamedTuple
 import torch
 
 from pauxy_tpu_torch.estimators import mixed
+from pauxy_tpu_torch.estimators.local_energy import rademacher
 from pauxy_tpu_torch.models import ghf
+from pauxy_tpu_torch.models import multi_coherent as mcoh
 from pauxy_tpu_torch.models import multi_slater as msd
 from pauxy_tpu_torch.ops import greens
 
@@ -54,13 +58,10 @@ class Continuous:
     def propagate(self, trial, state, generator, eshift: float, xi=None, *,
                   bp_ix: int | None = None, ham=None):
         """One step. ``xi`` [w, nfields] injects the normal field draws
-        (tests); otherwise they come from ``generator``. ``bp_ix`` is the
-        back-propagation buffer's slot for this step; ``ham`` is needed by
-        the local-energy update (``hybrid=False``)."""
-        if self.stochastic_ri:
-            raise NotImplementedError(
-                "not ported yet for the continuous propagator: "
-                "stochastic_ri")
+        (tests), with ``stochastic_ri`` an ``RIDraws`` (the fields and the
+        two half-steps' sketches); otherwise they come from ``generator``.
+        ``bp_ix`` is the back-propagation buffer's slot for this step;
+        ``ham`` is needed by the local-energy update (``hybrid=False``)."""
         if isinstance(trial, ghf.GHFTrial):
             raise NotImplementedError(
                 "the continuous propagator takes single- and "
@@ -72,7 +73,8 @@ class Continuous:
 
 
 def is_single_det(trial) -> bool:
-    return not isinstance(trial, (msd.MultiSlaterTrial, ghf.GHFTrial))
+    return not isinstance(trial, (msd.MultiSlaterTrial, ghf.GHFTrial,
+                                  mcoh.MultiCoherentTrial))
 
 
 def _bound_hybrid(ehyb: torch.Tensor, eshift: float, ebound: float
@@ -112,6 +114,15 @@ def trial_log_overlap(trial, phia, phib) -> torch.Tensor:
             + greens.log_overlap(phib, trial.psib))
 
 
+class RIDraws(NamedTuple):
+    """A stochastic-RI step's draws: the fields [w, nfields] and the
+    Rademacher sketches theta1, theta2 [M, S] of the two half-steps."""
+
+    fields: torch.Tensor
+    theta1: torch.Tensor
+    theta2: torch.Tensor
+
+
 class TwoBodyFactors(NamedTuple):
     cmf: torch.Tensor       # [w] mean-field-shift constant factor
     cfb: torch.Tensor       # [w] force-bias shift constant factor
@@ -123,6 +134,39 @@ def _apply_bh1(bh1: torch.Tensor, phia: torch.Tensor, phib: torch.Tensor):
     if bh1.dim() == 2:
         return bh1[0][None, :, None] * phia, bh1[1][None, :, None] * phib
     return torch.matmul(bh1[0], phia), torch.matmul(bh1[1], phib)
+
+
+def _apply_bh1_stochastic(bh1: torch.Tensor, phia: torch.Tensor,
+                          phib: torch.Tensor, theta: torch.Tensor):
+    """The sketched half-step phi <- (B theta)(theta^T phi) / S, theta
+    [M, S] of +/-1, so that E[theta theta^T / S] = I; B theta is formed
+    once for the whole batch. A diagonal [2, M] bh1 is applied exactly."""
+    if bh1.dim() == 2:
+        return _apply_bh1(bh1, phia, phib)
+    theta = theta.to(bh1.dtype)
+    inv = 1.0 / theta.shape[1]
+    return tuple(inv * torch.matmul(b @ theta, theta.T.to(phi.dtype) @ phi)
+                 for b, phi in ((bh1[0], phia), (bh1[1], phib)))
+
+
+def _half_steps(prop: Continuous, state, generator, xi):
+    """(first, second, fields): the two one-body half-step closures,
+    sketched with stochastic RI (the sketches from ``xi`` or drawn), and
+    the step's field draws (``xi`` or None)."""
+    bh1 = prop.inner.BH1
+    if not prop.stochastic_ri:
+        def fn(pa, pb):
+            return _apply_bh1(bh1, pa, pb)
+        return fn, fn, xi
+    if xi is None:
+        shape = (state.nbasis, prop.ri_nsamples)
+        rd = state.weight.dtype
+        xi = RIDraws(None, *(rademacher(shape, rd, generator,
+                                        state.weight.device)
+                             for _ in range(2)))
+    return (lambda pa, pb: _apply_bh1_stochastic(bh1, pa, pb, xi.theta1),
+            lambda pa, pb: _apply_bh1_stochastic(bh1, pa, pb, xi.theta2),
+            xi.fields)
 
 
 def two_body_factors(prop: Continuous, trial, ga, gb, nwalkers: int,
@@ -162,11 +206,12 @@ def propagate_phaseless(prop: Continuous, trial, state, generator,
     inner = prop.inner
     ga, gb, log_o = trial_greens(trial, state.phia, state.phib,
                                  getattr(inner, "uses_full_g", False))
-    phia, phib = _apply_bh1(inner.BH1, state.phia, state.phib)
+    first, second, xi = _half_steps(prop, state, generator, xi)
+    phia, phib = first(state.phia, state.phib)
     fac = two_body_factors(prop, trial, ga, gb, state.nwalkers, generator,
                            xi)
     phia, phib = inner.apply_vhs(phia, phib, fac.xshifted)
-    phia, phib = _apply_bh1(inner.BH1, phia, phib)
+    phia, phib = second(phia, phib)
     log_o_new = trial_log_overlap(trial, phia, phib)
 
     dt = prop.dt
@@ -234,11 +279,12 @@ def propagate_free(prop: Continuous, trial, state, generator, eshift: float,
                                  getattr(inner, "uses_full_g", False))
     else:
         ga = gb = None
-    phia, phib = _apply_bh1(inner.BH1, state.phia, state.phib)
+    first, second, xi = _half_steps(prop, state, generator, xi)
+    phia, phib = first(state.phia, state.phib)
     fac = two_body_factors(prop, trial, ga, gb, state.nwalkers, generator,
                            xi)
     phia, phib = inner.apply_vhs(phia, phib, fac.xshifted)
-    phia, phib = _apply_bh1(inner.BH1, phia, phib)
+    phia, phib = second(phia, phib)
     log_o_new = trial_log_overlap(trial, phia, phib)
     arg = fac.cmf + prop.dt * eshift
     return dataclasses.replace(

@@ -14,7 +14,10 @@ six matmuls, chosen by shape before any launch), ``"pallas_bf16"`` the
 fused kernel's bf16-multiplicand tier (bf16 products, float32 sums; an M
 past its cap takes its plain version, by shape). ``"pallas_interpret"``
 (JAX's CPU test mode) is refused: here ``"pallas"`` on a CPU tensor
-already takes the plain version. ``"xla_3m"`` is not ported yet.
+already takes the plain version. ``"xla_3m"`` runs the ``"xla"`` series:
+JAX splits each complex product into three real ones (3M) because the TPU
+has no complex matmul unit; on the H100 the split was measured slower
+than the complex products (PERF.md), so the port keeps one series.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from pauxy_tpu_torch.models import multi_slater as msd
 from pauxy_tpu_torch.ops import taylor_cuda
 from pauxy_tpu_torch.ops.contract import cr_einsum
 
-TAYLOR_IMPLS = ("xla", "pallas", "pallas_bf16")
+TAYLOR_IMPLS = ("xla", "xla_3m", "pallas", "pallas_bf16")
 
 # The "xla" route: the series as batched matmuls, which is the fused
 # kernel's plain version.
@@ -43,9 +46,6 @@ def _check_taylor_impl(taylor_impl: str | None) -> str:
         raise ValueError(
             "taylor_impl 'pallas_interpret' is JAX's CPU test mode; use "
             "'pallas', which takes the plain version on a CPU tensor")
-    if taylor_impl == "xla_3m":
-        raise NotImplementedError(
-            f"taylor_impl {taylor_impl!r} is not ported yet")
     if taylor_impl not in TAYLOR_IMPLS:
         raise ValueError(f"taylor_impl {taylor_impl!r}, want one of "
                          f"{TAYLOR_IMPLS}")
@@ -56,7 +56,8 @@ def taylor_series(vhs: torch.Tensor, phi: torch.Tensor, order: int,
                   taylor_impl: str) -> torch.Tensor:
     """exp(vhs) phi to ``order`` by the route ``taylor_impl`` names: the
     fused kernel (f32 or bf16 tier) where M is within its cap, else that
-    tier's plain series, chosen by shape before any launch."""
+    tier's plain series, chosen by shape before any launch; ``"xla"`` and
+    ``"xla_3m"`` run the plain complex series."""
     m = vhs.shape[-1]
     if taylor_impl == "pallas" and taylor_cuda.fits(m, vhs.dtype):
         return taylor_cuda.apply_taylor(vhs, phi, order)

@@ -17,7 +17,8 @@ masked gathers over the kpq map. The mean-field shift is zero.
 as JAX does) selects the series as in ``propagation/generic.py``:
 ``"xla"`` six batched matmuls, ``"pallas"`` the fused kernel,
 ``"pallas_bf16"`` its bf16-multiplicand tier; an M past a kernel's cap
-takes that tier's plain series, by shape.
+takes that tier's plain series, by shape. As in JAX, ``"xla_3m"`` runs the
+plain complex series here.
 """
 
 from __future__ import annotations

@@ -15,10 +15,15 @@ package's counterpart:
   with the mixed estimator's density matrices and the back-propagated and
   ITCF estimators.
 
-Block boundaries touch the host for the output rows, the HDF5 push and the
-eshift update. The stochastic-RI one-body step and a walker mesh raise
-``NotImplementedError``; so do back propagation and the ITCF with a
-multi-determinant or GHF trial, and a GHF trial with the continuous
+The Hubbard-Holstein model takes the generic block with its own
+propagator (``propagation/hirsch_dmc``: Hirsch electron updates and DMC
+phonon moves; coherent-state, Lang-Firsov or multi-coherent trials). The
+Generic energy variants (exact ERIs, PNO, stochastic RI) and the
+stochastic-RI one-body step run in the generic block too. Block boundaries
+touch the host for the output rows, the HDF5 push and the eshift update.
+A walker mesh raises ``NotImplementedError``; so do back propagation and
+the ITCF with a multi-determinant, GHF or multi-coherent trial or the
+Hubbard-Holstein propagator, and a GHF trial with the continuous
 propagator, as in JAX.
 """
 
@@ -36,11 +41,14 @@ import torch
 from pauxy_tpu_torch import config
 from pauxy_tpu_torch.estimators import back_prop, mixed
 from pauxy_tpu_torch.estimators import itcf as itcf_mod
+from pauxy_tpu_torch.estimators.local_energy import rademacher
 from pauxy_tpu_torch.models import ghf
+from pauxy_tpu_torch.models import hubbard_holstein as hh
 from pauxy_tpu_torch.models import multi_slater as msd
 from pauxy_tpu_torch.propagation.continuous import Continuous, is_single_det
 from pauxy_tpu_torch.propagation.generic import make_generic_continuous
 from pauxy_tpu_torch.propagation.hirsch import Hirsch, make_hirsch
+from pauxy_tpu_torch.propagation.hirsch_dmc import HirschDMC, make_hirsch_dmc
 from pauxy_tpu_torch.propagation.hubbard import make_hubbard_continuous
 from pauxy_tpu_torch.propagation.planewave import make_planewave
 from pauxy_tpu_torch.propagation.pw_fft import make_pw_fft_inner
@@ -129,8 +137,10 @@ def run_block(ham, trial, prop, state, generator, eshift: float,
     off). Draws come from ``generator`` unless ``noise`` is given
     (``noise.xi[i]`` is step i's propagator draw: the site sweep's
     uniforms [M, w] (the GHF sweep's too), the direct update's uniforms
-    [w, M], discrete free projection's field bits [w, M], or the
-    continuous HS fields [w, X]).
+    [w, M], discrete free projection's field bits [w, M], the
+    continuous HS fields [w, X], with stochastic RI a
+    ``continuous.RIDraws``, for Hubbard-Holstein a ``hirsch_dmc.DMCDraws``;
+    ``noise.est[i]`` the stochastic-RI energy's probes [X, S]).
     """
     discrete = isinstance(prop, Hirsch)
     nhist = extras.nhist
@@ -165,10 +175,17 @@ def run_block(ham, trial, prop, state, generator, eshift: float,
                 state, target_weight, pop_method,
                 uniforms=None if noise is None else noise.pop[i],
                 generator=generator)
-        accs.append(mixed.update(ham, trial, state,
-                                 step % energy_eval_freq == 0,
+        eval_energy = step % energy_eval_freq == 0
+        ri_theta = None
+        if eval_energy and getattr(ham, "stochastic_ri", False):
+            ri_theta = (noise.est[i] if noise is not None
+                        and noise.est is not None
+                        else rademacher((ham.nchol, ham.nsamples),
+                                        state.weight.dtype, generator,
+                                        state.weight.device))
+        accs.append(mixed.update(ham, trial, state, eval_energy,
                                  free_projection, calc_one_rdm,
-                                 calc_two_rdm))
+                                 calc_two_rdm, ri_theta))
         if extras.nbp:
             buffcount = (step - 1) % nhist + 1
             for k, s in enumerate(extras.splits):
@@ -238,11 +255,13 @@ class AFQMC:
         bp_opts = eopts.get("back_propagation",
                             eopts.get("back_propagated"))
         itcf_opts = eopts.get("itcf")
-        if (bp_opts is not None or itcf_opts is not None) and not \
-                is_single_det(self.trial):
+        if (bp_opts is not None or itcf_opts is not None) and (
+                not is_single_det(self.trial)
+                or isinstance(self.prop, HirschDMC)):
             raise NotImplementedError(
                 "back propagation and the ITCF are single-determinant only "
-                "(no multi-determinant or GHF trial)")
+                "(no multi-determinant, GHF or multi-coherent trial) and "
+                "not for the Hubbard-Holstein propagator")
         self.extras = self._extras(bp_opts, itcf_opts)
         self.use_fast_block = hubbard_fast.eligible(
             self.ham, self.trial, self.prop,
@@ -251,29 +270,26 @@ class AFQMC:
             nitcf=self.extras.nitcf, calc_one_rdm=self.calc_one_rdm,
             calc_two_rdm=self.calc_two_rdm,
         )
-        generic_prop = isinstance(self.prop, Hirsch) or (
-            isinstance(self.prop, Continuous)
-            and not self.prop.stochastic_ri)
-        generic = (generic_prop
-                   and qmc.pop_control_method in ("comb", "pair_branch"))
-        if not (self.use_fast_block or generic):
+        if not (self.use_fast_block
+                or qmc.pop_control_method in ("comb", "pair_branch")):
             raise NotImplementedError(
-                "this configuration is not ported yet: the port runs Hubbard "
-                "(continuous or discrete HS), Generic (Cholesky "
-                "ab-initio), UEG and PW_FFT AFQMC with a single-determinant "
-                "trial, Hubbard and Generic with a multi-determinant one, "
-                "discrete Hubbard with a GHF one; "
-                "phaseless, local-energy or free-projection, comb or "
-                "pair_branch population control, the mixed estimator "
-                "with its density matrices, back propagation and the ITCF"
-            )
+                "this configuration is not ported yet: the port runs "
+                "comb or pair_branch population control")
 
         ex = self.extras
+        seed = qmc.rng_seed if qmc.rng_seed is not None else 7
+        # The phonon coordinates' first draw has a seed of its own, as in
+        # JAX (seed + 1000003).
+        phonon_mw = phonon_gen = None
+        if hh.carries_phonons(self.trial):
+            phonon_mw = self.ham.m * self.ham.w0
+            phonon_gen = torch.Generator(device=self.device)
+            phonon_gen.manual_seed(seed + 1000003)
         self.state = init_walkers(
             self.trial, qmc.nwalkers, total_weight=float(qmc.nwalkers),
             nprop_tot=ex.nhist or None,
             nfields=self.ham.nfields if ex.nhist else None,
-            itcf=bool(ex.nitcf))
+            itcf=bool(ex.nitcf), phonon_mw=phonon_mw, generator=phonon_gen)
         self.eshift = 0.0
         self.filename = filename
         output = None
@@ -299,7 +315,6 @@ class AFQMC:
                 None if filename is None
                 else H5EstimatorHelper(filename, "itcf"),
                 kspace_dims=kdims, mode=itcf_opts.get("mode", "full"))
-        seed = qmc.rng_seed if qmc.rng_seed is not None else 7
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.step = 0
@@ -353,8 +368,15 @@ class AFQMC:
             nprop_tot = nitcf + neqlb
         return Extras(nprop_tot=nprop_tot or 0, **kw)
 
-    def _build_propagator(self, popts: dict) -> Continuous | Hirsch:
+    def _build_propagator(self, popts: dict
+                          ) -> Continuous | Hirsch | HirschDMC:
         hs = popts.get("hubbard_stratonovich", "continuous")
+        if self.ham.name == "HubbardHolstein":
+            return make_hirsch_dmc(
+                self.ham, self.trial, self.qmc.dt,
+                lang_firsov=popts.get("lang_firsov", False),
+                symmetric_trotter=popts.get("symmetric_trotter", False),
+                device=self.device, dtype=self.trial.inita.dtype)
         if isinstance(self.trial, ghf.GHFTrial) and "discrete" not in hs:
             # As in JAX: a GHF trial pairs with the discrete propagator.
             raise NotImplementedError(

@@ -35,10 +35,12 @@ class BlockNoise(NamedTuple):
     of ``qmc/afqmc.py`` the site sweep's uniforms [M, w] or the Generic HS
     fields [w, X]); ``pop`` [nsteps, k]
     population-control uniforms (k = 1 for comb, W // 2 for pair_branch),
-    read on population-control steps."""
+    read on population-control steps; ``est`` [nsteps, X, S] the
+    stochastic-RI energy's probes (that variant only)."""
 
     xi: torch.Tensor
     pop: torch.Tensor
+    est: torch.Tensor | None = None
 
 
 def eligible(ham, trial, prop, *, free_projection, nbp, nitcf,

@@ -15,6 +15,8 @@ from pauxy_tpu_torch import config
 from pauxy_tpu_torch.models.generic import Generic
 from pauxy_tpu_torch.models.ghf import GHFTrial
 from pauxy_tpu_torch.models.hubbard import Hubbard, band_energies
+from pauxy_tpu_torch.models.hubbard_holstein import HubbardHolstein
+from pauxy_tpu_torch.models.multi_coherent import MultiCoherentTrial
 from pauxy_tpu_torch.models.multi_slater import MultiSlaterTrial
 from pauxy_tpu_torch.models.thermal_trial import OneBodyTrial
 from pauxy_tpu_torch.models.trial import SingleDetTrial, trial_density_matrix
@@ -23,6 +25,7 @@ from pauxy_tpu_torch.models.ueg import UEG, fft_maps
 from pauxy_tpu_torch.ops import ueg_sparse
 from pauxy_tpu_torch.propagation.generic import GenericContinuous
 from pauxy_tpu_torch.propagation.hirsch import Hirsch
+from pauxy_tpu_torch.propagation.hirsch_dmc import HirschDMC
 from pauxy_tpu_torch.propagation.hubbard import HubbardContinuous
 from pauxy_tpu_torch.propagation.planewave import PlaneWave
 from pauxy_tpu_torch.propagation.pw_fft import PWFFTInner
@@ -54,28 +57,61 @@ def hubbard(T, U: float, symmetric: bool, *, nx: int, ny: int, nup: int,
                    symmetric=symmetric)
 
 
+def hubbard_holstein(T, U: float, *, g: float, w0: float, m: float,
+                     lmbda: float, nx: int, ny: int, nup: int, ndown: int,
+                     t: float = 1.0, device=None) -> HubbardHolstein:
+    """Hubbard-Holstein system from its hopping matrix T [2, M, M]."""
+    device = config.resolve_device(device)
+    T = np.asarray(T)
+    h1e_mod = (T - 0.5 * U * np.eye(T.shape[-1])[None]).astype(T.dtype)
+    eks = band_energies(t, nx, ny).astype(T.dtype)
+    return HubbardHolstein(_t(T, device), _t(h1e_mod, device),
+                           _t(eks, device), U=U, t=t, g=g, w0=w0, m=m,
+                           lmbda=lmbda, nx=nx, ny=ny, nup=nup, ndown=ndown)
+
+
 def generic(H1, h1e_mod, chol, *, ecore: float, nup: int, ndown: int,
-            device=None) -> Generic:
-    """Generic Hamiltonian from H1, h1e_mod [2, M, M] and chol [M, M, X]."""
+            device=None, **variants) -> Generic:
+    """Generic Hamiltonian from H1, h1e_mod [2, M, M] and chol [M, M, X];
+    ``variants`` the local-energy flags (``exact_eri``, ``stochastic_ri``,
+    ``nsamples``, ``control_variate``, ``pno``, ``thresh_pno``)."""
     device = config.resolve_device(device)
     return Generic(_t(H1, device), _t(h1e_mod, device), _t(chol, device),
-                   ecore=ecore, nup=nup, ndown=ndown)
+                   ecore=ecore, nup=nup, ndown=ndown, **variants)
 
 
 def trial(psia, psib, etrial: float, *, name: str = "single_det",
-          device=None, **generic) -> SingleDetTrial:
+          shift=None, e0_terms=None, device=None,
+          **generic) -> SingleDetTrial:
     """Single-determinant trial from orbitals psia [M, na], psib [M, nb];
-    for a Generic system also its half-rotated tensors (``rchola``,
-    ``rcholb``, ``rh1a``, ``rh1b`` and, when the trial has them,
-    ``exx_supera``/``exx_superb``; None entries are skipped)."""
+    a Hubbard-Holstein trial's phonon ``shift`` [M]; for a Generic system
+    also its half-rotated tensors (``rchola``, ``rcholb``, ``rh1a``,
+    ``rh1b`` and, when the trial has them, ``exx_supera``/``exx_superb``,
+    the variants' ``eri_*``, ``ghalf0*``, the PNO channels ``pno_*`` (tuples
+    of arrays) and ``e0_terms``; None entries are skipped)."""
     device = config.resolve_device(device)
     psia = np.asarray(psia)
     psib = np.asarray(psib)
-    tensors = {k: _t(v, device) for k, v in generic.items()
-               if v is not None}
+    tensors = {k: (tuple(_t(a, device) for a in v) if isinstance(v, tuple)
+                   else _t(v, device))
+               for k, v in generic.items() if v is not None}
     return SingleDetTrial(_t(psia, device), _t(psib, device),
                           G_host=trial_density_matrix(psia, psib),
-                          etrial=etrial, name=name, **tensors)
+                          etrial=etrial, name=name,
+                          shift=None if shift is None else _t(shift, device),
+                          e0_terms=e0_terms, **tensors)
+
+
+def multi_coherent_trial(psi, shifts, coeffs, inita, initb, shift, *,
+                         nup: int, m: float, w0: float, etrial: float,
+                         device=None) -> MultiCoherentTrial:
+    """Multi-coherent trial from the JAX one's psi [P, M, na + nb], shifts
+    [P, M], coeffs [P], initial walker and leading shift [M]."""
+    device = config.resolve_device(device)
+    return MultiCoherentTrial(_t(psi, device), _t(shifts, device),
+                              _t(coeffs, device), _t(inita, device),
+                              _t(initb, device), _t(shift, device), nup=nup,
+                              m=m, w0=w0, etrial=etrial)
 
 
 def multi_slater_trial(psia, psib, coeffs, inita, initb, *, G_host,
@@ -136,6 +172,18 @@ def hirsch(BT2, auxf, aux_wfac, *, dt: float, charge: bool, gamma: complex,
                   btk=None if btk is None else _t(btk, device), nx=nx, ny=ny)
 
 
+def hirsch_dmc(hirsch: Hirsch, BT_half, *, dt: float, m: float, w0: float,
+               cpl: float, eshift_boson: float,
+               symmetric_trotter: bool = False, device=None) -> HirschDMC:
+    """Hubbard-Holstein propagator from a port ``Hirsch`` (``hirsch``
+    above, from the JAX one's tables) and the JAX one's BT_half
+    [2, M, M]."""
+    device = config.resolve_device(device)
+    return HirschDMC(hirsch, _t(BT_half, device), dt=dt, m=m, w0=w0,
+                     cpl=cpl, eshift_boson=eshift_boson,
+                     symmetric_trotter=symmetric_trotter)
+
+
 # The optional back-propagation / ITCF buffers of a walker state.
 HISTORY_FIELDS = ("configs", "cos_fac", "weight_fac", "phia_old", "phib_old",
                   "phia_right", "phib_right")
@@ -143,10 +191,11 @@ HISTORY_FIELDS = ("configs", "cos_fac", "weight_fac", "phia_old", "phib_old",
 
 def walker_state(*, phia, phib, weight, unscaled_weight, log_ovlp,
                  hybrid_energy, log_detr, total_weight, phase=None,
-                 eloc=None, device=None, **history) -> WalkerState:
+                 eloc=None, X=None, device=None, **history) -> WalkerState:
     """WalkerState from the JAX state's fields ([w, M, n] layout). The
-    phase defaults to 1 and the local energy to 0 (a fresh state's);
-    ``history`` takes the buffers of ``HISTORY_FIELDS`` (None skipped)."""
+    phase defaults to 1 and the local energy to 0 (a fresh state's); X
+    [w, M] is a Hubbard-Holstein walker's phonon coordinates; ``history``
+    takes the buffers of ``HISTORY_FIELDS`` (None skipped)."""
     device = config.resolve_device(device)
     unknown = set(history) - set(HISTORY_FIELDS)
     if unknown:
@@ -167,6 +216,7 @@ def walker_state(*, phia, phib, weight, unscaled_weight, log_ovlp,
                else _t(phase, device)),
         eloc=(torch.zeros_like(log_ovlp) if eloc is None
               else _t(eloc, device)),
+        X=None if X is None else _t(X, device),
         **{k: _t(v, device) for k, v in history.items() if v is not None},
     )
 

@@ -2,7 +2,9 @@
 
 Counterpart of ``pauxy_tpu/walkers/state.py``: the whole population is one
 dataclass of tensors with a leading walker axis, whatever the trial (a
-multi-determinant or GHF trial changes only the overlaps). The
+multi-determinant, GHF or multi-coherent trial changes only the
+overlaps). A Hubbard-Holstein walker also carries its phonon coordinates
+X [w, M]. The
 back-propagation / ITCF buffers (the auxiliary-field history and the
 historic wavefunctions) are optional and ride along as [w, ...] fields, so
 population control moves them with their walkers.
@@ -16,6 +18,8 @@ import torch
 
 from pauxy_tpu_torch import config
 from pauxy_tpu_torch.models import ghf
+from pauxy_tpu_torch.models import hubbard_holstein as hh
+from pauxy_tpu_torch.models import multi_coherent as mcoh
 from pauxy_tpu_torch.models import multi_slater as msd
 from pauxy_tpu_torch.ops import greens
 
@@ -40,6 +44,7 @@ class WalkerState:
     phib_old: torch.Tensor | None = None
     phia_right: torch.Tensor | None = None  # [w, M, na] snapshot (ITCF)
     phib_right: torch.Tensor | None = None
+    X: torch.Tensor | None = None           # [w, M] phonon coordinates (HH)
 
     @property
     def nwalkers(self) -> int:
@@ -52,9 +57,17 @@ class WalkerState:
 
 def init_walkers(trial, nwalkers: int, total_weight: float | None = None,
                  nprop_tot: int | None = None, nfields: int | None = None,
-                 itcf: bool = False) -> WalkerState:
+                 itcf: bool = False, phonon_mw: float | None = None,
+                 generator: torch.Generator | None = None,
+                 X0: torch.Tensor | None = None) -> WalkerState:
     """All walkers start as the trial's initial determinant, weight 1,
     phase 1.
+
+    A trial with a phonon ``shift`` (Hubbard-Holstein) gives the walkers
+    coordinates X: ``X0`` [w, M] when given, else drawn from
+    |phi_B(X)|^2 = Normal(shift, 1 / (2 phonon_mw)), phonon_mw = m w0,
+    with ``generator``. A multi-coherent trial's log-overlap is its
+    mixture's at X.
 
     ``total_weight`` seeds the 10% weight cap before the first population
     control (the target weight by default). The log-overlaps go through
@@ -70,7 +83,19 @@ def init_walkers(trial, nwalkers: int, total_weight: float | None = None,
     cdtype = inita.dtype
     rdtype = config.real_dtype(cdtype)
     dev = inita.device
-    if isinstance(trial, ghf.GHFTrial):
+    x0 = None
+    if hh.carries_phonons(trial) and (
+            X0 is not None or phonon_mw is not None):
+        if X0 is not None:
+            x0 = X0.to(device=dev, dtype=rdtype)
+        else:
+            sigma = (2.0 * phonon_mw) ** -0.5
+            x0 = trial.shift[None, :].to(rdtype) + sigma * torch.randn(
+                (nwalkers, trial.shift.shape[0]), generator=generator,
+                dtype=rdtype, device=dev)
+    if isinstance(trial, mcoh.MultiCoherentTrial):
+        log_o = mcoh.mc_log_overlap(trial, phia, phib, x0)
+    elif isinstance(trial, ghf.GHFTrial):
         log_o = ghf.ghf_log_overlap(trial, phia, phib)
     elif isinstance(trial, msd.MultiSlaterTrial):
         log_o = msd.log_overlap_multi_det(trial, phia, phib)
@@ -103,6 +128,7 @@ def init_walkers(trial, nwalkers: int, total_weight: float | None = None,
                                   device=dev),
         phase=torch.ones(nwalkers, dtype=cdtype, device=dev),
         eloc=torch.zeros(nwalkers, dtype=cdtype, device=dev),
+        X=x0,
         **extras,
     )
 

@@ -103,6 +103,16 @@ def test_no_file_without_filename(tmp_path, monkeypatch):
 ])
 def test_unported_configurations_raise(popts, eopts):
     ham = make_hubbard(2, 2, U=4.0, nx=2, ny=2, **CPU)
+    if popts == {"stochastic_ri": True}:
+        # The stochastic-RI one-body step is ported now: it runs, in the
+        # generic block (its steps are held against JAX in
+        # test_torch_generic_variants.py).
+        af = AFQMC(ham, free_electron_trial(ham, **CPU),
+                   QMCOpts(nwalkers=4, dt=0.01, nsteps=2, nblocks=1),
+                   propagator_options=popts, estimator_options=eopts,
+                   device="cpu")
+        assert not af.use_fast_block and np.isfinite(af.run()).all()
+        return
     with pytest.raises(NotImplementedError):
         AFQMC(ham, free_electron_trial(ham, **CPU),
               QMCOpts(nwalkers=4, dt=0.01, nsteps=2, nblocks=1),

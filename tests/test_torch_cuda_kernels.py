@@ -1477,3 +1477,97 @@ def test_multi_det_and_rdm_blocks_on_card_match_cpu(case):
         out[device] = [b[0] for b in blocks]
     for a, b in zip(out["cuda"], out["cpu"]):
         np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-10)
+
+
+NEW_PATHS = ("hh_coherent", "hh_symmetric", "hh_multi_coherent",
+             "generic_exact_eri", "generic_pno", "generic_sri",
+             "generic_sri_cv", "generic_ri_step", "generic_xla_3m")
+
+
+def _new_path_af(case, device):
+    """A 16-walker complex128 run of the case: Hubbard-Holstein on the 3x2
+    lattice (the coherent-state trial, with symmetric_trotter, or the
+    multi-coherent one) or a Generic energy variant / the stochastic-RI
+    step / taylor_impl="xla_3m" (taylor_impl="pallas" elsewhere)."""
+    from pauxy_tpu_torch.models import make_generic, rhf_identity_trial
+    from pauxy_tpu_torch.models.hubbard_holstein import (
+        coherent_state_trial, make_hubbard_holstein)
+    from pauxy_tpu_torch.models.multi_coherent import multi_coherent_trial
+    from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
+    from pauxy_tpu_torch.utils.testing import generate_hamiltonian
+
+    kw = dict(device=device, dtype="double")
+    popts = {}
+    if case.startswith("hh"):
+        ham = make_hubbard_holstein(2, 2, U=4.0, nx=3, ny=2, lmbda=0.3, **kw)
+        trial = (multi_coherent_trial if case == "hh_multi_coherent"
+                 else coherent_state_trial)(ham, **kw)
+        popts = {"symmetric_trotter": case == "hh_symmetric"}
+    else:
+        flags = {"generic_exact_eri": {"exact_eri": True},
+                 "generic_pno": {"pno": True, "thresh_pno": 1e-8},
+                 "generic_sri": {"stochastic_ri": True, "nsamples": 5},
+                 "generic_sri_cv": {"stochastic_ri": True, "nsamples": 5,
+                                    "control_variate": True}}.get(case, {})
+        h1e, chol, enuc, _ = generate_hamiltonian(8, (2, 2), seed=3)
+        ham = make_generic((2, 2), h1e, chol, enuc, **flags, **kw)
+        trial = rhf_identity_trial(ham, **kw)
+        popts = {"taylor_impl": "xla_3m" if case == "generic_xla_3m"
+                 else "pallas",
+                 "stochastic_ri": case == "generic_ri_step", "nsamples": 8}
+    return AFQMC(ham, trial, QMCOpts(nwalkers=16, dt=0.01, nsteps=10,
+                                     nblocks=2, nstblz=5, npop_control=1),
+                 propagator_options=popts,
+                 estimator_options={"mixed": {"energy_eval_freq": 1}},
+                 device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NEW_PATHS)
+def test_hh_and_generic_variant_blocks_on_card_match_cpu(case):
+    """Two blocks of each Hubbard-Holstein path and Generic variant on the
+    card (kernels) and on the CPU (plain versions) with the same injected
+    draws (the phonon start X0 too), complex128: the mixed sums at rtol
+    1e-8, atol 1e-10; kernel B launched, the sweep kernel on the
+    coherent-state paths, the Taylor kernel on the Generic ones but
+    xla_3m."""
+    need_cuda()
+    from chip_smoke import hh_draws, extras_blocks
+    from pauxy_tpu_torch.propagation.continuous import RIDraws
+    from pauxy_tpu_torch.propagation.hirsch_dmc import DMCDraws
+    from pauxy_tpu_torch.qmc.afqmc import run_block
+    from pauxy_tpu_torch.qmc.hubbard_fast import BlockNoise
+    from pauxy_tpu_torch.walkers import init_walkers
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        rng = np.random.default_rng(29)
+        af = _new_path_af(case, device)
+        m, est = af.ham.nbasis, None
+        if case.startswith("hh"):
+            xi = hh_draws(rng, 20, 16, m, case == "hh_symmetric", DMCDraws)
+            x0 = torch.from_numpy(rng.normal(size=(16, m))).to(device)
+            af.state = init_walkers(af.trial, 16, total_weight=16.0,
+                                    X0=af.trial.shift + x0 * (
+                                        2.0 * af.ham.m * af.ham.w0) ** -0.5)
+        else:
+            fields = rng.normal(size=(20, 16, af.ham.nfields))
+            xi = ([RIDraws(f, *(rng.choice([-1.0, 1.0], size=(m, 8))
+                                for _ in range(2))) for f in fields]
+                  if case == "generic_ri_step" else list(fields))
+            if af.ham.stochastic_ri:
+                est = rng.choice([-1.0, 1.0], size=(20, af.ham.nchol, 5))
+        pop = rng.uniform(size=(20, 1))
+        before = (batchla_cuda.launches, sweep_cuda.launches,
+                  taylor_cuda.launches)
+        blocks = extras_blocks(af, xi, pop, 2, run_block, BlockNoise, est)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert batchla_cuda.launches > before[0]
+            assert (sweep_cuda.launches > before[1]) == (
+                case in ("hh_coherent", "hh_symmetric"))
+            assert (taylor_cuda.launches > before[2]) == (
+                case.startswith("generic") and case != "generic_xla_3m")
+        out[device] = [b[0] for b in blocks]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-10)

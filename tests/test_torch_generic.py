@@ -93,8 +93,14 @@ def test_make_generic_matches_jax():
         assert (tham.nbasis, tham.nchol, tham.nfields) == (
             jham.nbasis, jham.nchol, jham.nfields)
         assert (tham.ecore, tham.nup, tham.ndown) == (jham.ecore, 3, 2)
-    with pytest.raises(NotImplementedError, match="exact_eri"):
-        make_generic((3, 2), h1e, chol, enuc, exact_eri=True, **CPU)
+    # The energy variants are ported: their flags are JAX's.
+    for kw in (dict(exact_eri=True), dict(pno=True, thresh_pno=1e-8),
+               dict(stochastic_ri=True, nsamples=4, control_variate=True)):
+        jv = j_make_generic((3, 2), h1e, chol, enuc, **kw)
+        tv = make_generic((3, 2), h1e, chol, enuc, **kw, **CPU)
+        for key in ("exact_eri", "stochastic_ri", "nsamples",
+                    "control_variate", "pno", "thresh_pno"):
+            assert getattr(tv, key) == getattr(jv, key)
 
 
 @pytest.mark.parametrize("kind", TRIALS)
@@ -246,9 +252,10 @@ def test_taylor_impl_values():
     with pytest.raises(ValueError, match="'pallas'"):
         tgen.make_generic_continuous(tham, tt, 0.01,
                                      taylor_impl="pallas_interpret", **CPU)
-    with pytest.raises(NotImplementedError, match="xla_3m"):
-        tgen.make_generic_continuous(tham, tt, 0.01, taylor_impl="xla_3m",
-                                     **CPU)
+    # "xla_3m" builds and runs the complex series, which equals JAX's 3M
+    # series (test_torch_generic_variants.py).
+    assert tgen.make_generic_continuous(
+        tham, tt, 0.01, taylor_impl="xla_3m", **CPU).taylor_impl == "xla_3m"
     bf16 = tgen.make_generic_continuous(tham, tt, 0.01,
                                         taylor_impl="pallas_bf16", **CPU)
     assert bf16.taylor_impl == "pallas_bf16"

@@ -327,8 +327,35 @@ def test_taylor_impl_env_and_refusals(monkeypatch):
     assert make_planewave(ham, tt, 0.01, **CPU).taylor_impl == "xla"
     with pytest.raises(ValueError, match="'pallas'"):
         make_planewave(ham, tt, 0.01, taylor_impl="pallas_interpret", **CPU)
-    with pytest.raises(NotImplementedError, match="xla_3m"):
-        make_planewave(ham, tt, 0.01, taylor_impl="xla_3m", **CPU)
+    # "xla_3m" now builds, as in JAX (test_planewave_xla_3m_matches_jax).
+    assert make_planewave(ham, tt, 0.01, taylor_impl="xla_3m",
+                          **CPU).taylor_impl == "xla_3m"
+
+
+def test_planewave_xla_3m_matches_jax(monkeypatch):
+    """"xla_3m" runs the plain complex series, as JAX's make_planewave
+    does for every tier not starting with "pallas"; no kernel is
+    called."""
+    jham, jt, ham, tt = ueg_system()
+    jprop = j_mpw(jham, jt, 0.05, taylor_impl="xla_3m")
+    prop = make_planewave(ham, tt, 0.05, taylor_impl="xla_3m", **CPU)
+    assert jprop.taylor_impl == prop.taylor_impl == "xla_3m"
+    close(prop.BH1, jprop.BH1)
+    rng = np.random.default_rng(19)
+    m, nw = ham.nbasis, 3
+    x = rng.normal(size=(nw, ham.nfields)) + 0.1j * rng.normal(
+        size=(nw, ham.nfields))
+    phia, phib = walkers(rng, nw, m, 7), walkers(rng, nw, m, 7)
+    calls = []
+    fn = taylor_cuda.apply_taylor
+    monkeypatch.setattr(taylor_cuda, "apply_taylor", lambda *a, **k: (
+        calls.append(1), fn(*a, **k))[1])
+    a, b = prop.apply_vhs(t(phia), t(phib), t(x))
+    ja, jb = jprop.apply_vhs(jnp.asarray(phia), jnp.asarray(phib),
+                             jnp.asarray(x))
+    assert not calls
+    close(a, ja)
+    close(b, jb)
 
 
 # ------------------------------------------------- blocks against JAX ---
