@@ -219,7 +219,35 @@ non-zero and prints no result line:
      within 1e-4 relative of the fast path's, stochastic RI's mean over 64
      probe sets within 4 se of the exact mean; the golden Generic system,
      16 walkers, 2 blocks with injected draws (fields, sketches, probes),
-     card vs host within 1e-4 of the scale for each.
+     card vs host within 1e-4 of the scale for each;
+ 31. the file path at full width: phase 8's bench shape written with the
+     port's write_hamiltonian / write_wavefunction into a temporary
+     directory (HDF5 through h5py where it imports, else the port's
+     h5lite) and driven from a JSON input through
+     qmc.calc.setup_calculation on the card: the loaded H1, chol, ecore
+     and trial orbitals equal to the written arrays cast to the run's
+     dtype, a warm-up block and timed blocks (walker-steps/s beside phase
+     8's), phase 8's launches, the set-up's seconds; the restart (2 blocks,
+     a checkpoint, a new driver from it and 1 block, through the JSON's
+     walkers section) against 3 blocks straight within 1e-6 relative a
+     column; the golden system written to files, 2 blocks with injected
+     draws, card vs host within 2e-4 of the scale;
+ 32. the molecular anchors from files: H10/STO-6G at R = 1.6 a0 through
+     sgto.dump_afqmc (E_UHF within 1e-5 of -5.2562816; 100 walkers, dt
+     0.005, 1000 blocks, energy every 10 steps: E within 4 combined sigma
+     of -5.38331344 +/- 0.0014386 with 20 blocks skipped and 40-block
+     reblocking; get_energy() equal to reblock_summary of the rows; the
+     Generic launch schedule); the H2 MO golden of
+     tests/data/h2_mo_r1.4.npz from files (200 walkers, dt 0.01, 300
+     blocks, within 4 combined sigma, 10-block reblocking); python -m
+     pauxy_tpu_torch on the H10 input cut to 8 blocks in a process of its
+     own: exit 0 and the reblocked table;
+ 33. FCIDUMP and k-points: H10's MO integrals as FCIDUMP files, real and
+     complex; the port's native parser, built with g++ from its own
+     fcidump.cpp, used (no fallback, no warning) and equal to the Python
+     oracle bit for bit; fcidump_to_system and bin/fcidump-to-afqmc-torch
+     give RHF energies within 1e-8 relative of the sgto path's (complex128
+     on the card); a k-point file round-trips exactly.
 Phase 3 also holds the cpqr kernel on the low-rank stack's masked input
 (``check_cpqr_masked``) and kernels A and B on exactly singular matrices
 (``check_zero_pivot``: log|det| -inf, JAX's phase where JAX's is finite).
@@ -234,10 +262,13 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1498,16 +1529,22 @@ def check_exx(exx_cuda, gen) -> tuple[float, dict]:
     return main_err, readings
 
 
-def generic_model(nmo: int, naux: int, nel: int, make_generic,
-                  device: str = "cuda", dtype: str = "single"):
+def generic_arrays(nmo: int, naux: int):
     """bench.py:317-330's random Hamiltonian (numpy default_rng(7), chol
-    scale 0.01 and h1 scale 0.1, both symmetrised, ecore 0), by default on
-    the card in complex64/float32."""
+    scale 0.01 and h1 scale 0.1, both symmetrised, ecore 0): (h1 [M, M],
+    chol [M, M, X]) in float64."""
     rng = np.random.default_rng(7)
     chol = rng.normal(scale=0.01, size=(nmo, nmo, naux))
     chol = 0.5 * (chol + chol.transpose(1, 0, 2))
     h1 = rng.normal(scale=0.1, size=(nmo, nmo))
-    h1 = 0.5 * (h1 + h1.T)
+    return 0.5 * (h1 + h1.T), chol
+
+
+def generic_model(nmo: int, naux: int, nel: int, make_generic,
+                  device: str = "cuda", dtype: str = "single"):
+    """``generic_arrays``' system, by default on the card in
+    complex64/float32."""
+    h1, chol = generic_arrays(nmo, naux)
     return make_generic((nel, nel), np.stack([h1, h1]), chol, ecore=0.0,
                         device=device, dtype=dtype)
 
@@ -4157,6 +4194,401 @@ def main() -> None:
         f"card (complex64) vs host (complex128), max |d| over the scale "
         + ", ".join(f"{k} {v:.2e}" for k, v in var_gaps.items())
         + " <= 1e-4" + lap("30"))
+
+    # ---- 31. the file path at full width ---------------------------------
+    # Phase 8's bench shape, but from files: the port's writers put the
+    # Hamiltonian and the trial into a temporary directory, a JSON input
+    # names them, and setup_calculation builds the driver on the card.
+    from pauxy_tpu_torch import native
+    from pauxy_tpu_torch.qmc.calc import setup_calculation
+    from pauxy_tpu_torch.utils import (h5lite, hamiltonian_converter,
+                                       qmcpack, sgto)
+    from pauxy_tpu_torch.utils import wavefunction as wfn_io
+
+    # Phase 8's run settings and the Generic golden system (later phases
+    # rebind phase 8's and phase 10's names).
+    fq = QMCOpts(nwalkers=1024, dt=0.005, nsteps=10, nblocks=4, nstblz=5,
+                 npop_control=1, rng_seed=8)
+    fsteps = fq.nblocks * fq.nsteps
+    gn = g_gen["h1e"].shape[-1]
+    work = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    try:
+        import h5py  # noqa: F401
+        h5_module = "h5py"
+    except ImportError:
+        h5_module = "the port's h5lite"
+    h1, chol = generic_arrays(128, 512)
+    ham_file = os.path.join(work, "afqmc.h5")
+    wfn_file = os.path.join(work, "wfn.h5")
+    qmcpack.write_hamiltonian(h1, chol, (16, 16), ecore=0.0,
+                              filename=ham_file)
+    eye = np.eye(128)
+    psi = np.concatenate([eye[:, :16], eye[:, :16]], axis=1)
+    wfn_io.write_wavefunction(psi, wfn_file)
+
+    def file_input(name, **sections):
+        opts = {"system": {"name": "Generic", "integrals": ham_file},
+                "qmc": {"nwalkers": fq.nwalkers, "dt": fq.dt,
+                        "nsteps": fq.nsteps, "blocks": fq.nblocks,
+                        "stabilise_freq": fq.nstblz, "pop_control_freq": 1,
+                        "rng_seed": fq.rng_seed},
+                "trial": {"name": "hartree_fock", "filename": wfn_file},
+                "propagator": pallas,
+                "estimates": {"mixed": {"energy_eval_freq": 1},
+                              "filename": os.path.join(work, f"{name}.h5")},
+                "verbosity": 0}
+        opts.update(sections)
+        path = os.path.join(work, f"{name}.json")
+        with open(path, "w") as fh:
+            json.dump(opts, fh)
+        return path
+
+    zero_counts()
+    t0 = time.perf_counter()
+    af = setup_calculation(file_input("generic_file"), device="cuda")
+    setup_wall = time.perf_counter() - t0
+    driver_setup = af.timing["setup"]
+    exact = {
+        "H1": bool(torch.equal(af.ham.H1[0].cpu(),
+                               torch.from_numpy(h1.astype(np.float32)))),
+        "chol": bool(torch.equal(af.ham.chol.cpu(), torch.from_numpy(
+            chol.astype(np.float32)))),
+        "ecore": af.ham.ecore == 0.0,
+        "psi": bool(torch.equal(af.trial.psia.cpu(), torch.from_numpy(
+            psi[:, :16].astype(np.complex64)))) and bool(torch.equal(
+                af.trial.psib.cpu(), af.trial.psia.cpu())),
+    }
+    if not all(exact.values()) or af.prop.inner.taylor_impl != "pallas":
+        raise AssertionError(f"file path: loaded arrays differ from the "
+                             f"written ones {exact}")
+    rows = af.run()
+    torch.cuda.synchronize()
+    file_counts = counts()
+    if not (np.isfinite(rows.real).all()
+            and bool(torch.isfinite(af.state.weight).all())):
+        raise AssertionError(f"non-finite output on the file path: {rows}")
+    want = only(taylor_exp=fsteps, inv_logdet_lanes=2 + 6 * fsteps,
+                chol_inv_lanes=4 * (fsteps // fq.nstblz))
+    if file_counts != want:
+        raise AssertionError(f"file path launches {file_counts}, want "
+                             f"{want}")
+    timed = af.block_seconds[1:]
+    rate_f = fq.nwalkers * fq.nsteps * len(timed) / sum(timed)
+    file_energy = af.get_energy()
+    # Restart at the same shape: 3 blocks straight against 2 blocks, a
+    # checkpoint, a new driver from it and 1 block (the walkers section).
+    restart = os.path.join(work, "restart.h5")
+    straight = setup_calculation(file_input("straight"), device="cuda")
+    srows = [straight.run_block() for _ in range(3)]
+    first = setup_calculation(file_input(
+        "first", walkers={"write_freq": 2, "write_file": restart}),
+        device="cuda")
+    for _ in range(2):
+        first.run_block()
+    second = setup_calculation(file_input(
+        "second", walkers={"read_file": restart}), device="cuda")
+    rrow = second.run_block()
+    restart_gap = float((np.abs(rrow[:10] - srows[2][:10])
+                         / np.maximum(np.abs(srows[2][:10]), 1e-300)).max())
+    if second.step != 3 * fq.nsteps or restart_gap > 1e-6:
+        raise AssertionError(f"restart: block 3 {rrow[:10]} vs straight "
+                             f"{srows[2][:10]}: {restart_gap:.3e} > 1e-6")
+    del af, straight, first, second
+    # Card (complex64) vs host (complex128) on the golden system written to
+    # files, 2 blocks with injected draws (phase 10's limit).
+    gham_file = os.path.join(work, "golden.h5")
+    gwfn_file = os.path.join(work, "golden_wfn.h5")
+    qmcpack.write_hamiltonian(
+        g_gen["h1e"], np.asarray(g_gen["chol"]).reshape(-1, gn, gn)
+        .transpose(1, 2, 0), (3, 3), ecore=float(g_gen["enuc"]),
+        filename=gham_file)
+    wfn_io.write_wavefunction(np.asarray(g_gen["psi"]), gwfn_file)
+    gopts = {"system": {"name": "Generic", "integrals": gham_file},
+             "qmc": dict(golden_qmc, blocks=2, rng_seed=8),
+             "trial": {"name": "hartree_fock", "filename": gwfn_file},
+             "propagator": pallas, "verbosity": 0,
+             "estimates": {"mixed": {"energy_eval_freq": 1},
+                           "filename": os.path.join(work, "golden_est.h5")}}
+    gdraws = np.random.default_rng(31)
+    xi = gdraws.normal(size=(2 * golden_qmc["nsteps"],
+                             golden_qmc["nwalkers"], g_gen["chol"].shape[0]))
+    pop = gdraws.uniform(size=(2 * golden_qmc["nsteps"], 1))
+    card_f = injected_blocks(setup_calculation(gopts, device="cuda"), xi,
+                             pop, 2, run_block, BlockNoise, mixed)
+    host_f = injected_blocks(setup_calculation(gopts, device="cpu",
+                                               dtype="double"), xi, pop, 2,
+                             run_block, BlockNoise, mixed)
+    file_gap = float((np.abs(card_f - host_f).max(axis=0)
+                      / np.abs(host_f).max(axis=0)).max())
+    if not file_gap <= 2e-4:
+        raise AssertionError(f"golden system from files: card {card_f} vs "
+                             f"host {host_f}: {file_gap:.3e} > 2e-4")
+    say("31 file path", f"nmo=128 naux=512 (16,16) written by the port "
+        f"({h5_module}) and read through setup_calculation: H1, chol, ecore "
+        f"and the trial's orbitals equal the written arrays cast to "
+        f"float32/complex64; taylor_impl=pallas {fq.nwalkers} walkers "
+        f"{fsteps} steps: ETotal per block "
+        f"{np.array2string(rows[:, 5].real, precision=5)}, get_energy "
+        f"{file_energy}; launches {file_counts} (phase 8's schedule); "
+        f"{rate_f:.1f} walker-steps/s over {len(timed)} blocks after a "
+        f"warm-up block (phase 8 in this run {rate_g:.1f}); set-up: "
+        f"setup_calculation {setup_wall:.3f} s (the h5 reads and the trial), "
+        f"the driver's timing['setup'] {driver_setup:.3f} s; restart "
+        f"(2 blocks, checkpoint, 1 block) vs 3 blocks straight: max relative "
+        f"|d| over the row's columns {restart_gap:.3e} <= 1e-6; the golden "
+        f"system "
+        f"from files, 2 blocks with injected draws, card (complex64) vs host "
+        f"(complex128) {file_gap:.3e} <= 2e-4" + lap("31"))
+
+    # ---- 32. the molecular anchors from files ----------------------------
+    # H10/STO-6G at R = 1.6 a0 through sgto.dump_afqmc's files, as
+    # tests/test_sgto.py's anchor (100 walkers, dt 0.005, 1000 blocks,
+    # energy every 10 steps, re-orthogonalisation every 5), on the card.
+    h10_dir = os.path.join(work, "h10")
+    h10_input = sgto.dump_afqmc(10, 1.6, prefix=h10_dir, nwalkers=100,
+                                dt=0.005, nblocks=1000)
+    bas, charges, coords, enuc = sgto.hydrogen_chain(10, 1.6)
+    e_uhf = sgto.uhf(bas, charges, coords, (5, 5), enuc)[0]
+    if abs(e_uhf - (-5.2562816)) > 1e-5:
+        raise AssertionError(f"H10 UHF energy {e_uhf} != -5.2562816")
+    with open(h10_input) as fh:
+        h10_opts = json.load(fh)
+    h10_opts["qmc"]["stabilise_freq"] = 5
+    h10_opts["propagator"] = pallas
+    h10_opts["estimates"] = {"mixed": {"energy_eval_freq": 10},
+                             "filename": os.path.join(h10_dir, "est.h5")}
+    h10_opts["verbosity"] = 0
+    zero_counts()
+    af = setup_calculation(h10_opts, device="cuda")
+    rows = af.run()
+    torch.cuda.synchronize()
+    h10_counts = counts()
+    hsteps = af.qmc.nsteps * af.qmc.nblocks
+    want = only(taylor_exp=hsteps,
+                inv_logdet_lanes=2 + 4 * hsteps + 2 * (hsteps // 10),
+                chol_inv_lanes=4 * (hsteps // 5))
+    et = rows[20:, 5].real
+    b40 = et[: len(et) // 40 * 40].reshape(-1, 40).mean(axis=1)
+    se_h10 = float(b40.std(ddof=1) / np.sqrt(len(b40)))
+    comb = float(np.hypot(se_h10, 0.0014386))
+    e_h10 = float(et.mean())
+    from pauxy_tpu_torch.analysis import blocking as port_blocking
+
+    s = port_blocking.reblock_summary(rows[:, 5].real)
+    h10_energy = af.get_energy()
+    h10_rate = af.qmc.nwalkers * af.qmc.nsteps * (len(af.block_seconds)
+                                                  - 1) / sum(
+        af.block_seconds[1:])
+    if (h10_counts != want or not np.isfinite(rows.real).all()
+            or abs(e_h10 - (-5.38331344)) >= 4 * comb
+            or h10_energy != (float(s["mean"]),
+                              float(s["standard error"]))):
+        raise AssertionError(f"H10 anchor: E {e_h10} (se {se_h10}) vs "
+                             f"-5.38331344 +/- 0.0014386; get_energy "
+                             f"{h10_energy} vs {s}; launches {h10_counts}, "
+                             f"want {want}")
+    del af
+    # The H2 MO-basis golden (tests/data/h2_mo_r1.4.npz): 200 walkers,
+    # dt 0.01, 300 blocks, energy every step, 10-block reblocking.
+    h2_dir = os.path.join(work, "h2")
+    os.makedirs(h2_dir)
+    h2ham, h2psi, _ = sgto.molecule_afqmc(
+        [("H", (0, 0, 0)), ("H", (1.4, 0, 0))], (1, 1), chol_tol=1e-10,
+        device="cpu", dtype="double")
+    qmcpack.write_hamiltonian(h2ham.H1[0].numpy(), h2ham.chol.numpy(),
+                              (1, 1), ecore=h2ham.ecore,
+                              filename=os.path.join(h2_dir, "afqmc.h5"))
+    wfn_io.write_wavefunction(h2psi, os.path.join(h2_dir, "wfn.h5"))
+    h2_opts = {"system": {"name": "Generic",
+                          "integrals": os.path.join(h2_dir, "afqmc.h5")},
+               "qmc": {"nwalkers": 200, "dt": 0.01, "nsteps": 10,
+                       "blocks": 300, "stabilise_freq": 5,
+                       "pop_control_freq": 5, "rng_seed": 8},
+               "trial": {"name": "hartree_fock",
+                         "filename": os.path.join(h2_dir, "wfn.h5")},
+               "propagator": pallas, "verbosity": 0,
+               "estimates": {"mixed": {"energy_eval_freq": 1},
+                             "filename": os.path.join(h2_dir, "est.h5")}}
+    zero_counts()
+    rows = setup_calculation(h2_opts, device="cuda").run()
+    torch.cuda.synchronize()
+    h2_counts = counts()
+
+    def blocked_se(x):
+        b = x[: len(x) // 10 * 10].reshape(-1, 10).mean(axis=1)
+        return b.std(ddof=1) / np.sqrt(len(b))
+
+    et = rows[150:, 5].real
+    h2_ref = np.load(os.path.join(ROOT, "tests", "data",
+                                  "h2_mo_r1.4.npz"))["etotal"][150:]
+    se_h2 = float(np.hypot(blocked_se(et), blocked_se(h2_ref)))
+    d_h2 = abs(float(et.mean()) - float(h2_ref.mean()))
+    if not (np.isfinite(rows.real).all() and d_h2 < 4 * se_h2
+            and h2_counts["taylor_exp"] == 3000):
+        raise AssertionError(f"H2 golden: {et.mean()} vs {h2_ref.mean()}, "
+                             f"se {se_h2}; launches {h2_counts}")
+    # The CLI on the card: python -m pauxy_tpu_torch on the H10 input cut
+    # to 8 blocks, in a process of its own.
+    cli_input = os.path.join(h10_dir, "cli.json")
+    with open(cli_input, "w") as fh:
+        json.dump(dict(h10_opts, qmc=dict(h10_opts["qmc"], blocks=8),
+                       estimates={"mixed": {"energy_eval_freq": 10}},
+                       verbosity=1), fh)
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "pauxy_tpu_torch", cli_input],
+        capture_output=True, text=True, cwd=h10_dir, timeout=300,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    cli_s = time.perf_counter() - t0
+    if cli.returncode != 0 or "# Reblocked estimates:" not in cli.stdout:
+        raise AssertionError(f"CLI exit {cli.returncode}:\n{cli.stdout}\n"
+                             f"{cli.stderr[-3000:]}")
+    table = cli.stdout.split("# Reblocked estimates:")[-1].strip()
+    say("32 molecular anchors", f"H10/STO-6G R=1.6 from sgto.dump_afqmc's "
+        f"files: E_UHF {e_uhf:.7f}; complex64, taylor_impl=pallas, 100 "
+        f"walkers, 1000 blocks: E {e_h10:.6f} (40-block se {se_h10:.6f}) vs "
+        f"-5.38331344 +/- 0.0014386, |d| {abs(e_h10 + 5.38331344):.6f} < 4 "
+        f"combined sigma {4 * comb:.6f}; get_energy {h10_energy} = "
+        f"reblock_summary of the rows; launches {h10_counts}; "
+        f"{h10_rate:.1f} walker-steps/s; H2 MO golden from files (200 "
+        f"walkers, 300 blocks): {et.mean():.6f} vs {h2_ref.mean():.6f}, |d| "
+        f"{d_h2:.6f} < 4 se {4 * se_h2:.6f}; launches {h2_counts}; "
+        f"python -m pauxy_tpu_torch on the H10 input (8 blocks) exit 0 in "
+        f"{cli_s:.1f} s, table: {' '.join(table.split())}" + lap("32"))
+
+    # ---- 33. FCIDUMP and k-points ----------------------------------------
+    # H10's integrals (the sgto path's MO-basis Hamiltonian, float64) as an
+    # FCIDUMP, real and (with imaginary one-body couplings) complex.
+    h10ham = sgto.hydrogen_chain_afqmc(10, 1.6, device="cpu",
+                                       dtype="double")[0]
+    h1_10 = h10ham.H1[0].numpy()
+    c10 = h10ham.chol.numpy()
+    eri10 = np.einsum("ikx,jlx->ikjl", c10, c10)
+    m10 = h1_10.shape[0]
+
+    def write_fcidump(path, h1, cplx):
+        fmt = ((lambda v: f"({v.real:.17e}, {v.imag:.17e})") if cplx
+               else (lambda v: f"{v.real:.17e}"))
+        lines = [f"&FCI NORB={m10},NELEC=10,MS2=0,",
+                 "ORBSYM=" + "1," * m10, "&END"]
+        for i in range(m10):
+            for k in range(i + 1):
+                for j in range(m10):
+                    for l in range(j + 1):
+                        if i * m10 + k >= j * m10 + l:
+                            lines.append(f"{fmt(eri10[i, k, j, l])} {i + 1} "
+                                         f"{k + 1} {j + 1} {l + 1}")
+        for i in range(m10):
+            for j in range(i + 1):
+                lines.append(f"{fmt(h1[i, j])} {i + 1} {j + 1} 0 0")
+        lines.append(f"{fmt(h10ham.ecore + 0j)} 0 0 0 0")
+        with open(path, "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+
+    rng33 = np.random.default_rng(33)
+    herm = rng33.normal(scale=1e-3, size=(m10, m10))
+    h1_c = h1_10 + 1j * (herm - herm.T)
+    native_calls = []
+    fill = native.fcidump_fill
+    native.fcidump_fill = lambda *a: native_calls.append(a[1]) or fill(*a)
+    parse = {}
+    try:
+        for tag, h1, cplx in (("real", h1_10, False), ("complex", h1_c,
+                                                        True)):
+            path = os.path.join(work, f"FCIDUMP_{tag}")
+            write_fcidump(path, h1, cplx)
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                t0 = time.perf_counter()
+                got = qmcpack.read_fcidump(path)
+                t_native = time.perf_counter() - t0
+            native.fcidump_fill = lambda *a: None
+            t0 = time.perf_counter()
+            oracle = qmcpack.read_fcidump(path)
+            t_python = time.perf_counter() - t0
+            native.fcidump_fill = (lambda *a: native_calls.append(a[1])
+                                   or fill(*a))
+            same = (np.array_equal(got[0], oracle[0])
+                    and np.array_equal(got[1], oracle[1])
+                    and got[2:] == oracle[2:]
+                    and np.iscomplexobj(got[1]) == cplx)
+            if not same:
+                raise AssertionError(f"FCIDUMP {tag}: native and Python "
+                                     f"parses differ")
+            parse[tag] = (t_native, t_python)
+    finally:
+        native.fcidump_fill = fill
+    if not (native.available() and native_calls == [m10, m10]
+            and native.library_path().exists()):
+        raise AssertionError(f"native parser: available "
+                             f"{native.available()} ({native.load_error()}),"
+                             f" calls {native_calls}")
+    real_dump = os.path.join(work, "FCIDUMP_real")
+    kw64 = dict(device="cuda", dtype="double")
+    e_sgto = rhf_identity_trial(h10ham.to("cuda"), **kw64).etrial
+    e_fcidump = rhf_identity_trial(qmcpack.fcidump_to_system(
+        real_dump, chol_tol=1e-12, **kw64), **kw64).etrial
+    converted = os.path.join(work, "fcidump_afqmc.h5")
+    conv = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "bin", "fcidump-to-afqmc-torch"),
+         real_dump, "-o", converted, "--chol-tol", "1e-12"],
+        capture_output=True, text=True, cwd=work, timeout=300)
+    if conv.returncode != 0:
+        raise AssertionError(f"fcidump-to-afqmc-torch: {conv.stderr}")
+    from pauxy_tpu_torch.models.generic import from_qmcpack_file
+
+    e_script = rhf_identity_trial(from_qmcpack_file(converted, **kw64),
+                                  **kw64).etrial
+    rel = max(abs(e_fcidump - e_sgto), abs(e_script - e_sgto)) / abs(e_sgto)
+    if not rel <= 1e-8:
+        raise AssertionError(f"RHF energies: sgto {e_sgto}, FCIDUMP "
+                             f"{e_fcidump}, script {e_script}")
+    # A k-point file (3 k-points on a ring, 2 orbitals each) round trip.
+    nkp, kmo, knc = 3, 2, 4
+    nmo_pk = np.full(nkp, kmo, dtype=np.int32)
+    nchol_pk = np.full(nkp, knc, dtype=np.int32)
+    qk_k2 = np.array([[(k - q) % nkp for k in range(nkp)]
+                      for q in range(nkp)], dtype=np.int32)
+    minus_k = np.array([(-q) % nkp for q in range(nkp)], dtype=np.int32)
+    hk = [h + h.conj().T for h in (rng33.normal(size=(kmo, kmo))
+                                   + 1j * rng33.normal(size=(kmo, kmo))
+                                   for _ in range(nkp))]
+    lk = []
+    for q in range(nkp):
+        if minus_k[q] < q:
+            lk.append([c.conj() for c in lk[minus_k[q]]])
+            continue
+        im = 0.0 if minus_k[q] == q else 1.0
+        lk.append([rng33.normal(size=(kmo * kmo, knc))
+                   + im * 1j * rng33.normal(size=(kmo * kmo, knc))
+                   for _ in range(nkp)])
+    kfile = os.path.join(work, "kpoint.h5")
+    hamiltonian_converter.write_qmcpack_cholesky_kpoint(
+        kfile, hk, lk, enuc=1.25, nelec=(3, 3), nmo_pk=nmo_pk, qk_k2=qk_k2,
+        minus_k=minus_k, nchol_pk=nchol_pk)
+    back = hamiltonian_converter.read_qmcpack_cholesky_kpoint(kfile)
+    k_ok = (all(np.array_equal(a, b) for a, b in zip(back[0], hk))
+            and all(np.array_equal(np.asarray(back[1][q]).reshape(-1),
+                                   np.stack([c.reshape(-1) for c in lk[q]])
+                                   .reshape(-1)) for q in range(nkp))
+            and back[2] == 1.25 and back[4] == (3, 3))
+    kh, kc = hamiltonian_converter.kpoint_to_supercell(
+        back[0], back[1], nmo_pk, qk_k2, nchol_pk)
+    kham = make_generic((3, 3), kh, kc, 1.25, device="cuda", dtype="single")
+    if not (k_ok and bool(torch.isfinite(kham.h1e_mod).all())):
+        raise AssertionError("k-point file round trip failed")
+    shutil.rmtree(work, ignore_errors=True)
+    say("33 FCIDUMP and k-points", f"H10's MO integrals (M={m10}) as an "
+        f"FCIDUMP: the native parser ({os.path.relpath(native.library_path(), ROOT)}, "
+        f"built with g++ at first use, {len(native_calls)} calls, no "
+        f"warning) equals the Python oracle exactly, real and complex "
+        f"(seconds native / Python: "
+        + ", ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in parse.items())
+        + f"); RHF energy (complex128 on the card) sgto {e_sgto:.12f}, "
+        f"fcidump_to_system {e_fcidump:.12f}, fcidump-to-afqmc-torch "
+        f"{e_script:.12f}: max relative |d| {rel:.2e} <= 1e-8; the k-point "
+        f"file (3 k-points) round-trips exactly and its supercell Generic "
+        f"(M={kham.nbasis}, X={kham.nchol}) builds on the card" + lap("33"))
     say("seconds", json.dumps(seconds))
 
     # ---- result ----------------------------------------------------------
@@ -4193,7 +4625,8 @@ def main() -> None:
                                        for k in counts()},
                "ghf": ghf_counts, "hh": hh_counts, "hh_mc": hh_mc_counts,
                "hh_anchors": hh_anchor_counts,
-               "generic_variants": var_counts}
+               "generic_variants": var_counts, "generic_file": file_counts,
+               "h10_file": h10_counts, "h2_file": h2_counts}
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[k] for c in by_path.values()),

@@ -103,3 +103,20 @@ def make_generic(nelec: tuple[int, int], h1e: np.ndarray, chol: np.ndarray,
                    exact_eri=exact_eri, stochastic_ri=stochastic_ri,
                    nsamples=nsamples, control_variate=control_variate,
                    pno=pno, thresh_pno=thresh_pno)
+
+
+def from_qmcpack_file(filename: str, nelec=None, *, device=None,
+                      dtype=None, **variant) -> Generic:
+    """Load a Generic system from a QMCPACK-format HDF5 integral file
+    (dense or sparse factorised) onto ``device`` at precision ``dtype``;
+    ``nelec`` overrides the file's electron counts, ``variant`` takes
+    ``make_generic``'s local-energy variant flags."""
+    from pauxy_tpu_torch.utils import qmcpack
+
+    h1e, chol, ecore, nelec_file = qmcpack.read_hamiltonian(filename)
+    if nelec is None:
+        nelec = nelec_file
+    if nelec is None:
+        raise ValueError("electron count not in file; pass nelec=")
+    return make_generic(nelec, h1e, chol, ecore, device=device, dtype=dtype,
+                        **variant)

@@ -30,10 +30,9 @@ propagator, as in JAX.
 from __future__ import annotations
 
 import dataclasses
-import platform
-import sys
 import time
 import uuid
+import warnings
 
 import numpy as np
 import torch
@@ -55,7 +54,8 @@ from pauxy_tpu_torch.propagation.pw_fft import make_pw_fft_inner
 from pauxy_tpu_torch.qmc import hubbard_fast
 from pauxy_tpu_torch.qmc.hubbard_fast import BlockNoise
 from pauxy_tpu_torch.qmc.options import QMCOpts
-from pauxy_tpu_torch.utils.io import H5EstimatorHelper, create_estimates_file
+from pauxy_tpu_torch.utils.io import (H5EstimatorHelper,
+                                      create_estimates_file, get_sys_info)
 from pauxy_tpu_torch.walkers import pop_control as pc
 from pauxy_tpu_torch.walkers.state import init_walkers, orthogonalise
 
@@ -216,13 +216,17 @@ class AFQMC:
     The trial fixes the precision; ``ham`` and ``trial`` are moved to
     ``device``. With ``filename`` the block rows go to an HDF5 file in the
     JAX package's layout; without it nothing is written.
+    ``walker_options``: ``write_freq`` (every that many blocks the walkers
+    go to ``write_file``, "restart.h5" by default) and ``read_file`` (start
+    from a checkpoint: walkers, step, eshift and the generator's state).
     """
 
     def __init__(self, ham, trial, qmc: QMCOpts,
                  propagator_options: dict | None = None,
                  estimator_options: dict | None = None,
-                 verbose: bool = False, filename: str | None = None, *,
-                 device=None):
+                 verbose: bool = False, filename: str | None = None,
+                 walker_options: dict | None = None, *, device=None):
+        self._t_init = time.perf_counter()
         self.device = config.resolve_device(device)
         self.uuid = str(uuid.uuid1())
         self.ham = ham.to(self.device)
@@ -320,6 +324,34 @@ class AFQMC:
         self.step = 0
         # Wall-clock seconds of each block, ending with its host readback.
         self.block_seconds: list[float] = []
+        wopts = dict(walker_options or {})
+        self.write_freq = int(wopts.get("write_freq", 0) or 0)
+        self.write_file = wopts.get("write_file", "restart.h5")
+        read_file = wopts.get("read_file")
+        if read_file is not None:
+            self._restart(read_file)
+        self.timing = {"setup": time.perf_counter() - self._t_init}
+
+    def _restart(self, read_file: str):
+        """Continue from a checkpoint: the walkers, the step, eshift and,
+        when the file holds this device's generator state, the stream."""
+        from pauxy_tpu_torch.utils.checkpoint import load_walkers
+
+        self.state, info = load_walkers(self.state, read_file)
+        self.step = info["step"]
+        self.eshift = info["eshift"]
+        rng = info["rng_state"]
+        if rng is not None and rng.numel() == \
+                self.generator.get_state().numel():
+            self.generator.set_state(rng)
+        else:
+            warnings.warn(
+                f"{read_file} holds no generator state for this device (a "
+                "JAX key or none): the random stream starts afresh from "
+                "rng_seed", stacklevel=3)
+        if self.verbose:
+            print(f"# Restarted {self.state.nwalkers} walkers from "
+                  f"{read_file} at step {self.step}.")
 
     def _two_rdm_shape(self, two_rdm: str | None):
         """The back-propagated 2-RDM tail's shape in the output: the
@@ -440,13 +472,7 @@ class AFQMC:
         q = self.qmc
         return {
             "uuid": self.uuid,
-            "sys_info": {
-                "hostname": platform.node(),
-                "python": sys.version.split()[0],
-                "numpy": np.__version__,
-                "torch": torch.__version__,
-                "device": str(self.device),
-            },
+            "sys_info": get_sys_info(),
             "system": {"name": self.ham.name, "nup": self.ham.nup,
                        "ndown": self.ham.ndown, "nbasis": self.ham.nbasis},
             "qmc": {"nwalkers": q.nwalkers, "dt": q.dt, "nsteps": q.nsteps,
@@ -462,8 +488,10 @@ class AFQMC:
             },
         }
 
-    def run_block(self) -> np.ndarray:
-        """Advance one block (nsteps), report, and update eshift."""
+    def run_block(self, noise: BlockNoise | None = None) -> np.ndarray:
+        """Advance one block (nsteps), report, and update eshift. Draws
+        come from the driver's generator unless ``noise`` is given (see
+        ``run_block`` and ``hubbard_fast.run_block_lanes``)."""
         t0 = time.perf_counter()
         kw = dict(nsteps=self.qmc.nsteps, nstblz=self.qmc.nstblz,
                   npop_control=self.qmc.npop_control,
@@ -473,14 +501,15 @@ class AFQMC:
         if self.use_fast_block:
             self.state, acc = hubbard_fast.run_block_lanes(
                 self.ham, self.trial, self.prop, self.state, self.generator,
-                self.eshift, self.step, **kw)
+                self.eshift, self.step, noise=noise, **kw)
             bp_acc = itcf_acc = None
         else:
             self.state, acc, bp_acc, itcf_acc = run_block(
                 self.ham, self.trial, self.prop, self.state, self.generator,
                 self.eshift, self.step, free_projection=self.free_projection,
                 calc_one_rdm=self.calc_one_rdm,
-                calc_two_rdm=self.calc_two_rdm, extras=self.extras, **kw)
+                calc_two_rdm=self.calc_two_rdm, extras=self.extras,
+                noise=noise, **kw)
         acc = acc.cpu().numpy()
         self.block_seconds.append(time.perf_counter() - t0)
         self.step += self.qmc.nsteps
@@ -497,14 +526,82 @@ class AFQMC:
             self.eshift = self.reporter.get_shift(self.hybrid)
         else:
             self.eshift = self.reporter.get_shift()
+        if self.write_freq and (
+                self.step // self.qmc.nsteps) % self.write_freq == 0:
+            from pauxy_tpu_torch.utils.checkpoint import save_walkers
+
+            save_walkers(self.state, self.write_file,
+                         generator=self.generator, step=self.step,
+                         eshift=self.eshift)
         return row
 
     def run(self) -> np.ndarray:
-        """Run all blocks; returns the output rows [nblocks, 11] complex."""
+        """Run all blocks; returns the output rows [nblocks, 11] complex.
+        With ``verbose`` the timing table follows."""
         self.reporter.print_header()
         rows = []
         for _ in range(self.qmc.nblocks):
             rows.append(self.run_block())
             check_population_alive(self.state.weight,
                                    "reduce dt or improve the trial")
+        if self.verbose:
+            self.finalise()
         return np.array(rows)
+
+    def get_energy(self, skip: int = 0):
+        """Reblocked mixed-energy estimate from the output file: (mean,
+        standard error), or None without a file or with too little
+        data."""
+        from pauxy_tpu_torch.analysis import blocking
+        from pauxy_tpu_torch.analysis.extraction import \
+            extract_mixed_estimates
+
+        if self.filename is None:
+            return None
+        try:
+            frame = extract_mixed_estimates(self.filename, skip)
+            s = blocking.reblock_summary(
+                np.asarray(frame.ETotal.values, dtype=complex).real)
+            return float(s["mean"]), float(s["standard error"])
+        except (IndexError, ValueError, KeyError):
+            return None
+
+    def get_one_rdm(self, skip: int = 0):
+        """Block-averaged back-propagated 1-RDM (av, err), or the mixed
+        1-RDM when back propagation is off and the mixed one_rdm is on;
+        None otherwise (and without a file)."""
+        from pauxy_tpu_torch.analysis import blocking
+
+        if self.filename is None:
+            return None
+        try:
+            if self.extras.nbp:
+                return blocking.average_rdm(self.filename, skip=max(skip, 1),
+                                            est_type="back_propagated",
+                                            ix=self.extras.nbp)
+            if self.calc_one_rdm:
+                return blocking.average_rdm(self.filename, skip=max(skip, 1),
+                                            est_type="basic", ix=None)
+        except (IndexError, ValueError, KeyError):
+            return None
+        return None
+
+    def finalise(self, verbose: bool = True):
+        """Print the timing table: set-up, then the blocks' wall times
+        (each ends with its host readback). A block is a Python loop of
+        kernel launches, not one program, and no per-phase times are
+        taken."""
+        if not verbose:
+            return
+        secs = np.asarray(self.block_seconds)
+        print(f"# Running time : {time.perf_counter() - self._t_init:.6f} "
+              "seconds")
+        print("# Timing breakdown (per block, wall clock):")
+        print(f"# - Setup: {self.timing['setup']:.6f} s")
+        if secs.size:
+            nsteps = max(self.qmc.nsteps, 1)
+            print(f"# - Blocks: {secs.size}, first {secs[0]:.6f} s")
+            rest = secs[1:] if secs.size > 1 else secs
+            print(f"# - Block: mean {rest.mean():.6f} s, min "
+                  f"{rest.min():.6f} s, max {rest.max():.6f} s "
+                  f"({rest.mean() / nsteps:.6f} s/step)")

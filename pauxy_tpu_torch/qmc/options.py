@@ -28,6 +28,10 @@ class QMCOpts:
     beta_scaled: float | None = None
 
     @property
+    def total_steps(self) -> int:
+        return self.nsteps * self.nblocks
+
+    @property
     def neqlb(self) -> int:
         return int(self.eqlb_time / self.dt)
 

@@ -1571,3 +1571,50 @@ def test_hh_and_generic_variant_blocks_on_card_match_cpu(case):
         out[device] = [b[0] for b in blocks]
     for a, b in zip(out["cuda"], out["cpu"]):
         np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_file_driven_generic_on_card_matches_cpu(tmp_path):
+    """The Generic path from files (the port's QMCPACK and wavefunction
+    writers, a JSON input, qmc/calc.setup_calculation) on the card and on
+    the CPU in complex128, two blocks with the same injected draws through
+    AFQMC.run_block: the rows at rtol 1e-8, atol 1e-10; the Taylor kernel
+    and kernel B launched on the card."""
+    need_cuda()
+    from pauxy_tpu_torch.qmc.calc import setup_calculation
+    from pauxy_tpu_torch.qmc.hubbard_fast import BlockNoise
+    from pauxy_tpu_torch.utils import qmcpack, wavefunction
+    from pauxy_tpu_torch.utils.testing import generate_hamiltonian
+
+    h1e, chol, enuc, _ = generate_hamiltonian(8, (3, 2), seed=17)
+    qmcpack.write_hamiltonian(h1e, chol, (3, 2), ecore=enuc,
+                              filename=str(tmp_path / "afqmc.h5"))
+    psi = np.linalg.qr(np.random.default_rng(4).normal(size=(8, 8)))[0]
+    wavefunction.write_wavefunction(
+        np.concatenate([psi[:, :3], psi[:, :2]], axis=1),
+        str(tmp_path / "wfn.h5"))
+    opts = {"system": {"name": "Generic",
+                       "integrals": str(tmp_path / "afqmc.h5")},
+            "qmc": {"nwalkers": 16, "dt": 0.01, "nsteps": 10, "blocks": 2,
+                    "stabilise_freq": 5, "rng_seed": 3},
+            "trial": {"name": "hartree_fock",
+                      "filename": str(tmp_path / "wfn.h5")},
+            "propagator": {"taylor_impl": "pallas"}, "verbosity": 0,
+            "estimates": {"mixed": {"energy_eval_freq": 1}}}
+    rng = np.random.default_rng(5)
+    xi = rng.normal(size=(2, 10, 16, chol.shape[-1]))
+    pop = rng.uniform(size=(2, 10, 1))
+    rows = {}
+    for device in ("cuda", "cpu"):
+        opts["estimates"]["filename"] = str(tmp_path / f"{device}.h5")
+        af = setup_calculation(opts, device=device, dtype="double")
+        before = (batchla_cuda.launches, taylor_cuda.launches)
+        rows[device] = [af.run_block(BlockNoise(
+            torch.from_numpy(xi[b]).to(device),
+            torch.from_numpy(pop[b]).to(device))) for b in range(2)]
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert batchla_cuda.launches > before[0]
+            assert taylor_cuda.launches == before[1] + 20
+    for a, b in zip(rows["cuda"], rows["cpu"]):
+        np.testing.assert_allclose(a[:10], b[:10], rtol=1e-8, atol=1e-10)
