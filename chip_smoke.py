@@ -247,7 +247,21 @@ non-zero and prints no result line:
      fcidump.cpp, used (no fallback, no warning) and equal to the Python
      oracle bit for bit; fcidump_to_system and bin/fcidump-to-afqmc-torch
      give RHF energies within 1e-8 relative of the sgto path's (complex128
-     on the card); a k-point file round-trips exactly.
+     on the card); a k-point file round-trips exactly;
+ 34. the walker mesh (parallel/mesh.py) on the card: a one-rank NCCL
+     process group; phase 4's continuous lanes block (1024 walkers) and
+     phase 8's Generic block at the bench shape, each 2 blocks of 10
+     steps, unsharded and then through walker_mesh / shard_walkers (and
+     shard_generic): rows within 1e-6 relative of the unsharded run's and
+     the same launches (``launches_by_path`` "mesh_continuous",
+     "mesh_generic"); a sharded checkpoint round trip on the card; a
+     profile_dir trace written and not empty; block_mode="split": JAX's
+     table lines, phase times summing to within 10% of the blocks' wall
+     time; then two ranks on the one card over gloo
+     (parallel.launch.run_ranks, one process each, 512 walkers a rank),
+     their rows against the one-rank run within 1e-5 relative, or, where
+     gloo refuses a collective on CUDA tensors, the line says that the
+     two-rank run is held by the CPU tests only.
 Phase 3 also holds the cpqr kernel on the low-rank stack's masked input
 (``check_cpqr_masked``) and kernels A and B on exactly singular matrices
 (``check_zero_pivot``: log|det| -inf, JAX's phase where JAX's is finite).
@@ -1798,6 +1812,190 @@ def golden(path: str, propagator_options: dict | None, make_hubbard,
                              f"{mine.mean()} reference {theirs.mean()} "
                              f"se {se}")
     return mine.mean(), theirs.mean(), diff, se
+
+
+def mesh_continuous(nblocks: int = 2, nwalkers: int = 1024, **afqmc_kw):
+    """Phase 4's system as an AFQMC driver on the card (2 blocks of 10
+    steps by default)."""
+    from pauxy_tpu_torch.models import free_electron_trial, make_hubbard
+    from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
+
+    qmc = QMCOpts(nwalkers=nwalkers, dt=0.01, nsteps=10, nblocks=nblocks,
+                  nstblz=10, npop_control=1, rng_seed=8)
+    ham = make_hubbard(7, 7, U=4.0, nx=4, ny=4, device="cuda",
+                       dtype="single")
+    trial = free_electron_trial(ham, device="cuda", dtype="single")
+    return AFQMC(ham, trial, qmc,
+                 estimator_options={"mixed": {"energy_eval_freq": 1}},
+                 device="cuda", **afqmc_kw)
+
+
+def mesh_rank(rank: int):
+    """One rank of the two-rank run on the card (gloo): phase 4's system,
+    this rank's 512 of the 1024 walkers; returns (rows, kernel A's
+    launches, block seconds)."""
+    sys.path.insert(0, ROOT)
+    from pauxy_tpu_torch.ops import greens_cuda
+    from pauxy_tpu_torch.parallel import mesh as pmesh
+
+    af = mesh_continuous()
+    af.state = pmesh.shard_walkers(af.state, pmesh.walker_mesh(device="cuda"))
+    greens_cuda.launches = 0
+    rows = af.run()
+    torch.cuda.synchronize()
+    return rows, greens_cuda.launches, af.block_seconds
+
+
+def rows_rel(a: np.ndarray, b: np.ndarray) -> float:
+    """Largest column-scaled |a - b| of two row blocks (columns 1-9)."""
+    a, b = np.asarray(a)[:, 1:10].real, np.asarray(b)[:, 1:10].real
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(a).max(0),
+                                                    1e-30)))
+
+
+def mesh_phase(counts, zero_counts):
+    """Phase 34: the walker mesh on the card (see the module docstring).
+    Returns (the phase line, the sharded continuous and Generic runs'
+    launch counts)."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from pauxy_tpu_torch.models import make_generic, rhf_identity_trial
+    from pauxy_tpu_torch.parallel import launch
+    from pauxy_tpu_torch.parallel import mesh as pmesh
+    from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
+    from pauxy_tpu_torch.utils.checkpoint import (load_walkers_sharded,
+                                                  save_walkers_sharded)
+
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{launch.free_port()}",
+        rank=0, world_size=1)
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        mesh = pmesh.walker_mesh()
+        zero_counts()
+        af = mesh_continuous()
+        ref = af.run()
+        torch.cuda.synchronize()
+        ref_counts = counts()
+        ref_s = af.block_seconds
+        zero_counts()
+        af = mesh_continuous()
+        af.state = pmesh.shard_walkers(af.state, mesh)
+        rows = af.run()
+        torch.cuda.synchronize()
+        mesh_cont = counts()
+        mesh_s = af.block_seconds
+        rel_cont = rows_rel(ref, rows)
+        if rel_cont > 1e-6 or mesh_cont != ref_counts:
+            raise AssertionError(
+                f"mesh continuous: rows rel {rel_cont:.2e}, launches "
+                f"{mesh_cont} vs {ref_counts}")
+        ckpt = os.path.join(work, "ckpt")
+        save_walkers_sharded(af.state, ckpt, generator=af.generator,
+                             step=af.step, eshift=af.eshift)
+        back, info = load_walkers_sharded(mesh_continuous().state, ckpt,
+                                          mesh=mesh)
+        for name in ("phia", "phib", "weight", "log_ovlp"):
+            if not torch.equal(getattr(back, name), getattr(af.state, name)):
+                raise AssertionError(f"sharded checkpoint: {name} differs")
+        if info["step"] != af.step or info["rng_state"] is None:
+            raise AssertionError(f"sharded checkpoint info {info}")
+        mq = QMCOpts(nwalkers=1024, dt=0.005, nsteps=10, nblocks=2,
+                     nstblz=5, npop_control=1, rng_seed=8)
+        gham = generic_model(128, 512, 16, make_generic)
+        gtrial = rhf_identity_trial(gham, device="cuda", dtype="single")
+        gkw = dict(propagator_options={"taylor_impl": "pallas"},
+                   estimator_options={"mixed": {"energy_eval_freq": 1}},
+                   device="cuda")
+        zero_counts()
+        gref = AFQMC(gham, gtrial, mq, **gkw).run()
+        torch.cuda.synchronize()
+        gref_counts = counts()
+        zero_counts()
+        af = AFQMC(gham, gtrial, mq, **gkw)
+        af.ham, af.trial, af.prop = pmesh.shard_generic(af.ham, af.trial,
+                                                        af.prop, mesh)
+        af.state = pmesh.shard_walkers(af.state, mesh)
+        grows = af.run()
+        torch.cuda.synchronize()
+        mesh_gen = counts()
+        rel_gen = rows_rel(gref, grows)
+        if rel_gen > 1e-6 or mesh_gen != gref_counts:
+            raise AssertionError(
+                f"mesh Generic: rows rel {rel_gen:.2e}, launches "
+                f"{mesh_gen} vs {gref_counts}")
+        del gham, gtrial, af
+        prof_dir = os.path.join(work, "trace")
+        mesh_continuous(nblocks=1, profile_dir=prof_dir).run()
+        traces = [os.path.join(prof_dir, f) for f in os.listdir(prof_dir)]
+        trace_bytes = sum(os.path.getsize(f) for f in traces)
+        if len(traces) != 1 or trace_bytes == 0:
+            raise AssertionError(f"profile_dir trace: {traces}")
+        af = mesh_continuous(nblocks=3, block_mode="split", verbose=True)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            af.run()
+        table = [line for line in out.getvalue().splitlines()
+                 if line.startswith("# - ")]
+        want_lines = ("# - Setup:", "# - Orthogonalisation:",
+                      "# - Propagation:", "# - Population control:",
+                      "# - Estimators:")
+        phase_sum = sum(af.timing[k] for k in ("ortho", "prop", "pop",
+                                               "estim"))
+        share = phase_sum / af.timing["block"]
+        if len(table) != len(want_lines) or not all(
+                line.startswith(w) for line, w in zip(table, want_lines)) \
+                or abs(share - 1) > 0.1:
+            raise AssertionError(f"split table {table}, phases / block "
+                                 f"{share:.3f}")
+    finally:
+        pmesh.set_active_mesh(None)
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    try:
+        two = launch.run_ranks(mesh_rank, 2, backend="gloo", timeout=300)
+        two_ok = True
+    except RuntimeError as exc:
+        # Only gloo's refusal of a collective on CUDA tensors is a finding;
+        # anything else is a failure of the port.
+        text = str(exc)
+        if "gloo" not in text.lower() or not any(
+                k in text for k in ("not supported", "unsupported",
+                                    "No backend type associated",
+                                    "only supports CPU", "CPU tensors")):
+            raise
+        two_ok = False
+        two_note = text.strip().splitlines()[-1][:300]
+    if two_ok:
+        # Every column but the wall-clock Time.
+        if any(not np.array_equal(two[0][0][:, :10], r[:, :10])
+               for r, _, _ in two[1:]):
+            raise AssertionError("two ranks report different rows")
+        rel_two = rows_rel(ref, two[0][0])
+        if rel_two > 1e-5:
+            raise AssertionError(f"two ranks on one card: rows rel "
+                                 f"{rel_two:.2e} vs the one-rank run")
+        two_msg = (f"two ranks on cuda:0 over gloo (512 walkers each): rows "
+                   f"within {rel_two:.2e} relative of the one-rank run, "
+                   f"kernel A launches per rank {[c for _, c, _ in two]}, "
+                   f"block seconds per rank "
+                   f"{[[round(t, 4) for t in s] for _, _, s in two]}")
+    else:
+        two_msg = ("two ranks on cuda:0 over gloo: gloo refuses a "
+                   f"collective on CUDA tensors ({two_note}); the two-rank "
+                   "run is held by the CPU tests only")
+    msg = (f"one-rank NCCL group: continuous 1024 walkers rows within "
+           f"{rel_cont:.2e} relative of the unsharded run, launches "
+           f"{mesh_cont}, block seconds unsharded "
+           f"{[round(t, 4) for t in ref_s]}, through the mesh "
+           f"{[round(t, 4) for t in mesh_s]}; Generic bench shape rows within {rel_gen:.2e}, "
+           f"launches {mesh_gen}; sharded checkpoint round trip exact; "
+           f"profile trace {trace_bytes} bytes; split table {table}, phases "
+           f"/ block wall {share:.3f}; {two_msg}")
+    return msg, mesh_cont, mesh_gen
 
 
 def main() -> None:
@@ -4589,6 +4787,9 @@ def main() -> None:
         f"{e_script:.12f}: max relative |d| {rel:.2e} <= 1e-8; the k-point "
         f"file (3 k-points) round-trips exactly and its supercell Generic "
         f"(M={kham.nbasis}, X={kham.nchol}) builds on the card" + lap("33"))
+    # ---- 34. the walker mesh on the card ----------------------------------
+    msg, mesh_cont, mesh_gen = mesh_phase(counts, zero_counts)
+    say("34 walker mesh", msg + lap("34"))
     say("seconds", json.dumps(seconds))
 
     # ---- result ----------------------------------------------------------
@@ -4626,7 +4827,8 @@ def main() -> None:
                "ghf": ghf_counts, "hh": hh_counts, "hh_mc": hh_mc_counts,
                "hh_anchors": hh_anchor_counts,
                "generic_variants": var_counts, "generic_file": file_counts,
-               "h10_file": h10_counts, "h2_file": h2_counts}
+               "h10_file": h10_counts, "h2_file": h2_counts,
+               "mesh_continuous": mesh_cont, "mesh_generic": mesh_gen}
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[k] for c in by_path.values()),

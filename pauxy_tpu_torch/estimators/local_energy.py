@@ -30,6 +30,7 @@ import torch
 
 from pauxy_tpu_torch.ops import exx_cuda
 from pauxy_tpu_torch.ops.contract import cr_einsum, rc_einsum
+from pauxy_tpu_torch.parallel import mesh as pmesh
 from pauxy_tpu_torch.propagation.pw_fft import fft3, ifft3, neg_perm, to_cube
 
 # Elements of one chunk of the dense-G exchange intermediate
@@ -105,6 +106,11 @@ def local_energy_generic_opt(trial, Ghalfa: torch.Tensor,
     ecoul = torch.sum(x * x, dim=-1)
     exx = (_exx(trial.rchola, Ghalfa, trial.exx_supera)
            + _exx(trial.rcholb, Ghalfb, trial.exx_superb))
+    # On a [walker, chol] mesh both are partial sums over this rank's X
+    # slice (the supermatrix is dropped there).
+    if pmesh.chol_sharded():
+        ecoul, exx = pmesh.chol_sum(torch.stack([ecoul,
+                                                 exx.to(ecoul.dtype)]))
     e2b = 0.5 * (ecoul - exx)
     return e1b + e2b + ecore, e1b + ecore, e2b
 
@@ -144,6 +150,9 @@ def local_energy_generic_opt_multi(trial, Ghalfa: torch.Tensor,
     exx_d = torch.stack([_exx(rca[d], Ghalfa[:, d]) + _exx(rcb[d],
                                                            Ghalfb[:, d])
                          for d in range(rca.shape[0])], dim=1)
+    if pmesh.chol_sharded():
+        ecoul_d, exx_d = pmesh.chol_sum(torch.stack(
+            [ecoul_d, exx_d.to(ecoul_d.dtype)]))
     e2_d = 0.5 * (ecoul_d - exx_d)
     e1b = torch.sum(det_weights * e1_d, dim=-1) + ecore
     e2b = torch.sum(det_weights * e2_d, dim=-1)

@@ -8,7 +8,11 @@ versions on a CPU tensor. Each function chooses its route by shape, before
 any launch: n up to what the kernel launches for the type (and, for kernel
 B, with or without the inverse) goes to the kernel wrapper, a larger n to
 ``torch.linalg``, on either device. The JAX module's real-embedding and
-Schur-complement machinery worked around the TPU and is not ported.
+Schur-complement machinery worked around the TPU and is not ported. JAX's
+per-shard dispatch of the lanes kernels on a walker mesh (``shard_map``,
+``PAUXY_TPU_BATCHLA=shard``) has no counterpart to write: on the port's
+mesh (``parallel/mesh``) each rank holds its own walkers, and its calls
+here launch the kernels on that local batch.
 """
 
 from __future__ import annotations

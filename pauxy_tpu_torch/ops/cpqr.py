@@ -8,8 +8,9 @@ takes the kernel of ``csrc/cpqr.cu``; a larger m, and ``pivot=False``, take
 the plain version, chosen by shape before any launch (as
 ``clinalg.cholesky_qr`` does with ``chol_max_n``). A CPU tensor takes the
 plain version, the mirror of JAX's ``_cpqr_xla``. JAX's A/B machinery
-(``_cpqr_xla_swaps``, ``PAUXY_TPU_CPQR``, the ``impl=`` names) and the
-sharded variant are not ported.
+(``_cpqr_xla_swaps``, ``PAUXY_TPU_CPQR``, the ``impl=`` names) is not
+ported. Its sharded variant (``shard_map`` over the walker mesh) is each
+rank's call here on its own walkers (``parallel/mesh``).
 """
 
 from __future__ import annotations

@@ -32,6 +32,7 @@ from pauxy_tpu_torch.models import ghf
 from pauxy_tpu_torch.models import multi_coherent as mcoh
 from pauxy_tpu_torch.models import multi_slater as msd
 from pauxy_tpu_torch.ops import greens
+from pauxy_tpu_torch.parallel import mesh as pmesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,8 +178,10 @@ def two_body_factors(prop: Continuous, trial, ga, gb, nwalkers: int,
     mf = inner.mf_shift
     nfields = mf.shape[0]
     if xi is None:
-        xi = torch.randn((nwalkers, nfields), generator=generator,
-                         dtype=mf.real.dtype, device=mf.device)
+        xi = pmesh.draw(lambda shape: torch.randn(
+            shape, generator=generator, dtype=mf.real.dtype,
+            device=mf.device), (nwalkers, nfields), walker_dim=0,
+            chol_dim=1 if pmesh.chol_sharded() else None)
     if prop.force_bias:
         xbar = inner.force_bias(trial, ga, gb)
         absx = xbar.abs()
@@ -190,6 +193,9 @@ def two_body_factors(prop: Continuous, trial, ga, gb, nwalkers: int,
     xshifted = xi - xbar
     cmf = -prop.sqrt_dt * (xshifted @ mf)
     cfb = torch.sum(xi * xbar, dim=-1) - 0.5 * torch.sum(xbar * xbar, dim=-1)
+    if pmesh.chol_sharded():
+        # Partial sums over this rank's X slice of the fields.
+        cmf, cfb = pmesh.chol_sum(torch.stack([cmf, cfb.to(cmf.dtype)]))
     return TwoBodyFactors(cmf=cmf, cfb=cfb, xshifted=xshifted)
 
 

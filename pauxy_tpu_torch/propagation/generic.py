@@ -31,6 +31,7 @@ from pauxy_tpu_torch import config
 from pauxy_tpu_torch.models import multi_slater as msd
 from pauxy_tpu_torch.ops import taylor_cuda
 from pauxy_tpu_torch.ops.contract import cr_einsum
+from pauxy_tpu_torch.parallel import mesh as pmesh
 
 TAYLOR_IMPLS = ("xla", "xla_3m", "pallas", "pallas_bf16")
 
@@ -109,9 +110,13 @@ class GenericContinuous(nn.Module):
     def apply_vhs(self, phia: torch.Tensor, phib: torch.Tensor,
                   xshifted: torch.Tensor):
         """VHS = i sqrt(dt) sum_x L_x xshifted_x, then exp(VHS) applied to
-        [phia | phib] by one Taylor series."""
+        [phia | phib] by one Taylor series. On a [walker, chol] mesh each
+        rank forms its X slice's part of VHS and the chol group sums them
+        before the series."""
         vhs = cr_einsum("pqx,wx->wpq", self.chol,
                         (1j * self.sqrt_dt) * xshifted).contiguous()
+        # On a [walker, chol] mesh, a partial sum over this rank's X slice.
+        vhs = pmesh.chol_sum(vhs)
         na = phia.shape[-1]
         phi_in = torch.cat([phia, phib], dim=-1)
         phi = taylor_series(vhs, phi_in, self.exp_order, self.taylor_impl)

@@ -24,8 +24,11 @@ A GHF trial (``models/ghf``) takes its own step, as in JAX: dense kinetic
 half-steps with the GHF overlap, and a site sweep batched over walkers and
 determinants (the joint two-row ratio of each determinant, then two
 sequential Sherman-Morrison updates of S_d^-1), a Python loop over sites
-of small batched operations with no kernel (JAX's is a ``lax.scan``). Not
-ported yet, raising ``NotImplementedError``: a walker ``mesh``.
+of small batched operations with no kernel (JAX's is a ``lax.scan``).
+On a walker mesh (``parallel/mesh``) each rank sweeps its own walkers
+with the sweep kernel, so ``mesh=`` (JAX's per-shard ``shard_map``
+dispatch) needs nothing more; its draws are the rank's slice of the whole
+population's (``mesh.draw``).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from pauxy_tpu_torch import config
 from pauxy_tpu_torch.models import ghf
 from pauxy_tpu_torch.models import multi_slater as msd
 from pauxy_tpu_torch.ops import clinalg, greens, sweep_cuda
+from pauxy_tpu_torch.parallel import mesh as pmesh
 
 SWEEP_KERNELS = ("scan", "kernel")
 TWO_BODY_MODES = ("single_site", "direct")
@@ -120,9 +124,10 @@ class Hirsch(nn.Module):
         """Uniform field draws [M, w], walker last, unless given."""
         if rs is not None:
             return rs
-        return torch.rand((state.nbasis, state.nwalkers),
-                          generator=generator, dtype=state.weight.dtype,
-                          device=state.weight.device)
+        return pmesh.draw(lambda shape: torch.rand(
+            shape, generator=generator, dtype=state.weight.dtype,
+            device=state.weight.device), (state.nbasis, state.nwalkers),
+            walker_dim=1)
 
     def _site_sweep(self, trial, state, generator=None, rs=None):
         """Sequential single-site updates; returns (state, fields [w, M])."""
@@ -230,9 +235,9 @@ class Hirsch(nn.Module):
         pm = 0.5 * torch.exp(-gamma * fb_term).real
         norm = pp + pm
         if rs is None:
-            rs = torch.rand((nw, m), generator=generator,
-                            dtype=state.weight.dtype,
-                            device=state.weight.device)
+            rs = pmesh.draw(lambda shape: torch.rand(
+                shape, generator=generator, dtype=state.weight.dtype,
+                device=state.weight.device), (nw, m), walker_dim=0)
         xi = (rs >= pp / norm).long()
         sign = torch.where(xi == 0, -1.0, 1.0).to(cdtype)
         fb_fac = torch.prod((0.5 * norm) * torch.exp(sign * gamma
@@ -280,9 +285,10 @@ class Hirsch(nn.Module):
         phia = torch.matmul(self.BT2[0], state.phia)
         phib = torch.matmul(self.BT2[1], state.phib)
         if bits is None:
-            bits = torch.rand((state.nwalkers, state.nbasis),
-                              generator=generator, dtype=state.weight.dtype,
-                              device=state.weight.device) < 0.5
+            bits = pmesh.draw(lambda shape: torch.rand(
+                shape, generator=generator, dtype=state.weight.dtype,
+                device=state.weight.device),
+                (state.nwalkers, state.nbasis), walker_dim=0) < 0.5
         xi = bits.long()
         phia = torch.matmul(self.BT2[0], phia * self.auxf[xi, 0][:, :, None])
         phib = torch.matmul(self.BT2[1], phib * self.auxf[xi, 1][:, :, None])
@@ -420,13 +426,14 @@ def make_hirsch(ham, trial, dt: float, charge_decomposition: bool = False,
     """Build the discrete propagator's tables (host-side expm; setup).
 
     The sweep's route comes from ``_auto_sweep_kernel``; the real-arithmetic
-    kernel is never forced onto a complex system. The spin decomposition
+    kernel is never forced onto a complex system. ``mesh`` (JAX's) is
+    accepted; the port's mesh needs no per-shard dispatch. The spin decomposition
     needs U >= 0. ``kinetic_kspace`` needs a circulant hopping matrix (a
     periodic lattice without twist or pinning fields).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "not ported yet for the discrete propagator: mesh")
+    # ``mesh`` is JAX's per-shard kernel dispatch: on the port's walker
+    # mesh every rank sweeps its own walkers, so it changes nothing here.
+    del mesh
     prec = config.get_precision(dtype)
     device = config.resolve_device(device)
     t = ham.T.cpu().numpy()

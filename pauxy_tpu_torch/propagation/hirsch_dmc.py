@@ -37,6 +37,7 @@ from pauxy_tpu_torch import config
 from pauxy_tpu_torch.models import hubbard_holstein as hh
 from pauxy_tpu_torch.models import multi_coherent as mcoh
 from pauxy_tpu_torch.ops import greens
+from pauxy_tpu_torch.parallel import mesh as pmesh
 from pauxy_tpu_torch.propagation.hirsch import Hirsch, make_hirsch
 
 
@@ -102,8 +103,9 @@ class HirschDMC(nn.Module):
     def _normals(self, state, generator, draws):
         if draws is not None:
             return draws
-        return torch.randn(state.X.shape, generator=generator,
-                           dtype=state.X.dtype, device=state.X.device)
+        return pmesh.draw(lambda shape: torch.randn(
+            shape, generator=generator, dtype=state.X.dtype,
+            device=state.X.device), state.X.shape, walker_dim=0)
 
     def _boson_move(self, trial, state, dt: float, generator=None,
                     normals=None):
@@ -262,11 +264,12 @@ class HirschDMC(nn.Module):
 
 
 def make_hirsch_dmc(ham, trial, dt: float, lang_firsov: bool = False,
-                    symmetric_trotter: bool = False, *, device=None,
-                    dtype=None) -> HirschDMC:
+                    symmetric_trotter: bool = False, mesh=None, *,
+                    device=None, dtype=None) -> HirschDMC:
     """Build the propagator (host-side expm; setup). ``lang_firsov``
     replaces U by the Lang-Firsov effective interaction in the Hirsch
-    tables. The trial must carry a phonon shift (coherent-state,
+    tables. ``mesh`` is accepted as in ``make_hirsch``: on the port's
+    walker mesh each rank runs its own walkers. The trial must carry a phonon shift (coherent-state,
     Lang-Firsov or multi-coherent), else ``ValueError``."""
     if not hh.carries_phonons(trial):
         raise ValueError(

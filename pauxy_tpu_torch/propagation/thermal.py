@@ -29,6 +29,7 @@ from pauxy_tpu_torch.estimators import thermal as th
 from pauxy_tpu_torch.estimators.thermal import one_rdm_from_G
 from pauxy_tpu_torch.ops import ueg_sparse
 from pauxy_tpu_torch.ops.taylor_cuda import apply_taylor_plain
+from pauxy_tpu_torch.parallel import mesh as pmesh
 from pauxy_tpu_torch.walkers import low_rank as lrw
 from pauxy_tpu_torch.walkers import thermal_state as tws
 
@@ -141,8 +142,10 @@ class ThermalContinuous:
         nw = state.nwalkers
         rdtype = state.weight.dtype
         if xi is None:
-            xi = torch.randn((nw, self.nfields), generator=generator,
-                             dtype=rdtype, device=state.weight.device)
+            xi = pmesh.draw(lambda shape: torch.randn(
+                shape, generator=generator, dtype=rdtype,
+                device=state.weight.device), (nw, self.nfields),
+                walker_dim=0)
         cdtype = state.G.dtype
         if self.force_bias:
             xbar = clamp_force_bias(inner.force_bias_P(one_rdm_from_G(

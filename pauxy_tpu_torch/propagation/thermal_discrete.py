@@ -28,6 +28,7 @@ import torch
 
 from pauxy_tpu_torch import config
 from pauxy_tpu_torch.estimators import thermal as th
+from pauxy_tpu_torch.parallel import mesh as pmesh
 from pauxy_tpu_torch.walkers import thermal_state as tws
 
 
@@ -109,9 +110,10 @@ class ThermalDiscrete:
         if self.free_projection:
             return self._propagate_free(trial, state, ts, draws, generator)
         if draws is None:
-            draws = torch.rand((state.nbasis, state.nwalkers),
-                               generator=generator, dtype=state.weight.dtype,
-                               device=state.weight.device)
+            draws = pmesh.draw(lambda shape: torch.rand(
+                shape, generator=generator, dtype=state.weight.dtype,
+                device=state.weight.device), (state.nbasis, state.nwalkers),
+                walker_dim=1)
         if ts % trial.stack_size == 0 or ts % self.wrap_stabilize == 0:
             g = self._sweep_greens_function(trial, state, ts)
         else:
@@ -136,8 +138,9 @@ class ThermalDiscrete:
         m, nw = state.nbasis, state.nwalkers
         cdtype = state.log_m0.dtype
         if fields is None:
-            fields = torch.randint(0, 2, (nw, m), generator=generator,
-                                   device=state.weight.device)
+            fields = pmesh.draw(lambda shape: torch.randint(
+                0, 2, shape, generator=generator,
+                device=state.weight.device), (nw, m), walker_dim=0)
         fields = fields.long()
         bv = self.auxf.to(cdtype)[fields].transpose(1, 2)  # [w, 2, M]
         wfac = torch.prod(self.aux_wfac.to(cdtype)[fields], dim=-1)

@@ -21,15 +21,27 @@ phonon moves; coherent-state, Lang-Firsov or multi-coherent trials). The
 Generic energy variants (exact ERIs, PNO, stochastic RI) and the
 stochastic-RI one-body step run in the generic block too. Block boundaries
 touch the host for the output rows, the HDF5 push and the eshift update.
-A walker mesh raises ``NotImplementedError``; so do back propagation and
-the ITCF with a multi-determinant, GHF or multi-coherent trial or the
-Hubbard-Holstein propagator, and a GHF trial with the continuous
-propagator, as in JAX.
+Back propagation and the ITCF with a multi-determinant, GHF or
+multi-coherent trial or the Hubbard-Holstein propagator, and a GHF trial
+with the continuous propagator, raise ``NotImplementedError``, as in JAX.
+
+On a walker mesh (``parallel/mesh``: ``af.state =
+mesh.shard_walkers(af.state, m)`` on every rank, and for Generic
+``mesh.shard_generic`` on a [walker, chol] mesh) each rank runs both
+blocks on its own walkers; the block sums are summed over the walker group
+once a block, so every rank reports the same rows, and only rank 0 writes
+the HDF5 file and the checkpoint metadata. With ``block_mode="split"``
+(or ``PAUXY_TPU_SPLIT=1``) the orthogonalisation, propagation,
+population-control and estimator phases are timed (CUDA events on the
+card, ``time.perf_counter`` on the CPU, read once a block) and ``finalise``
+prints JAX's per-phase table; ``profile_dir`` takes a ``torch.profiler``
+trace of the whole ``run()``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 import uuid
 import warnings
@@ -44,6 +56,7 @@ from pauxy_tpu_torch.estimators.local_energy import rademacher
 from pauxy_tpu_torch.models import ghf
 from pauxy_tpu_torch.models import hubbard_holstein as hh
 from pauxy_tpu_torch.models import multi_slater as msd
+from pauxy_tpu_torch.parallel import mesh as pmesh
 from pauxy_tpu_torch.propagation.continuous import Continuous, is_single_det
 from pauxy_tpu_torch.propagation.generic import make_generic_continuous
 from pauxy_tpu_torch.propagation.hirsch import Hirsch, make_hirsch
@@ -64,13 +77,56 @@ config.set_matmul_precision()
 
 
 def check_population_alive(weight: torch.Tensor, hint: str):
-    """Raise when the population's total |weight| has vanished."""
-    total = float(weight.abs().sum())
+    """Raise when the population's total |weight| (over the walker group on
+    a mesh) has vanished."""
+    total = float(pmesh.walker_sum(weight.abs().sum()))
     if total < 1e-8:
         raise RuntimeError(
             f"Total weight is {total:13.8e}: the walker population died. "
             f"Something is seriously wrong — {hint}."
         )
+
+
+class PhaseTimer:
+    """Split-mode phase times of a block: ``mark(phase)`` charges the time
+    since the previous mark to ``phase``. On the card each mark records a
+    CUDA event, and ``read()`` synchronises once, at the block's end; on
+    the CPU the marks are ``time.perf_counter`` readings."""
+
+    PHASES = ("ortho", "prop", "pop", "estim")
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks = []
+
+    def _now(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def start(self):
+        self.marks = [(None, self._now())]
+
+    def mark(self, phase: str):
+        self.marks.append((phase, self._now()))
+
+    def read(self) -> dict:
+        """Seconds per phase since ``start``."""
+        out = dict.fromkeys(self.PHASES, 0.0)
+        if self.cuda and self.marks:
+            self.marks[-1][1].synchronize()
+        for (_, t0), (phase, t1) in zip(self.marks, self.marks[1:]):
+            out[phase] += (t0.elapsed_time(t1) / 1e3 if self.cuda
+                           else t1 - t0)
+        self.marks = []
+        return out
+
+
+def _mark(timer: PhaseTimer | None, phase: str):
+    if timer is not None:
+        timer.mark(phase)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,7 +174,8 @@ def run_block(ham, trial, prop, state, generator, eshift: float,
               pop_method: str, target_weight: float, energy_eval_freq: int,
               free_projection: bool = False, calc_one_rdm: bool = False,
               calc_two_rdm: str | None = None, extras: Extras = Extras(),
-              noise: BlockNoise | None = None):
+              noise: BlockNoise | None = None,
+              timer: PhaseTimer | None = None):
     """Advance ``state`` by one block of ``nsteps`` steps in the
     [w, M, n] layout, in the JAX step order
     (``pauxy_tpu/qmc/afqmc.py:117-228``): re-orthogonalise on
@@ -141,9 +198,15 @@ def run_block(ham, trial, prop, state, generator, eshift: float,
     continuous HS fields [w, X], with stochastic RI a
     ``continuous.RIDraws``, for Hubbard-Holstein a ``hirsch_dmc.DMCDraws``;
     ``noise.est[i]`` the stochastic-RI energy's probes [X, S]).
+    On a walker mesh the block sums are summed over the walker group. With
+    ``timer`` each step marks its phases.
     """
     discrete = isinstance(prop, Hirsch)
     nhist = extras.nhist
+    if nhist and pmesh.chol_sharded():
+        raise NotImplementedError(
+            "back propagation and the ITCF on a [walker, chol] mesh are not "
+            "ported: their field buffer and dense-G energy hold whole X")
     energy_fn = None
     if extras.bp_eval_energy:
         energy_fn = mixed.energy_estimator_G(ham)
@@ -161,6 +224,7 @@ def run_block(ham, trial, prop, state, generator, eshift: float,
         step = step0 + 1 + i
         if step % nstblz == 0:
             state = orthogonalise(state, free_projection)
+            _mark(timer, "ortho")
         state = prop.propagate(trial, state, generator, eshift,
                                None if noise is None else noise.xi[i],
                                bp_ix=(step - 1) % nhist if nhist else None,
@@ -170,11 +234,13 @@ def run_block(ham, trial, prop, state, generator, eshift: float,
             state = dataclasses.replace(
                 state, weight=torch.where(state.weight.abs() > cap, cap,
                                           state.weight))
+        _mark(timer, "prop")
         if step % npop_control == 0:
             state = pc.pop_control(
                 state, target_weight, pop_method,
                 uniforms=None if noise is None else noise.pop[i],
                 generator=generator)
+            _mark(timer, "pop")
         eval_energy = step % energy_eval_freq == 0
         ri_theta = None
         if eval_energy and getattr(ham, "stochastic_ri", False):
@@ -204,7 +270,12 @@ def run_block(ham, trial, prop, state, generator, eshift: float,
                 restore_weights=extras.itcf_restore, discrete=discrete,
                 stack_size=extras.itcf_stack_size)
             state = _reset(state, "right")
+        _mark(timer, "estim")
     s = torch.stack(accs).sum(dim=0)
+    if pmesh.active_mesh() is not None:
+        ns, nb = s.shape[0], bp_acc.shape[0]
+        tot = pmesh.walker_sum(torch.cat([s, bp_acc, itcf_acc]))
+        s, bp_acc, itcf_acc = tot[:ns], tot[ns:ns + nb], tot[ns + nb:]
     return (state, torch.stack([s.real, s.imag]),
             torch.stack([bp_acc.real, bp_acc.imag]),
             torch.stack([itcf_acc.real, itcf_acc.imag]))
@@ -217,16 +288,32 @@ class AFQMC:
     ``device``. With ``filename`` the block rows go to an HDF5 file in the
     JAX package's layout; without it nothing is written.
     ``walker_options``: ``write_freq`` (every that many blocks the walkers
-    go to ``write_file``, "restart.h5" by default) and ``read_file`` (start
-    from a checkpoint: walkers, step, eshift and the generator's state).
+    go to ``write_file``, "restart.h5" by default; on a walker mesh a
+    directory of shards, ``utils.checkpoint.save_walkers_sharded``) and
+    ``read_file`` (start from a checkpoint file or a sharded checkpoint's
+    directory: walkers, step, eshift and the generator's state). The
+    positional order is JAX's. ``block_mode``: None (the default block),
+    or "split" (the per-phase timers; also ``PAUXY_TPU_SPLIT=1``);
+    ``profile_dir``: where ``run()`` writes its ``torch.profiler`` trace.
     """
 
     def __init__(self, ham, trial, qmc: QMCOpts,
                  propagator_options: dict | None = None,
                  estimator_options: dict | None = None,
-                 verbose: bool = False, filename: str | None = None,
-                 walker_options: dict | None = None, *, device=None):
+                 walker_options: dict | None = None,
+                 verbose: bool = False, filename: str | None = None, *,
+                 device=None, block_mode: str | None = None,
+                 profile_dir: str | None = None):
+        # A fresh driver starts unsharded: drop a mesh a previous run
+        # registered (shard_walkers registers it again).
+        pmesh.set_active_mesh(None)
         self._t_init = time.perf_counter()
+        self.block_mode = block_mode or (
+            "split" if os.environ.get("PAUXY_TPU_SPLIT") == "1" else "fused")
+        if self.block_mode not in ("fused", "split"):
+            raise ValueError(f"block_mode {block_mode!r}, want 'fused' or "
+                             "'split'")
+        self.profile_dir = profile_dir
         self.device = config.resolve_device(device)
         self.uuid = str(uuid.uuid1())
         self.ham = ham.to(self.device)
@@ -297,6 +384,10 @@ class AFQMC:
         self.eshift = 0.0
         self.filename = filename
         output = None
+        # Only rank 0 prints and writes the estimates file.
+        if not pmesh.is_rank0():
+            self.verbose = verbose = False
+            filename = None
         if filename is not None:
             create_estimates_file(filename, mixed.HEADER,
                                   metadata=self._metadata())
@@ -330,14 +421,24 @@ class AFQMC:
         read_file = wopts.get("read_file")
         if read_file is not None:
             self._restart(read_file)
-        self.timing = {"setup": time.perf_counter() - self._t_init}
+        # Seconds per phase (split mode), summed over the run.
+        self.timing = {"setup": time.perf_counter() - self._t_init,
+                       "block": 0.0, "ortho": 0.0, "prop": 0.0, "pop": 0.0,
+                       "estim": 0.0}
 
     def _restart(self, read_file: str):
-        """Continue from a checkpoint: the walkers, the step, eshift and,
-        when the file holds this device's generator state, the stream."""
-        from pauxy_tpu_torch.utils.checkpoint import load_walkers
+        """Continue from a checkpoint (a file, or a sharded checkpoint's
+        directory, read whole or, on the active mesh, this rank's shard):
+        the walkers, the step, eshift and, when the file holds this
+        device's generator state, the stream."""
+        from pauxy_tpu_torch.utils.checkpoint import (load_walkers,
+                                                      load_walkers_sharded)
 
-        self.state, info = load_walkers(self.state, read_file)
+        if os.path.isdir(read_file):
+            self.state, info = load_walkers_sharded(
+                self.state, read_file, mesh=pmesh.active_mesh())
+        else:
+            self.state, info = load_walkers(self.state, read_file)
         self.step = info["step"]
         self.eshift = info["eshift"]
         rng = info["rng_state"]
@@ -493,6 +594,10 @@ class AFQMC:
         come from the driver's generator unless ``noise`` is given (see
         ``run_block`` and ``hubbard_fast.run_block_lanes``)."""
         t0 = time.perf_counter()
+        timer = None
+        if self.block_mode == "split":
+            timer = PhaseTimer(self.state.weight.device)
+            timer.start()
         kw = dict(nsteps=self.qmc.nsteps, nstblz=self.qmc.nstblz,
                   npop_control=self.qmc.npop_control,
                   pop_method=self.qmc.pop_control_method,
@@ -501,7 +606,7 @@ class AFQMC:
         if self.use_fast_block:
             self.state, acc = hubbard_fast.run_block_lanes(
                 self.ham, self.trial, self.prop, self.state, self.generator,
-                self.eshift, self.step, noise=noise, **kw)
+                self.eshift, self.step, noise=noise, timer=timer, **kw)
             bp_acc = itcf_acc = None
         else:
             self.state, acc, bp_acc, itcf_acc = run_block(
@@ -509,9 +614,13 @@ class AFQMC:
                 self.eshift, self.step, free_projection=self.free_projection,
                 calc_one_rdm=self.calc_one_rdm,
                 calc_two_rdm=self.calc_two_rdm, extras=self.extras,
-                noise=noise, **kw)
+                noise=noise, timer=timer, **kw)
         acc = acc.cpu().numpy()
         self.block_seconds.append(time.perf_counter() - t0)
+        self.timing["block"] += self.block_seconds[-1]
+        if timer is not None:
+            for phase, sec in timer.read().items():
+                self.timing[phase] += sec
         self.step += self.qmc.nsteps
         row = self.reporter.block_row(self.step, acc[0] + 1j * acc[1])
         if self.bp_reporter is not None:
@@ -528,22 +637,49 @@ class AFQMC:
             self.eshift = self.reporter.get_shift()
         if self.write_freq and (
                 self.step // self.qmc.nsteps) % self.write_freq == 0:
-            from pauxy_tpu_torch.utils.checkpoint import save_walkers
+            from pauxy_tpu_torch.utils.checkpoint import (
+                save_walkers, save_walkers_sharded)
 
-            save_walkers(self.state, self.write_file,
-                         generator=self.generator, step=self.step,
-                         eshift=self.eshift)
+            if pmesh.active_mesh() is not None:
+                save_walkers_sharded(self.state, self.write_file,
+                                     generator=self.generator,
+                                     step=self.step, eshift=self.eshift)
+            else:
+                save_walkers(self.state, self.write_file,
+                             generator=self.generator, step=self.step,
+                             eshift=self.eshift)
         return row
 
     def run(self) -> np.ndarray:
         """Run all blocks; returns the output rows [nblocks, 11] complex.
-        With ``verbose`` the timing table follows."""
+        With ``verbose`` the timing table follows; with ``profile_dir`` the
+        whole run is one ``torch.profiler`` trace, written there as
+        ``trace.<uuid>.json`` (Chrome trace format)."""
         self.reporter.print_header()
-        rows = []
-        for _ in range(self.qmc.nblocks):
-            rows.append(self.run_block())
-            check_population_alive(self.state.weight,
-                                   "reduce dt or improve the trial")
+
+        def blocks():
+            rows = []
+            for _ in range(self.qmc.nblocks):
+                rows.append(self.run_block())
+                check_population_alive(self.state.weight,
+                                       "reduce dt or improve the trial")
+            return rows
+
+        if self.profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.state.weight.is_cuda:
+                acts.append(ProfilerActivity.CUDA)
+            with profile(activities=acts) as prof:
+                rows = blocks()
+            os.makedirs(self.profile_dir, exist_ok=True)
+            rank = (f".{torch.distributed.get_rank()}"
+                    if torch.distributed.is_initialized() else "")
+            prof.export_chrome_trace(os.path.join(
+                self.profile_dir, f"trace.{self.uuid}{rank}.json"))
+        else:
+            rows = blocks()
         if self.verbose:
             self.finalise()
         return np.array(rows)
@@ -587,11 +723,25 @@ class AFQMC:
         return None
 
     def finalise(self, verbose: bool = True):
-        """Print the timing table: set-up, then the blocks' wall times
-        (each ends with its host readback). A block is a Python loop of
-        kernel launches, not one program, and no per-phase times are
-        taken."""
+        """Print the timing table. In split mode JAX's per-phase table
+        (seconds per orthogonalisation, per step, per population control
+        and per step); else set-up, then the blocks' wall times (each ends
+        with its host readback)."""
         if not verbose:
+            return
+        if self.block_mode == "split":
+            t = self.timing
+            nsteps = max(self.step, 1)
+            print(f"# Running time : {time.perf_counter() - self._t_init:.6f}"
+                  " seconds")
+            print("# Timing breakdown (per step):")
+            print(f"# - Setup: {t['setup']:.6f} s")
+            nstblz = max(self.step // max(self.qmc.nstblz, 1), 1)
+            npcon = max(self.step // max(self.qmc.npop_control, 1), 1)
+            print(f"# - Orthogonalisation: {t['ortho'] / nstblz:.6f} s")
+            print(f"# - Propagation: {t['prop'] / nsteps:.6f} s")
+            print(f"# - Population control: {t['pop'] / npcon:.6f} s")
+            print(f"# - Estimators: {t['estim'] / nsteps:.6f} s")
             return
         secs = np.asarray(self.block_seconds)
         print(f"# Running time : {time.perf_counter() - self._t_init:.6f} "

@@ -23,10 +23,15 @@ from pauxy_tpu_torch import config
 from pauxy_tpu_torch.estimators import mixed
 from pauxy_tpu_torch.ops import greens_cuda
 from pauxy_tpu_torch.ops import lanelinalg as ll
+from pauxy_tpu_torch.parallel import mesh as pmesh
 from pauxy_tpu_torch.propagation.continuous import (Continuous, _bound_hybrid,
                                                     is_single_det)
 from pauxy_tpu_torch.propagation.hubbard import HubbardContinuous
 from pauxy_tpu_torch.walkers import pop_control as pc
+
+
+# The spellings of kernel A's route (JAX's "pallas" and per-shard "shard").
+GREENS_IMPLS = (None, "pallas", "shard")
 
 
 class BlockNoise(NamedTuple):
@@ -74,13 +79,25 @@ def _log_overlap_lanes(psi, phi):
 def run_block_lanes(ham, trial, prop, state, generator, eshift: float,
                     step0: int, *, nsteps: int, nstblz: int,
                     npop_control: int, pop_method: str, target_weight: float,
-                    energy_eval_freq: int, noise: BlockNoise | None = None):
+                    energy_eval_freq: int, noise: BlockNoise | None = None,
+                    greens_impl: str | None = None, timer=None):
     """Advance ``state`` by one block of ``nsteps`` steps.
+
+    Every Green's function and overlap goes through kernel A
+    (``greens_cuda.greens_lanes``) on the walkers this rank holds; on a
+    walker mesh that is JAX's per-shard ``"shard"`` route, and
+    ``greens_impl`` takes that spelling (or ``"pallas"``, or None) for it.
+    With ``timer`` (``qmc.afqmc.PhaseTimer``) each step marks its phases.
 
     Returns (state, accumulator [2, NACC] real: the block sums of the
     mixed-estimator columns, real and imaginary parts). Draws come from
     ``generator`` on the walkers' device unless ``noise`` is given.
     """
+    if greens_impl not in GREENS_IMPLS:
+        raise ValueError(f"greens_impl {greens_impl!r}, want one of "
+                         f"{GREENS_IMPLS}")
+    if greens_impl == "shard" and pmesh.active_mesh() is None:
+        raise ValueError("greens_impl 'shard' needs an active walker mesh")
     inner = prop.inner
     psia = trial.psia
     psib = trial.psib
@@ -117,6 +134,8 @@ def run_block_lanes(ham, trial, prop, state, generator, eshift: float,
             phia, phib = qa, qb
             log_ovlp = log_ovlp - log_r.to(cdtype)
             ldetr = ldetr + log_r
+            if timer is not None:
+                timer.mark("ortho")
 
         # ---- propagate ---------------------------------------------------
         log_a, _, da = _greens_lanes(psia, phia)
@@ -125,8 +144,9 @@ def run_block_lanes(ham, trial, prop, state, generator, eshift: float,
         phia1 = ll.matmul_left(inner.BH1[0], phia)
         phib1 = ll.matmul_left(inner.BH1[1], phib)
         if noise is None:
-            xi = torch.randn(m, nw, generator=generator, dtype=rdtype,
-                             device=dev)
+            xi = pmesh.draw(lambda shape: torch.randn(
+                shape, generator=generator, dtype=rdtype, device=dev),
+                (m, nw), walker_dim=1)
         else:
             xi = noise.xi[i]
         if prop.force_bias:
@@ -174,27 +194,22 @@ def run_block_lanes(ham, trial, prop, state, generator, eshift: float,
             cap = 0.10 * tw
             weight = torch.where(weight.abs() > cap, cap, weight)
 
+        if timer is not None:
+            timer.mark("prop")
+
         # ---- population control ------------------------------------------
         if step % npop_control == 0:
-            u = None if noise is None else noise.pop[i]
-            if pop_method == "comb":
-                parents, total = pc.comb_parents(
-                    weight, target_weight,
-                    uniform=None if u is None else u[0],
-                    generator=generator)
-                # A dead population stays dead.
-                new_w = (total > 0).to(rdtype) * torch.ones_like(weight)
-            else:
-                parents, new_w, total = pc.pair_branch_parents(
-                    weight, target_weight, uniforms=u, generator=generator)
-            phia = phia[..., parents]
-            phib = phib[..., parents]
+            parents, new_w, total = pc.global_parents(
+                weight, target_weight, pop_method,
+                None if noise is None else noise.pop[i], generator)
+            phia, phib = pmesh.exchange([phia, phib], parents, dim=-1)
+            log_ovlp, ehyb_prev, ldetr = pmesh.exchange(
+                [log_ovlp, ehyb_prev, ldetr], parents)
             uw = weight
             weight = new_w
-            log_ovlp = log_ovlp[parents]
-            ehyb_prev = ehyb_prev[parents]
-            ldetr = ldetr[parents]
             tw = total
+            if timer is not None:
+                timer.mark("pop")
 
         # ---- mixed estimator ---------------------------------------------
         wfac = weight.to(cdtype)
@@ -225,6 +240,8 @@ def run_block_lanes(ham, trial, prop, state, generator, eshift: float,
         acc[mixed.OVLP] = torch.sum(weight * torch.exp(log_ovlp.real)
                                     ).to(cdtype)
         accs.append(torch.stack(acc))
+        if timer is not None:
+            timer.mark("estim")
 
     state = dataclasses.replace(
         state,
@@ -237,5 +254,5 @@ def run_block_lanes(ham, trial, prop, state, generator, eshift: float,
         log_detr=ldetr,
         total_weight=tw,
     )
-    s = torch.stack(accs).sum(dim=0)
+    s = pmesh.walker_sum(torch.stack(accs).sum(dim=0))
     return state, torch.stack([s.real, s.imag])

@@ -10,6 +10,12 @@ the beta/dt slices with per-slice weight capping and population control),
 then a mixed thermal measurement (energy and particle number from the
 1-RDM, or with ``average_gf`` their average over every cyclic stack
 origin) and a reset of the walkers to the trial density matrix.
+
+On a walker mesh (``af.state = parallel.mesh.shard_walkers(af.state, m)``
+on every rank) each rank propagates its own walkers with the slices of
+the whole population's draws; the per-slice population control runs
+across ranks, the measurement's sums are summed over the walker group,
+the reset keeps this rank's rows, and only rank 0 writes the file.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from pauxy_tpu_torch import config
 from pauxy_tpu_torch.estimators import mixed
 from pauxy_tpu_torch.estimators import thermal as th
 from pauxy_tpu_torch.estimators.thermal import one_rdm_from_G, particle_number
+from pauxy_tpu_torch.parallel import mesh as pmesh
 from pauxy_tpu_torch.propagation.thermal import make_thermal_propagator
 from pauxy_tpu_torch.propagation.thermal_discrete import make_thermal_discrete
 from pauxy_tpu_torch.qmc.afqmc import check_population_alive
@@ -123,6 +130,7 @@ def measure_state(ham, trial, state, calc_one_rdm: bool = False,
     if calc_one_rdm:
         rdm = torch.einsum("w,wsmn->smn", w.to(cdtype), p)
         acc = torch.cat([acc, rdm.reshape(-1)])
+    acc = pmesh.walker_sum(acc)
     return torch.stack([acc.real, acc.imag])
 
 
@@ -138,6 +146,8 @@ class ThermalAFQMC:
                  walker_options: dict | None = None,
                  verbose: bool = False, filename: str | None = None, *,
                  device=None):
+        # A fresh driver starts unsharded (shard_walkers registers a mesh).
+        pmesh.set_active_mesh(None)
         if qmc.beta is None:
             raise ValueError("a thermal run needs qmc.beta")
         self.device = config.resolve_device(device)
@@ -189,6 +199,9 @@ class ThermalAFQMC:
         self.state = self._init_walkers(self.trial, qmc.nwalkers)
         self.filename = filename
         self.output = None
+        # Only rank 0 prints and writes the estimates file.
+        if not pmesh.is_rank0():
+            self.verbose, filename = False, None
         if filename is not None:
             create_estimates_file(filename, THERMAL_HEADER,
                                   metadata=self._metadata())
@@ -261,6 +274,9 @@ class ThermalAFQMC:
         check_population_alive(self.state.weight, "reduce dt or beta")
         row = self._emit_row(acc, self.block)
         self.state = self._init_walkers(self.trial, self.qmc.nwalkers)
+        mesh = pmesh.active_mesh()
+        if mesh is not None:
+            self.state = pmesh.shard_walkers(self.state, mesh)
         return row
 
     def run(self) -> np.ndarray:

@@ -1,8 +1,8 @@
 """pyscf integration: dump molecular integrals + trial wavefunctions.
 
 The port's copy of ``pauxy_tpu/utils/from_pyscf.py`` (numpy on the host;
-HDF5 through ``utils.h5lite.open_file`` except the out-of-core Cholesky,
-whose resizable chunked dataset needs h5py). Counterpart of
+HDF5 through ``utils.h5lite.open_file``, the out-of-core Cholesky's
+resizable chunked dataset too). Counterpart of
 ``pauxy/utils/from_pyscf.py:22-651`` (dump_pauxy,
 generate_integrals, chunked Cholesky, frozen core, ortho-AO) and
 ``tools/pyscf/pyscf_to_pauxy.py``. pyscf is an optional dependency — every
@@ -168,9 +168,12 @@ def chunked_cholesky_outcore(source, filename: str, max_error: float = 1e-6,
     streams the stored vectors in row chunks.
 
     Returns the number of vectors written (the dataset is resized to
-    [nchol, nao*nao] on exit; read it back with h5py).
+    [nchol, nao*nao] on exit; read it back with ``h5lite.open_file``).
+    The file goes through ``utils.h5lite.open_file``: h5py where it
+    imports, else the port's own writer, which holds the dataset in memory
+    until the file closes.
     """
-    import h5py
+    from pauxy_tpu_torch.utils import h5lite
 
     prov = _as_provider(source)
     nao = prov.nao
@@ -178,7 +181,7 @@ def chunked_cholesky_outcore(source, filename: str, max_error: float = 1e-6,
     diag = prov.diagonal().astype(float).copy()
     resid = diag.copy()
     nchol = 0
-    with h5py.File(filename, "a") as fh5:
+    with h5lite.open_file(filename, "a") as fh5:
         if "chol_outcore" in fh5:
             del fh5["chol_outcore"]
         dset = fh5.create_dataset(

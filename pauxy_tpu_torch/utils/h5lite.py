@@ -8,7 +8,11 @@ what those files use:
 * groups, and datasets of integers, floats, complex numbers (the
   compound ``{r, i}`` h5py writes), fixed-length byte strings and
   variable-length strings (read only), scalar or n-dimensional, stored
-  contiguous or compact;
+  contiguous or compact, or chunked without filters (the version 3 layout
+  message and its version 1 B-tree of chunks, what the HDF5 library
+  writes by default); ``create_dataset(..., chunks=, maxshape=)``,
+  ``ds[...] = x`` and ``ds.resize(shape)`` on a file open for writing (the
+  dataset is held in memory until ``close()``);
 * reading the layouts the HDF5 library writes by default (superblock 0,
   version 1 object headers, symbol-table groups) and with
   ``libver="latest"`` (superblock 2 or 3, version 2 object headers,
@@ -17,7 +21,8 @@ what those files use:
   groups as version 1 object headers of compact links, which HDF5 1.8
   and later (and so h5py) read.
 
-Chunked or filtered datasets, dense link storage, attributes and
+Filtered (compressed) datasets, chunked datasets with the version 4 layout
+message (``libver="latest"``), dense link storage, attributes and
 references are not read; a file that needs them raises
 ``NotImplementedError``.
 
@@ -30,6 +35,7 @@ and the superblock, so pushing one dataset a block stays cheap.
 
 from __future__ import annotations
 
+import itertools
 import mmap
 import os
 import struct
@@ -215,19 +221,27 @@ class _GroupNode:
 
 class _DatasetNode:
     """A dataset held in memory (``array``) or in a file (``span`` =
-    (path, data offset, bytes)); ``addr`` is its object header's address
-    once it has one."""
+    (path, data offset, bytes), or for a chunked one ``chunk_index`` =
+    (path, [(offsets, address, bytes)])); ``addr`` is its object header's
+    address once it has one. ``chunks`` (the chunk shape) and ``maxshape``
+    (None entries unlimited) are set on a chunked dataset."""
 
-    def __init__(self, *, shape, dtype, array=None, span=None, addr=None):
+    def __init__(self, *, shape, dtype, array=None, span=None, addr=None,
+                 chunks=None, maxshape=None, chunk_index=None):
         self.shape = tuple(shape)
         self.dtype = dtype
         self.array = array
         self.span = span
         self.addr = addr
+        self.chunks = None if chunks is None else tuple(chunks)
+        self.maxshape = None if maxshape is None else tuple(maxshape)
+        self.chunk_index = chunk_index
 
     def read(self) -> np.ndarray:
         if self.array is not None:
             return self.array
+        if self.chunk_index is not None:
+            return _assemble_chunks(self)
         count = int(np.prod(self.shape)) if self.shape else 1
         if self.span is None or count == 0:
             return np.zeros(self.shape, self.dtype)
@@ -238,12 +252,31 @@ class _DatasetNode:
         return arr.reshape(self.shape)
 
 
+def _assemble_chunks(node: _DatasetNode) -> np.ndarray:
+    """The array of a chunked dataset from its chunks in the file; a chunk
+    the index does not list reads as zeros (the fill value)."""
+    path, chunks = node.chunk_index
+    out = np.zeros(node.shape, node.dtype)
+    count = int(np.prod(node.chunks))
+    for offsets, addr, nbytes in chunks:
+        raw = np.frombuffer(_read_span(path, addr, nbytes), node.dtype,
+                            count=count).reshape(node.chunks)
+        dst = tuple(slice(o, min(o + c, n)) for o, c, n in
+                    zip(offsets, node.chunks, node.shape))
+        out[dst] = raw[tuple(slice(0, d.stop - d.start) for d in dst)]
+    if out.dtype.byteorder == ">":
+        out = out.astype(out.dtype.newbyteorder("<"))
+    return out
+
+
 class Dataset:
     """A dataset: ``ds[()]``, ``ds[:]``, ``ds[i]`` or ``np.asarray(ds)``
-    read it."""
+    read it; in a file open for writing ``ds[key] = x`` writes it and a
+    chunked one can ``resize``."""
 
-    def __init__(self, node: _DatasetNode):
+    def __init__(self, node: _DatasetNode, file: "File | None" = None):
         self._node = node
+        self._file = file
 
     @property
     def shape(self):
@@ -253,6 +286,15 @@ class Dataset:
     def dtype(self):
         return self._node.dtype
 
+    @property
+    def chunks(self):
+        return self._node.chunks
+
+    @property
+    def maxshape(self):
+        node = self._node
+        return node.maxshape if node.chunks is not None else node.shape
+
     def __getitem__(self, key):
         out = self._node.read()[key]
         return np.array(out) if isinstance(out, np.ndarray) else out
@@ -260,6 +302,38 @@ class Dataset:
     def __array__(self, dtype=None, copy=None):
         arr = np.array(self._node.read())
         return arr if dtype is None else arr.astype(dtype)
+
+    def _held(self) -> np.ndarray:
+        """The array, held in memory from now on: it is written anew (at
+        the end of the file) on ``close()``."""
+        if self._file is None:
+            raise ValueError("dataset of no file")
+        self._file._writable()
+        node = self._node
+        if node.array is None or node.addr is not None:
+            node.array = np.array(node.read())
+            node.span = node.chunk_index = node.addr = None
+        return node.array
+
+    def __setitem__(self, key, value):
+        self._held()[key] = value
+
+    def resize(self, size):
+        """A chunked dataset's new shape, within its maxshape: rows past
+        the old shape read as zeros, rows past the new one are dropped."""
+        node = self._node
+        if node.chunks is None:
+            raise TypeError("only chunked datasets can be resized")
+        size = (size,) if isinstance(size, int) else tuple(size)
+        if len(size) != len(node.shape) or any(
+                m is not None and n > m for n, m in zip(size, node.maxshape)):
+            raise ValueError(f"new shape {size} beyond maxshape "
+                             f"{node.maxshape}")
+        old = self._held()
+        new = np.zeros(size, node.dtype)
+        keep = tuple(slice(0, min(a, b)) for a, b in zip(size, old.shape))
+        new[keep] = old[keep]
+        node.array, node.shape = new, size
 
 
 class Group:
@@ -291,7 +365,7 @@ class Group:
     def _wrap(self, node):
         if isinstance(node, _GroupNode):
             return Group(node, self._file)
-        return Dataset(node)
+        return Dataset(node, self._file)
 
     def __getitem__(self, path: str):
         if not path.strip("/"):
@@ -322,6 +396,34 @@ class Group:
         parent, name = self._walk(path)
         del parent.children[name]
         self._file._rewrite = True
+
+    def create_dataset(self, path: str, shape=None, dtype=None, data=None,
+                       chunks=None, maxshape=None) -> Dataset:
+        """A new dataset (zeros of ``shape``/``dtype``, or ``data``).
+        ``chunks`` (a shape, or True for the whole shape) stores it chunked;
+        ``maxshape`` (None entries unlimited; chunked, and by default the
+        shape) bounds ``resize``."""
+        self._file._writable()
+        parent, name = self._walk(path, create=True)
+        if name in parent.children:
+            raise ValueError(f"{path!r} already exists")
+        arr = (_to_storable(data) if data is not None
+               else np.zeros(shape, dtype or np.float64))
+        if shape is not None and tuple(arr.shape) != tuple(shape):
+            arr = arr.reshape(shape)
+        if dtype is not None:
+            arr = arr.astype(dtype)
+        if maxshape is not None and chunks is None:
+            chunks = True
+        if chunks is True:
+            chunks = tuple(max(n, 1) for n in arr.shape)
+        if chunks is not None and not arr.shape:
+            raise ValueError("a scalar dataset cannot be chunked")
+        node = parent.children[name] = _DatasetNode(
+            shape=arr.shape, dtype=arr.dtype, array=arr, chunks=chunks,
+            maxshape=(arr.shape if maxshape is None and chunks is not None
+                      else maxshape))
+        return Dataset(node, self._file)
 
     def create_group(self, path: str) -> "Group":
         self._file._writable()
@@ -477,6 +579,7 @@ class _Reader:
     def dataset(self, msgs) -> _DatasetNode:
         buf = self.buf
         shape = dtype = layout = None
+        maxshape = None
         for mtype, off, _ in msgs:
             if mtype == 0x01:
                 version, ndim = buf[off], buf[off + 1]
@@ -484,6 +587,10 @@ class _Reader:
                 p = off + (8 if version == 1 else 4)
                 shape = (() if stype == 0 else (0,) if stype == 2 else
                          tuple(struct.unpack_from(f"<{ndim}Q", buf, p)))
+                if buf[off + 2] & 1 and stype == 1:
+                    maxshape = tuple(
+                        None if m == _UNDEF else m for m in
+                        struct.unpack_from(f"<{ndim}Q", buf, p + 8 * ndim))
             elif mtype == 0x03:
                 dtype, _ = _parse_dtype(buf, off)
             elif mtype == 0x08:
@@ -503,8 +610,19 @@ class _Reader:
             daddr, n = struct.unpack_from("<QQ", buf, layout + 2)
             raw = None
             span = None if daddr == _UNDEF else (self.path, daddr, n)
+        elif buf[layout] == 3 and lclass == 2:
+            ndims = buf[layout + 2]             # the dataset's + 1
+            btree = struct.unpack_from("<Q", buf, layout + 3)[0]
+            dims = struct.unpack_from(f"<{ndims}I", buf, layout + 11)
+            index = [] if btree == _UNDEF else self._chunk_btree(btree,
+                                                                 ndims)
+            return _DatasetNode(
+                shape=shape, dtype=dtype, chunks=dims[:-1],
+                maxshape=maxshape or shape,
+                chunk_index=(self.path, index))
         else:
-            raise NotImplementedError("chunked datasets")
+            raise NotImplementedError(
+                "chunked datasets with layout message version 4")
         if dtype is _VlenStr:
             data = raw if raw is not None else (
                 _read_span(*span) if span else b"")
@@ -519,6 +637,30 @@ class _Reader:
             arr = np.frombuffer(raw, dtype=dtype).reshape(shape).copy()
             return _DatasetNode(shape=shape, dtype=dtype, array=arr)
         return _DatasetNode(shape=shape, dtype=dtype, span=span)
+
+    def _chunk_btree(self, addr: int, ndims: int):
+        """[(offsets, address, bytes)] of the chunks below the version 1
+        B-tree node (type 1) at ``addr``."""
+        buf = self.buf
+        if bytes(buf[addr:addr + 4]) != b"TREE" or buf[addr + 4] != 1:
+            raise OSError("bad chunk B-tree")
+        level = buf[addr + 5]
+        used = struct.unpack_from("<H", buf, addr + 6)[0]
+        ksize = 8 + 8 * ndims
+        out = []
+        p = addr + 24
+        for _ in range(used):
+            nbytes, mask = struct.unpack_from("<II", buf, p)
+            offsets = struct.unpack_from(f"<{ndims}Q", buf, p + 8)
+            child = struct.unpack_from("<Q", buf, p + ksize)[0]
+            if level > 0:
+                out.extend(self._chunk_btree(child, ndims))
+            elif mask:
+                raise NotImplementedError("filtered (compressed) chunks")
+            else:
+                out.append((offsets[:-1], child, nbytes))
+            p += ksize + 8
+        return out
 
     def _global_heap(self, addr: int, index: int) -> bytes:
         buf = self.buf
@@ -597,6 +739,98 @@ def _dataset_blob(arr: np.ndarray, addr: int):
 
     daddr = addr + len(header(0)) if data else _UNDEF
     return header(daddr) + data, daddr
+
+
+# Entries of a chunk B-tree node: 2 K with the library's default K = 32
+# for chunk indexes (superblock 2 stores no K).
+_CHUNK_NODE = 64
+
+
+def _chunked_blob(node: _DatasetNode, arr: np.ndarray, addr: int):
+    """(object header, the chunk B-tree nodes and the chunks of ``arr``
+    placed at ``addr``, [(offsets, address, bytes)] of the chunks).
+
+    A version 3 layout message (class 2) indexes the chunks by a version 1
+    B-tree of type 1; its keys are the chunks' offsets in C order, a last
+    key one chunk past the last one, as the HDF5 library keys them, and its
+    nodes hold up to 64 entries (levels are added above as needed)."""
+    nd = arr.ndim
+    chunks = node.chunks
+    maxshape = tuple(_UNDEF if m is None else m for m in node.maxshape)
+    space = struct.pack("<BBBB", 2, nd, 1, 1) + struct.pack(
+        f"<{2 * nd}Q", *arr.shape, *maxshape)
+    dtype = _encode_dtype(arr.dtype)
+    fill = bytes([3, 0x0A])
+    esize = arr.dtype.itemsize
+    grid = [range(0, n, c) for n, c in zip(arr.shape, chunks)]
+    offsets = list(itertools.product(*grid)) if all(arr.shape) else []
+    cbytes = int(np.prod(chunks)) * esize
+    ksize = 8 + 8 * (nd + 1)
+    nsize = 24 + _CHUNK_NODE * (ksize + 8) + ksize
+
+    def key(nbytes, offs):
+        return struct.pack("<II", nbytes, 0) + struct.pack(
+            f"<{nd + 1}Q", *offs)
+
+    # The tree, leaves first: each level a list of nodes, each node a list
+    # of (left key, child index) over the level below.
+    levels = []
+    entries = [(tuple(o) + (0,), i) for i, o in enumerate(offsets)]
+    while True:
+        nodes = [entries[i:i + _CHUNK_NODE]
+                 for i in range(0, max(len(entries), 1), _CHUNK_NODE)]
+        levels.append(nodes)
+        if len(nodes) == 1:
+            break
+        entries = [(n[0][0], j) for j, n in enumerate(nodes)]
+    last = ((tuple(o + c for o, c in zip(offsets[-1], chunks)) + (esize,))
+            if offsets else (0,) * (nd + 1))
+
+    def header(btree):
+        layout = struct.pack("<BBBQ", 3, 2, nd + 1, btree) + struct.pack(
+            f"<{nd + 1}I", *chunks, esize)
+        return _ohdr([(0x01, space), (0x03, dtype), (0x05, fill),
+                      (0x08, layout)])
+
+    hlen = len(header(0))
+    nnodes = sum(len(n) for n in levels) if offsets else 0
+    tree_at = addr + hlen
+    data_at = tree_at + nnodes * nsize
+    caddr = [data_at + i * cbytes for i in range(len(offsets))]
+    # Node addresses: the root first, then each level below in order.
+    naddr, p = [], tree_at
+    for nodes in reversed(levels):
+        naddr.insert(0, [p + j * nsize for j in range(len(nodes))])
+        p += len(nodes) * nsize
+    blobs = []
+    for lv in reversed(range(len(levels)) if offsets else ()):
+        nodes = levels[lv]
+        for j, ents in enumerate(nodes):
+            if j + 1 < len(nodes):
+                right_key = nodes[j + 1][0][0]
+            else:
+                right_key = last
+            body = struct.pack("<4sBBH", b"TREE", 1, lv, len(ents))
+            body += struct.pack("<QQ", naddr[lv][j - 1] if j else _UNDEF,
+                                naddr[lv][j + 1] if j + 1 < len(nodes)
+                                else _UNDEF)
+            for k, child in ents:
+                body += key(cbytes, k)
+                body += struct.pack("<Q", caddr[child] if lv == 0
+                                    else naddr[lv - 1][child])
+            body += key(0, right_key)
+            blobs.append(body + bytes(nsize - len(body)))
+    data = b""
+    index = []
+    for o, a in zip(offsets, caddr):
+        c = np.zeros(chunks, arr.dtype)
+        src = tuple(slice(x, min(x + n, s)) for x, n, s in
+                    zip(o, chunks, arr.shape))
+        c[tuple(slice(0, d.stop - d.start) for d in src)] = arr[src]
+        data += c.tobytes()
+        index.append((o, a, cbytes))
+    root = naddr[-1][0] if offsets else _UNDEF
+    return header(root) + b"".join(blobs) + data, index
 
 
 def _v1_message(mtype: int, data: bytes) -> bytes:
@@ -730,13 +964,17 @@ class File(Group):
             for d in datasets:
                 if d.addr is not None:
                     continue
-                blob, daddr = _dataset_blob(d.read(), end)
+                if d.chunks is not None:
+                    blob, index = _chunked_blob(d, d.read(), end)
+                    d.chunk_index = (self._path, index)
+                else:
+                    blob, daddr = _dataset_blob(d.read(), end)
+                    d.span = (self._path, daddr, d.read().nbytes)
+                    if daddr == _UNDEF:
+                        d.span = None
                 fh.seek(end)
                 fh.write(blob)
                 d.addr = end
-                d.span = (self._path, daddr, d.read().nbytes)
-                if daddr == _UNDEF:
-                    d.span = None
                 d.array = None
                 end += len(blob)
             self._data_end = end

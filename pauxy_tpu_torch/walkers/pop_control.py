@@ -6,6 +6,11 @@ Counterpart of ``pauxy_tpu/walkers/pop_control.py``. ``comb_parents`` and
 [w, ...] ``WalkerState`` with it (the lanes block gathers its own layout).
 The uniforms are drawn from ``generator`` unless given (tests inject the
 JAX draws).
+
+On a walker mesh (``parallel/mesh``) every rank gathers the W weights,
+computes the same global parents from the same uniforms and keeps its
+slots' new weights; ``mesh.exchange`` then moves only the rows whose parent
+lives on another rank.
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from pauxy_tpu_torch.parallel import mesh as pmesh
 
 # Pair-branch thresholds on the rescaled weights (the reference's defaults).
 MIN_WEIGHT = 0.1
@@ -86,49 +93,61 @@ def pair_branch_parents(weight: torch.Tensor, target_weight: float,
 def _gather_walkers(state, parents: torch.Tensor):
     """Replace walker i by a copy of walker parents[i]: every field whose
     leading axis is the walker axis moves with its parent; scalars such as
-    total_weight stay (weights are the caller's)."""
-    nw = parents.shape[0]
-    moved = {}
-    for f in dataclasses.fields(state):
-        x = getattr(state, f.name)
-        if isinstance(x, torch.Tensor) and x.dim() >= 1 and x.shape[0] == nw:
-            moved[f.name] = x[parents]
-    return dataclasses.replace(state, **moved)
+    total_weight stay (weights are the caller's). On a mesh ``parents``
+    are the global [W] parents (``mesh.exchange``)."""
+    nw = state.weight.shape[0]
+    names = [f.name for f in dataclasses.fields(state)
+             if isinstance(getattr(state, f.name), torch.Tensor)
+             and getattr(state, f.name).dim() >= 1
+             and getattr(state, f.name).shape[0] == nw]
+    moved = pmesh.exchange([getattr(state, n) for n in names], parents)
+    return dataclasses.replace(state, **dict(zip(names, moved)))
+
+
+def global_parents(weight: torch.Tensor, target_weight: float,
+                   method: str, uniforms: torch.Tensor | None = None,
+                   generator: torch.Generator | None = None):
+    """(parents [W] global, this rank's new weights, total weight []) of
+    the whole population (the walker group's on a mesh; the local
+    population without one). ``uniforms``: one draw for comb, W // 2 for
+    pair_branch."""
+    w_all = pmesh.gather_walkers(weight)
+    if method == "comb":
+        parents, total = comb_parents(
+            w_all, target_weight,
+            None if uniforms is None else uniforms.reshape(()), generator)
+        # A dead population stays dead.
+        new_w = (total > 0).to(weight.dtype) * torch.ones_like(weight)
+        return parents, new_w, total
+    if method == "pair_branch":
+        parents, new_w, total = pair_branch_parents(w_all, target_weight,
+                                                    uniforms, generator)
+        return parents, pmesh.local_rows(new_w), total
+    raise ValueError(f"unknown population control method {method!r}")
 
 
 def comb(state, target_weight: float, uniform: torch.Tensor | None = None,
          generator: torch.Generator | None = None):
     """Comb resampling of the population; weights reset to 1 (0 if the
     whole population is dead), the old ones kept in unscaled_weight."""
-    parents, total = comb_parents(state.weight, target_weight, uniform,
-                                  generator)
-    new = _gather_walkers(state, parents)
-    alive = (total > 0).to(state.weight.dtype)
-    return dataclasses.replace(
-        new, weight=alive * torch.ones_like(state.weight),
-        unscaled_weight=state.weight, total_weight=total)
+    return pop_control(state, target_weight, "comb", uniform, generator)
 
 
 def pair_branch(state, target_weight: float,
                 uniforms: torch.Tensor | None = None,
                 generator: torch.Generator | None = None):
     """Pair-branch population control of the population."""
-    parents, new_w, total = pair_branch_parents(state.weight, target_weight,
-                                                uniforms, generator)
-    new = _gather_walkers(state, parents)
-    return dataclasses.replace(new, weight=new_w,
-                               unscaled_weight=state.weight,
-                               total_weight=total)
+    return pop_control(state, target_weight, "pair_branch", uniforms,
+                       generator)
 
 
 def pop_control(state, target_weight: float, method: str = "comb",
                 uniforms: torch.Tensor | None = None,
                 generator: torch.Generator | None = None):
     """``uniforms``: one draw for comb, nw // 2 for pair_branch."""
-    if method == "comb":
-        return comb(state, target_weight,
-                    None if uniforms is None else uniforms.reshape(()),
-                    generator)
-    if method == "pair_branch":
-        return pair_branch(state, target_weight, uniforms, generator)
-    raise ValueError(f"unknown population control method {method!r}")
+    parents, new_w, total = global_parents(state.weight, target_weight,
+                                           method, uniforms, generator)
+    new = _gather_walkers(state, parents)
+    return dataclasses.replace(new, weight=new_w,
+                               unscaled_weight=state.weight,
+                               total_weight=total)

@@ -137,9 +137,13 @@ def test_auto_sweep_kernel_chooses_as_jax(case, want):
 def test_unported_options_raise():
     jh = make_hubbard(nup=2, ndown=2, U=4.0, nx=2, ny=2)
     th, tt = port_objects(jh, free_electron_trial(jh))
-    with pytest.raises(NotImplementedError):
-        thirsch.make_hirsch(th, tt, 0.01, mesh=object(), **CPU)
+    # JAX's mesh= (its per-shard kernel dispatch) is accepted now: on the
+    # port's walker mesh each rank sweeps its own walkers, so the tables
+    # are the unsharded ones (tests/test_torch_mesh_zero.py runs it).
+    tm = thirsch.make_hirsch(th, tt, 0.01, mesh=object(), **CPU)
     tp = thirsch.make_hirsch(th, tt, 0.01, **CPU)
+    assert tm.sweep_kernel == tp.sweep_kernel
+    assert torch.equal(tm.BT2, tp.BT2) and torch.equal(tm.auxf, tp.auxf)
     with pytest.raises(ValueError):
         thirsch.Hirsch(tp.BT2, tp.auxf, tp.aux_wfac, dt=0.01,
                        sweep_kernel="pallas")
