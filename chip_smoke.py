@@ -261,7 +261,19 @@ non-zero and prints no result line:
      (parallel.launch.run_ranks, one process each, 512 walkers a rank),
      their rows against the one-rank run within 1e-5 relative, or, where
      gloo refuses a collective on CUDA tensors, the line says that the
-     two-rank run is held by the CPU tests only.
+     two-rank run is held by the CPU tests only; then the chol axis: two
+     gloo ranks on cuda:0 as a [walker 1, chol 2] mesh (NCCL puts one
+     rank on a card), each rank on every walker and half of X, against
+     the same runs unsharded (``chol_driver``): (a) phase 16's bench-shape
+     run with one BP measurement with energies and EKT, (b) the ITCF on
+     the golden system, (c) phase 30's stochastic-RI energy (S = 20) and
+     sketched step (S = 2048), (d) phase 19's thermal Generic path; rows
+     and the BP / ITCF arrays within 1e-5 relative (``chol_rel``), the
+     two ranks' rows equal, each rank's launches of the Cholesky, Taylor,
+     kernel B and cpqr kernels equal to the unsharded run's, and the
+     exchange kernel launched in (a)'s mixed energy, where the unsharded
+     run takes the supermatrix (``launches_by_path`` "mesh_chol_*", rank
+     0's).
 Phase 3 also holds the cpqr kernel on the low-rank stack's masked input
 (``check_cpqr_masked``) and kernels A and B on exactly singular matrices
 (``check_zero_pivot``: log|det| -inf, JAX's phase where JAX's is finite).
@@ -273,6 +285,7 @@ kernels, and last
 
 from __future__ import annotations
 
+import copy
 import itertools
 import json
 import os
@@ -1853,10 +1866,214 @@ def rows_rel(a: np.ndarray, b: np.ndarray) -> float:
                                                     1e-30)))
 
 
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launch count in this process."""
+    from pauxy_tpu_torch.ops import (batchla_cuda, cpqr_cuda, exx_cuda,
+                                     greens_cuda, sweep_cuda, taylor_cuda)
+
+    return {"greens_lanes": greens_cuda.launches,
+            "inv_logdet_lanes": batchla_cuda.launches,
+            "chol_inv_lanes": batchla_cuda.chol_launches,
+            "hirsch_sweep": sweep_cuda.launches,
+            "taylor_exp": taylor_cuda.launches,
+            "taylor_bf16": taylor_cuda.launches_bf16,
+            "taylor_bf16_resident": taylor_cuda.launches_bf16_resident,
+            "taylor_bf16_streaming": taylor_cuda.launches_bf16_streaming,
+            "exx": exx_cuda.launches,
+            "cpqr": cpqr_cuda.launches}
+
+
+def zero_kernel_counts() -> None:
+    from pauxy_tpu_torch.ops import (batchla_cuda, cpqr_cuda, exx_cuda,
+                                     greens_cuda, sweep_cuda, taylor_cuda)
+
+    greens_cuda.launches = 0
+    batchla_cuda.launches = 0
+    batchla_cuda.chol_launches = 0
+    sweep_cuda.launches = 0
+    taylor_cuda.launches = 0
+    taylor_cuda.launches_bf16 = 0
+    taylor_cuda.launches_bf16_resident = 0
+    taylor_cuda.launches_bf16_streaming = 0
+    exx_cuda.launches = 0
+    cpqr_cuda.launches = 0
+
+
+# Phase 34's runs on a [walker 1, chol 2] mesh: (a) back propagation with
+# energies and EKT at the Generic bench shape, (b) the ITCF on the golden
+# system, (c) the stochastic-RI energy and the sketched step at the bench
+# shape, (d) the thermal Generic path at phase 19's shape.
+CHOL_RUNS = ("bp", "itcf", "sri", "sri_step", "thermal")
+# The kernels whose launches a chol rank shares with the unsharded run
+# (each chol rank propagates every walker).
+CHOL_SAME = ("chol_inv_lanes", "taylor_exp", "inv_logdet_lanes", "cpqr")
+# The bench-shape Hamiltonian and RHF trial, built once a process.
+_BENCH = {}
+
+
+def chol_driver(name: str):
+    """One of ``CHOL_RUNS`` as an unsharded driver on the card, complex64:
+    "bp" phase 16's bench-shape run (nmo=128, naux=512, (16, 16), 1024
+    walkers, dt=0.005, one block of 10 steps, taylor_impl="pallas") with
+    one BP measurement of tau_bp=0.05 with energies and EKT; "itcf" the
+    golden generic_nmo11.npz system (its 65 Cholesky vectors and a zero
+    one, so that X splits in two), 16 walkers, dt=0.01, the ITCF of
+    tau_max=0.1, stable; "sri" and "sri_step" phase 30's stochastic-RI
+    energy (20 probes) and sketched step (S = 2048) at the bench shape;
+    "thermal" phase 19's Generic thermal path (64 walkers, beta=0.5,
+    dt=0.05, one path). Population control is off (npop_control past the
+    run), so that a comb pick at a float32 boundary cannot swap walkers
+    between two runs that differ by rounding; on [walker 1, chol 2] it
+    moves nothing between ranks anyway."""
+    sys.path.insert(0, ROOT)
+    from pauxy_tpu_torch.models import make_generic, rhf_identity_trial
+    from pauxy_tpu_torch.models.thermal_trial import make_one_body_trial
+    from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
+    from pauxy_tpu_torch.qmc.thermal_afqmc import ThermalAFQMC
+
+    card = dict(device="cuda", dtype="single")
+    mixed = {"mixed": {"energy_eval_freq": 1}}
+    pallas = {"taylor_impl": "pallas"}
+    if name == "itcf":
+        g = np.load(os.path.join(ROOT, "tests", "data", "generic_nmo11.npz"))
+        n = g["h1e"].shape[-1]
+        chol = np.asarray(g["chol"]).reshape(-1, n, n).transpose(1, 2, 0)
+        chol = np.concatenate([chol, np.zeros((n, n, 1))], axis=-1)
+        ham = make_generic((3, 3), np.stack([g["h1e"], g["h1e"]]), chol,
+                           ecore=float(g["enuc"]), **card)
+        qmc = QMCOpts(nwalkers=16, dt=0.01, nsteps=10, nblocks=1, nstblz=5,
+                      npop_control=20, rng_seed=8)
+        return AFQMC(ham, rhf_identity_trial(ham, **card), qmc,
+                     propagator_options=pallas,
+                     estimator_options={**mixed, "itcf": {
+                         "tau_max": 0.1, "stable": True}}, device="cuda")
+    if not _BENCH:
+        _BENCH["ham"] = generic_model(128, 512, 16, make_generic)
+        _BENCH["trial"] = rhf_identity_trial(_BENCH["ham"], **card)
+    ham, trial = _BENCH["ham"], _BENCH["trial"]
+    if name == "sri":
+        # The stochastic-RI system differs from the plain one in its flags
+        # only; without the control variate its trial is the same.
+        ham = copy.copy(ham)
+        ham.stochastic_ri, ham.nsamples = True, 20
+    if name == "thermal":
+        trial = make_one_body_trial(ham, 0.5, 0.05, **card)
+        return ThermalAFQMC(ham, trial, QMCOpts(
+            nwalkers=64, dt=0.05, nsteps=1, nblocks=1, beta=0.5,
+            npop_control=100, rng_seed=8), device="cuda")
+    popts = dict(pallas)
+    if name == "sri_step":
+        popts.update(stochastic_ri=True, nsamples=2048)
+    eopts = dict(mixed)
+    if name == "bp":
+        eopts["back_propagation"] = {"tau_bp": 0.05, "evaluate_energy": True,
+                                     "evaluate_ekt": True}
+    qmc = QMCOpts(nwalkers=1024, dt=0.005, nsteps=10, nblocks=1, nstblz=5,
+                  npop_control=20, rng_seed=8)
+    return AFQMC(ham, trial, qmc, propagator_options=popts,
+                 estimator_options=eopts, device="cuda")
+
+
+def chol_runs(mesh=None) -> dict:
+    """Every run of ``CHOL_RUNS``, unsharded or, with ``mesh``, through
+    shard_generic and shard_walkers: {name: (rows, the BP row or the
+    ITCF's G, launches, seconds)}, the launches counted from 0 before the
+    driver is built."""
+    from pauxy_tpu_torch.parallel import mesh as pmesh
+
+    out = {}
+    for name in CHOL_RUNS:
+        zero_kernel_counts()
+        af = chol_driver(name)
+        if mesh is not None:
+            af.ham, af.trial, af.prop = pmesh.shard_generic(
+                af.ham, af.trial, af.prop, mesh)
+            af.state = pmesh.shard_walkers(af.state, mesh)
+        t0 = time.perf_counter()
+        try:
+            rows = af.run()
+            torch.cuda.synchronize()
+        finally:
+            pmesh.set_active_mesh(None)
+        seconds = time.perf_counter() - t0
+        extra = {}
+        if name == "bp":
+            extra = {k: np.asarray(v)
+                     for k, v in af.bp_reporter.rows[0].items()}
+        elif name == "itcf":
+            extra = {"G": np.asarray(
+                af.itcf_reporter.rows[0]["real_space_greens_function"])}
+        out[name] = (np.asarray(rows), extra, kernel_counts(), seconds)
+        del af
+        torch.cuda.empty_cache()
+    _BENCH.clear()
+    return out
+
+
+def chol_rank(rank: int):
+    """One rank of phase 34's [walker 1, chol 2] mesh on cuda:0 (gloo)."""
+    sys.path.insert(0, ROOT)
+    from pauxy_tpu_torch.parallel import mesh as pmesh
+
+    return chol_runs(pmesh.walker_chol_mesh(2, device="cuda"))
+
+
+def chol_rel(name: str, ref, got) -> float:
+    """Largest difference of a chol-mesh run from the unsharded one:
+    column-scaled over the rows (columns 1-9; a thermal row's 1-10), each
+    BP or ITCF array scaled by its largest entry. EHybrid (column 8) is
+    scaled by the larger of its own and ETotal's (column 5): at finite
+    temperature it is a difference of log-determinants over dt, two orders
+    below ETotal, whose float32 rounding (1e-3 of the column at a tiny
+    thermal Generic system, the same in the unsharded run against
+    complex128) no partial sum adds to."""
+    a, b = ref[0].real, got[0].real
+    scale = np.maximum(np.abs(a).max(0), 1e-30)
+    scale[8] = max(scale[8], scale[5])
+    cols = slice(1, 11) if name == "thermal" else slice(1, 10)
+    rel = [float(np.max((np.abs(a - b) / scale)[:, cols]))]
+    for k, x in ref[1].items():
+        y = got[1][k]
+        rel.append(float(np.abs(x - y).max() / max(np.abs(x).max(), 1e-30)))
+    return max(rel)
+
+
+def chol_phase(ref: dict, ranks: list) -> tuple[str, dict]:
+    """Holds the two chol ranks' runs against the unsharded ones: rows and
+    the BP / ITCF arrays within 1e-5 relative, the two ranks' rows equal,
+    each rank's launches of ``CHOL_SAME`` equal to the unsharded run's,
+    and the exchange kernel launched in (a)'s mixed energy (the unsharded
+    run takes the supermatrix). Returns (the line, rank 0's launches by
+    run)."""
+    parts = []
+    for name in CHOL_RUNS:
+        r = ref[name]
+        rel = [chol_rel(name, r, g[name]) for g in ranks]
+        same_rows = all(np.array_equal(ranks[0][name][0][:, :-1],
+                                       g[name][0][:, :-1]) for g in ranks)
+        bad = [k for k in CHOL_SAME for g in ranks
+               if g[name][2][k] != r[2][k]]
+        exx = [g[name][2]["exx"] for g in ranks]
+        if max(rel) > 1e-5 or not same_rows or bad or (
+                name == "bp" and min(exx) == 0):
+            raise AssertionError(
+                f"chol mesh {name}: relative {rel}, ranks' rows equal "
+                f"{same_rows}, launches per rank "
+                f"{[g[name][2] for g in ranks]} vs unsharded {r[2]}")
+        launches = "; ".join(
+            f"{k} {[g[name][2][k] for g in ranks]} vs {r[2][k]}"
+            for k in CHOL_SAME + ("exx",))
+        parts.append(
+            f"({name}) within {max(rel):.2e} relative, launches per rank vs "
+            f"unsharded: {launches}; seconds unsharded {r[3]:.3f}, per rank "
+            f"{[round(g[name][3], 3) for g in ranks]}")
+    return "; ".join(parts), {name: ranks[0][name][2] for name in CHOL_RUNS}
+
+
 def mesh_phase(counts, zero_counts):
     """Phase 34: the walker mesh on the card (see the module docstring).
     Returns (the phase line, the sharded continuous and Generic runs'
-    launch counts)."""
+    launch counts, and rank 0's of each chol-mesh run)."""
     import contextlib
     import io
 
@@ -1987,6 +2204,11 @@ def mesh_phase(counts, zero_counts):
         two_msg = ("two ranks on cuda:0 over gloo: gloo refuses a "
                    f"collective on CUDA tensors ({two_note}); the two-rank "
                    "run is held by the CPU tests only")
+    # The chol axis: the unsharded runs here, then two gloo ranks sharing
+    # cuda:0 as a [walker 1, chol 2] mesh (NCCL puts one rank on a card).
+    chol_ref = chol_runs()
+    chol_ranks = launch.run_ranks(chol_rank, 2, backend="gloo", timeout=600)
+    chol_msg, mesh_chol = chol_phase(chol_ref, chol_ranks)
     msg = (f"one-rank NCCL group: continuous 1024 walkers rows within "
            f"{rel_cont:.2e} relative of the unsharded run, launches "
            f"{mesh_cont}, block seconds unsharded "
@@ -1994,8 +2216,10 @@ def mesh_phase(counts, zero_counts):
            f"{[round(t, 4) for t in mesh_s]}; Generic bench shape rows within {rel_gen:.2e}, "
            f"launches {mesh_gen}; sharded checkpoint round trip exact; "
            f"profile trace {trace_bytes} bytes; split table {table}, phases "
-           f"/ block wall {share:.3f}; {two_msg}")
-    return msg, mesh_cont, mesh_gen
+           f"/ block wall {share:.3f}; {two_msg}; two gloo ranks on cuda:0 "
+           f"as a [walker 1, chol 2] mesh against the unsharded runs: "
+           f"{chol_msg}")
+    return msg, mesh_cont, mesh_gen, mesh_chol
 
 
 def main() -> None:
@@ -2065,29 +2289,7 @@ def main() -> None:
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
         f"nvidia-smi: {card}" + lap("1"))
 
-    def counts() -> dict:
-        return {"greens_lanes": greens_cuda.launches,
-                "inv_logdet_lanes": batchla_cuda.launches,
-                "chol_inv_lanes": batchla_cuda.chol_launches,
-                "hirsch_sweep": sweep_cuda.launches,
-                "taylor_exp": taylor_cuda.launches,
-                "taylor_bf16": taylor_cuda.launches_bf16,
-                "taylor_bf16_resident": taylor_cuda.launches_bf16_resident,
-                "taylor_bf16_streaming": taylor_cuda.launches_bf16_streaming,
-                "exx": exx_cuda.launches,
-                "cpqr": cpqr_cuda.launches}
-
-    def zero_counts() -> None:
-        greens_cuda.launches = 0
-        batchla_cuda.launches = 0
-        batchla_cuda.chol_launches = 0
-        sweep_cuda.launches = 0
-        taylor_cuda.launches = 0
-        taylor_cuda.launches_bf16 = 0
-        taylor_cuda.launches_bf16_resident = 0
-        taylor_cuda.launches_bf16_streaming = 0
-        exx_cuda.launches = 0
-        cpqr_cuda.launches = 0
+    counts, zero_counts = kernel_counts, zero_kernel_counts
 
     def only(**nonzero) -> dict:
         want = dict.fromkeys(counts(), 0)
@@ -4788,7 +4990,7 @@ def main() -> None:
         f"file (3 k-points) round-trips exactly and its supercell Generic "
         f"(M={kham.nbasis}, X={kham.nchol}) builds on the card" + lap("33"))
     # ---- 34. the walker mesh on the card ----------------------------------
-    msg, mesh_cont, mesh_gen = mesh_phase(counts, zero_counts)
+    msg, mesh_cont, mesh_gen, mesh_chol = mesh_phase(counts, zero_counts)
     say("34 walker mesh", msg + lap("34"))
     say("seconds", json.dumps(seconds))
 
@@ -4828,7 +5030,14 @@ def main() -> None:
                "hh_anchors": hh_anchor_counts,
                "generic_variants": var_counts, "generic_file": file_counts,
                "h10_file": h10_counts, "h2_file": h2_counts,
-               "mesh_continuous": mesh_cont, "mesh_generic": mesh_gen}
+               "mesh_continuous": mesh_cont, "mesh_generic": mesh_gen,
+               **{f"mesh_chol_{k}": c for k, c in mesh_chol.items()}}
+    # Every kernel of the chol-mesh paths launched there.
+    for k, run in (("chol_inv_lanes", "bp"), ("taylor_exp", "bp"),
+                   ("inv_logdet_lanes", "bp"), ("exx", "bp"),
+                   ("cpqr", "thermal")):
+        if mesh_chol[run][k] == 0:
+            raise AssertionError(f"chol mesh {run}: {k} never launched")
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[k] for c in by_path.values()),

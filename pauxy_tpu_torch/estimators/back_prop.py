@@ -169,7 +169,11 @@ def update(ham, trial, prop, state, energy_fn, *, nstblz: int,
     """One back-propagation measurement, the flat accumulator
     [e, e1b, e2b, denom, G (, 2-RDM) (, EKT 1p/1h Focks)] summed over
     walkers. ``nbp_len`` restricts it to the first stored fields (the
-    multi-split schedule measures at several times through one buffer)."""
+    multi-split schedule measures at several times through one buffer).
+    On a [walker, chol] mesh the buffer holds this rank's X slice of the
+    fields: the back propagation's VHS, the dense-G energy and the EKT
+    Focks' two-body parts are summed over the chol group, so every chol
+    rank returns the same accumulator."""
     bp_two_rdm_size(ham, calc_two_rdm)
     configs = state.configs
     if nbp_len is not None:
@@ -203,10 +207,9 @@ def update(ham, trial, prop, state, energy_fn, *, nstblz: int,
         eye = torch.eye(m, dtype=ga.dtype, device=ga.device)
         pa = eye - ga.transpose(-1, -2)
         pb = eye - gb.transpose(-1, -2)
-        f1p = ekt_mod.ekt_1p_fock(ham.H1[0], ham.chol, pa, pb)
-        f1h = ekt_mod.ekt_1h_fock(ham.H1[0], ham.chol, pa, pb)
-        parts.append(torch.einsum("w,wmn->mn", w, f1p).reshape(-1))
-        parts.append(torch.einsum("w,wmn->mn", w, f1h).reshape(-1))
+        f1p, f1h = ekt_mod.weighted_focks(ham.H1[0], ham.chol, pa, pb, w)
+        parts.append(f1p.reshape(-1))
+        parts.append(f1h.reshape(-1))
     return torch.cat(parts)
 
 

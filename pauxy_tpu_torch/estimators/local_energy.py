@@ -208,7 +208,11 @@ def local_energy_generic_stochastic_ri(trial, Ghalfa: torch.Tensor,
       ra[i, p, s] = sum_X rchol[X, i, p] theta[X, s];
 
     with ``control_variate`` the trial's exact exchange plus the walker's
-    estimate minus the trial's estimate from the same probes."""
+    estimate minus the trial's estimate from the same probes. On a
+    [walker, chol] mesh rchol and theta hold this rank's X rows: the
+    exchange is quadratic in ra, so both spins' ra and the Coulomb term's
+    partial X.X are summed over the chol group (one all_reduce) before
+    the exchange is formed."""
     rca, rcb = trial.rchola, trial.rcholb
     e1b = _e1b_half(trial, Ghalfa, Ghalfb, ecore)
     x = (cr_einsum("xim,wim->wx", rca, Ghalfa)
@@ -216,18 +220,28 @@ def local_energy_generic_stochastic_ri(trial, Ghalfa: torch.Tensor,
     ecoul = torch.sum(x * x, dim=-1)
     theta = theta.to(rca.dtype)
     scale = 1.0 / theta.shape[1]
+    ra = torch.einsum("xip,xs->ips", rca, theta)
+    rb = torch.einsum("xip,xs->ips", rcb, theta)
+    if pmesh.chol_sharded():
+        dt = torch.promote_types(ecoul.dtype, ra.dtype)
+        flat = pmesh.chol_sum(torch.cat([
+            ecoul.to(dt), ra.reshape(-1).to(dt), rb.reshape(-1).to(dt)]))
+        w, na = ecoul.shape[0], ra.numel()
+        ecoul = flat[:w] if ecoul.is_complex() else flat[:w].real
+        rest = flat[w:] if ra.is_complex() else flat[w:].real
+        ra, rb = rest[:na].reshape(ra.shape), rest[na:].reshape(rb.shape)
 
-    def exx_stoch(rc, ghalf):
-        ra = torch.einsum("xip,xs->ips", rc, theta).to(ghalf.dtype)
-        gra = torch.einsum("wkq,lqs->wlks", ghalf, ra)
+    def exx_stoch(r, ghalf):
+        r = r.to(ghalf.dtype)
+        gra = torch.einsum("wkq,lqs->wlks", ghalf, r)
         return scale * torch.einsum("wlks,wkls->w", gra, gra)
 
-    exxa = exx_stoch(rca, Ghalfa)
-    exxb = exx_stoch(rcb, Ghalfb)
+    exxa = exx_stoch(ra, Ghalfa)
+    exxb = exx_stoch(rb, Ghalfb)
     if control_variate:
         _, exxa0, exxb0 = trial.e0_terms
-        exxa = exxa0 + (exxa - exx_stoch(rca, trial.ghalf0a[None])[0])
-        exxb = exxb0 + (exxb - exx_stoch(rcb, trial.ghalf0b[None])[0])
+        exxa = exxa0 + (exxa - exx_stoch(ra, trial.ghalf0a[None])[0])
+        exxb = exxb0 + (exxb - exx_stoch(rb, trial.ghalf0b[None])[0])
     e2b = 0.5 * (ecoul - exxa - exxb)
     return e1b + e2b, e1b, e2b
 
@@ -301,7 +315,8 @@ def local_energy_generic_cholesky_G(ham, Ga: torch.Tensor, Gb: torch.Tensor,
     The exchange's [w, M, M, X] intermediate is formed in chunks of the
     Cholesky axis (and of walkers when one vector is already too large)
     of at most ``max_elems`` elements, so it fits the card at the bench
-    shape."""
+    shape. On a [walker, chol] mesh X.X and exx are summed over the chol
+    group (one all_reduce)."""
     if max_elems is None:
         max_elems = CHOLESKY_G_MAX_ELEMS
     h1 = ham.H1
@@ -326,6 +341,10 @@ def local_energy_generic_cholesky_G(ham, Ga: torch.Tensor, Gb: torch.Tensor,
                 acc = acc + torch.einsum("wlkx,wklx->w", t, t)
             parts.append(acc)
         exx = exx + torch.cat(parts)
+    # On a [walker, chol] mesh both are partial sums over this rank's X
+    # slice; e1b is whole on every rank.
+    if pmesh.chol_sharded():
+        ecoul, exx = pmesh.chol_sum(torch.stack([ecoul, exx]))
     e2b = 0.5 * (ecoul - exx)
     return e1b + e2b + ham.ecore, e1b + ham.ecore, e2b
 

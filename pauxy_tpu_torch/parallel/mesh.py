@@ -14,13 +14,17 @@ Random draws stay those of the one-rank run: every rank draws a step's
 noise for the whole population (all W walkers, and all X fields on a
 ``[walker, chol]`` mesh) from the same generator and keeps its own rows and
 columns (:func:`draw`), so an R-rank run equals the one-rank run to
-rounding, at R times the draws. Population control gathers the W weights
-on every rank, computes the same global parents there and moves only the
+rounding, at R times the draws; draws every walker shares (the
+stochastic-RI probes [X, S], the sketches [M, S]) are drawn whole on every
+rank, which keeps its X rows (:func:`draw_shared`). Population control
+gathers the W weights on every rank, computes the same global parents there and moves only the
 rows whose parent lives on another rank (:func:`exchange`). The block
 sums of the estimators are summed over the walker group once a block
 (:func:`walker_sum`); on the Cholesky axis the force bias, the VHS and the
 energy's Coulomb and exchange sums are partial sums over the rank's X
-slice, summed over the chol group (:func:`chol_sum`).
+slice, summed over the chol group (:func:`chol_sum`); the
+back-propagation field buffer holds this rank's X slice of the fields
+[w, nhist, X / R] (:func:`shard_walkers`).
 """
 
 from __future__ import annotations
@@ -156,7 +160,9 @@ def _walker_slice(mesh: Mesh, n: int) -> slice:
 
 def shard_walkers(state, mesh: Mesh):
     """Keep this rank's rows of every per-walker field (leading axis W);
-    scalars such as ``total_weight`` stay whole. Registers ``mesh`` as the
+    scalars such as ``total_weight`` stay whole. On a [walker, chol] mesh
+    the back-propagation buffer ``configs`` [w, nhist, X] keeps this
+    rank's X slice, as the step writes it. Registers ``mesh`` as the
     active mesh. W must be a multiple of the walker-axis size, as in the
     reference's even per-rank split."""
     nshard = mesh.nwalker
@@ -176,14 +182,18 @@ def shard_walkers(state, mesh: Mesh):
     kept = {name: x[rows].contiguous() for name, x in fields
             if isinstance(x, torch.Tensor) and x.dim() >= 1
             and x.shape[0] == nw}
+    if mesh.nchol > 1 and getattr(state, "configs", None) is not None:
+        kept["configs"] = _x_slice(mesh, kept["configs"], 2)
     return dataclasses.replace(state, **kept)
 
 
-def _with_buffers(module, **buffers):
-    """A shallow copy of an ``nn.Module`` with some buffers replaced (the
-    original keeps its own)."""
-    new = copy.copy(module)
-    new._buffers = {**module._buffers, **buffers}
+def _with_buffers(obj, **buffers):
+    """A shallow copy of an ``nn.Module`` with some buffers replaced, or of
+    a dataclass with some fields replaced (the original keeps its own)."""
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **buffers)
+    new = copy.copy(obj)
+    new._buffers = {**obj._buffers, **buffers}
     return new
 
 
@@ -200,19 +210,18 @@ def _x_slice(mesh: Mesh, x: torch.Tensor, axis: int) -> torch.Tensor:
 def shard_generic(ham, trial, prop, mesh: Mesh):
     """Keep this rank's X slice of every Cholesky-indexed tensor of a
     Generic Hamiltonian, trial and propagator on a [walker, chol] mesh:
-    chol [M, M, X] (the Hamiltonian's and the propagator's), rchol
-    [(D,) X, n, M] (a multi-determinant trial's on its axis 1) and
-    mf_shift [X]. The exchange supermatrix, which has no X axis, is
-    dropped, so that the exchange too is a partial sum over the slice.
-    Energy variants and stochastic RI are not sharded (raise). On a mesh
-    without a chol axis everything stays whole."""
+    chol [M, M, X] (the Hamiltonian's, and the propagator's inner one:
+    the zero-temperature ``GenericContinuous`` or the thermal
+    ``ThermalGenericInner``), rchol [(D,) X, n, M] (a multi-determinant
+    trial's on its axis 1) and mf_shift [X]. The exchange supermatrix,
+    which has no X axis, is dropped, so that the exchange too is a partial
+    sum over the slice. The exact-ERI and PNO tensors have no X axis
+    either and stay whole; the stochastic-RI energy and the sketched step
+    need nothing more (their probes are drawn whole and sliced,
+    :func:`draw_shared`). On a mesh without a chol axis everything stays
+    whole."""
     if mesh.nchol == 1:
         return ham, trial, prop
-    if getattr(ham, "exact_eri", False) or getattr(ham, "pno", False) or \
-            getattr(ham, "stochastic_ri", False) or prop.stochastic_ri:
-        raise NotImplementedError(
-            "the chol axis shards the Cholesky energy and propagator only "
-            "(no exact-ERI, PNO or stochastic-RI variant)")
     ham = _with_buffers(ham, chol=_x_slice(mesh, ham.chol, -1))
     upd = {}
     if getattr(trial, "rchola", None) is not None:
@@ -220,13 +229,19 @@ def shard_generic(ham, trial, prop, mesh: Mesh):
         upd = dict(rchola=_x_slice(mesh, trial.rchola, x_axis),
                    rcholb=_x_slice(mesh, trial.rcholb, x_axis))
     for key in ("exx_supera", "exx_superb"):
-        if key in trial._buffers:
+        if getattr(trial, key, None) is not None:
             upd[key] = None
-    trial = _with_buffers(trial, **upd)
+    if upd:
+        trial = _with_buffers(trial, **upd)
     inner = prop.inner
-    inner = _with_buffers(inner, chol=_x_slice(mesh, inner.chol, -1),
-                          mf_shift=_x_slice(mesh, inner.mf_shift, 0))
-    return ham, trial, dataclasses.replace(prop, inner=inner)
+    upd = {}
+    if getattr(inner, "chol", None) is not None:
+        upd["chol"] = _x_slice(mesh, inner.chol, -1)
+    if getattr(inner, "mf_shift", None) is not None:
+        upd["mf_shift"] = _x_slice(mesh, inner.mf_shift, 0)
+    if upd:
+        prop = dataclasses.replace(prop, inner=_with_buffers(inner, **upd))
+    return ham, trial, prop
 
 
 def replicate(tree, mesh: Mesh):
@@ -259,6 +274,21 @@ def draw(fn, shape, walker_dim: int, chol_dim: int | None = None):
         x = x.narrow(chol_dim, mesh.coord(CHOL_AXIS) * shape[chol_dim],
                      shape[chol_dim])
     return x.contiguous()
+
+
+def draw_shared(fn, shape, chol_dim: int | None = None):
+    """``fn(shape)`` for a draw every walker shares: every rank draws the
+    same whole tensor (with ``chol_dim``, the X dim times the chol size) and
+    keeps its X slice on a [walker, chol] mesh. Without an active mesh, or
+    without ``chol_dim``, ``fn(shape)``."""
+    mesh = _ACTIVE_MESH
+    if mesh is None or chol_dim is None or mesh.nchol == 1:
+        return fn(tuple(shape))
+    full = list(shape)
+    full[chol_dim] *= mesh.nchol
+    x = fn(tuple(full))
+    return x.narrow(chol_dim, mesh.coord(CHOL_AXIS) * shape[chol_dim],
+                    shape[chol_dim]).contiguous()
 
 
 def chol_sharded() -> bool:
@@ -297,6 +327,17 @@ def gather_walkers(x: torch.Tensor) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(mesh.nwalker)]
     dist.all_gather(parts, x, group=mesh.groups[WALKER_AXIS])
     return torch.cat(parts)
+
+
+def gather_chol(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The whole X axis (``dim``) from every chol rank's slice of it."""
+    mesh = _ACTIVE_MESH
+    if mesh is None or mesh.groups[CHOL_AXIS] is None:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.nchol)]
+    dist.all_gather(parts, x, group=mesh.groups[CHOL_AXIS])
+    return torch.cat(parts, dim=dim)
 
 
 def local_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:

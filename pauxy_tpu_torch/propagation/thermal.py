@@ -64,7 +64,10 @@ class ThermalHubbardInner:
 
 @dataclasses.dataclass
 class ThermalGenericInner:
-    """A Cholesky Hamiltonian at T > 0: VHS = i sqrt(dt) sum_x chol_x x_x."""
+    """A Cholesky Hamiltonian at T > 0: VHS = i sqrt(dt) sum_x chol_x x_x.
+    On a [walker, chol] mesh ``chol`` and ``mf_shift`` hold this rank's X
+    slice (``parallel.mesh.shard_generic``) and VHS is summed over the
+    chol group before the series."""
 
     BH1: torch.Tensor        # [2, M, M], with the mean-field shift and mu
     mf_shift: torch.Tensor   # [X]
@@ -79,6 +82,8 @@ class ThermalGenericInner:
     def dense_bv(self, xshifted: torch.Tensor) -> torch.Tensor:
         vhs = (1j * self.dt ** 0.5) * torch.einsum("pqx,wx->wpq", self.chol,
                                                    xshifted)
+        # On a [walker, chol] mesh, a partial sum over this rank's X slice.
+        vhs = pmesh.chol_sum(vhs)
         eye = torch.eye(vhs.shape[-1], dtype=vhs.dtype,
                         device=vhs.device).expand(vhs.shape)
         bv = apply_taylor_plain(vhs, eye, self.exp_order)
@@ -137,15 +142,19 @@ class ThermalContinuous:
                   generator: torch.Generator | None):
         """Fields and the slice propagator B = B_{H1/2} e^{VHS} B_{H1/2}:
         (b, cfb, cmf). ``xi`` [w, nfields] is drawn from ``generator``
-        unless given (tests inject JAX's draws)."""
+        unless given (tests inject JAX's draws). On a [walker, chol] mesh
+        the fields, the force bias and the mean-field shift are this rank's
+        X slice: each rank draws the whole population's fields and keeps
+        its columns, and cfb and cmf are summed over the chol group."""
         inner = self.inner
         nw = state.nwalkers
         rdtype = state.weight.dtype
+        sharded = pmesh.chol_sharded()
         if xi is None:
             xi = pmesh.draw(lambda shape: torch.randn(
                 shape, generator=generator, dtype=rdtype,
                 device=state.weight.device), (nw, self.nfields),
-                walker_dim=0)
+                walker_dim=0, chol_dim=1 if sharded else None)
         cdtype = state.G.dtype
         if self.force_bias:
             xbar = clamp_force_bias(inner.force_bias_P(one_rdm_from_G(
@@ -156,6 +165,8 @@ class ThermalContinuous:
         xshifted = xi - xbar
         cfb = torch.sum(xi * xbar, -1) - 0.5 * torch.sum(xbar * xbar, -1)
         cmf = -(self.dt ** 0.5) * torch.matmul(xshifted, inner.mf_shift)
+        if sharded:
+            cfb, cmf = pmesh.chol_sum(torch.stack([cfb.to(cmf.dtype), cmf]))
         bv = inner.dense_bv(xshifted)                     # [w, 2, M, M]
         b = torch.matmul(torch.matmul(inner.BH1, bv), inner.BH1)
         return b, cfb, cmf

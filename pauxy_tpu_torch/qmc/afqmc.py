@@ -27,7 +27,8 @@ with the continuous propagator, raise ``NotImplementedError``, as in JAX.
 
 On a walker mesh (``parallel/mesh``: ``af.state =
 mesh.shard_walkers(af.state, m)`` on every rank, and for Generic
-``mesh.shard_generic`` on a [walker, chol] mesh) each rank runs both
+``mesh.shard_generic`` on a [walker, chol] mesh, back propagation, the
+ITCF and the energy variants included) each rank runs both
 blocks on its own walkers; the block sums are summed over the walker group
 once a block, so every rank reports the same rows, and only rank 0 writes
 the HDF5 file and the checkpoint metadata. With ``block_mode="split"``
@@ -203,10 +204,6 @@ def run_block(ham, trial, prop, state, generator, eshift: float,
     """
     discrete = isinstance(prop, Hirsch)
     nhist = extras.nhist
-    if nhist and pmesh.chol_sharded():
-        raise NotImplementedError(
-            "back propagation and the ITCF on a [walker, chol] mesh are not "
-            "ported: their field buffer and dense-G energy hold whole X")
     energy_fn = None
     if extras.bp_eval_energy:
         energy_fn = mixed.energy_estimator_G(ham)
@@ -244,11 +241,15 @@ def run_block(ham, trial, prop, state, generator, eshift: float,
         eval_energy = step % energy_eval_freq == 0
         ri_theta = None
         if eval_energy and getattr(ham, "stochastic_ri", False):
+            # On a [walker, chol] mesh every rank draws the whole [X, S]
+            # and keeps its X rows (ham.nchol is the local slice's).
             ri_theta = (noise.est[i] if noise is not None
                         and noise.est is not None
-                        else rademacher((ham.nchol, ham.nsamples),
-                                        state.weight.dtype, generator,
-                                        state.weight.device))
+                        else pmesh.draw_shared(
+                            lambda shape: rademacher(
+                                shape, state.weight.dtype, generator,
+                                state.weight.device),
+                            (ham.nchol, ham.nsamples), chol_dim=0))
         accs.append(mixed.update(ham, trial, state, eval_energy,
                                  free_projection, calc_one_rdm,
                                  calc_two_rdm, ri_theta))

@@ -138,8 +138,10 @@ def save_walkers_sharded(state, dirname: str, *,
     ``shard_{start:08d}.h5``, start its global walker offset, and, on rank
     0, ``meta.h5`` with the driver's scalars and, with ``generator``, its
     state (every rank's is the same). On a [walker, chol] mesh the chol
-    coordinate 0 of each walker slice writes it. Returns when every rank
-    has written."""
+    coordinate 0 of each walker slice writes it, after the
+    back-propagation buffer's X slices [w, nhist, X / R] are gathered over
+    the chol group, so that the file holds the whole X as JAX's does.
+    Returns when every rank has written."""
     mesh = pmesh.active_mesh()
     nl = state.weight.shape[0]
     wcoord = 0 if mesh is None else mesh.coord(pmesh.WALKER_AXIS)
@@ -148,6 +150,10 @@ def save_walkers_sharded(state, dirname: str, *,
     fields = [(f.name, getattr(state, f.name))
               for f in dataclasses.fields(state)
               if getattr(state, f.name) is not None]
+    if mesh is not None and mesh.nchol > 1:
+        # Every chol rank takes part in the gather.
+        fields = [(name, pmesh.gather_chol(val, 2) if name == "configs"
+                   else val) for name, val in fields]
     if mesh is None or mesh.coord(pmesh.CHOL_AXIS) == 0:
         fname = os.path.join(dirname, f"shard_{wcoord * nl:08d}.h5")
         with h5lite.open_file(fname, "w") as fh5:
@@ -173,11 +179,12 @@ def save_walkers_sharded(state, dirname: str, *,
 def load_walkers_sharded(template, dirname: str, mesh=None):
     """Restore a walker state from a sharded checkpoint directory (the
     port's or the JAX package's). With ``mesh`` the template holds this
-    rank's rows and only the shard files covering them are read; without
-    one the shards are concatenated into the whole population. A field
-    present in some shard files and missing from others, or shards that do
-    not add up to ``nwalkers``, raise ``ValueError`` (an incomplete
-    checkpoint), on every rank alike.
+    rank's rows and only the shard files covering them are read (on a
+    [walker, chol] mesh the back-propagation buffer keeps this rank's X
+    slice of the file's whole X); without one the shards are concatenated
+    into the whole population. A field present in some shard files and
+    missing from others, or shards that do not add up to ``nwalkers``,
+    raise ``ValueError`` (an incomplete checkpoint), on every rank alike.
 
     Returns (state, info) as :func:`load_walkers`.
     """
@@ -253,6 +260,10 @@ def load_walkers_sharded(template, dirname: str, mesh=None):
             continue
         if arr is None:
             continue
+        if name == "configs" and mesh is not None and mesh.nchol > 1:
+            nl = t.shape[2]
+            c = mesh.coord(pmesh.CHOL_AXIS)
+            arr = arr[:, :, c * nl:(c + 1) * nl]
         if tuple(np.shape(arr)) != tuple(t.shape):
             raise ValueError(
                 f"{dirname}: {name} has shape {np.shape(arr)}, the run's "

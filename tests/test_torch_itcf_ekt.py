@@ -75,8 +75,13 @@ def random_rdms(m, nw, seed):
     return out
 
 
+@pytest.mark.parametrize("chunk", [None, 20, 150])
 @pytest.mark.parametrize("which", ["1p", "1h"])
-def test_ekt_focks_match_jax(which):
+def test_ekt_focks_match_jax(which, chunk, monkeypatch):
+    """With the Cholesky sandwiches in one chunk, and in chunks of one
+    walker and one vector (20 elements) or of 4 walkers (150)."""
+    if chunk is not None:
+        monkeypatch.setattr(tekt, "MAX_ELEMS", chunk)
     jham, _ = generic_system()
     pa, pb = random_rdms(6, 4, seed=1)
     h1 = np.asarray(jham.H1[0])

@@ -359,8 +359,239 @@ def case_msd_generic(kind, tmp):
     return _drive(af, kind, generic=True)[:, 1:10].real
 
 
+# ---------------------------------------------------------------------------
+# Every Generic path on the [walker, chol] mesh (tests/test_torch_mesh_chol.py)
+# ---------------------------------------------------------------------------
+
+def _generic_af(variant=None, estimator_options=None, **kw):
+    """A small Generic AFQMC driver (``_generic_ham``'s system, the RHF
+    identity trial, 16 walkers), with an energy ``variant`` of
+    ``make_generic``'s and ``kw`` passed to the driver."""
+    from pauxy_tpu_torch.models import make_generic, rhf_identity_trial
+    from pauxy_tpu_torch.utils.testing import generate_hamiltonian
+
+    h1e, chol, enuc, _ = generate_hamiltonian(8, (3, 3), seed=5, nchol=16)
+    ham = make_generic((3, 3), h1e, chol, enuc, **(variant or {}), **KW)
+    qmc = kw.pop("qmc", None) or QMCOpts(
+        nwalkers=16, dt=0.005, nsteps=8, nblocks=2, nstblz=4,
+        npop_control=2, rng_seed=3)
+    return AFQMC(ham, rhf_identity_trial(ham, **KW), qmc,
+                 estimator_options=estimator_options or MIXED,
+                 device="cpu", **kw)
+
+
+BP_CHOL = {"mixed": {"energy_eval_freq": 1},
+           "back_propagation": {"tau_bp": 0.02, "evaluate_energy": True,
+                                "evaluate_ekt": True,
+                                "restore_weights": "partial"}}
+
+
+def _bp_rows(af):
+    """The back-propagated rows (energies, denominators, 1-RDM and both
+    EKT Focks of every block) as one real and one imaginary array."""
+    bp = np.stack([np.concatenate([np.ravel(v) for _, v in sorted(r.items())])
+                   for r in af.bp_reporter.rows])
+    return np.real(bp), np.imag(bp)
+
+
+def case_bp_chol(kind, tmp):
+    """Back propagation with energies, EKT and restore_weights='partial':
+    the field buffer holds each rank's X slice."""
+    af = _generic_af(estimator_options=BP_CHOL)
+    rows = _drive(af, kind, generic=True)[:, 1:10].real
+    if kind is not None:
+        assert af.state.configs.shape[-1] == 8, af.state.configs.shape
+    return (rows, *_bp_rows(af))
+
+
+def case_itcf_chol(kind, tmp):
+    af = _generic_af(estimator_options={
+        "mixed": {"energy_eval_freq": 1},
+        "itcf": {"tau_max": 0.02, "stable": True}})
+    rows = _drive(af, kind, generic=True)[:, 1:10].real
+    g = np.stack([np.asarray(r["real_space_greens_function"])
+                  for r in af.itcf_reporter.rows])
+    return rows, g.real, g.imag
+
+
+def _variant(kind, **variant):
+    af = _generic_af(variant)
+    return _drive(af, kind, generic=True)[:, 1:10].real
+
+
+def case_exact_eri_chol(kind, tmp):
+    return _variant(kind, exact_eri=True)
+
+
+def case_pno_chol(kind, tmp):
+    return _variant(kind, pno=True, thresh_pno=1e-6)
+
+
+def case_sri_chol(kind, tmp):
+    return _variant(kind, stochastic_ri=True, nsamples=6)
+
+
+def case_sri_cv_chol(kind, tmp):
+    return _variant(kind, stochastic_ri=True, nsamples=6,
+                    control_variate=True)
+
+
+def case_sri_step_chol(kind, tmp):
+    """The sketched one-body step: the rows and every sketch applied (the
+    same on every rank of both groups as on the one-rank run)."""
+    from pauxy_tpu_torch.propagation import continuous
+
+    applied = []
+    plain = continuous._apply_bh1_stochastic
+
+    def record(bh1, phia, phib, theta):
+        applied.append(theta.numpy().copy())
+        return plain(bh1, phia, phib, theta)
+
+    af = _generic_af(propagator_options={"stochastic_ri": True,
+                                         "nsamples": 64})
+    continuous._apply_bh1_stochastic = record
+    try:
+        rows = _drive(af, kind, generic=True)[:, 1:10].real
+    finally:
+        continuous._apply_bh1_stochastic = plain
+    assert len(applied) == 2 * 16, len(applied)
+    return rows, np.stack(applied)
+
+
+def case_thermal_generic_chol(kind, tmp):
+    """ThermalAFQMC on the full-rank stack with a Generic Hamiltonian."""
+    from pauxy_tpu_torch.models import make_generic
+    from pauxy_tpu_torch.models.thermal_trial import make_one_body_trial
+    from pauxy_tpu_torch.qmc.thermal_afqmc import ThermalAFQMC
+    from pauxy_tpu_torch.utils.testing import generate_hamiltonian
+
+    h1e, chol, enuc, _ = generate_hamiltonian(8, (3, 3), seed=5, nchol=16)
+    ham = make_generic((3, 3), h1e, chol, enuc, **KW)
+    trial = make_one_body_trial(ham, 0.25, 0.05, **KW)
+    qmc = QMCOpts(nwalkers=16, dt=0.05, nsteps=1, nblocks=2, beta=0.25,
+                  npop_control=2, rng_seed=7)
+    af = ThermalAFQMC(ham, trial, qmc, device="cpu")
+    return _drive(af, kind, generic=True)[:, :11].real
+
+
+def case_thermal_generic_low_rank_chol(kind, tmp):
+    """ThermalAFQMC on the low-rank stack with a Generic Hamiltonian whose
+    one-body part, and so the trial's density matrix, is diagonal (the
+    stack's condition; M = 4, X = 8)."""
+    from pauxy_tpu_torch.models import make_generic
+    from pauxy_tpu_torch.models.thermal_trial import make_one_body_trial
+    from pauxy_tpu_torch.qmc.thermal_afqmc import ThermalAFQMC
+
+    rng = np.random.default_rng(0)
+    chol = 0.1 * rng.normal(size=(4, 4, 8))
+    ham = make_generic((1, 1), np.diag([-1.0, -0.5, 0.0, 1.0]),
+                       chol + chol.transpose(1, 0, 2), **KW)
+    trial = make_one_body_trial(ham, beta=0.25, dt=0.05, mu=0.0, **KW)
+    qmc = QMCOpts(nwalkers=16, dt=0.05, nsteps=1, nblocks=2, beta=0.25,
+                  npop_control=2, rng_seed=5)
+    af = ThermalAFQMC(ham, trial, qmc, device="cpu",
+                      walker_options={"low_rank": True})
+    assert af.low_rank
+    return _drive(af, kind, generic=True)[:, :11].real
+
+
+def case_bp_ckpt_chol(kind, tmp):
+    """Back propagation with a checkpoint: on one rank 3 blocks straight;
+    on the mesh 2 blocks written to ``bp_ckpt`` and read back on the mesh
+    (whether every rank's walkers and field-buffer slice came back
+    exactly); the test restores the directory on one rank and runs the
+    third block."""
+    if kind is None:
+        af = _generic_af(estimator_options=BP_CHOL, qmc=bp_ckpt_qmc(3))
+        return _drive(af, None, generic=True)[:, 1:10].real, \
+            _bp_rows(af)[0]
+    from pauxy_tpu_torch.utils.checkpoint import load_walkers_sharded
+
+    d = os.path.join(tmp, "bp_ckpt")
+    af = _generic_af(estimator_options=BP_CHOL, qmc=bp_ckpt_qmc(2),
+                     walker_options={"write_freq": 2, "write_file": d})
+    m = _mesh(kind)
+    af.ham, af.trial, af.prop = pmesh.shard_generic(af.ham, af.trial,
+                                                    af.prop, m)
+    af.state = pmesh.shard_walkers(af.state, m)
+    try:
+        rows = np.asarray(af.run())[:, 1:10].real
+        # Read back on the mesh: this rank's walkers and X slice.
+        back, _ = load_walkers_sharded(af.state, d, mesh=m)
+    finally:
+        pmesh.set_active_mesh(None)
+    same = all(torch.equal(getattr(back, f), getattr(af.state, f))
+               for f in ("configs", "phia", "weight", "weight_fac"))
+    return rows, _bp_rows(af)[0], same
+
+
+def bp_ckpt_qmc(nblocks):
+    return QMCOpts(nwalkers=16, dt=0.005, nsteps=8, nblocks=nblocks,
+                   nstblz=4, npop_control=2, rng_seed=3)
+
+
+def parity_inputs(nw=4, seed=21):
+    """The module parity cases' inputs, numpy from a seed: full Green's
+    functions Ga, Gb [w, 8, 8] and half-rotated ones [w, 3, 8] of the
+    ``_generic_ham`` system."""
+    rng = np.random.default_rng(seed)
+
+    def cplx(*shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+    eye = np.eye(8)
+    ga = eye[None, :, :3] @ eye[None, :3, :] + 0.2 * cplx(nw, 8, 8)
+    gb = eye[None, :, :3] @ eye[None, :3, :] + 0.2 * cplx(nw, 8, 8)
+    gha = np.eye(3, 8)[None] + 0.3 * cplx(nw, 3, 8)
+    ghb = np.eye(3, 8)[None] + 0.3 * cplx(nw, 3, 8)
+    return ga, gb, gha, ghb
+
+
+SRI_THETA = "sri_theta.npy"
+
+
+def case_parity_chol(kind, tmp):
+    """The dense-G energy, both EKT Focks and the stochastic-RI energy
+    (with and without the control variate; the probes [16, 6] that the
+    test wrote to ``tmp``) on the same inputs: on the mesh each rank's X
+    slice, summed over the chol group inside each function."""
+    from pauxy_tpu_torch.estimators import ekt
+    from pauxy_tpu_torch.estimators import local_energy as le
+
+    ga, gb, gha, ghb = (torch.from_numpy(x) for x in parity_inputs())
+    theta = torch.from_numpy(np.load(os.path.join(tmp, SRI_THETA)))
+    out = {}
+    m = _mesh(kind)
+    for cv in (False, True):
+        af = _generic_af({"stochastic_ri": True, "nsamples": 6,
+                          "control_variate": cv})
+        ham, trial = af.ham, af.trial
+        if m is not None:
+            ham, trial, _ = pmesh.shard_generic(ham, trial, af.prop, m)
+            pmesh.set_active_mesh(m)
+        try:
+            th = theta if m is None else theta.chunk(m.nchol)[
+                m.coord(pmesh.CHOL_AXIS)]
+            out[f"sri_{cv}"] = le.local_energy_generic_stochastic_ri(
+                trial, gha, ghb, ham.ecore, th, cv)
+            if not cv:
+                out["cholesky_G"] = le.local_energy_generic_cholesky_G(
+                    ham, ga, gb)
+                eye = torch.eye(8, dtype=ga.dtype)
+                pa, pb = eye - ga.transpose(-1, -2), eye - gb.transpose(-1, -2)
+                out["ekt_1p"] = ekt.ekt_1p_fock(ham.H1[0], ham.chol, pa, pb)
+                out["ekt_1h"] = ekt.ekt_1h_fock(ham.H1[0], ham.chol, pa, pb)
+        finally:
+            pmesh.set_active_mesh(None)
+    return {k: np.asarray(torch.stack(v) if isinstance(v, tuple) else v)
+            for k, v in out.items()}
+
+
 # Which mesh each case runs on.
-MESH_OF = {"generic": "walker_chol", "msd_generic": "walker_chol"}
+MESH_OF = {"generic": "walker_chol", "msd_generic": "walker_chol",
+           **{name[5:]: "walker_chol" for name in list(globals())
+              if name.startswith("case_") and name.endswith("_chol")}}
 
 
 def run(name: str, kind, tmp):

@@ -44,6 +44,8 @@ def sharded_and_one_rank(names, tmp):
 
 
 def flat(x):
+    if isinstance(x, dict):
+        return [y for k in sorted(x) for y in flat(x[k])]
     if isinstance(x, (tuple, list)):
         return [y for e in x for y in flat(e)]
     return [np.asarray(x)]
