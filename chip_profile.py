@@ -31,8 +31,9 @@ slices, complex64), whose site sweeps' synchronised wall time comes as
 ``sweep_wall_ms``; the zero-temperature UEG of chip_smoke.py's phase 21
 (make_ueg(7, 7, rs=1, ecut=8): M=257, 4216 fields, RHF trial, complex64,
 512 walkers, dt=0.005, re-orthogonalisation every 5 steps, the energy
-once a block) in the float32 and the bf16 Taylor tier (``ueg`` profiles
-both: paths ``ueg_pallas`` and ``ueg_pallas_bf16``), with the Taylor
+once a block) on the "xla" Taylor route and in the float32 and the bf16
+Taylor tier (``ueg`` profiles the three: paths ``ueg_xla``,
+``ueg_pallas`` and ``ueg_pallas_bf16``), with the Taylor
 kernels' device time and launches as ``taylor_ms`` / ``taylor_launches``
 (float32, "taylor_kernel") and ``taylor_bf16_ms`` /
 ``taylor_bf16_launches``; and PW_FFT at the same shape (chip_smoke.py's
@@ -65,7 +66,9 @@ kernel A, the Cholesky-inverse kernel and the sweep kernel (``cpqr_ms``,
 ``greens_ms``, ``chol_ms``, ``sweep_ms``: every kernel whose name holds
 "cpqr", "greens_lanes", "chol_inv" or "hirsch_sweep"), and the kernels
 by device time. The card's
-name and power limit (nvidia-smi) come first. --paths profiles only the
+name and power limit (nvidia-smi) come first. The drivers take the
+matmul tier of ``PAUXY_TPU_MATMUL`` (default "float32"), and each line
+names it (``matmul_precision``). --paths profiles only the
 named paths (continuous, discrete, bp_discrete, generic, generic_exx,
 thermal_ueg, thermal_hubbard, thermal_ueg_lowrank, thermal_discrete, ueg,
 pw_fft, msd_generic, ghf, hh, hh_mc, generic_variants).
@@ -113,7 +116,8 @@ def profile_block(af, name: str, trace: str | None, steps: int,
             for key in ("cpqr", "greens_lanes", "chol_inv", "hirsch_sweep",
                         "taylor_kernel", "taylor_bf16")}
     print(json.dumps({
-        "path": name, "nwalkers": nwalkers, "nsteps": steps,
+        "path": name, "matmul_precision": af.matmul_precision,
+        "nwalkers": nwalkers, "nsteps": steps,
         "block_wall_ms": wall * 1e3, "device_ms": device_us / 1e3,
         "device_idle_share": 1.0 - device_us / 1e6 / wall,
         "kernel_launches": len(kernels),
@@ -402,7 +406,7 @@ def main() -> None:
         ham = make_ueg(7, 7, rs=1.0, ecut=8.0, device="cuda",
                        dtype="single")
         trial = rhf_identity_trial(ham, device="cuda", dtype="single")
-        for impl in ("pallas", "pallas_bf16"):
+        for impl in ("xla", "pallas", "pallas_bf16"):
             # The UEG's tier comes from the environment, as in JAX.
             os.environ["PAUXY_TPU_TAYLOR_UEG"] = impl
             af = AFQMC(ham, trial, uq, estimator_options=ueg_eopts,

@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's main paths once on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ladder     # phases 1-3 and 35 only, no result
 
 Phases, one line each, in order; any failure raises, so the script exits
 non-zero and prints no result line:
@@ -273,7 +274,22 @@ non-zero and prints no result line:
      kernel B and cpqr kernels equal to the unsharded run's, and the
      exchange kernel launched in (a)'s mixed energy, where the unsharded
      run takes the supermatrix (``launches_by_path`` "mesh_chol_*", rank
-     0's).
+     0's);
+ 35. the matmul-precision ladder (the drivers' matmul_precision, mapped
+     by pauxy_tpu_torch/config.py onto torch's "highest" / "high" /
+     "medium"): (a) per tier the relative error of a real float32 and a
+     complex64 product at the Generic VHS shape [1024, 512] x [512, 16384]
+     against float64, with the torch setting in force; (b) every kernel on
+     its phase-3 inputs, and the plain routes pinned to IEEE float32 (the
+     plain cpqr past max_m and unpivoted, the Taylor kernels' series past
+     their caps), byte for byte equal under every tier, beside the "xla"
+     series as a control; (c) each tier on the card (complex64) against
+     the host's complex128 with the same injected draws, population
+     control off: phase 4's continuous Hubbard cell, phase 10's Generic
+     golden system and phase 22's UEG golden shape (both on the "xla"
+     series), phase 12's thermal 3x3 Hubbard, within LADDER_BOUNDS; (d)
+     phase 26's PHMSD zero-variance anchor in complex64 per tier within
+     LADDER_BOUNDS; (e) the process back at "highest".
 Phase 3 also holds the cpqr kernel on the low-rank stack's masked input
 (``check_cpqr_masked``) and kernels A and B on exactly singular matrices
 (``check_zero_pivot``: log|det| -inf, JAX's phase where JAX's is finite).
@@ -2222,6 +2238,380 @@ def mesh_phase(counts, zero_counts):
     return msg, mesh_cont, mesh_gen, mesh_chol
 
 
+# The matmul-precision ladder (phase 35): the JAX package's tiers in the
+# order of the port's config.MATMUL_TIERS, float32 first.
+LADDER = ("float32", "bfloat16_3x", "bfloat16")
+# Card (complex64) against host (complex128) with the same injected draws,
+# max |d| over the scale, per path and tier. The float32 tier keeps phases
+# 4/10/12/22's limits. Both lower tiers are TF32 on the H100 (torch 2.11:
+# cuBLAS fp32_precision "tf32"), 2.84e-4 relative per product at the
+# Generic VHS shape (phase 35 (a)); N tier-taking products chained between
+# the draws and a block's sums, with independent roundings, give about
+# 2.84e-4 sqrt(N): the continuous Hubbard cell ~6 a step x 20 steps, 3e-3;
+# the Generic golden ~12 a step (VHS, six Taylor products, force bias, G,
+# CholeskyQR2) x 100 steps, 1e-2; the UEG ~10 x 20, 4e-3; the thermal
+# Hubbard ~12 a slice x 10 slices a path, 3e-3; the PHMSD energy ~8
+# products and no chain (every walker's energy is E_FCI), 1e-3. Written
+# in PERF.md section 2 before the first run of (c).
+LADDER_BOUNDS = {
+    "hubbard": {"float32": 1e-4, "bfloat16_3x": 3e-3, "bfloat16": 3e-3},
+    "generic": {"float32": 2e-4, "bfloat16_3x": 1e-2, "bfloat16": 1e-2},
+    "ueg": {"float32": 1e-4, "bfloat16_3x": 4e-3, "bfloat16": 4e-3},
+    "thermal": {"float32": 1e-4, "bfloat16_3x": 3e-3, "bfloat16": 3e-3},
+    "phmsd": {"float32": 1e-4, "bfloat16_3x": 1e-3, "bfloat16": 1e-3},
+}
+
+
+def rung_in_force() -> str:
+    """Torch's float32-product setting as this torch reports it: the rung
+    and cuBLAS's side of it."""
+    cm = torch.backends.cuda.matmul
+    fp = getattr(cm, "fp32_precision", None)
+    side = (f"cuda.matmul.fp32_precision={fp}" if fp is not None
+            else f"cuda.matmul.allow_tf32={cm.allow_tf32}")
+    return f"{torch.get_float32_matmul_precision()}, {side}"
+
+
+def product_errors(w: int = 1024, x: int = 512, mm: int = 128 * 128
+                   ) -> dict:
+    """Phase 35 (a): per ladder tier, the relative error max|C - C_64| /
+    max|C_64| of a real float32 and of a complex64 product at the Generic
+    VHS shape [w, X] x [X, M^2] (1024 walkers, X = 512, M = 128) against
+    the float64 product of the same operands, each product's median ms,
+    and the torch setting in force."""
+    from pauxy_tpu_torch import config
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(35)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    a, b = randn(w, x), randn(x, mm) / x ** 0.5
+    ac = torch.complex(a, randn(w, x))
+    bc = torch.complex(b, randn(x, mm) / x ** 0.5)
+    ref = a.double() @ b.double()
+    refc = ac.to(torch.complex128) @ bc.to(torch.complex128)
+
+    def rel(c, r):
+        return float((c.to(r.dtype) - r).abs().max() / r.abs().max())
+
+    out = {}
+    for tier in LADDER:
+        config.set_matmul_precision(tier, "cuda")
+        t = median_ms({"real": lambda: a @ b, "complex": lambda: ac @ bc},
+                      reps=10)
+        out[tier] = {"setting": rung_in_force(), "real": rel(a @ b, ref),
+                     "complex": rel(ac @ bc, refc), "real_ms": t["real"],
+                     "complex_ms": t["complex"]}
+    config.set_matmul_precision("float32", "cuda")
+    return out
+
+
+def output_bytes(out) -> list:
+    """The tensors of a call's output, each as its bytes."""
+    items = out if isinstance(out, (tuple, list)) else (out,)
+    return [t.detach().contiguous().reshape(-1).view(torch.uint8)
+            for t in items if isinstance(t, torch.Tensor)]
+
+
+def tier_invariance(cases: dict) -> dict:
+    """Phase 35 (b): each case (name -> (fn, args)) called under float32
+    twice and once under each lower tier; per case, the calls whose output
+    bytes differ from the first float32 call's."""
+    from pauxy_tpu_torch import config
+
+    def call(fn, args):
+        out = output_bytes(fn(*args))
+        torch.cuda.synchronize()
+        return out
+
+    config.set_matmul_precision("float32", "cuda")
+    ref = {k: call(*c) for k, c in cases.items()}
+    differ = {k: [] for k in cases}
+    for tier in ("float32",) + LADDER[1:]:
+        config.set_matmul_precision(tier, "cuda")
+        for k, c in cases.items():
+            got = call(*c)
+            if len(got) != len(ref[k]) or not all(
+                    torch.equal(x, y) for x, y in zip(got, ref[k])):
+                differ[k].append(tier)
+    config.set_matmul_precision("float32", "cuda")
+    return differ
+
+
+def pinned_cases(gen) -> dict:
+    """Phase 35 (b)'s plain routes on the card that stand in for a JAX
+    product pinned to HIGHEST (name -> (fn, args)): the plain pivoted QR
+    past the kernel's cap and unpivoted, the Taylor kernels' series past
+    their caps; and, as the control that must take the tier where (a)
+    says complex64 products do, the "xla" series at the same shape."""
+    from pauxy_tpu_torch.ops import cpqr, cpqr_cuda, taylor_cuda
+    from pauxy_tpu_torch.propagation.generic import taylor_series
+
+    c64 = torch.complex64
+    mq = cpqr_cuda.max_m(c64) + 15
+    qa = torch.randn(16, mq, mq, dtype=c64, device="cuda", generator=gen)
+    qs = torch.randn(64, 93, 93, dtype=c64, device="cuda", generator=gen)
+    mt = taylor_cuda.max_m(c64) + 1
+    vt, pt = taylor_inputs(gen, 4, mt, 14, c64)
+    mb = taylor_cuda.max_m_bf16() + 1
+    vb, pb = taylor_inputs(gen, 2, mb, 14, c64)
+    return {
+        f"plain cpqr (16,{mq})": (cpqr.cpqr, (qa,)),
+        "plain cpqr unpivoted (64,93)": (cpqr.cpqr, (qs, False)),
+        f"pallas series past the cap ({mt},14) w=4": (
+            taylor_series, (vt, pt, 6, "pallas")),
+        f"pallas_bf16 series past the cap ({mb},14) w=2": (
+            taylor_series, (vb, pb, 6, "pallas_bf16")),
+        f"control: xla series ({mt},14) w=4": (
+            taylor_series, (vt, pt, 6, "xla")),
+    }
+
+
+def ladder_drivers() -> dict:
+    """Phase 35 (c)'s paths: name -> build(device, dtype, tier) of a
+    driver with injected-draw blocks (or paths) to run: phase 4's
+    continuous Hubbard cell (16 walkers, 2 blocks), phase 10's Generic
+    golden system (40 walkers, 10 blocks), phase 22's UEG golden shape (16
+    walkers, 2 blocks), phase 12's thermal 3x3 Hubbard (32 walkers, 5
+    paths). The Generic and UEG paths take the "xla" Taylor series, where
+    the tier reaches the exponential. Population control is off (its step
+    past the run's): a comb pick at a weight boundary would swap walkers
+    between two runs that differ by rounding, a jump that is not the
+    tier's error."""
+    from pauxy_tpu_torch.models import (free_electron_trial, make_generic,
+                                        make_hubbard, rhf_identity_trial,
+                                        trial_from_orbitals)
+    from pauxy_tpu_torch.models.thermal_trial import make_one_body_trial
+    from pauxy_tpu_torch.models.ueg import make_ueg
+    from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
+    from pauxy_tpu_torch.qmc.thermal_afqmc import ThermalAFQMC
+
+    def data(name):
+        return np.load(os.path.join(ROOT, "tests", "data", name))
+
+    gg, gu, gt = (data("generic_nmo11.npz"), data("ueg_rs2.44_ecut2.npz"),
+                  data("thermal_hubbard3x3.npz"))
+    nmo = gg["h1e"].shape[-1]
+    eopts = {"mixed": {"energy_eval_freq": 1}}
+    no_pop = 10 ** 6  # no comb step within a run
+
+    def hubbard(device, dtype, tier):
+        ham = make_hubbard(7, 7, U=4.0, nx=4, ny=4, device=device,
+                           dtype=dtype)
+        return AFQMC(ham, free_electron_trial(ham, device=device,
+                                              dtype=dtype),
+                     QMCOpts(nwalkers=16, dt=0.01, nsteps=10, nblocks=2,
+                             nstblz=10, npop_control=no_pop, rng_seed=8),
+                     propagator_options={"matmul_precision": tier},
+                     estimator_options=eopts, device=device)
+
+    def generic(device, dtype, tier):
+        ham = make_generic((3, 3), np.stack([gg["h1e"], gg["h1e"]]),
+                           np.asarray(gg["chol"]).reshape(-1, nmo, nmo)
+                           .transpose(1, 2, 0), ecore=float(gg["enuc"]),
+                           device=device, dtype=dtype)
+        trial = trial_from_orbitals(ham, np.asarray(gg["psi"]),
+                                    device=device, dtype=dtype)
+        return AFQMC(ham, trial,
+                     QMCOpts(nwalkers=int(gg["nwalkers"]), dt=float(gg["dt"]),
+                             nsteps=int(gg["nsteps"]), nblocks=10, nstblz=10,
+                             npop_control=no_pop, rng_seed=8),
+                     propagator_options={"matmul_precision": tier,
+                                         "taylor_impl": "xla"},
+                     estimator_options=eopts, device=device)
+
+    def ueg(device, dtype, tier):
+        ham = make_ueg(int(gu["nup"]), int(gu["ndown"]), rs=float(gu["rs"]),
+                       ecut=float(gu["ecut"]), device=device, dtype=dtype)
+        return AFQMC(ham, rhf_identity_trial(ham, device=device, dtype=dtype),
+                     QMCOpts(nwalkers=16, dt=float(gu["dt"]),
+                             nsteps=int(gu["nsteps"]), nblocks=2, nstblz=10,
+                             npop_control=no_pop, rng_seed=8),
+                     propagator_options={"matmul_precision": tier},
+                     estimator_options=eopts, device=device)
+
+    def thermal(device, dtype, tier):
+        ham = make_hubbard(3, 3, U=4.0, nx=3, ny=3, device=device,
+                           dtype=dtype)
+        trial = make_one_body_trial(ham, float(gt["beta"]), float(gt["dt"]),
+                                    mu=float(gt["mu"]), device=device,
+                                    dtype=dtype)
+        return ThermalAFQMC(ham, trial, QMCOpts(
+            nwalkers=int(gt["nwalkers"]), dt=float(gt["dt"]), nsteps=1,
+            nblocks=5, beta=float(gt["beta"]), npop_control=no_pop,
+            rng_seed=8),
+            propagator_options={"matmul_precision": tier}, device=device)
+
+    return {"hubbard": hubbard, "generic": generic, "ueg": ueg,
+            "thermal": thermal}
+
+
+def ladder_values(af, xi: np.ndarray, pop: np.ndarray) -> np.ndarray:
+    """Per block (ETotal, unscaled weight) of a zero-temperature driver,
+    or per path (ETotal, Nav) of a thermal one, with injected draws."""
+    from pauxy_tpu_torch.estimators import mixed
+    from pauxy_tpu_torch.qmc.afqmc import run_block
+    from pauxy_tpu_torch.qmc.hubbard_fast import BlockNoise
+    from pauxy_tpu_torch.qmc.thermal_afqmc import PathNoise
+
+    if af.qmc.beta is None:
+        return injected_blocks(af, xi, pop, af.qmc.nblocks, run_block,
+                               BlockNoise, mixed)
+    ns = af.ntime_slices
+    rows = [thermal_injected(af, xi[i * ns:(i + 1) * ns],
+                             pop[i * ns:(i + 1) * ns], PathNoise)
+            for i in range(af.qmc.nblocks)]
+    return np.array([[r[5].real, r[10].real] for r in rows])
+
+
+def ladder_gaps(counts, zero_counts) -> tuple[dict, dict]:
+    """Phase 35 (c): each path of ``ladder_drivers`` on the host in
+    complex128 once, then on the card in complex64 under each tier with
+    the same injected draws; per path and tier the largest |card - host|
+    over a column's largest |host|, and the launches of the card runs."""
+    drivers = ladder_drivers()
+    rng = np.random.default_rng(35)
+    gaps, launched = {}, dict.fromkeys(counts(), 0)
+    taylor_ueg = os.environ.pop("PAUXY_TPU_TAYLOR_UEG", None)
+    try:
+        for name, build in drivers.items():
+            host_af = build("cpu", "double", None)
+            q = host_af.qmc
+            steps = q.nblocks * (q.nsteps if q.beta is None
+                                 else host_af.ntime_slices)
+            xi = rng.normal(size=(steps, q.nwalkers, host_af.ham.nfields))
+            pop = rng.uniform(size=(steps, 1))
+            host = ladder_values(host_af, xi, pop)
+            gaps[name] = {}
+            for tier in LADDER:
+                zero_counts()
+                af = build("cuda", "single", tier)
+                if af.matmul_precision != tier:
+                    raise AssertionError(f"{name}: driver reports "
+                                         f"{af.matmul_precision}, want {tier}")
+                card = ladder_values(af, xi, pop)
+                torch.cuda.synchronize()
+                for k, v in counts().items():
+                    launched[k] += v
+                if not np.isfinite(card).all():
+                    raise AssertionError(f"{name} {tier}: {card}")
+                gaps[name][tier] = float((np.abs(card - host).max(axis=0)
+                                          / np.abs(host).max(axis=0)).max())
+                del af
+    finally:
+        if taylor_ueg is not None:
+            os.environ["PAUXY_TPU_TAYLOR_UEG"] = taylor_ueg
+    return gaps, launched
+
+
+def ladder_phmsd(counts, zero_counts) -> tuple[dict, dict]:
+    """Phase 35 (d): phase 26's PHMSD zero-variance anchor (the full space
+    of 225 determinants, 256 walkers, 3 blocks of 10 steps) in complex64
+    under each tier with the "xla" Taylor series: the largest relative
+    |E - E_FCI| over every walker at each block's end and every block's
+    ETotal."""
+    from pauxy_tpu_torch.estimators import ci, mixed
+    from pauxy_tpu_torch.models import make_generic, phmsd_trial
+    from pauxy_tpu_torch.models.multi_slater import recompute_ci_coeffs
+    from pauxy_tpu_torch.propagation.continuous import trial_greens
+    from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
+    from pauxy_tpu_torch.utils.testing import generate_hamiltonian
+
+    h1e, chol, enuc, _ = generate_hamiltonian(6, (2, 2))
+    occ = list(itertools.combinations(range(6), 2))
+    occa = [o for o in occ for _ in occ]
+    occb = [o for _ in occ for o in occ]
+    host = make_generic((2, 2), h1e, chol, enuc, device="cpu",
+                        dtype="double")
+    e_fci = float(ci.simple_fci(host)[0][0])
+    coeffs, _ = recompute_ci_coeffs(host, occa=occa, occb=occb)
+    gaps, launched = {}, dict.fromkeys(counts(), 0)
+    for tier in LADDER:
+        ham = make_generic((2, 2), h1e, chol, enuc, device="cuda",
+                           dtype="single")
+        trial = phmsd_trial(ham, coeffs, occa, occb, device="cuda",
+                            dtype="single")
+        af = AFQMC(ham, trial, QMCOpts(nwalkers=256, dt=0.01, nsteps=10,
+                                       nblocks=1, nstblz=5, npop_control=1,
+                                       rng_seed=8),
+                   propagator_options={"matmul_precision": tier},
+                   estimator_options={"mixed": {"energy_eval_freq": 1}},
+                   device="cuda")
+        gap = 0.0
+        for _ in range(3):
+            zero_counts()
+            row = af.run_block()
+            torch.cuda.synchronize()
+            for k, v in counts().items():
+                launched[k] += v
+            ew = mixed.energy_estimator(ham, trial)(
+                *trial_greens(trial, af.state.phia, af.state.phib)[:2])[0]
+            gap = max(gap, float(((ew - e_fci).abs() / abs(e_fci)).max()),
+                      abs(row[5].real - e_fci) / abs(e_fci))
+        gaps[tier] = gap
+        del af
+    return gaps, launched
+
+
+def ladder_phase(tier_cases: dict, counts, zero_counts) -> tuple[str, dict]:
+    """Phase 35, the matmul-precision ladder: (a) the product errors per
+    tier, (b) every kernel (on phase 3's inputs) and the pinned plain
+    routes byte for byte the same under every tier, (c) each tier's card
+    run against the host's complex128 on four paths and (d) the PHMSD
+    anchor, within LADDER_BOUNDS, (e) the process back at "highest". The
+    line and the launches of (c) and (d)'s card runs."""
+    from pauxy_tpu_torch import config
+
+    prod = product_errors()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3535)
+    pinned = pinned_cases(gen)
+    differ = tier_invariance({**tier_cases, **pinned})
+    control = [k for k in pinned if k.startswith("control")]
+    held = {k: v for k, v in differ.items() if k not in control}
+    if any(held.values()):
+        raise AssertionError(f"tier-invariance: outputs that differ from "
+                             f"the float32 call's: {held}")
+    gaps, launched = ladder_gaps(counts, zero_counts)
+    gaps["phmsd"], phm_launched = ladder_phmsd(counts, zero_counts)
+    for k, v in phm_launched.items():
+        launched[k] += v
+    missed = {(p, t): g for p, row in gaps.items() for t, g in row.items()
+              if not g <= LADDER_BOUNDS[p][t]}
+    config.set_matmul_precision("float32", "cuda")
+    restored = rung_in_force()
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError(f"after the ladder: {restored}")
+    if missed:
+        raise AssertionError(f"ladder: card vs host over the bound "
+                             f"{missed} (bounds {LADDER_BOUNDS})")
+    msg = ("(a) [1024, 512] x [512, 16384] against float64, relative max "
+           "error real float32 / complex64 (median ms): " + "; ".join(
+               f"{t} [{p['setting']}] {p['real']:.3e} / {p['complex']:.3e} "
+               f"({p['real_ms']:.4f} / {p['complex_ms']:.4f} ms)"
+               for t, p in prod.items())
+           + "; (b) byte for byte equal to the float32 call under float32 "
+           "again, bfloat16_3x and bfloat16: " + ", ".join(
+               k for k in {**tier_cases, **pinned} if k not in control)
+           + "; " + "; ".join(
+               f"{k} differs under {differ[k] or 'no tier'}"
+               for k in control)
+           + "; (c) complex64 on the card vs complex128 on the host, same "
+           "injected draws, max |d| over the scale (bound) per tier: "
+           + "; ".join(
+               f"{p} " + ", ".join(
+                   f"{t} {g:.3e} ({LADDER_BOUNDS[p][t]:g})"
+                   for t, g in row.items())
+               for p, row in gaps.items() if p != "phmsd")
+           + "; (d) PHMSD max relative |E - E_FCI|, complex64, xla series: "
+           + ", ".join(f"{t} {g:.3e} ({LADDER_BOUNDS['phmsd'][t]:g})"
+                       for t, g in gaps["phmsd"].items())
+           + f"; card launches {launched}; (e) restored: {restored}")
+    return msg, launched
+
+
 def main() -> None:
     seconds = {}
     t_phase = time.perf_counter()
@@ -2334,6 +2724,13 @@ def main() -> None:
     s = torch.einsum("mnw,mk->wnk", phi, psi.conj()).contiguous()
     g = torch.from_numpy(hpd(rng, w, n)).to("cuda", c64)
     sw = sweep_inputs(rng, m, n, n, w, f32)
+    # Phase 35 calls each kernel again on its inputs here under every
+    # matmul tier (name -> (wrapper, arguments)).
+    tier_cases = {
+        "greens_lanes": (greens_cuda.greens_lanes, (psi, phi, True)),
+        "inv_logdet_lanes": (batchla_cuda.inv_logdet_lanes, (s, True)),
+        "chol_inv_lanes": (batchla_cuda.chol_inv_lanes, (g,)),
+        "hirsch_sweep": (sweep_cuda.hirsch_sweep_real, sw)}
     times = {
         "greens_lanes": median_ms({
             "plain": lambda: greens_cuda.greens_lanes_plain(psi, phi, True),
@@ -2354,6 +2751,7 @@ def main() -> None:
     # route (six batched matmuls, the JAX default).
     tm, tc, tw = 128, 32, 1024
     vt, pt = taylor_inputs(gen, tw, tm, tc, torch.complex64)
+    tier_cases["taylor_exp"] = (taylor_cuda.apply_taylor, (vt, pt))
     times["taylor_exp"] = median_ms({
         "plain": lambda: taylor_cuda.apply_taylor_plain(vt, pt),
         "kernel": lambda: taylor_cuda.apply_taylor(vt, pt),
@@ -2368,6 +2766,8 @@ def main() -> None:
         return lambda: taylor_cuda._apply_taylor_bf16(v, p, 6,
                                                       route="streaming")
 
+    tier_cases["taylor_bf16"] = (
+        lambda v, p: taylor_cuda.apply_taylor(v, p, lowp=True), (vb16, pb16))
     times["taylor_bf16"] = median_ms({
         "plain": lambda: taylor_cuda.apply_taylor_plain(vb16, pb16,
                                                         lowp=True),
@@ -2383,10 +2783,12 @@ def main() -> None:
         "plain": lambda: exx_cuda.exx_plain(rce, ghe),
         "kernel": lambda: exx_cuda.exx(rce, ghe),
         "library": lambda: exx_cuda.exx_plain(rce, ghe)}, reps=5)
+    tier_cases["exx"] = (exx_cuda.exx, (rce, ghe))
     del rce, ghe
     # The pivoted QR at the thermal UEG shape (B = 2 x 256 walkers, M=93);
     # PyTorch has no pivoted QR, so no library call.
     qa = torch.randn(512, 93, 93, dtype=c64, device="cuda", generator=gen)
+    tier_cases["cpqr"] = (cpqr_cuda.cpqr_lanes, (qa,))
     times["cpqr"] = median_ms({
         "plain": lambda: cpqr_cuda.cpqr_lanes_plain(qa),
         "kernel": lambda: cpqr_cuda.cpqr_lanes(qa)}, reps=10)
@@ -2637,6 +3039,11 @@ def main() -> None:
         "eliminating nothing; kernel A the same as its plain version: "
         + zero_pivot + lap("3"))
     del vt, pt
+    if "--ladder" in sys.argv[1:]:
+        # Phases 1-3 and 35 only; no result line.
+        say("35 matmul ladder", ladder_phase(tier_cases, counts,
+                                             zero_counts)[0] + lap("35"))
+        return
 
     # ---- 4. the continuous main path at full width -----------------------
     nblocks, nsteps, nwalkers = 4, 10, 1024
@@ -4992,6 +5399,10 @@ def main() -> None:
     # ---- 34. the walker mesh on the card ----------------------------------
     msg, mesh_cont, mesh_gen, mesh_chol = mesh_phase(counts, zero_counts)
     say("34 walker mesh", msg + lap("34"))
+
+    # ---- 35. the matmul-precision ladder ---------------------------------
+    msg, ladder_counts = ladder_phase(tier_cases, counts, zero_counts)
+    say("35 matmul ladder", msg + lap("35"))
     say("seconds", json.dumps(seconds))
 
     # ---- result ----------------------------------------------------------
@@ -5031,6 +5442,7 @@ def main() -> None:
                "generic_variants": var_counts, "generic_file": file_counts,
                "h10_file": h10_counts, "h2_file": h2_counts,
                "mesh_continuous": mesh_cont, "mesh_generic": mesh_gen,
+               "matmul_ladder": ladder_counts,
                **{f"mesh_chol_{k}": c for k, c in mesh_chol.items()}}
     # Every kernel of the chol-mesh paths launched there.
     for k, run in (("chol_inv_lanes", "bp"), ("taylor_exp", "bp"),

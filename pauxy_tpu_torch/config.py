@@ -1,4 +1,4 @@
-"""Precision bundle, device choice and matmul precision.
+"""Precision bundle, device choice and the matmul-precision ladder.
 
 Counterpart of ``pauxy_tpu/config.py``. ``"single"`` is float32/complex64,
 ``"double"`` float64/complex128. The H100 has native FP64, so double is a
@@ -7,7 +7,9 @@ production option here, not only a test setting.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -82,25 +84,74 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return torch.device(device)
 
 
-def check_matmul_precision(policy: str | None) -> str:
-    """The ``matmul_precision`` propagator option: ``None`` and
-    ``"float32"`` (the JAX package's default tier) run in full float32;
-    any lower tier raises, as it waits for an end-to-end anchor run that
-    validates it. Returns the tier in force."""
-    if policy in (None, "float32"):
-        return "float32"
-    raise NotImplementedError(
-        f"matmul_precision={policy!r} is not ported: the port runs float32 "
-        f"products in full float32 only, and a lower tier waits for an "
-        f"end-to-end anchor run that validates it")
+# The JAX package's ladder names and the torch rung each maps to
+# (pauxy_tpu/config.py's alias chains: "highest", "high", "default").
+MATMUL_TIERS = {"float32": "highest", "bfloat16_3x": "high",
+                "bfloat16": "medium"}
 
 
-def set_matmul_precision() -> None:
-    """Keep float32 products in full float32: no TF32 in matmuls or cuDNN.
+def _ladder_name(policy: str | None) -> str:
+    if policy is None:
+        policy = os.environ.get("PAUXY_TPU_MATMUL", "float32")
+    if policy not in MATMUL_TIERS:
+        raise ValueError(f"matmul_precision {policy!r}: want one of "
+                         f"{sorted(MATMUL_TIERS)}")
+    return policy
 
-    Mirrors ``pauxy_tpu/config.set_matmul_precision``'s default tier: a
-    lower tier is opened only after an end-to-end anchor validates it.
+
+def matmul_tier(policy: str | None) -> str:
+    """The torch rung of a ladder name. ``None`` reads ``PAUXY_TPU_MATMUL``
+    (default ``"float32"``), as the JAX package does; a name off the
+    ladder raises ``ValueError``."""
+    return MATMUL_TIERS[_ladder_name(policy)]
+
+
+def set_matmul_precision(policy: str | None,
+                         device: str | torch.device) -> str:
+    """Set the ``matmul_precision`` tier for float32 products on ``device``;
+    returns the ladder name in force.
+
+    The JAX package's three tiers map name for name onto
+    ``torch.set_float32_matmul_precision``'s rungs, the one torch API
+    used here. The rung is the process's: a card driver's lower tier also
+    reaches the CPU float32 products of the same process.
+
+    * ``"float32"``     -> ``"highest"``: IEEE float32 products (default);
+    * ``"bfloat16_3x"`` -> ``"high"``;
+    * ``"bfloat16"``    -> ``"medium"``.
+
+    On an NVIDIA H100 80GB HBM3 at 700 W (torch 2.11, CUDA 12.8) torch
+    sends both lower rungs to cuBLAS's TF32 tensor-core mode
+    (``torch.backends.cuda.matmul.fp32_precision`` "tf32"), complex64
+    products included: operands rounded to a 10-bit mantissa, float32
+    sums, so ``"bfloat16_3x"`` and ``"bfloat16"`` are one tier there.
+    Relative error max |C - C_64| / max |C_64| of the product at the
+    Generic VHS shape [1024, 512] x [512, 128 * 128] against float64
+    (``chip_smoke.py`` phase 35 (a)): "float32" 1.0e-6 real float32 and
+    1.5e-6 complex64; both lower tiers 2.8e-4 and 2.8e-4.
+
+    On a CPU device nothing changes and ``"float32"`` comes back, as the
+    JAX package's CPU backend answers: torch's ``"medium"`` would send CPU
+    float32 products through oneDNN's bf16. A name off the ladder raises
+    ``ValueError`` on either device. The hand-written kernels do not read
+    the rung, as JAX's ladder does not reach its Pallas bodies.
     """
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    name = _ladder_name(policy)
+    if torch.device(device).type == "cpu":
+        return "float32"
+    torch.set_float32_matmul_precision(MATMUL_TIERS[name])
+    return name
+
+
+@contextlib.contextmanager
+def full_precision():
+    """IEEE float32 products (rung ``"highest"``) in the body, whatever the
+    tier; the rung in force before comes back afterwards, also when the
+    body raises. Torch's counterpart of JAX's per-product
+    ``precision=HIGHEST``."""
+    prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)

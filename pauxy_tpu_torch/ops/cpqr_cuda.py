@@ -21,6 +21,7 @@ import functools
 
 import torch
 
+from pauxy_tpu_torch import config
 from pauxy_tpu_torch.ops import cuda_build
 
 # Kernel launches so far (one per call); a run can show that its path used
@@ -76,6 +77,7 @@ def max_m(dtype: torch.dtype) -> int:
     return m
 
 
+@config.full_precision()
 def cpqr_lanes_plain(a: torch.Tensor, pivot: bool = True):
     """Plain version, the mirror of ``_cpqr_xla``: Householder with
     deferred pivots (the pivot column is selected by masking processed
@@ -85,7 +87,10 @@ def cpqr_lanes_plain(a: torch.Tensor, pivot: bool = True):
     diag(1/tau) + striu(V^H V), T^-1 inverted by a triangular solve
     (``torch.linalg.solve_triangular``; JAX's takes ``clinalg.inv``).
     a [B, m, m] real or complex; returns (q, r, perm [B, m] int64) in the
-    input's type."""
+    input's type. Its products run in IEEE float32 under every matmul
+    tier (``config.full_precision``): JAX pins HIGHEST on the Q formation
+    and the permutation, and its loop's matvecs stay in float32, so the
+    tier never reaches its factorization."""
     b, m, m2 = a.shape
     if m != m2:
         raise ValueError(f"cpqr: shape {tuple(a.shape)}, want [B, m, m]")

@@ -58,14 +58,22 @@ def taylor_series(vhs: torch.Tensor, phi: torch.Tensor, order: int,
     """exp(vhs) phi to ``order`` by the route ``taylor_impl`` names: the
     fused kernel (f32 or bf16 tier) where M is within its cap, else that
     tier's plain series, chosen by shape before any launch; ``"xla"`` and
-    ``"xla_3m"`` run the plain complex series."""
+    ``"xla_3m"`` run the plain complex series. The kernels' plain series
+    past their caps stand in for JAX's Pallas body, whose dots pin their
+    precision, so they run in IEEE float32 under every matmul tier; the
+    "xla" series takes the tier, as in JAX."""
     m = vhs.shape[-1]
-    if taylor_impl == "pallas" and taylor_cuda.fits(m, vhs.dtype):
-        return taylor_cuda.apply_taylor(vhs, phi, order)
+    if taylor_impl == "pallas":
+        if taylor_cuda.fits(m, vhs.dtype):
+            return taylor_cuda.apply_taylor(vhs, phi, order)
+        with config.full_precision():
+            return apply_exponential_taylor(vhs, phi, order)
     if taylor_impl == "pallas_bf16":
         if taylor_cuda.fits(m, vhs.dtype, lowp=True):
             return taylor_cuda.apply_taylor(vhs, phi, order, lowp=True)
-        return taylor_cuda.apply_taylor_plain(vhs, phi, order, lowp=True)
+        with config.full_precision():
+            return taylor_cuda.apply_taylor_plain(vhs, phi, order,
+                                                  lowp=True)
     return apply_exponential_taylor(vhs, phi, order)
 
 

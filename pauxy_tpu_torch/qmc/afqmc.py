@@ -73,9 +73,6 @@ from pauxy_tpu_torch.utils.io import (H5EstimatorHelper,
 from pauxy_tpu_torch.walkers import pop_control as pc
 from pauxy_tpu_torch.walkers.state import init_walkers, orthogonalise
 
-# Full float32 products everywhere (no TF32), as in the JAX driver.
-config.set_matmul_precision()
-
 
 def check_population_alive(weight: torch.Tensor, hint: str):
     """Raise when the population's total |weight| (over the walker group on
@@ -323,8 +320,11 @@ class AFQMC:
         self.verbose = verbose
         popts = dict(propagator_options or {})
         eopts = dict(estimator_options or {})
-        self.matmul_precision = config.check_matmul_precision(
-            popts.get("matmul_precision"))
+        # The tier of float32 products, set when the driver is built (a
+        # process-wide setting, as JAX's): "float32" is IEEE; the lower
+        # tiers are the opt-in speed ladder.
+        self.matmul_precision = config.set_matmul_precision(
+            popts.get("matmul_precision"), self.device)
         self.free_projection = popts.get("free_projection", False)
         self.hybrid = popts.get("hybrid", True)
         self.prop = self._build_propagator(popts)

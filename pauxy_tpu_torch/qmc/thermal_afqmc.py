@@ -43,9 +43,6 @@ from pauxy_tpu_torch.walkers import low_rank as lrw
 from pauxy_tpu_torch.walkers import pop_control as pc
 from pauxy_tpu_torch.walkers import thermal_state as tws
 
-# Full float32 products everywhere (no TF32), as in the JAX driver.
-config.set_matmul_precision()
-
 THERMAL_HEADER = [
     "Iteration", "WeightFactor", "Weight", "ENumer", "EDenom", "ETotal",
     "E1Body", "E2Body", "EHybrid", "Overlap", "Nav", "Time",
@@ -158,8 +155,11 @@ class ThermalAFQMC:
         self.verbose = verbose
         self.ntime_slices = self.trial.num_slices
         popts = dict(propagator_options or {})
-        self.matmul_precision = config.check_matmul_precision(
-            popts.get("matmul_precision"))
+        # The tier of float32 products, set when the driver is built (a
+        # process-wide setting, as JAX's): "float32" is IEEE; the lower
+        # tiers are the opt-in speed ladder.
+        self.matmul_precision = config.set_matmul_precision(
+            popts.get("matmul_precision"), self.device)
         wopts = dict(walker_options or {})
         # The low-rank stack needs a diagonal trial density matrix.
         self.low_rank = bool(wopts.get("low_rank", False))

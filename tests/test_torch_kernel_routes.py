@@ -11,7 +11,8 @@
   thread and shared-memory budgets, and the tiled algorithm it describes
   (packed panels, index-block pairs weighted 2 off the diagonal, the
   partials' sum) gives exx_plain's result in float64 to 1e-12.
-* ``matmul_precision``: both drivers refuse a tier other than float32.
+* ``matmul_precision``: on the CPU both drivers take every tier as a
+  no-op, report "float32" and give the float32 run's rows bit for bit.
 * The cap helpers are derived once: ``cpqr_cuda.max_m`` and
   ``taylor_cuda.max_m`` equal the largest m their layout formulas admit and
   a second call is a cache hit (``cache_info``), as are the Taylor and exx
@@ -234,15 +235,27 @@ def test_exx_tiled_algorithm_matches_plain(x, n, m, w):
     assert np.all(np.abs(got - want) <= 1e-12 * scale)
 
 
-@pytest.mark.parametrize("policy", ["bfloat16", "bfloat16_3x"])
-def test_afqmc_refuses_lower_matmul_precision(policy):
+def _hubbard_afqmc_rows(policy):
     from pauxy_tpu_torch.models import free_electron_trial, make_hubbard
     from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
     ham = make_hubbard(2, 2, U=4.0, nx=2, ny=2, **CPU)
-    with pytest.raises(NotImplementedError, match=policy):
-        AFQMC(ham, free_electron_trial(ham, **CPU),
-              QMCOpts(nwalkers=4, dt=0.01, nsteps=2, nblocks=1),
-              propagator_options={"matmul_precision": policy}, device="cpu")
+    af = AFQMC(ham, free_electron_trial(ham, **CPU),
+               QMCOpts(nwalkers=4, dt=0.01, nsteps=2, nblocks=1, rng_seed=3),
+               propagator_options={"matmul_precision": policy},
+               device="cpu")
+    return af.matmul_precision, af.run()
+
+
+@pytest.mark.parametrize("policy", ["bfloat16", "bfloat16_3x"])
+def test_afqmc_refuses_lower_matmul_precision(policy):
+    # The name stays; the refusal is gone. On the CPU a lower tier changes
+    # nothing (as on JAX's CPU backend): the driver reports "float32" and
+    # its rows are the float32 run's, bit for bit.
+    tier, rows = _hubbard_afqmc_rows(policy)
+    ref_tier, ref = _hubbard_afqmc_rows("float32")
+    assert tier == ref_tier == "float32"
+    assert np.isfinite(rows.real).all()
+    np.testing.assert_array_equal(rows[:, :-1], ref[:, :-1])
 
 
 @pytest.mark.parametrize("policy", [None, "float32"])
@@ -259,19 +272,28 @@ def test_afqmc_runs_with_float32_precision(policy):
     assert np.isfinite(rows.real).all()
 
 
-@pytest.mark.parametrize("policy", ["bfloat16", "bfloat16_3x"])
-def test_thermal_afqmc_refuses_lower_matmul_precision(policy):
+def _thermal_rows(policy):
     from pauxy_tpu_torch.models import make_hubbard
     from pauxy_tpu_torch.models.thermal_trial import make_one_body_trial
     from pauxy_tpu_torch.qmc import QMCOpts
     from pauxy_tpu_torch.qmc.thermal_afqmc import ThermalAFQMC
     ham = make_hubbard(3, 3, U=4.0, nx=3, ny=3, **CPU)
     trial = make_one_body_trial(ham, 0.5, 0.05, mu=0.9, **CPU)
-    with pytest.raises(NotImplementedError, match=policy):
-        ThermalAFQMC(ham, trial, QMCOpts(nwalkers=2, dt=0.05, nsteps=1,
-                                         nblocks=1, beta=0.5),
-                     propagator_options={"matmul_precision": policy},
-                     device="cpu")
+    af = ThermalAFQMC(ham, trial, QMCOpts(nwalkers=2, dt=0.05, nsteps=1,
+                                          nblocks=1, beta=0.5, rng_seed=3),
+                      propagator_options={"matmul_precision": policy},
+                      device="cpu")
+    return af.matmul_precision, af.run()
+
+
+@pytest.mark.parametrize("policy", ["bfloat16", "bfloat16_3x"])
+def test_thermal_afqmc_refuses_lower_matmul_precision(policy):
+    # As the zero-temperature case: on the CPU the tier is a no-op.
+    tier, rows = _thermal_rows(policy)
+    ref_tier, ref = _thermal_rows("float32")
+    assert tier == ref_tier == "float32"
+    assert np.isfinite(rows.real).all()
+    np.testing.assert_array_equal(rows[:, :-1], ref[:, :-1])
 
 
 @pytest.mark.parametrize("policy", [None, "float32"])
