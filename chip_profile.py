@@ -36,10 +36,12 @@ Taylor tier (``ueg`` profiles the three: paths ``ueg_xla``,
 ``ueg_pallas`` and ``ueg_pallas_bf16``), with the Taylor
 kernels' device time and launches as ``taylor_ms`` / ``taylor_launches``
 (float32, "taylor_kernel") and ``taylor_bf16_ms`` /
-``taylor_bf16_launches``; and PW_FFT at the same shape (chip_smoke.py's
-phase 23); the NOMSD path of chip_smoke.py's phase 25 (``msd_generic``:
-the Generic bench shape with the D = 8 rotated expansion, 1024 walkers,
-taylor_impl="pallas", energy every step), whose per-determinant exchange
+``taylor_bf16_launches``, and the 3-pass split GEMM of the
+"bfloat16_3x" tier as ``gemm_bf16x3_ms`` / ``gemm_bf16x3_launches``;
+and PW_FFT at the same shape (chip_smoke.py's phase 23); the NOMSD path
+of chip_smoke.py's phase 25 (``msd_generic``: the Generic bench shape
+with the D = 8 rotated expansion, 1024 walkers, taylor_impl="pallas",
+energy every step), whose per-determinant exchange
 calls (``local_energy._exx``: the einsum route's cuBLAS product and
 transposed trace) come with their synchronised wall time as
 ``exx_wall_ms``;
@@ -114,7 +116,7 @@ def profile_block(af, name: str, trace: str | None, steps: int,
     nwalkers = af.qmc.nwalkers
     mine = {key: [t for k, v in by_name.items() if key in k for t in v]
             for key in ("cpqr", "greens_lanes", "chol_inv", "hirsch_sweep",
-                        "taylor_kernel", "taylor_bf16")}
+                        "taylor_kernel", "taylor_bf16", "gemm_bf16x3")}
     print(json.dumps({
         "path": name, "matmul_precision": af.matmul_precision,
         "nwalkers": nwalkers, "nsteps": steps,
@@ -133,6 +135,8 @@ def profile_block(af, name: str, trace: str | None, steps: int,
         "taylor_launches": len(mine["taylor_kernel"]),
         "taylor_bf16_ms": sum(mine["taylor_bf16"]) / 1e3,
         "taylor_bf16_launches": len(mine["taylor_bf16"]),
+        "gemm_bf16x3_ms": sum(mine["gemm_bf16x3"]) / 1e3,
+        "gemm_bf16x3_launches": len(mine["gemm_bf16x3"]),
         metric: nwalkers * steps / wall,
         **(extra() if extra else {}),
     }))

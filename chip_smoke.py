@@ -275,21 +275,37 @@ non-zero and prints no result line:
      exchange kernel launched in (a)'s mixed energy, where the unsharded
      run takes the supermatrix (``launches_by_path`` "mesh_chol_*", rank
      0's);
- 35. the matmul-precision ladder (the drivers' matmul_precision, mapped
-     by pauxy_tpu_torch/config.py onto torch's "highest" / "high" /
-     "medium"): (a) per tier the relative error of a real float32 and a
-     complex64 product at the Generic VHS shape [1024, 512] x [512, 16384]
-     against float64, with the torch setting in force; (b) every kernel on
-     its phase-3 inputs, and the plain routes pinned to IEEE float32 (the
-     plain cpqr past max_m and unpivoted, the Taylor kernels' series past
-     their caps), byte for byte equal under every tier, beside the "xla"
-     series as a control; (c) each tier on the card (complex64) against
-     the host's complex128 with the same injected draws, population
-     control off: phase 4's continuous Hubbard cell, phase 10's Generic
-     golden system and phase 22's UEG golden shape (both on the "xla"
-     series), phase 12's thermal 3x3 Hubbard, within LADDER_BOUNDS; (d)
-     phase 26's PHMSD zero-variance anchor in complex64 per tier within
-     LADDER_BOUNDS; (e) the process back at "highest".
+ 35. the matmul-precision ladder (the drivers' matmul_precision, set by
+     pauxy_tpu_torch/config.py: "float32" torch's "highest"; "bfloat16_3x"
+     "highest" with the split route, every float32 / complex64 aten mm /
+     bmm / addmm / baddbmm on the card through the 3-pass bf16 split GEMM
+     csrc/gemm_bf16x3.cu; "bfloat16" "medium", cuBLAS's TF32): (a) per tier
+     the relative error of a real float32 and a complex64 product at the
+     Generic VHS shape [1024, 512] x [512, 16384] against float64, with the
+     torch setting in force, "bfloat16_3x" within 3e-5; (a') the split GEMM
+     against its plain version (ops/gemm3) at (m, k, n) in {(7, 16, 7),
+     (93, 93, 93), (257, 14, 257), (1, 33, 1), (5, 0, 3), the VHS shape},
+     a batch against a broadcast operand, a batch of 70000 (two launches),
+     transposed, conjugated, permuted and unaligned operands, the skinny
+     route's batched dot products, permuted vector-matrix products and a
+     small N, addmm and baddbmm with alpha and beta, float32 and
+     complex64, within
+     gemm3_tolerance (12 k eps S), and its times beside cuBLAS's float32
+     and TF32 products and its bound at the VHS shape (real and complex64)
+     and a lattice shape; (b) every kernel on its phase-3 inputs, and the
+     plain routes pinned to IEEE float32 (the plain cpqr past max_m and
+     unpivoted, the Taylor kernels' series past their caps), byte for byte
+     equal under every tier, beside the "xla" series as a control that
+     differs under each lower tier and between them; (c) each tier on the
+     card (complex64) against the host's complex128 with the same injected
+     draws, population control off: phase 4's continuous Hubbard cell,
+     phase 10's Generic golden system and phase 22's UEG golden shape (both
+     on the "xla" series), phase 12's thermal 3x3 Hubbard, within
+     LADDER_BOUNDS; (d) phase 26's PHMSD zero-variance anchor in complex64
+     per tier within LADDER_BOUNDS; the split GEMM launched on each path
+     under "bfloat16_3x" and under no other tier, and no cuBLAS float32 /
+     complex64 GEMM in the profiled "bfloat16_3x" runs; (e) the process
+     back at "highest" without the route.
 Phase 3 also holds the cpqr kernel on the low-rank stack's masked input
 (``check_cpqr_masked``) and kernels A and B on exactly singular matrices
 (``check_zero_pivot``: log|det| -inf, JAX's phase where JAX's is finite).
@@ -305,6 +321,7 @@ import copy
 import itertools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1885,7 +1902,8 @@ def rows_rel(a: np.ndarray, b: np.ndarray) -> float:
 def kernel_counts() -> dict:
     """Every kernel wrapper's launch count in this process."""
     from pauxy_tpu_torch.ops import (batchla_cuda, cpqr_cuda, exx_cuda,
-                                     greens_cuda, sweep_cuda, taylor_cuda)
+                                     gemm3_cuda, greens_cuda, sweep_cuda,
+                                     taylor_cuda)
 
     return {"greens_lanes": greens_cuda.launches,
             "inv_logdet_lanes": batchla_cuda.launches,
@@ -1896,12 +1914,14 @@ def kernel_counts() -> dict:
             "taylor_bf16_resident": taylor_cuda.launches_bf16_resident,
             "taylor_bf16_streaming": taylor_cuda.launches_bf16_streaming,
             "exx": exx_cuda.launches,
-            "cpqr": cpqr_cuda.launches}
+            "cpqr": cpqr_cuda.launches,
+            "gemm_bf16x3": gemm3_cuda.launches}
 
 
 def zero_kernel_counts() -> None:
     from pauxy_tpu_torch.ops import (batchla_cuda, cpqr_cuda, exx_cuda,
-                                     greens_cuda, sweep_cuda, taylor_cuda)
+                                     gemm3_cuda, greens_cuda, sweep_cuda,
+                                     taylor_cuda)
 
     greens_cuda.launches = 0
     batchla_cuda.launches = 0
@@ -1913,6 +1933,7 @@ def zero_kernel_counts() -> None:
     taylor_cuda.launches_bf16_streaming = 0
     exx_cuda.launches = 0
     cpqr_cuda.launches = 0
+    gemm3_cuda.launches = 0
 
 
 # Phase 34's runs on a [walker 1, chol 2] mesh: (a) back propagation with
@@ -2243,53 +2264,74 @@ def mesh_phase(counts, zero_counts):
 LADDER = ("float32", "bfloat16_3x", "bfloat16")
 # Card (complex64) against host (complex128) with the same injected draws,
 # max |d| over the scale, per path and tier. The float32 tier keeps phases
-# 4/10/12/22's limits. Both lower tiers are TF32 on the H100 (torch 2.11:
-# cuBLAS fp32_precision "tf32"), 2.84e-4 relative per product at the
-# Generic VHS shape (phase 35 (a)); N tier-taking products chained between
-# the draws and a block's sums, with independent roundings, give about
-# 2.84e-4 sqrt(N): the continuous Hubbard cell ~6 a step x 20 steps, 3e-3;
-# the Generic golden ~12 a step (VHS, six Taylor products, force bias, G,
-# CholeskyQR2) x 100 steps, 1e-2; the UEG ~10 x 20, 4e-3; the thermal
-# Hubbard ~12 a slice x 10 slices a path, 3e-3; the PHMSD energy ~8
-# products and no chain (every walker's energy is E_FCI), 1e-3. Written
-# in PERF.md section 2 before the first run of (c).
+# 4/10/12/22's limits. A lower tier with a relative error e a product
+# (phase 35 (a) at the Generic VHS shape), over N tier-taking products
+# chained between the draws and a block's sums with independent roundings,
+# gives about e sqrt(N): the continuous Hubbard cell ~6 a step x 20 steps
+# (N = 120); the Generic golden ~12 a step (VHS, six Taylor products, force
+# bias, G, CholeskyQR2) x 100 steps (1200); the UEG ~10 x 20 (200); the
+# thermal Hubbard ~12 a slice x 10 slices a path (120); the PHMSD energy ~8
+# products and no chain (8; every walker's energy is E_FCI). "bfloat16" is
+# cuBLAS's TF32 on the H100 (torch 2.11: fp32_precision "tf32"),
+# e = 2.84e-4: 3e-3, 1e-2, 4e-3, 3e-3, 1e-3. "bfloat16_3x" is the 3-pass
+# split GEMM, e3 = 5.615e-6 (the larger of (a)'s real and complex64
+# readings on an H100 80GB HBM3 at 700 W before (c) first ran): e3 sqrt(N)
+# rounded up to two digits. Written in PERF.md section 2 before the first
+# run of (c).
 LADDER_BOUNDS = {
-    "hubbard": {"float32": 1e-4, "bfloat16_3x": 3e-3, "bfloat16": 3e-3},
-    "generic": {"float32": 2e-4, "bfloat16_3x": 1e-2, "bfloat16": 1e-2},
-    "ueg": {"float32": 1e-4, "bfloat16_3x": 4e-3, "bfloat16": 4e-3},
-    "thermal": {"float32": 1e-4, "bfloat16_3x": 3e-3, "bfloat16": 3e-3},
-    "phmsd": {"float32": 1e-4, "bfloat16_3x": 1e-3, "bfloat16": 1e-3},
+    "hubbard": {"float32": 1e-4, "bfloat16_3x": 6.2e-5, "bfloat16": 3e-3},
+    "generic": {"float32": 2e-4, "bfloat16_3x": 2.0e-4, "bfloat16": 1e-2},
+    "ueg": {"float32": 1e-4, "bfloat16_3x": 8.0e-5, "bfloat16": 4e-3},
+    "thermal": {"float32": 1e-4, "bfloat16_3x": 6.2e-5, "bfloat16": 3e-3},
+    "phmsd": {"float32": 1e-4, "bfloat16_3x": 1.6e-5, "bfloat16": 1e-3},
 }
+# The split tier's product error at the Generic VHS shape, real and
+# complex64 (JAX's 'bfloat16_3x' reads ~3e-5 on the TPU).
+SPLIT_PRODUCT_BOUND = 3e-5
+# A float32 / complex64 GEMM of cuBLAS or CUTLASS by its kernel's name
+# (the 64-bit ones, and the split GEMM itself, aside).
+GEMM_32 = re.compile(r"cf32|f32|tf32|sgemm|cgemm|[sc]\d{3,4}gemm|<float",
+                     re.IGNORECASE)
+GEMM_64 = re.compile(r"f64|dgemm|zgemm|[dz]\d{3,4}gemm|<double",
+                     re.IGNORECASE)
 
 
 def rung_in_force() -> str:
-    """Torch's float32-product setting as this torch reports it: the rung
-    and cuBLAS's side of it."""
+    """Torch's float32-product setting as this torch reports it: the rung,
+    cuBLAS's side of it and whether the split route is installed."""
+    from pauxy_tpu_torch.ops import gemm3_cuda
+
     cm = torch.backends.cuda.matmul
     fp = getattr(cm, "fp32_precision", None)
     side = (f"cuda.matmul.fp32_precision={fp}" if fp is not None
             else f"cuda.matmul.allow_tf32={cm.allow_tf32}")
-    return f"{torch.get_float32_matmul_precision()}, {side}"
+    route = ", split route" if gemm3_cuda.route_installed() else ""
+    return f"{torch.get_float32_matmul_precision()}, {side}{route}"
 
 
-def product_errors(w: int = 1024, x: int = 512, mm: int = 128 * 128
-                   ) -> dict:
-    """Phase 35 (a): per ladder tier, the relative error max|C - C_64| /
-    max|C_64| of a real float32 and of a complex64 product at the Generic
-    VHS shape [w, X] x [X, M^2] (1024 walkers, X = 512, M = 128) against
-    the float64 product of the same operands, each product's median ms,
-    and the torch setting in force."""
-    from pauxy_tpu_torch import config
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(35)
-
+def vhs_operands(gen, w: int = 1024, x: int = 512, mm: int = 128 * 128):
+    """A real and a complex pair at the Generic VHS shape [w, X] x [X, M^2]
+    (1024 walkers, X = 512, M = 128)."""
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
 
     a, b = randn(w, x), randn(x, mm) / x ** 0.5
-    ac = torch.complex(a, randn(w, x))
-    bc = torch.complex(b, randn(x, mm) / x ** 0.5)
+    return (a, b), (torch.complex(a, randn(w, x)),
+                    torch.complex(b, randn(x, mm) / x ** 0.5))
+
+
+def product_errors() -> dict:
+    """Phase 35 (a): per ladder tier, the relative error max|C - C_64| /
+    max|C_64| of a real float32 and of a complex64 product ``a @ b`` at the
+    Generic VHS shape against the float64 product of the same operands,
+    each product's median ms, the torch setting in force and the split
+    GEMM's launches."""
+    from pauxy_tpu_torch import config
+    from pauxy_tpu_torch.ops import gemm3_cuda
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(35)
+    (a, b), (ac, bc) = vhs_operands(gen)
     ref = a.double() @ b.double()
     refc = ac.to(torch.complex128) @ bc.to(torch.complex128)
 
@@ -2299,13 +2341,235 @@ def product_errors(w: int = 1024, x: int = 512, mm: int = 128 * 128
     out = {}
     for tier in LADDER:
         config.set_matmul_precision(tier, "cuda")
+        gemm3_cuda.launches = 0
+        errs = (rel(a @ b, ref), rel(ac @ bc, refc))
+        torch.cuda.synchronize()
+        launched = gemm3_cuda.launches
         t = median_ms({"real": lambda: a @ b, "complex": lambda: ac @ bc},
                       reps=10)
-        out[tier] = {"setting": rung_in_force(), "real": rel(a @ b, ref),
-                     "complex": rel(ac @ bc, refc), "real_ms": t["real"],
-                     "complex_ms": t["complex"]}
+        out[tier] = {"setting": rung_in_force(), "real": errs[0],
+                     "complex": errs[1], "real_ms": t["real"],
+                     "complex_ms": t["complex"], "launches": launched}
     config.set_matmul_precision("float32", "cuda")
+    if out["bfloat16_3x"]["launches"] != 2 or any(
+            out[t]["launches"] for t in ("float32", "bfloat16")):
+        raise AssertionError(f"(a): split GEMM launches per tier "
+                             f"{ {t: p['launches'] for t, p in out.items()} }"
+                             f", want 2 under bfloat16_3x only")
+    split = out["bfloat16_3x"]
+    if not max(split["real"], split["complex"]) <= SPLIT_PRODUCT_BOUND:
+        raise AssertionError(f"(a): bfloat16_3x product error "
+                             f"{split['real']:.3e} / {split['complex']:.3e} "
+                             f"over {SPLIT_PRODUCT_BOUND:g}")
     return out
+
+
+def gemm3_work(m: int, k: int, n: int, batch: int = 1, cplx: bool = False):
+    """(bytes, FLOPs) of the split GEMM: A, B read once and D written once;
+    3 passes of 2 m n k a real product, four real products a complex one."""
+    item = 8 if cplx else 4
+    nbytes = batch * (m * k + k * n + m * n) * item
+    return nbytes, batch * (4 if cplx else 1) * 3 * 2 * m * n * k
+
+
+def gemm3_tolerance(a, b, k: int, alpha=1.0, beta=0.0, c=None):
+    """The bound the kernel is held to against its plain version,
+    elementwise: 12 k eps S + 4 eps |beta| |C|, eps = 2^-23,
+    S = |alpha| (|Ar| + |Ai|) (|Br| + |Bi|) (every product term's size).
+    Both sum the same exact bf16 products (at most 6 k of them in an
+    element of a complex product) in float32: the plain version's cuBLAS
+    rounding to nearest (<= eps / 2 of the running sum an add), the tensor
+    cores possibly truncating (<= eps); 9 k eps S in all, held to 12 k eps
+    S; alpha, beta and their sum add a few eps."""
+    eps = 2.0 ** -23
+
+    def mag(x):
+        x = x.resolve_conj()
+        m = x.real.abs() + x.imag.abs() if x.is_complex() else x.abs()
+        return m.double()
+
+    tol = 12 * k * eps * abs(alpha) * torch.matmul(mag(a), mag(b))
+    if c is not None and beta != 0:
+        tol = tol + 4 * eps * abs(beta) * mag(c)
+    return tol
+
+
+def gemm3_cases(gen, dtype) -> list:
+    """(a')'s cases: (name, kernel call, plain call, k, alpha, beta, c, a, b)
+    over the shapes the paths give and the layouts einsum hands over."""
+    from pauxy_tpu_torch.ops import gemm3, gemm3_cuda
+
+    def rnd(*shape):
+        return torch.randn(*shape, dtype=dtype, device="cuda", generator=gen)
+
+    cases = []
+    for m, k, n in ((7, 16, 7), (93, 93, 93), (257, 14, 257), (1, 33, 1),
+                    (5, 0, 3), (1024, 512, 16384)):
+        a, b = rnd(m, k), rnd(k, n)
+        cases.append((f"mm ({m},{k},{n})", gemm3_cuda.mm, gemm3.mm, k, 1.0,
+                      0.0, None, a, b))
+    a, b = rnd(3, 93, 16), rnd(16, 7).expand(3, 16, 7)
+    cases.append(("bmm batch 3, broadcast B", gemm3_cuda.bmm, gemm3.bmm, 16,
+                  1.0, 0.0, None, a, b))
+    a, b = rnd(70000, 2, 3), rnd(70000, 3, 2)
+    cases.append(("bmm batch 70000 (two launches)", gemm3_cuda.bmm,
+                  gemm3.bmm, 3, 1.0, 0.0, None, a, b))
+    at, bt = rnd(14, 257), rnd(257, 14)
+    a, b = at.T, bt.T
+    if dtype.is_complex:
+        a = a.conj()
+    cases.append(("mm transposed (257,14,257)" + (", A conjugated"
+                                                   if dtype.is_complex
+                                                   else ""),
+                  gemm3_cuda.mm, gemm3.mm, 14, 1.0, 0.0, None, a, b))
+    p = rnd(64, 3, 48).permute(1, 0, 2)
+    q = rnd(32, 3, 48).permute(1, 2, 0)
+    cases.append(("bmm permuted [3, 64, 48] x [3, 48, 32]", gemm3_cuda.bmm,
+                  gemm3.bmm, 48, 1.0, 0.0, None, p, q))
+    flat = rnd(93 * 93 + 1)
+    a = flat[1:].view(93, 93)
+    cases.append(("mm unaligned (93,93,93)", gemm3_cuda.mm, gemm3.mm, 93,
+                  1.0, 0.0, None, a, rnd(93, 93)))
+    alpha, beta = (2.0, 0.5) if not dtype.is_complex else (0.5 - 2j,
+                                                          1.25 + 0.5j)
+    c = rnd(93)
+    cases.append(("addmm (93,14,93), bias broadcast",
+                  lambda x, y: gemm3_cuda.addmm(c, x, y, beta=beta,
+                                                alpha=alpha),
+                  lambda x, y: gemm3.addmm(c, x, y, beta=beta, alpha=alpha),
+                  14, alpha, beta, c.expand(93, 93), rnd(93, 14),
+                  rnd(14, 93)))
+    # The skinny route: the thermal force bias's batched dot products, the
+    # UEG's permuted vector-matrix products, a small N (transposed) with B
+    # conjugated, addmm with five rows.
+    cases.append(("bmm batched dot [300, 1, 8649] x [300, 8649, 1]",
+                  gemm3_cuda.bmm, gemm3.bmm, 8649, 1.0, 0.0, None,
+                  rnd(300, 1, 8649), rnd(300, 8649, 1)))
+    cases.append(("bmm permuted [493, 1, 7] x [493, 7, 512]",
+                  gemm3_cuda.bmm, gemm3.bmm, 7, 1.0, 0.0, None,
+                  rnd(7, 1, 493).permute(2, 1, 0),
+                  rnd(512, 7, 493).permute(2, 1, 0)))
+    b7 = rnd(257, 7)
+    cases.append(("mm (257,257,7)" + (", B conjugated" if dtype.is_complex
+                                      else ""),
+                  gemm3_cuda.mm, gemm3.mm, 257, 1.0, 0.0, None,
+                  rnd(257, 257), b7.conj() if dtype.is_complex else b7))
+    cases.append(("addmm (5,14,93), bias broadcast",
+                  lambda x, y: gemm3_cuda.addmm(c, x, y, beta=beta,
+                                                alpha=alpha),
+                  lambda x, y: gemm3.addmm(c, x, y, beta=beta, alpha=alpha),
+                  14, alpha, beta, c.expand(5, 93), rnd(5, 14),
+                  rnd(14, 93)))
+    cb = rnd(3, 7, 7)
+    cases.append(("baddbmm (3,7,16,7)",
+                  lambda x, y: gemm3_cuda.baddbmm(cb, x, y, beta=-1.5,
+                                                  alpha=0.75),
+                  lambda x, y: gemm3.baddbmm(cb, x, y, beta=-1.5,
+                                             alpha=0.75),
+                  16, 0.75, -1.5, cb, rnd(3, 7, 16), rnd(3, 16, 7)))
+    return cases
+
+
+def check_gemm3(gen) -> tuple[float, str]:
+    """Phase 35 (a'): the split GEMM against its plain version on the card
+    (float32 and complex64; ``gemm3_cases``), elementwise within
+    ``gemm3_tolerance``. Returns the largest |kernel - plain| at the
+    Generic VHS shape (float32) and the readings (largest |d| / bound per
+    type)."""
+    main_err, worst = None, {}
+    for dtype in (torch.float32, torch.complex64):
+        worst[dtype] = (0.0, "")
+        for name, kern, plain, k, alpha, beta, c, a, b in gemm3_cases(gen,
+                                                                       dtype):
+            got, want = kern(a, b), plain(a, b)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"gemm_bf16x3 {dtype} {name}: shape "
+                                     f"{tuple(got.shape)} or not finite")
+            d = (got - want).abs().double()
+            tol = gemm3_tolerance(a, b, k, alpha, beta, c)
+            if not bool((d <= tol).all()):
+                raise AssertionError(
+                    f"gemm_bf16x3 {dtype} {name}: max |d| / bound "
+                    f"{float((d / tol).max()):.3g}")
+            ratio = float((d / tol.clamp_min(1e-300)).max())
+            if ratio >= worst[dtype][0]:
+                worst[dtype] = (ratio, name)
+            if dtype == torch.float32 and name == "mm (1024,512,16384)":
+                main_err = float(d.max())
+            del got, want, d, tol
+    return main_err, "; ".join(
+        f"{str(t).split('.')[-1]} {r:.3e} ({n})" for t, (r, n) in
+        worst.items())
+
+
+def gemm3_times(gen) -> tuple[dict, tuple, list]:
+    """The split GEMM's median ms at the Generic VHS shape (the wrapper;
+    the kernel's device time; the plain version; cuBLAS's IEEE float32
+    product as the library call and its TF32 mode), its bound, and the
+    same at the VHS shape in complex64 and at a lattice shape (phase 4's
+    propagator applied to every walker: [16, 16] x [16, 7 x 1024]
+    complex64) as ``at_shape`` rows."""
+    from pauxy_tpu_torch import config
+    from pauxy_tpu_torch.ops import gemm3, gemm3_cuda
+
+    (a, b), (ac, bc) = vhs_operands(gen)
+    lat = (torch.randn(16, 16, dtype=torch.complex64, device="cuda",
+                       generator=gen),
+           torch.randn(16, 7 * 1024, dtype=torch.complex64, device="cuda",
+                       generator=gen))
+
+    def timed(x, y, reps=10):
+        t = median_ms({"kernel": lambda: gemm3_cuda.mm(x, y),
+                       "plain": lambda: gemm3.mm(x, y),
+                       "library": lambda: x @ y}, reps=reps)
+        config.set_matmul_precision("bfloat16", "cuda")
+        t["tf32"] = median_ms({"tf32": lambda: x @ y}, reps=reps)["tf32"]
+        config.set_matmul_precision("float32", "cuda")
+        t["device"] = device_ms(lambda: gemm3_cuda.mm(x, y), "gemm_bf16x3")
+        return t
+
+    main = timed(a, b)
+    rows = []
+    for shape, (x, y), wk in (
+            ("[1024,512]x[512,16384] c64 (the Generic VHS build)", (ac, bc),
+             gemm3_work(1024, 512, 16384, cplx=True)),
+            ("[16,16]x[16,7168] c64 (a lattice shape)", lat,
+             gemm3_work(16, 16, 7168, cplx=True))):
+        t = timed(x, y)
+        bnd = bound_ms(*wk, torch.bfloat16)
+        rows.append({"shape": shape, "ms": t["kernel"],
+                     "device_ms": t["device"], "plain_ms": t["plain"],
+                     "library_ms": t["library"], "tf32_ms": t["tf32"],
+                     "bound_ms": bnd[0], "bound_by": bnd[1]})
+    return main, bound_ms(*gemm3_work(1024, 512, 16384), torch.bfloat16), rows
+
+
+def library_gemms(names) -> tuple[dict, int]:
+    """Of a profile's CUDA kernel names: the float32 / complex64 GEMMs of
+    cuBLAS or CUTLASS (name -> launches; names holding "gemm" with a
+    32-bit type and no 64-bit one, the split GEMM aside), and how many
+    other GEMM launches there were."""
+    found, other = {}, 0
+    for name in names:
+        if "gemm" not in name.lower() or "bf16x3" in name:
+            continue
+        if GEMM_32.search(name) and not GEMM_64.search(name):
+            found[name[:90]] = found.get(name[:90], 0) + 1
+        else:
+            other += 1
+    return found, other
+
+
+def profiled(fn):
+    """fn() under torch.profiler: (its result, the CUDA kernels' names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def output_bytes(out) -> list:
@@ -2315,10 +2579,15 @@ def output_bytes(out) -> list:
             for t in items if isinstance(t, torch.Tensor)]
 
 
-def tier_invariance(cases: dict) -> dict:
+def same_bytes(x: list, y: list) -> bool:
+    return len(x) == len(y) and all(torch.equal(a, b) for a, b in zip(x, y))
+
+
+def tier_invariance(cases: dict, keep=()) -> tuple[dict, dict]:
     """Phase 35 (b): each case (name -> (fn, args)) called under float32
     twice and once under each lower tier; per case, the calls whose output
-    bytes differ from the first float32 call's."""
+    bytes differ from the first float32 call's; and for the cases in
+    ``keep``, the output bytes per lower tier."""
     from pauxy_tpu_torch import config
 
     def call(fn, args):
@@ -2329,15 +2598,17 @@ def tier_invariance(cases: dict) -> dict:
     config.set_matmul_precision("float32", "cuda")
     ref = {k: call(*c) for k, c in cases.items()}
     differ = {k: [] for k in cases}
+    kept = {k: {} for k in keep}
     for tier in ("float32",) + LADDER[1:]:
         config.set_matmul_precision(tier, "cuda")
         for k, c in cases.items():
             got = call(*c)
-            if len(got) != len(ref[k]) or not all(
-                    torch.equal(x, y) for x, y in zip(got, ref[k])):
+            if not same_bytes(got, ref[k]):
                 differ[k].append(tier)
+            if k in kept:
+                kept[k][tier] = got
     config.set_matmul_precision("float32", "cuda")
-    return differ
+    return differ, kept
 
 
 def pinned_cases(gen) -> dict:
@@ -2466,14 +2737,18 @@ def ladder_values(af, xi: np.ndarray, pop: np.ndarray) -> np.ndarray:
     return np.array([[r[5].real, r[10].real] for r in rows])
 
 
-def ladder_gaps(counts, zero_counts) -> tuple[dict, dict]:
+def ladder_gaps(counts, zero_counts) -> tuple[dict, dict, dict, dict]:
     """Phase 35 (c): each path of ``ladder_drivers`` on the host in
     complex128 once, then on the card in complex64 under each tier with
     the same injected draws; per path and tier the largest |card - host|
-    over a column's largest |host|, and the launches of the card runs."""
+    over a column's largest |host|; the launches of the card runs; the
+    split GEMM's launches per path and tier; and per path the cuBLAS /
+    CUTLASS float32 / complex64 GEMMs that the profiled "bfloat16_3x" run
+    launched (``library_gemms``: none expected) with its other GEMMs."""
     drivers = ladder_drivers()
     rng = np.random.default_rng(35)
     gaps, launched = {}, dict.fromkeys(counts(), 0)
+    split, libs = {}, {}
     taylor_ueg = os.environ.pop("PAUXY_TPU_TAYLOR_UEG", None)
     try:
         for name, build in drivers.items():
@@ -2484,17 +2759,23 @@ def ladder_gaps(counts, zero_counts) -> tuple[dict, dict]:
             xi = rng.normal(size=(steps, q.nwalkers, host_af.ham.nfields))
             pop = rng.uniform(size=(steps, 1))
             host = ladder_values(host_af, xi, pop)
-            gaps[name] = {}
+            gaps[name], split[name] = {}, {}
             for tier in LADDER:
                 zero_counts()
                 af = build("cuda", "single", tier)
                 if af.matmul_precision != tier:
                     raise AssertionError(f"{name}: driver reports "
                                          f"{af.matmul_precision}, want {tier}")
-                card = ladder_values(af, xi, pop)
+                if tier == "bfloat16_3x":
+                    card, names = profiled(
+                        lambda: ladder_values(af, xi, pop))
+                    libs[name] = library_gemms(names)
+                else:
+                    card = ladder_values(af, xi, pop)
                 torch.cuda.synchronize()
                 for k, v in counts().items():
                     launched[k] += v
+                split[name][tier] = counts()["gemm_bf16x3"]
                 if not np.isfinite(card).all():
                     raise AssertionError(f"{name} {tier}: {card}")
                 gaps[name][tier] = float((np.abs(card - host).max(axis=0)
@@ -2503,15 +2784,17 @@ def ladder_gaps(counts, zero_counts) -> tuple[dict, dict]:
     finally:
         if taylor_ueg is not None:
             os.environ["PAUXY_TPU_TAYLOR_UEG"] = taylor_ueg
-    return gaps, launched
+    return gaps, launched, split, libs
 
 
-def ladder_phmsd(counts, zero_counts) -> tuple[dict, dict]:
+def ladder_phmsd(counts, zero_counts) -> tuple[dict, dict, dict, tuple]:
     """Phase 35 (d): phase 26's PHMSD zero-variance anchor (the full space
     of 225 determinants, 256 walkers, 3 blocks of 10 steps) in complex64
     under each tier with the "xla" Taylor series: the largest relative
     |E - E_FCI| over every walker at each block's end and every block's
-    ETotal."""
+    ETotal; the launches; the split GEMM's launches per tier; the library
+    GEMMs of the first "bfloat16_3x" block, profiled
+    (``library_gemms``)."""
     from pauxy_tpu_torch.estimators import ci, mixed
     from pauxy_tpu_torch.models import make_generic, phmsd_trial
     from pauxy_tpu_torch.models.multi_slater import recompute_ci_coeffs
@@ -2527,7 +2810,8 @@ def ladder_phmsd(counts, zero_counts) -> tuple[dict, dict]:
                         dtype="double")
     e_fci = float(ci.simple_fci(host)[0][0])
     coeffs, _ = recompute_ci_coeffs(host, occa=occa, occb=occb)
-    gaps, launched = {}, dict.fromkeys(counts(), 0)
+    gaps, launched, split = {}, dict.fromkeys(counts(), 0), {}
+    libs = ({}, 0)
     for tier in LADDER:
         ham = make_generic((2, 2), h1e, chol, enuc, device="cuda",
                            dtype="single")
@@ -2539,65 +2823,112 @@ def ladder_phmsd(counts, zero_counts) -> tuple[dict, dict]:
                    propagator_options={"matmul_precision": tier},
                    estimator_options={"mixed": {"energy_eval_freq": 1}},
                    device="cuda")
-        gap = 0.0
-        for _ in range(3):
+        gap, split[tier] = 0.0, 0
+        for blk in range(3):
             zero_counts()
-            row = af.run_block()
+            if tier == "bfloat16_3x" and blk == 0:
+                row, names = profiled(af.run_block)
+                found, other = library_gemms(names)
+                libs = ({**libs[0], **found}, libs[1] + other)
+            else:
+                row = af.run_block()
             torch.cuda.synchronize()
             for k, v in counts().items():
                 launched[k] += v
+            split[tier] += counts()["gemm_bf16x3"]
             ew = mixed.energy_estimator(ham, trial)(
                 *trial_greens(trial, af.state.phia, af.state.phib)[:2])[0]
             gap = max(gap, float(((ew - e_fci).abs() / abs(e_fci)).max()),
                       abs(row[5].real - e_fci) / abs(e_fci))
         gaps[tier] = gap
         del af
-    return gaps, launched
+    return gaps, launched, split, libs
 
 
-def ladder_phase(tier_cases: dict, counts, zero_counts) -> tuple[str, dict]:
+def ladder_phase(tier_cases: dict, counts, zero_counts) -> tuple[str, dict,
+                                                                 dict]:
     """Phase 35, the matmul-precision ladder: (a) the product errors per
-    tier, (b) every kernel (on phase 3's inputs) and the pinned plain
-    routes byte for byte the same under every tier, (c) each tier's card
-    run against the host's complex128 on four paths and (d) the PHMSD
-    anchor, within LADDER_BOUNDS, (e) the process back at "highest". The
-    line and the launches of (c) and (d)'s card runs."""
+    tier, the split tier's within SPLIT_PRODUCT_BOUND; (a') the split GEMM
+    against its plain version (``check_gemm3``) and its times
+    (``gemm3_times``); (b) every kernel (on phase 3's inputs) and the
+    pinned plain routes byte for byte the same under every tier, the "xla"
+    control different under each; (c) each tier's card run against the
+    host's complex128 on four paths and (d) the PHMSD anchor, within
+    LADDER_BOUNDS, the split GEMM launched on each path under
+    "bfloat16_3x" only and no cuBLAS float32 / complex64 GEMM in those
+    runs; (e) the process back at "highest" without the route. The line,
+    the launches of (c) and (d)'s card runs, and the split GEMM's row of
+    the kernels line."""
     from pauxy_tpu_torch import config
+    from pauxy_tpu_torch.ops import gemm3_cuda
 
     prod = product_errors()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3535)
+    gemm_err, gemm_worst = check_gemm3(gen)
+    gemm_t, gemm_bound, gemm_rows = gemm3_times(gen)
     pinned = pinned_cases(gen)
-    differ = tier_invariance({**tier_cases, **pinned})
     control = [k for k in pinned if k.startswith("control")]
+    differ, kept = tier_invariance({**tier_cases, **pinned}, control)
     held = {k: v for k, v in differ.items() if k not in control}
     if any(held.values()):
         raise AssertionError(f"tier-invariance: outputs that differ from "
                              f"the float32 call's: {held}")
-    gaps, launched = ladder_gaps(counts, zero_counts)
-    gaps["phmsd"], phm_launched = ladder_phmsd(counts, zero_counts)
+    three = {k: differ[k] == list(LADDER[1:]) and not same_bytes(
+        kept[k]["bfloat16_3x"], kept[k]["bfloat16"]) for k in control}
+    if not all(three.values()):
+        raise AssertionError(f"the xla control does not differ three ways: "
+                             f"{ {k: differ[k] for k in control} }")
+    gaps, launched, split, libs = ladder_gaps(counts, zero_counts)
+    gaps["phmsd"], phm_launched, split["phmsd"], libs["phmsd"] = \
+        ladder_phmsd(counts, zero_counts)
     for k, v in phm_launched.items():
         launched[k] += v
     missed = {(p, t): g for p, row in gaps.items() for t, g in row.items()
               if not g <= LADDER_BOUNDS[p][t]}
+    unrouted = {p: s for p, s in split.items()
+                if not (s["bfloat16_3x"] > 0 and s["float32"] == 0
+                        and s["bfloat16"] == 0)}
+    library = {p: found for p, (found, _) in libs.items() if found}
     config.set_matmul_precision("float32", "cuda")
     restored = rung_in_force()
-    if torch.get_float32_matmul_precision() != "highest":
+    if (torch.get_float32_matmul_precision() != "highest"
+            or gemm3_cuda.route_installed()):
         raise AssertionError(f"after the ladder: {restored}")
     if missed:
         raise AssertionError(f"ladder: card vs host over the bound "
                              f"{missed} (bounds {LADDER_BOUNDS})")
+    if unrouted:
+        raise AssertionError(f"split GEMM launches per tier {unrouted}: want "
+                             f"some under bfloat16_3x only")
+    if library:
+        raise AssertionError(f"cuBLAS float32 / complex64 GEMMs under "
+                             f"bfloat16_3x: {library}")
     msg = ("(a) [1024, 512] x [512, 16384] against float64, relative max "
            "error real float32 / complex64 (median ms): " + "; ".join(
                f"{t} [{p['setting']}] {p['real']:.3e} / {p['complex']:.3e} "
                f"({p['real_ms']:.4f} / {p['complex_ms']:.4f} ms)"
                for t, p in prod.items())
+           + f"; bfloat16_3x <= {SPLIT_PRODUCT_BOUND:g}"
+           + "; (a') gemm_bf16x3 against its plain version over "
+           + ", ".join(c[0] for c in gemm3_cases(gen, torch.float32))
+           + ", float32 and complex64, within 12 k eps S + 4 eps |beta||C| "
+           f"(largest |d| / bound: {gemm_worst}; max |d| at the VHS shape "
+           f"{gemm_err:.3e}); at [1024,512]x[512,16384] f32 the wrapper "
+           f"{gemm_t['kernel']:.4f} ms (device {gemm_t['device']:.4f}), "
+           f"plain {gemm_t['plain']:.4f}, cuBLAS float32 "
+           f"{gemm_t['library']:.4f}, TF32 {gemm_t['tf32']:.4f}, bound "
+           f"{gemm_bound[0]:.5f} ({gemm_bound[1]}); " + "; ".join(
+               f"{r['shape']} {r['ms']:.4f} (device {r['device_ms']:.4f}) / "
+               f"plain {r['plain_ms']:.4f} / cuBLAS {r['library_ms']:.4f} / "
+               f"TF32 {r['tf32_ms']:.4f} / bound {r['bound_ms']:.5f} "
+               f"({r['bound_by']})" for r in gemm_rows)
            + "; (b) byte for byte equal to the float32 call under float32 "
            "again, bfloat16_3x and bfloat16: " + ", ".join(
                k for k in {**tier_cases, **pinned} if k not in control)
            + "; " + "; ".join(
-               f"{k} differs under {differ[k] or 'no tier'}"
-               for k in control)
+               f"{k} differs under {differ[k]}, and the two lower tiers "
+               f"from each other" for k in control)
            + "; (c) complex64 on the card vs complex128 on the host, same "
            "injected draws, max |d| over the scale (bound) per tier: "
            + "; ".join(
@@ -2608,8 +2939,17 @@ def ladder_phase(tier_cases: dict, counts, zero_counts) -> tuple[str, dict]:
            + "; (d) PHMSD max relative |E - E_FCI|, complex64, xla series: "
            + ", ".join(f"{t} {g:.3e} ({LADDER_BOUNDS['phmsd'][t]:g})"
                        for t, g in gaps["phmsd"].items())
+           + "; split GEMM launches per path (float32 / bfloat16_3x / "
+           "bfloat16): " + ", ".join(
+               f"{p} {s['float32']} / {s['bfloat16_3x']} / {s['bfloat16']}"
+               for p, s in split.items())
+           + "; profiled bfloat16_3x runs: no cuBLAS float32 / complex64 "
+           "GEMM, other (float64) GEMM launches " + ", ".join(
+               f"{p} {n}" for p, (_, n) in libs.items())
            + f"; card launches {launched}; (e) restored: {restored}")
-    return msg, launched
+    row = {"err": gemm_err, "times": gemm_t, "bound": gemm_bound,
+           "at_shapes": gemm_rows}
+    return msg, launched, row
 
 
 def main() -> None:
@@ -5401,8 +5741,13 @@ def main() -> None:
     say("34 walker mesh", msg + lap("34"))
 
     # ---- 35. the matmul-precision ladder ---------------------------------
-    msg, ladder_counts = ladder_phase(tier_cases, counts, zero_counts)
+    msg, ladder_counts, gemm_row = ladder_phase(tier_cases, counts,
+                                                zero_counts)
     say("35 matmul ladder", msg + lap("35"))
+    err["gemm_bf16x3"] = gemm_row["err"]
+    times["gemm_bf16x3"] = gemm_row["times"]
+    bounds["gemm_bf16x3"] = gemm_row["bound"]
+    at_shapes["gemm_bf16x3"] = gemm_row["at_shapes"]
     say("seconds", json.dumps(seconds))
 
     # ---- result ----------------------------------------------------------
@@ -5424,6 +5769,9 @@ def main() -> None:
                 "pauxy_tpu/ops/exx_pallas.py:36"),
         "cpqr": ("pauxy_tpu_torch/csrc/cpqr.cu",
                  "pauxy_tpu/ops/cpqr_pallas.py:89"),
+        # No Pallas kernel: JAX's 'bfloat16_3x' tier reaches XLA's dot.
+        "gemm_bf16x3": ("pauxy_tpu_torch/csrc/gemm_bf16x3.cu",
+                        "pauxy_tpu/config.py:91"),
     }
     by_path = {"continuous": cont, "discrete": disc, "generic": gen_counts,
                "generic_exx": exx_counts, "thermal_ueg": ueg_counts,
@@ -5465,7 +5813,8 @@ def main() -> None:
          "streaming_device_ms": times[k].get("streaming_device"),
          "plain_ms": times[k]["plain"],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-         "library_ms": times[k].get("library"), "at_shapes": at_shapes[k]}
+         "library_ms": times[k].get("library"),
+         "tf32_ms": times[k].get("tf32"), "at_shapes": at_shapes[k]}
         for k, (src, rep) in meta.items()
     ]
     print(json.dumps({"kernels": kernels}))

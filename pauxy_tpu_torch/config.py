@@ -84,10 +84,16 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return torch.device(device)
 
 
-# The JAX package's ladder names and the torch rung each maps to
+# The JAX package's ladder names and the torch rung each sets
 # (pauxy_tpu/config.py's alias chains: "highest", "high", "default").
-MATMUL_TIERS = {"float32": "highest", "bfloat16_3x": "high",
+# "bfloat16_3x" keeps IEEE float32 in cuBLAS: on a card its float32 /
+# complex64 products take the 3-pass split GEMM (SPLIT_TIER) instead.
+MATMUL_TIERS = {"float32": "highest", "bfloat16_3x": "highest",
                 "bfloat16": "medium"}
+SPLIT_TIER = "bfloat16_3x"
+
+# Open config.full_precision() bodies (the process's, like torch's rung).
+_pins = 0
 
 
 def _ladder_name(policy: str | None) -> str:
@@ -106,52 +112,76 @@ def matmul_tier(policy: str | None) -> str:
     return MATMUL_TIERS[_ladder_name(policy)]
 
 
+def split_route(policy: str | None, device: str | torch.device) -> bool:
+    """Whether the tier sends float32 / complex64 products on ``device``
+    through the 3-pass bf16 split GEMM: ``"bfloat16_3x"`` on a CUDA device
+    (a name off the ladder raises ``ValueError``)."""
+    name = _ladder_name(policy)
+    return name == SPLIT_TIER and torch.device(device).type == "cuda"
+
+
 def set_matmul_precision(policy: str | None,
                          device: str | torch.device) -> str:
-    """Set the ``matmul_precision`` tier for float32 products on ``device``;
-    returns the ladder name in force.
+    """Set the ``matmul_precision`` tier for float32 / complex64 products
+    on ``device``; returns the ladder name in force.
 
-    The JAX package's three tiers map name for name onto
-    ``torch.set_float32_matmul_precision``'s rungs, the one torch API
-    used here. The rung is the process's: a card driver's lower tier also
-    reaches the CPU float32 products of the same process.
+    * ``"float32"``     -> torch's ``"highest"``: IEEE float32 products
+      (default);
+    * ``"bfloat16_3x"`` -> ``"highest"`` and the split route
+      (``ops/gemm3_cuda.install_route``): every aten mm / bmm / addmm /
+      baddbmm of float32 or complex64 on the card launches the 3-pass bf16
+      split GEMM (``csrc/gemm_bf16x3.cu``), XLA's ``BF16_BF16_F32_X3``
+      that JAX's tier runs on the TPU (3 passes, ~3e-5 relative there);
+      the product's relative error at the Generic VHS shape is
+      ``chip_smoke.py`` phase 35 (a)'s reading;
+    * ``"bfloat16"``    -> ``"medium"``: on an NVIDIA H100 80GB HBM3 at
+      700 W (torch 2.11, CUDA 12.8) cuBLAS's single-pass TF32 mode
+      (operands rounded to a 10-bit mantissa, float32 sums), complex64
+      included: 2.8e-4 relative at [1024, 512] x [512, 128 * 128] against
+      float64, above float32's 1.0e-6 and inside JAX's one bf16 pass
+      (~5e-3), so the port keeps the more accurate rung.
 
-    * ``"float32"``     -> ``"highest"``: IEEE float32 products (default);
-    * ``"bfloat16_3x"`` -> ``"high"``;
-    * ``"bfloat16"``    -> ``"medium"``.
-
-    On an NVIDIA H100 80GB HBM3 at 700 W (torch 2.11, CUDA 12.8) torch
-    sends both lower rungs to cuBLAS's TF32 tensor-core mode
-    (``torch.backends.cuda.matmul.fp32_precision`` "tf32"), complex64
-    products included: operands rounded to a 10-bit mantissa, float32
-    sums, so ``"bfloat16_3x"`` and ``"bfloat16"`` are one tier there.
-    Relative error max |C - C_64| / max |C_64| of the product at the
-    Generic VHS shape [1024, 512] x [512, 128 * 128] against float64
-    (``chip_smoke.py`` phase 35 (a)): "float32" 1.0e-6 real float32 and
-    1.5e-6 complex64; both lower tiers 2.8e-4 and 2.8e-4.
-
-    On a CPU device nothing changes and ``"float32"`` comes back, as the
-    JAX package's CPU backend answers: torch's ``"medium"`` would send CPU
-    float32 products through oneDNN's bf16. A name off the ladder raises
-    ``ValueError`` on either device. The hand-written kernels do not read
-    the rung, as JAX's ladder does not reach its Pallas bodies.
+    Any tier but ``"bfloat16_3x"`` removes the split route, so
+    ``"float32"`` and ``"bfloat16"`` run torch's own kernels with no cost
+    a call. The rung and the route are the process's: a card driver's
+    lower tier also reaches the CPU float32 products of the same process
+    (the route only the card's). On a CPU device nothing changes and
+    ``"float32"`` comes back, as the JAX package's CPU backend answers:
+    torch's ``"medium"`` would send CPU float32 products through oneDNN's
+    bf16. A name off the ladder raises ``ValueError`` on either device.
+    The hand-written kernels read neither, as JAX's ladder does not reach
+    its Pallas bodies.
     """
     name = _ladder_name(policy)
     if torch.device(device).type == "cpu":
         return "float32"
+    from pauxy_tpu_torch.ops import gemm3_cuda
+
     torch.set_float32_matmul_precision(MATMUL_TIERS[name])
+    if split_route(name, device):
+        gemm3_cuda.install_route()
+    else:
+        gemm3_cuda.remove_route()
     return name
+
+
+def pinned() -> bool:
+    """Whether a ``full_precision()`` body is open."""
+    return _pins > 0
 
 
 @contextlib.contextmanager
 def full_precision():
-    """IEEE float32 products (rung ``"highest"``) in the body, whatever the
-    tier; the rung in force before comes back afterwards, also when the
-    body raises. Torch's counterpart of JAX's per-product
-    ``precision=HIGHEST``."""
+    """IEEE float32 products in the body, whatever the tier: torch's rung
+    ``"highest"`` and the split route passed by (its products go to
+    cuBLAS); both come back afterwards, also when the body raises.
+    Torch's counterpart of JAX's per-product ``precision=HIGHEST``."""
+    global _pins
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")
+    _pins += 1
     try:
         yield
     finally:
+        _pins -= 1
         torch.set_float32_matmul_precision(prev)

@@ -1,6 +1,6 @@
 // Asynchronous global-to-shared copies (cp.async, sm_80 and later), for the
 // kernels that stream tiles through a ring of shared-memory stages while
-// they compute on the previous stage (taylor.cu, exx.cu).
+// they compute on the previous stage (taylor.cu, exx.cu, gemm_bf16x3.cu).
 //
 // A copy with valid == false writes zeros to its shared-memory destination
 // and reads nothing (the source operand's size is 0), so a tile's ragged
@@ -24,12 +24,30 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(n));
 }
 
+// 16 bytes of which the first `bytes` (0 to 16) are read and the rest are
+// zeros; both addresses 16-byte aligned (a ragged edge of a vector copy).
+__device__ __forceinline__ void cp_async16_n(void* smem, const void* gmem,
+                                             int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
+
 // 8 bytes; both addresses 8-byte aligned.
 __device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
                                           bool valid) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   const int n = valid ? 8 : 0;
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+
+// 4 bytes; both addresses 4-byte aligned.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(gmem), "r"(n));
 }
 

@@ -130,3 +130,55 @@ def make_hubbard(nup: int, ndown: int, U: float, nx: int, ny: int = 1,
                          ).to(device),
         U=U, t=t, nx=nx, ny=ny, nup=nup, ndown=ndown, symmetric=symmetric,
     )
+
+
+def fcidump_header(nel: int, norb: int, spin: int) -> str:
+    """&FCI namelist header (``pauxy/utils/io.py:32-43``)."""
+    orbsym = ",".join(["1"] * norb)
+    return (
+        "&FCI\n"
+        f"NORB={int(norb)},\n"
+        f"NELEC={int(nel)},\n"
+        f"MS2={int(spin)},\n"
+        "UHF=.FALSE.,\n"
+        f"ORBSYM={orbsym},\n"
+        "&END\n"
+    )
+
+
+def fcidump(ham: Hubbard, to_string: bool = False):
+    """FCIDUMP of the Hubbard integrals in the site basis.
+
+    Counterpart of ``pauxy/systems/hubbard.py:106-148``: on-site U as
+    (ii|ii), hoppings as one-body integrals, core energy 0. Complex
+    hoppings (twisted boundaries) use the "(re, im)" format. The string
+    equals the JAX package's for the same lattice and precision.
+    """
+    t = ham.T.detach().cpu().numpy()
+    m = ham.nbasis
+    cplx = np.iscomplexobj(t) and np.abs(t.imag).max() > 1e-12
+    out = fcidump_header(ham.nup + ham.ndown, m, ham.nup - ham.ndown)
+    if cplx:
+        fmt = "({: 10.8e}, {: 10.8e}) {:>3d} {:>3d} {:>3d} {:>3d}\n"
+        for i in range(1, m + 1):
+            out += fmt.format(ham.U, 0.0, i, i, i, i)
+        for i in range(m):
+            for j in range(i + 1, m):
+                v = t[0][i, j]
+                if abs(v) > 1e-8:
+                    out += fmt.format(v.real, v.imag, i + 1, j + 1, 0, 0)
+        out += fmt.format(0.0, 0.0, 0, 0, 0, 0)
+    else:
+        fmt = "{: 10.8e} {:>3d} {:>3d} {:>3d} {:>3d}\n"
+        for i in range(1, m + 1):
+            out += fmt.format(ham.U, i, i, i, i)
+        for i in range(m):
+            for j in range(i + 1, m):
+                v = t[0][i, j].real
+                if abs(v) > 1e-8:
+                    out += fmt.format(v, i + 1, j + 1, 0, 0)
+        out += fmt.format(0.0, 0, 0, 0, 0)
+    if to_string:
+        return out
+    print(out)
+    return None

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pauxy_tpu_torch"
 SOURCES = ("gauss_jordan.cuh", "async_copy.cuh", "greens.cu", "batchla.cu",
            "chol_inv.cu", "sweep.cu", "taylor.cu", "taylor_bf16.cu", "exx.cu",
-           "cpqr.cu")
+           "cpqr.cu", "gemm_bf16x3.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +38,12 @@ def round_up(a: int, b: int) -> int:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+# The split GEMM: a, b, c, d, batch, m, n, k, the four operands' (batch,
+# row, column) strides, alpha and beta (re, im), conj_a, conj_b, a_kmaj,
+# b_kmaj, vec_a, vec_b, skinny, stream.
+_GEMM3 = (_P,) * 4 + (_I,) * 4 + (_L,) * 12 + (_F,) * 4 + (_I,) * 7 + (_P,)
 # name -> argtypes; each returns the cudaError_t of its launch.
 SIGNATURES = {
     "pauxy_greens_lanes_c64": (_P,) * 4 + (_I,) * 8 + (_P,),
@@ -58,6 +64,8 @@ SIGNATURES = {
     "pauxy_exx_c128": (_P,) * 6 + (_I,) * 11 + (_P,),
     "pauxy_cpqr_c64": (_P,) * 4 + (_I, _I, _P),
     "pauxy_cpqr_c128": (_P,) * 4 + (_I, _I, _P),
+    "pauxy_gemm_bf16x3_f32": _GEMM3,
+    "pauxy_gemm_bf16x3_c64": _GEMM3,
 }
 
 _lib = None

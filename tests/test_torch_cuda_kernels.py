@@ -68,17 +68,24 @@ and free projection, the Generic inner, the mean-field trial,
 average_gf). The cpqr kernel on the low-rank stack's masked input (dead
 rows and columns zeroed exactly) keeps the identities, gives exact zeros
 on the dead columns' diagonal, and the low-rank G and log det(1 + A) on
-the card agree with the plain versions on the CPU within TOL.
+the card agree with the plain versions on the CPU within TOL. The 3-pass
+split GEMM of the 'bfloat16_3x' tier agrees with its plain version within
+chip_smoke.gemm3_tolerance (12 k eps S) on chip_smoke.gemm3_cases; under
+that tier every float32 / complex64 product on the card launches it (the
+route's result equal to the wrapper's bit for bit), a full_precision()
+body and float64 products do not, and "float32" gives cuBLAS's products
+back.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import pivot_cases
+from chip_smoke import gemm3_cases, gemm3_tolerance, pivot_cases
+from pauxy_tpu_torch import config
 from pauxy_tpu_torch.ops import (batchla_cuda, clinalg, cpqr_cuda,
-                                 cuda_build, exx_cuda, greens_cuda,
-                                 sweep_cuda, taylor_cuda)
+                                 cuda_build, exx_cuda, gemm3_cuda,
+                                 greens_cuda, sweep_cuda, taylor_cuda)
 
 torch.set_num_threads(1)
 
@@ -1618,3 +1625,47 @@ def test_file_driven_generic_on_card_matches_cpu(tmp_path):
             assert taylor_cuda.launches == before[1] + 20
     for a, b in zip(rows["cuda"], rows["cpu"]):
         np.testing.assert_allclose(a[:10], b[:10], rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+def test_split_gemm_matches_plain(dtype):
+    need_cuda()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    for name, kern, plain, k, alpha, beta, c, a, b in gemm3_cases(gen,
+                                                                   dtype):
+        got, want = kern(a, b), plain(a, b)
+        tol = gemm3_tolerance(a, b, k, alpha, beta, c)
+        assert bool(((got - want).abs().double() <= tol).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+def test_split_route_on_card(dtype):
+    need_cuda()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    a = torch.randn(3, 64, 48, dtype=dtype, device="cuda", generator=gen)
+    b = torch.randn(48, 32, dtype=dtype, device="cuda", generator=gen)
+    d = a.to(torch.complex128 if dtype.is_complex else torch.float64)
+    ieee = a[0] @ b
+    try:
+        config.set_matmul_precision("bfloat16_3x", "cuda")
+        before = gemm3_cuda.launches
+        got = a[0] @ b
+        torch.einsum("wik,kj->wij", a, b)
+        torch.addmm(b[0], a[0], b)
+        torch.baddbmm(a[:, :, :32], a, b.expand(3, 48, 32))
+        torch.cuda.synchronize()
+        assert gemm3_cuda.launches == before + 4
+        assert torch.equal(got, gemm3_cuda.mm(a[0], b))
+        before = gemm3_cuda.launches
+        with config.full_precision():
+            assert torch.equal(a[0] @ b, ieee)
+        d[0] @ d[0].T
+        assert gemm3_cuda.launches == before
+    finally:
+        config.set_matmul_precision("float32", "cuda")
+    assert not gemm3_cuda.route_installed()
+    assert torch.equal(a[0] @ b, ieee)

@@ -2,13 +2,14 @@
 config.set_matmul_precision, config.full_precision), on the CPU.
 
 * ``matmul_tier`` maps the JAX package's ladder names onto torch's rungs
-  ("float32" -> "highest", "bfloat16_3x" -> "high", "bfloat16" ->
-  "medium"), reads ``PAUXY_TPU_MATMUL`` for ``None`` and refuses any other
-  name with ``ValueError``.
+  ("float32" -> "highest", "bfloat16_3x" -> "highest", its products taking
+  the 3-pass split GEMM's route on a card instead of cuBLAS's TF32,
+  "bfloat16" -> "medium"), reads ``PAUXY_TPU_MATMUL`` for ``None`` and
+  refuses any other name with ``ValueError``.
 * On a CPU device the tier changes nothing and reports "float32" (as
   tests/test_config.py's ``test_cpu_is_noop`` holds JAX's); on a CUDA
-  device it sets the process's rung, and a later "float32" sets IEEE
-  again. Building either driver on the CPU leaves torch's setting as it
+  device it sets the process's rung (and installs the split route for
+  "bfloat16_3x" only), and a later "float32" sets IEEE again. Building either driver on the CPU leaves torch's setting as it
   was.
 * ``full_precision`` forces "highest" in its body and restores the rung
   before it, also when the body raises; the plain pivoted QR runs under it
@@ -22,12 +23,12 @@ import pytest
 import torch
 
 from pauxy_tpu_torch import config
-from pauxy_tpu_torch.ops import cpqr_cuda
+from pauxy_tpu_torch.ops import cpqr_cuda, gemm3_cuda
 
 torch.set_num_threads(1)
 
 CPU = dict(device="cpu", dtype="double")
-TIERS = [("float32", "highest"), ("bfloat16_3x", "high"),
+TIERS = [("float32", "highest"), ("bfloat16_3x", "highest"),
          ("bfloat16", "medium")]
 
 
@@ -43,9 +44,11 @@ def torch_setting():
 
 @pytest.fixture
 def restore_rung():
-    """Put the process back at "highest" after a test that moves it."""
+    """Put the process back at "highest", without the split route, after
+    a test that moves it."""
     yield
     torch.set_float32_matmul_precision("highest")
+    gemm3_cuda.remove_route()
 
 
 @pytest.mark.parametrize("name,rung", TIERS)
@@ -91,9 +94,11 @@ def test_cuda_sets_the_rung_and_float32_restores_ieee(restore_rung):
     for name, rung in TIERS[::-1] + TIERS:
         assert config.set_matmul_precision(name, "cuda") == name
         assert torch.get_float32_matmul_precision() == rung
+        assert gemm3_cuda.route_installed() is (name == "bfloat16_3x")
     assert config.set_matmul_precision("bfloat16", "cuda:0") == "bfloat16"
     assert config.set_matmul_precision(None, "cuda") == "float32"
     assert torch.get_float32_matmul_precision() == "highest"
+    assert not gemm3_cuda.route_installed()
 
 
 @pytest.mark.parametrize("rung", ["highest", "high", "medium"])
