@@ -285,13 +285,20 @@ non-zero and prints no result line:
      torch setting in force, "bfloat16_3x" within 3e-5; (a') the split GEMM
      against its plain version (ops/gemm3) at (m, k, n) in {(7, 16, 7),
      (93, 93, 93), (257, 14, 257), (1, 33, 1), (5, 0, 3), the VHS shape},
-     a batch against a broadcast operand, a batch of 70000 (two launches),
-     transposed, conjugated, permuted and unaligned operands, the skinny
-     route's batched dot products, permuted vector-matrix products and a
-     small N, addmm and baddbmm with alpha and beta, float32 and
-     complex64, within
-     gemm3_tolerance (12 k eps S), and its times beside cuBLAS's float32
-     and TF32 products and its bound at the VHS shape (real and complex64)
+     a batch against a broadcast operand, a batch of 70000, transposed,
+     conjugated, permuted and unaligned operands, the skinny route's
+     batched dot products, permuted vector-matrix products and a small N,
+     addmm and baddbmm with alpha and beta; the wgmma tiles' ragged edges
+     ((1000, 300, 16383), (129, 17, 130)), the narrow tile ((200, 64, 14),
+     (300, 64, 30), the "xla" Taylor product [512, 257, 257] x
+     [512, 257, 14]), one product staged by TMA and by row copies (rows of
+     97), a broadcast A with B conjugated, baddbmm on the tile route, and
+     float32 .real / .imag planes of complex tensors as A and as B (the VHS
+     shape and small); float32 and complex64, within gemm3_tolerance
+     (12 k eps S), each case on the route ``plan`` picks for it and every
+     route taken (``launches_by_route``); and its times beside cuBLAS's
+     float32 and TF32 products and its bound at the VHS shape (real,
+     complex64 and A a complex tensor's real plane), the Taylor product
      and a lattice shape; (b) every kernel on its phase-3 inputs, and the
      plain routes pinned to IEEE float32 (the plain cpqr past max_m and
      unpivoted, the Taylor kernels' series past their caps), byte for byte
@@ -1899,6 +1906,11 @@ def rows_rel(a: np.ndarray, b: np.ndarray) -> float:
                                                     1e-30)))
 
 
+# The kernels that count their launches by route, and the routes.
+ROUTES = {"taylor_bf16": ("resident", "streaming"),
+          "gemm_bf16x3": ("tile", "narrow", "skinny")}
+
+
 def kernel_counts() -> dict:
     """Every kernel wrapper's launch count in this process."""
     from pauxy_tpu_torch.ops import (batchla_cuda, cpqr_cuda, exx_cuda,
@@ -1915,7 +1927,9 @@ def kernel_counts() -> dict:
             "taylor_bf16_streaming": taylor_cuda.launches_bf16_streaming,
             "exx": exx_cuda.launches,
             "cpqr": cpqr_cuda.launches,
-            "gemm_bf16x3": gemm3_cuda.launches}
+            "gemm_bf16x3": gemm3_cuda.launches,
+            **{f"gemm_bf16x3_{r}": n
+               for r, n in gemm3_cuda.launches_by_route.items()}}
 
 
 def zero_kernel_counts() -> None:
@@ -1934,6 +1948,8 @@ def zero_kernel_counts() -> None:
     exx_cuda.launches = 0
     cpqr_cuda.launches = 0
     gemm3_cuda.launches = 0
+    for r in gemm3_cuda.launches_by_route:
+        gemm3_cuda.launches_by_route[r] = 0
 
 
 # Phase 34's runs on a [walker 1, chol 2] mesh: (a) back propagation with
@@ -2412,7 +2428,7 @@ def gemm3_cases(gen, dtype) -> list:
     cases.append(("bmm batch 3, broadcast B", gemm3_cuda.bmm, gemm3.bmm, 16,
                   1.0, 0.0, None, a, b))
     a, b = rnd(70000, 2, 3), rnd(70000, 3, 2)
-    cases.append(("bmm batch 70000 (two launches)", gemm3_cuda.bmm,
+    cases.append(("bmm batch 70000", gemm3_cuda.bmm,
                   gemm3.bmm, 3, 1.0, 0.0, None, a, b))
     at, bt = rnd(14, 257), rnd(257, 14)
     a, b = at.T, bt.T
@@ -2467,22 +2483,102 @@ def gemm3_cases(gen, dtype) -> list:
                   lambda x, y: gemm3.baddbmm(cb, x, y, beta=-1.5,
                                              alpha=0.75),
                   16, 0.75, -1.5, cb, rnd(3, 7, 16), rnd(3, 16, 7)))
+    # The wgmma tiles: ragged edges of the 128-row tile; the narrow tile
+    # (the "xla" Taylor product among them); one product with A in four
+    # layouts: contiguous (TMA), rows of 97 elements (TMA over groups of
+    # rows), a base 4 bytes past 16 (a bulk copy a row) and columns at
+    # stride 3 (an element a copy); conjugated, broadcast and beta C on the
+    # tile routes.
+    for m, k, n in ((1000, 300, 16383), (129, 17, 130), (200, 64, 14),
+                    (300, 64, 30)):
+        cases.append((f"mm ({m},{k},{n})", gemm3_cuda.mm, gemm3.mm, k, 1.0,
+                      0.0, None, rnd(m, k), rnd(k, n)))
+    cases.append(("bmm [512,257,257]x[512,257,14]", gemm3_cuda.bmm,
+                  gemm3.bmm, 257, 1.0, 0.0, None, rnd(512, 257, 257),
+                  rnd(512, 257, 14)))
+    x, y = rnd(96, 96), rnd(96, 96)
+    rows97 = torch.zeros(96, 97, dtype=dtype, device="cuda")
+    rows97[:, :96] = x
+    past16 = torch.zeros(96 * 96 + 1, dtype=dtype, device="cuda")
+    past16[1:] = x.reshape(-1)
+    cols3 = torch.zeros(96, 288, dtype=dtype, device="cuda")
+    cols3[:, ::3] = x
+    for label, a in (("TMA", x), ("rows of 97, TMA over groups of rows",
+                                  rows97[:, :96]),
+                     ("base 4 bytes past 16, a bulk copy a row",
+                      past16[1:].view(96, 96)),
+                     ("columns at stride 3, an element a copy",
+                      cols3[:, ::3])):
+        cases.append((f"mm (96,96,96), {label}", gemm3_cuda.mm, gemm3.mm, 96,
+                      1.0, 0.0, None, a, y))
+    ab = rnd(1, 128, 128).expand(6, 128, 128)
+    cases.append(("bmm broadcast A [6,128,128]x[6,128,16]" + (
+        ", B conjugated" if dtype.is_complex else ""), gemm3_cuda.bmm,
+                  gemm3.bmm, 128, 1.0, 0.0, None, ab,
+                  rnd(6, 128, 16).conj() if dtype.is_complex
+                  else rnd(6, 128, 16)))
+    cc = rnd(4, 200, 150)
+    cases.append(("baddbmm (4,200,64,150)",
+                  lambda x, y: gemm3_cuda.baddbmm(cc, x, y, beta=beta,
+                                                  alpha=alpha),
+                  lambda x, y: gemm3.baddbmm(cc, x, y, beta=beta,
+                                             alpha=alpha),
+                  64, alpha, beta, cc, rnd(4, 200, 64).conj()
+                  if dtype.is_complex else rnd(4, 200, 64),
+                  rnd(4, 64, 150)))
+    if not dtype.is_complex:
+        # float32 views at stride 2 (a complex tensor's planes), staged
+        # through their complex pairs, as A and as B (transposed: K-major).
+        c64 = torch.complex64
+
+        def crnd(*shape):
+            return torch.randn(*shape, dtype=c64, device="cuda",
+                               generator=gen)
+
+        cases.append(("mm A .real of c64 [1024,512] x [512,16384]",
+                      gemm3_cuda.mm, gemm3.mm, 512, 1.0, 0.0, None,
+                      crnd(1024, 512).real, rnd(512, 16384)))
+        cases.append(("mm [1024,512] x B .imag of c64 [16384,512]^T",
+                      gemm3_cuda.mm, gemm3.mm, 512, 1.0, 0.0, None,
+                      rnd(1024, 512), crnd(16384, 512).imag.T))
+        cases.append(("mm A .imag of c64 [200,64] x [64,300]", gemm3_cuda.mm,
+                      gemm3.mm, 64, 1.0, 0.0, None, crnd(200, 64).imag,
+                      rnd(64, 300)))
+        cases.append(("bmm A .real of c64 [3,130,40]^T x B .imag of c64 "
+                      "[3,130,20]", gemm3_cuda.bmm, gemm3.bmm, 130, 1.0, 0.0,
+                      None, crnd(3, 130, 40).real.transpose(1, 2),
+                      crnd(3, 130, 20).imag))
     return cases
 
 
-def check_gemm3(gen) -> tuple[float, str]:
+def check_gemm3(gen) -> tuple[float, str, dict]:
     """Phase 35 (a'): the split GEMM against its plain version on the card
     (float32 and complex64; ``gemm3_cases``), elementwise within
-    ``gemm3_tolerance``. Returns the largest |kernel - plain| at the
-    Generic VHS shape (float32) and the readings (largest |d| / bound per
-    type)."""
-    main_err, worst = None, {}
+    ``gemm3_tolerance``, each case launched on the route ``plan`` picks for
+    it and every route taken in both types. Returns the largest
+    |kernel - plain| at the Generic VHS shape (float32), the readings
+    (largest |d| / bound per type) and the launches by type and route."""
+    from pauxy_tpu_torch.ops import gemm3_cuda
+
+    main_err, worst, taken = None, {}, {}
     for dtype in (torch.float32, torch.complex64):
         worst[dtype] = (0.0, "")
+        by_route = taken[str(dtype).split(".")[-1]] = dict.fromkeys(
+            gemm3_cuda.launches_by_route, 0)
         for name, kern, plain, k, alpha, beta, c, a, b in gemm3_cases(gen,
                                                                        dtype):
+            route = gemm3_cuda.plan(a, b).route
+            before = dict(gemm3_cuda.launches_by_route)
             got, want = kern(a, b), plain(a, b)
             torch.cuda.synchronize()
+            delta = {r: gemm3_cuda.launches_by_route[r] - before[r]
+                     for r in before}
+            if got.numel() and (delta[route] < 1 or sum(delta.values())
+                                != delta[route]):
+                raise AssertionError(f"gemm_bf16x3 {dtype} {name}: launches "
+                                     f"by route {delta}, want {route}")
+            for r, n in delta.items():
+                by_route[r] += n
             if got.shape != want.shape or not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"gemm_bf16x3 {dtype} {name}: shape "
                                      f"{tuple(got.shape)} or not finite")
@@ -2498,26 +2594,38 @@ def check_gemm3(gen) -> tuple[float, str]:
             if dtype == torch.float32 and name == "mm (1024,512,16384)":
                 main_err = float(d.max())
             del got, want, d, tol
+    missing = [(t, r) for t, rs in taken.items() for r, n in rs.items()
+               if n == 0]
+    if missing:
+        raise AssertionError(f"gemm_bf16x3: routes never taken {missing}: "
+                             f"{taken}")
     return main_err, "; ".join(
         f"{str(t).split('.')[-1]} {r:.3e} ({n})" for t, (r, n) in
-        worst.items())
+        worst.items()), taken
 
 
 def gemm3_times(gen) -> tuple[dict, tuple, list]:
     """The split GEMM's median ms at the Generic VHS shape (the wrapper;
-    the kernel's device time; the plain version; cuBLAS's IEEE float32
+    the kernel's device time, by the profiler and by CUDA events over
+    queued launches; the plain version; cuBLAS's IEEE float32
     product as the library call and its TF32 mode), its bound, and the
-    same at the VHS shape in complex64 and at a lattice shape (phase 4's
+    same as ``at_shape`` rows: at the VHS shape in complex64 and with A
+    the real plane of a complex64 [1024, 512] (the Generic block's
+    products), the "xla" Taylor product [512, 257, 257] x [512, 257, 14]
+    complex64 (the narrow tile), and a lattice shape (phase 4's
     propagator applied to every walker: [16, 16] x [16, 7 x 1024]
-    complex64) as ``at_shape`` rows."""
+    complex64)."""
     from pauxy_tpu_torch import config
     from pauxy_tpu_torch.ops import gemm3, gemm3_cuda
 
     (a, b), (ac, bc) = vhs_operands(gen)
-    lat = (torch.randn(16, 16, dtype=torch.complex64, device="cuda",
-                       generator=gen),
-           torch.randn(16, 7 * 1024, dtype=torch.complex64, device="cuda",
-                       generator=gen))
+
+    def crnd(*shape):
+        return torch.randn(*shape, dtype=torch.complex64, device="cuda",
+                           generator=gen)
+
+    lat = crnd(16, 16), crnd(16, 7 * 1024)
+    taylor = crnd(512, 257, 257), crnd(512, 257, 14)
 
     def timed(x, y, reps=10):
         t = median_ms({"kernel": lambda: gemm3_cuda.mm(x, y),
@@ -2527,6 +2635,9 @@ def gemm3_times(gen) -> tuple[dict, tuple, list]:
         t["tf32"] = median_ms({"tf32": lambda: x @ y}, reps=reps)["tf32"]
         config.set_matmul_precision("float32", "cuda")
         t["device"] = device_ms(lambda: gemm3_cuda.mm(x, y), "gemm_bf16x3")
+        # The same by CUDA events over launches queued behind a sleep, a
+        # check on the profiler's figure.
+        t["queued"] = queued_ms(lambda: gemm3_cuda.mm(x, y))
         return t
 
     main = timed(a, b)
@@ -2534,12 +2645,17 @@ def gemm3_times(gen) -> tuple[dict, tuple, list]:
     for shape, (x, y), wk in (
             ("[1024,512]x[512,16384] c64 (the Generic VHS build)", (ac, bc),
              gemm3_work(1024, 512, 16384, cplx=True)),
+            ("[1024,512]x[512,16384] f32, A the real plane of a c64 tensor",
+             (ac.real, b), gemm3_work(1024, 512, 16384)),
+            ("[512,257,257]x[512,257,14] c64 (the \"xla\" Taylor product)",
+             taylor, gemm3_work(257, 257, 14, batch=512, cplx=True)),
             ("[16,16]x[16,7168] c64 (a lattice shape)", lat,
              gemm3_work(16, 16, 7168, cplx=True))):
         t = timed(x, y)
         bnd = bound_ms(*wk, torch.bfloat16)
         rows.append({"shape": shape, "ms": t["kernel"],
-                     "device_ms": t["device"], "plain_ms": t["plain"],
+                     "device_ms": t["device"], "queued_ms": t["queued"],
+                     "plain_ms": t["plain"],
                      "library_ms": t["library"], "tf32_ms": t["tf32"],
                      "bound_ms": bnd[0], "bound_by": bnd[1]})
     return main, bound_ms(*gemm3_work(1024, 512, 16384), torch.bfloat16), rows
@@ -2865,7 +2981,7 @@ def ladder_phase(tier_cases: dict, counts, zero_counts) -> tuple[str, dict,
     prod = product_errors()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3535)
-    gemm_err, gemm_worst = check_gemm3(gen)
+    gemm_err, gemm_worst, gemm_routes = check_gemm3(gen)
     gemm_t, gemm_bound, gemm_rows = gemm3_times(gen)
     pinned = pinned_cases(gen)
     control = [k for k in pinned if k.startswith("control")]
@@ -2914,12 +3030,15 @@ def ladder_phase(tier_cases: dict, counts, zero_counts) -> tuple[str, dict,
            + ", ".join(c[0] for c in gemm3_cases(gen, torch.float32))
            + ", float32 and complex64, within 12 k eps S + 4 eps |beta||C| "
            f"(largest |d| / bound: {gemm_worst}; max |d| at the VHS shape "
-           f"{gemm_err:.3e}); at [1024,512]x[512,16384] f32 the wrapper "
-           f"{gemm_t['kernel']:.4f} ms (device {gemm_t['device']:.4f}), "
+           f"{gemm_err:.3e}), each on the route plan picks, launches by "
+           f"route {gemm_routes}; at [1024,512]x[512,16384] f32 the wrapper "
+           f"{gemm_t['kernel']:.4f} ms (device {gemm_t['device']:.4f}, "
+           f"queued {gemm_t['queued']:.4f}), "
            f"plain {gemm_t['plain']:.4f}, cuBLAS float32 "
            f"{gemm_t['library']:.4f}, TF32 {gemm_t['tf32']:.4f}, bound "
            f"{gemm_bound[0]:.5f} ({gemm_bound[1]}); " + "; ".join(
-               f"{r['shape']} {r['ms']:.4f} (device {r['device_ms']:.4f}) / "
+               f"{r['shape']} {r['ms']:.4f} (device {r['device_ms']:.4f}, "
+               f"queued {r['queued_ms']:.4f}) / "
                f"plain {r['plain_ms']:.4f} / cuBLAS {r['library_ms']:.4f} / "
                f"TF32 {r['tf32_ms']:.4f} / bound {r['bound_ms']:.5f} "
                f"({r['bound_by']})" for r in gemm_rows)
@@ -5803,8 +5922,8 @@ def main() -> None:
          "launches": sum(c[k] for c in by_path.values()),
          "launches_by_path": {p: c[k] for p, c in by_path.items()},
          "launches_by_route": ({r: sum(c[f"{k}_{r}"] for c in by_path.values())
-                                for r in ("resident", "streaming")}
-                               if k == "taylor_bf16" else None),
+                                for r in ROUTES[k]}
+                               if k in ROUTES else None),
          "max_abs_err": err[k],
          "ms": times[k]["kernel"], "device_ms": times[k].get("device"),
          "two_calls_ms": times[k].get("two_calls"),

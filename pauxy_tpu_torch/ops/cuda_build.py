@@ -41,9 +41,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 # The split GEMM: a, b, c, d, batch, m, n, k, the four operands' (batch,
-# row, column) strides, alpha and beta (re, im), conj_a, conj_b, a_kmaj,
-# b_kmaj, vec_a, vec_b, skinny, stream.
-_GEMM3 = (_P,) * 4 + (_I,) * 4 + (_L,) * 12 + (_F,) * 4 + (_I,) * 7 + (_P,)
+# row, column) strides, alpha and beta (re, im), A's and B's staging
+# flags, the route, stream.
+_GEMM3 = (_P,) * 4 + (_I,) * 4 + (_L,) * 12 + (_F,) * 4 + (_I,) * 3 + (_P,)
 # name -> argtypes; each returns the cudaError_t of its launch.
 SIGNATURES = {
     "pauxy_greens_lanes_c64": (_P,) * 4 + (_I,) * 8 + (_P,),

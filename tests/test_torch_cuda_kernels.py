@@ -70,7 +70,8 @@ rows and columns zeroed exactly) keeps the identities, gives exact zeros
 on the dead columns' diagonal, and the low-rank G and log det(1 + A) on
 the card agree with the plain versions on the CPU within TOL. The 3-pass
 split GEMM of the 'bfloat16_3x' tier agrees with its plain version within
-chip_smoke.gemm3_tolerance (12 k eps S) on chip_smoke.gemm3_cases; under
+chip_smoke.gemm3_tolerance (12 k eps S) on chip_smoke.gemm3_cases, each
+case launched on the route ops/gemm3_cuda.plan picks for it; under
 that tier every float32 / complex64 product on the card launches it (the
 route's result equal to the wrapper's bit for bit), a full_precision()
 body and float64 products do not, and "float32" gives cuBLAS's products
@@ -1635,9 +1636,13 @@ def test_split_gemm_matches_plain(dtype):
     gen.manual_seed(19)
     for name, kern, plain, k, alpha, beta, c, a, b in gemm3_cases(gen,
                                                                    dtype):
+        route = gemm3_cuda.plan(a, b).route
+        before = gemm3_cuda.launches_by_route[route]
         got, want = kern(a, b), plain(a, b)
         tol = gemm3_tolerance(a, b, k, alpha, beta, c)
         assert bool(((got - want).abs().double() <= tol).all()), name
+        assert got.numel() == 0 or \
+            gemm3_cuda.launches_by_route[route] > before, (name, route)
 
 
 @pytest.mark.cuda

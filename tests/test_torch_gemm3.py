@@ -28,9 +28,21 @@
   products inside full_precision() go to torch's own kernel; nothing
   launches; removing it gives the ops back.
 * The wrapper's plan: the staging of each operand by its strides (K's
-  stride 1 -> [row][k], the rows' -> [k][row]) and the 16-byte copies only
-  where every piece is aligned; at most 8 rows, or columns transposed,
-  take the skinny route.
+  stride 1 -> [row][k], the rows' -> [k][row]) and TMA only where the
+  base is 16-byte aligned and the other strides nest in 16-byte
+  multiples (else one element a copy); a float32 view at stride 2 found
+  as a plane of complex pairs (its plane from the storage offset, its
+  base the complex one, the pair of every element inside the storage);
+  the route by shape: at most 8 rows, or columns transposed, the skinny
+  route, at most 32 columns (after a transposition that puts the small
+  side there) the narrow tile, else the wide tile (64, 128 or, float32,
+  256 columns; halved while the product has tiles for fewer than half the
+  card's SMs).
+* The launch bookkeeping on the CPU, the kernel call replaced by a
+  recorder: the arguments a product hands the kernel (route, flags, a
+  plane's base pointer, the transposition) and ``launches_by_route``
+  summing to ``launches``; the route's ``.out`` overloads for the other
+  types and inside ``config.full_precision()``.
 """
 
 import numpy as np
@@ -365,17 +377,22 @@ def test_plan_stages_by_strides(dtype, kind):
         b = flat[1:].view(4, 64, 64)[:, :48, :16]
         want = (True, False, False, False)
     pl = gemm3_cuda.plan(a, b)
-    assert (pl.a_kmaj, pl.b_kmaj, pl.vec_a, pl.vec_b) == want, pl
-    assert pl.batch_chunk == 65535 and pl.row_chunk == 65535 * 64
+    assert (pl.a_kmaj, pl.b_kmaj, pl.tma_a, pl.tma_b) == want, pl
+    assert (pl.route, pl.code, pl.transposed) == ("narrow", 16, False)
 
 
 def test_plan_keeps_element_copies_for_unaligned_strides():
-    a = torch.zeros(3, 9, 5)      # row stride 5: not a whole 16-byte piece
-    b = torch.zeros(3, 5, 10)
+    """Lines that are no whole 16-byte pieces: TMA over groups of lines
+    where the batch's lines fill whole groups, else a bulk copy a line."""
+    a = torch.zeros(3, 16, 5)     # row stride 5: 20 bytes, 4 lines 80
+    b = torch.zeros(3, 5, 10)     # k-lines of 40 bytes, 15 of them: odd
     pl = gemm3_cuda.plan(a, b)
-    assert pl.a_kmaj and not pl.b_kmaj and not pl.vec_a and not pl.vec_b
+    assert not pl.transposed
+    assert pl.a_kmaj and not pl.b_kmaj and pl.tma_a and not pl.tma_b
+    assert pl.flags_a & gemm3_cuda.GROUP4
+    assert pl.flags_b & gemm3_cuda.ROWS                   # unit stride
     b12 = torch.zeros(3, 5, 12)
-    assert gemm3_cuda.plan(a, b12).vec_b
+    assert gemm3_cuda.plan(a, b12).tma_b
 
 
 @pytest.mark.parametrize("m,k,n,mode,transposed", [
@@ -383,7 +400,7 @@ def test_plan_keeps_element_copies_for_unaligned_strides():
     (8, 33, 512, 1, False),
     (257, 257, 7, 1, True),     # a small N: the transposed product
     (7, 7, 7, 3, False),        # K <= 32: a thread a column
-    (9, 9, 9, 0, None)])        # the tiles
+    (9, 9, 9, 0, None)])        # the narrow tile
 def test_plan_takes_the_skinny_route(m, k, n, mode, transposed):
     """At most 8 rows, or 8 columns of the transposed product, go to the
     skinny route; a 64 x 64 tile would be mostly padding."""
@@ -391,10 +408,10 @@ def test_plan_takes_the_skinny_route(m, k, n, mode, transposed):
     pl = gemm3_cuda.plan(a, b)
     assert pl.skinny == mode
     if mode:
-        assert pl.transposed is transposed
+        assert pl.route == "skinny" and pl.transposed is transposed
         assert pl.batch_chunk * max(m, n) <= (2 ** 31 - 1) * 8
     else:
-        assert pl.batch_chunk == 65535
+        assert (pl.route, pl.code) == ("narrow", 16)
 
 
 def test_plan_runs_the_batch_fastest_where_b_is_contiguous():
@@ -405,3 +422,308 @@ def test_plan_runs_the_batch_fastest_where_b_is_contiguous():
     assert b.stride() == (1, 493, 3451)
     assert gemm3_cuda.plan(a, b).skinny == 4
     assert gemm3_cuda.plan(a.contiguous(), b.contiguous()).skinny == 3
+
+
+C64 = torch.complex64
+
+
+@pytest.mark.parametrize("dt,m,k,n,batch,route,code,transposed", [
+    (torch.float32, 1024, 512, 16384, 1, "tile", 256, False),  # the VHS
+    (C64, 1024, 512, 16384, 1, "tile", 128, False),
+    (C64, 257, 257, 14, 512, "narrow", 16, False),    # "xla" Taylor
+    (C64, 16, 16, 7168, 1, "narrow", 16, True),       # a lattice shape
+    (C64, 16384, 128, 16, 1, "narrow", 16, False),
+    (C64, 16, 16, 128, 1024, "narrow", 16, True),
+    (torch.float32, 200, 64, 30, 1, "narrow", 32, False),
+    (torch.float32, 200, 64, 40, 1, "tile", 64, False),
+    (C64, 93, 93, 93, 512, "tile", 128, False),        # thermal UEG
+    (torch.float32, 1024, 2048, 512, 1, "tile", 64, False),   # few tiles
+    (torch.float32, 1024, 2048, 2048, 1, "tile", 128, False),
+    (torch.float32, 4096, 64, 4096, 1, "tile", 256, False),
+    (torch.float32, 129, 17, 130, 1, "tile", 64, False),
+    (torch.float32, 9, 9, 9, 1, "narrow", 16, False),
+    (torch.float32, 8, 100, 100, 1, "skinny", 1, False),
+    (C64, 100, 100, 3, 1, "skinny", 1, True)])
+def test_plan_route_by_shape(dt, m, k, n, batch, route, code, transposed):
+    """The route and the tile's columns by shape, before any launch: the
+    small side of a short product in the columns, the narrowest tile
+    that holds them, a wide tile halved while the product has tiles for
+    fewer than half the card's SMs."""
+    a = torch.zeros(batch, m, k, dtype=dt)
+    b = torch.zeros(batch, k, n, dtype=dt)
+    pl = gemm3_cuda.plan(a, b)
+    assert (pl.route, pl.code, pl.transposed) == (route, code, transposed)
+    assert pl.bn == (0 if route == "skinny" else code)
+    assert pl.skinny == (code if route == "skinny" else 0)
+
+
+@pytest.mark.parametrize("dt,widest", [(torch.float32, 256), (C64, 128)])
+def test_plan_tile_columns_per_type(dt, widest):
+    """float32 tiles reach 256 columns, complex64 (two accumulator
+    planes) 128; the narrow tile takes 9 to 32 columns."""
+    got = {}
+    for n in (9, 16, 17, 32, 33, 64, 65, 128, 129, 256, 4096):
+        a = torch.zeros(32768, 64, dtype=dt)     # 256 row tiles
+        got[n] = gemm3_cuda.plan(a, torch.zeros(64, n, dtype=dt)).code
+    want = {9: 16, 16: 16, 17: 32, 32: 32, 33: 64, 64: 64, 65: 128,
+            128: 128, 129: min(256, widest), 256: min(256, widest),
+            4096: widest}
+    assert got == want
+
+
+def _flags(pl, side):
+    return pl.flags_a if side == "a" else pl.flags_b
+
+
+@pytest.mark.parametrize("kind,tma,extra", [
+    ("contiguous", True, 0),
+    ("rows of 93 (372 bytes)", True, gemm3_cuda.GROUP4),
+    ("rows of 93, 3 x 201 lines", False, gemm3_cuda.ROWS),
+    ("base 4 bytes past 16", False, gemm3_cuda.ROWS),
+    ("broadcast batch", True, gemm3_cuda.BCAST),
+    ("permuted batch", True, gemm3_cuda.SWAP),
+    ("rows at stride 0", False, 0),
+    ("complex rows of 93 (744 bytes)", True, gemm3_cuda.GROUP2),
+    ("complex rows of 94", True, 0)])
+def test_plan_tma_eligibility(kind, tma, extra):
+    """TMA stages an operand whose fast stride is 1, base 16-byte aligned
+    and other strides nested 16-byte multiples; rows that are no 16-byte
+    multiple by groups of 2 or 4 lines where the batch's lines fill whole
+    groups; at unit stride otherwise one bulk copy a row; anything else
+    goes by element copies (no copy to a contiguous buffer first)."""
+    dt = C64 if kind.startswith("complex") else torch.float32
+    b = torch.zeros(4, 64, 300, dtype=dt)
+    if kind == "contiguous":
+        a = torch.zeros(4, 200, 64)
+    elif kind == "rows of 93 (372 bytes)":
+        a = torch.zeros(4, 200, 93)[:, :, :64]
+    elif kind == "rows of 93, 3 x 201 lines":
+        a = torch.zeros(3, 201, 93)[:, :, :64]
+        b = torch.zeros(3, 64, 300)
+    elif kind == "base 4 bytes past 16":
+        a = torch.zeros(4 * 200 * 64 + 1)[1:].view(4, 200, 64)
+    elif kind == "broadcast batch":
+        a = torch.zeros(1, 200, 64).expand(4, 200, 64)
+    elif kind == "permuted batch":
+        a = torch.zeros(200, 4, 64).permute(1, 0, 2)
+    elif kind == "rows at stride 0":
+        a = torch.zeros(4, 1, 64).expand(4, 200, 64)
+    elif kind == "complex rows of 93 (744 bytes)":
+        a = torch.zeros(4, 200, 93, dtype=dt)[:, :, :64]
+    else:
+        a = torch.zeros(4, 200, 94, dtype=dt)[:, :, :64]
+    pl = gemm3_cuda.plan(a, b)
+    assert not pl.transposed and pl.route == "tile"
+    assert pl.a_kmaj is (kind != "rows at stride 0")
+    assert pl.tma_a is tma, pl
+    assert pl.flags_a & (gemm3_cuda.BCAST | gemm3_cuda.SWAP
+                         | gemm3_cuda.ROWS | gemm3_cuda.GROUP2
+                         | gemm3_cuda.GROUP4) == extra
+    if not tma:     # element copies read the strides as they are
+        assert pl.strides[:3] == a.stride()
+        assert pl.shift_a == 0
+
+
+@pytest.mark.parametrize("view,side,plane", [
+    ("real", "a", 0), ("imag", "a", 1), ("imag T", "b", 1),
+    ("real T batched", "a", 0), ("imag batched", "b", 1)])
+def test_plan_finds_the_planes_of_a_complex_tensor(view, side, plane):
+    """A .real / .imag view (stride 2 in float32) is staged from its
+    complex pairs at stride 1: the plane from the storage offset's
+    parity, the base the complex tensor's (4 bytes back for .imag), both
+    K-major and not, single and batched."""
+    z = torch.zeros(300, 64, dtype=C64)
+    z3 = torch.zeros(3, 64, 300, dtype=C64)
+    x = torch.zeros(64, 300)
+    if view == "real":
+        a, b, t = z.real, x, z
+    elif view == "imag":
+        a, b, t = z.imag, x, z
+    elif view == "imag T":
+        a, b, t = torch.zeros(200, 64), z.imag.T, z
+    elif view == "real T batched":
+        a, b, t = z3.real.transpose(1, 2), torch.zeros(3, 64, 200), z3
+    else:
+        a, b, t = torch.zeros(3, 200, 64), z3.imag, z3
+    pl = gemm3_cuda.plan(a, b)
+    assert not pl.transposed
+    flags = _flags(pl, side)
+    assert flags & gemm3_cuda.PAIR and flags & gemm3_cuda.TMA
+    assert bool(flags & gemm3_cuda.PLANE) is bool(plane)
+    shift = pl.shift_a if side == "a" else pl.shift_b
+    view_t = a if side == "a" else b
+    assert view_t.data_ptr() - shift == t.data_ptr()
+    assert shift == 4 * plane
+
+
+def test_plan_pairs_only_inside_the_storage():
+    """A stride-2 float32 view whose last element's pair would lie past
+    its storage is no plane: it goes by element copies."""
+    whole = torch.zeros(64 * 300 * 2).as_strided((64, 300), (600, 2))
+    short = torch.zeros(64 * 300 * 2 - 1).as_strided((64, 300), (600, 2))
+    a = torch.zeros(200, 64)
+    assert gemm3_cuda.plan(a, whole).flags_b & gemm3_cuda.PAIR
+    pl = gemm3_cuda.plan(a, short)
+    assert not pl.flags_b & (gemm3_cuda.PAIR | gemm3_cuda.TMA)
+    odd = torch.zeros(64, 301)[:, ::2]     # row stride 301: odd
+    assert not gemm3_cuda.plan(a, odd).flags_b & gemm3_cuda.PAIR
+
+
+@pytest.fixture
+def recorder(monkeypatch):
+    """The kernel call replaced by a recorder of its arguments (returns 0,
+    a launch without error) on CPU tensors; counts restored after."""
+    calls = []
+
+    def fake(*args):
+        calls.append(args)
+        return 0
+
+    saved = gemm3_cuda.launches, dict(gemm3_cuda.launches_by_route)
+    monkeypatch.setattr(gemm3_cuda, "_fn", lambda dtype: fake)
+    monkeypatch.setattr(gemm3_cuda, "_current", lambda dev: True)
+    monkeypatch.setattr(gemm3_cuda, "_stream", lambda dev: 0)
+    gemm3_cuda.launches = 0
+    for r in gemm3_cuda.launches_by_route:
+        gemm3_cuda.launches_by_route[r] = 0
+    yield calls
+    gemm3_cuda.launches = saved[0]
+    gemm3_cuda.launches_by_route.update(saved[1])
+
+
+def _record(a, b, c=None, alpha=1.0, beta=0.0):
+    out = torch.empty((*a.shape[:-1], b.shape[-1]), dtype=a.dtype)
+    gemm3_cuda._launch(a, b, c, complex(alpha), complex(beta), out)
+    return out
+
+
+def test_launches_by_route_sum_to_launches(recorder):
+    c64 = torch.complex64
+    _record(torch.zeros(1024, 512), torch.zeros(512, 8192))        # tile
+    _record(torch.zeros(512, 257, 257, dtype=c64),
+            torch.zeros(512, 257, 14, dtype=c64))                   # narrow
+    _record(torch.zeros(16, 16, dtype=c64),
+            torch.zeros(16, 7168, dtype=c64))                       # narrow
+    _record(torch.zeros(300, 1, 64), torch.zeros(300, 64, 1))       # skinny
+    _record(torch.zeros(70000, 2, 3), torch.zeros(70000, 3, 2))     # skinny
+    assert gemm3_cuda.launches_by_route == {"tile": 1, "narrow": 2,
+                                            "skinny": 1 + 1}
+    assert sum(gemm3_cuda.launches_by_route.values()) \
+        == gemm3_cuda.launches == len(recorder) == 5
+    assert [args[-2] for args in recorder] == [256, 16, 16, 2, 3]
+
+
+def test_launch_hands_over_the_plan(recorder):
+    """What the kernel gets: a plane's complex base, the flags with
+    conjugation, the operands swapped for a transposed product, D's and
+    C's strides swapped with them, alpha and beta."""
+    z = torch.zeros(200, 64, dtype=torch.complex64)
+    b = torch.zeros(64, 300)
+    _record(z.imag, b)
+    a_ptr, b_ptr, c_ptr, d_ptr, batch, m, n, k = recorder[-1][:8]
+    fa, fb, route = recorder[-1][-4:-1]
+    assert a_ptr == z.data_ptr() and b_ptr == b.data_ptr()
+    assert c_ptr is None and (batch, m, n, k) == (1, 200, 300, 64)
+    assert fa & gemm3_cuda.PAIR and fa & gemm3_cuda.PLANE
+    assert route == gemm3_cuda.plan(z.imag, b).code
+    assert not fb & gemm3_cuda.CONJ
+    # A transposed product (the small side in the columns), B conjugated.
+    a = torch.zeros(16, 16, dtype=torch.complex64)
+    bb = torch.zeros(16, 7168, dtype=torch.complex64).conj()
+    c = torch.ones(16, 7168, dtype=torch.complex64)
+    _record(a, bb, c, alpha=2.0, beta=0.5j)
+    args = recorder[-1]
+    assert args[0] == bb.data_ptr() and args[1] == a.data_ptr()
+    assert args[5:8] == (7168, 16, 16)
+    # sc (batch, row, column) and sd swapped with the operands.
+    assert args[14:17] == (0, 1, 7168) and args[17:20] == (0, 1, 7168)
+    assert args[20:24] == (2.0, 0.0, 0.0, 0.5)
+    assert args[24] & gemm3_cuda.CONJ and not args[25] & gemm3_cuda.CONJ
+    assert args[26] == 16
+
+
+def test_launch_chunks_a_long_batch(recorder, monkeypatch):
+    """Past the launch's limits (here lowered to 40000 tiles) the batch
+    goes in chunks, each operand's pointer moved by its batch stride (a
+    broadcast one stays)."""
+    monkeypatch.setattr(gemm3_cuda, "MAX_BLOCKS", 40000)
+    gemm3_cuda._plan.cache_clear()
+    a = torch.zeros(70000, 16, 16)
+    b = torch.zeros(16, 16).expand(70000, 16, 16)
+    try:
+        out = _record(a, b)
+    finally:
+        gemm3_cuda._plan.cache_clear()
+    assert len(recorder) == 2 and gemm3_cuda.launches == 2
+    (a0, b0, _, d0, n0), (a1, b1, _, d1, n1) = (r[:5] for r in recorder)
+    assert n0 + n1 == 70000
+    assert a1 - a0 == n0 * a.stride(0) * 4 and b1 == b0
+    assert d1 - d0 == n0 * out.stride(0) * 4
+
+
+@pytest.mark.parametrize("op", ["mm", "bmm", "addmm", "baddbmm"])
+def test_route_takes_out_for_other_types_and_pinned(cpu_route, op):
+    """The leaner route still hands float64 / complex128 products to the
+    op's .out overload, and float32 ones inside full_precision() too:
+    nothing reaches the split GEMM or its counter."""
+    cpu_route()
+    rng = np.random.default_rng(21)
+    before = gemm3_cuda.launches
+    for dt in (torch.float64, torch.complex128, torch.float32):
+        x = torch.from_numpy(rng.normal(size=(2, 5, 6))).to(dt)
+        y = torch.from_numpy(rng.normal(size=(2, 6, 4))).to(dt)
+        c = torch.from_numpy(rng.normal(size=(2, 5, 4))).to(dt)
+        calls = {"mm": (torch.mm, (x[0], y[0]), torch.ops.aten.mm.out),
+                 "bmm": (torch.bmm, (x, y), torch.ops.aten.bmm.out),
+                 "addmm": (torch.addmm, (c[0], x[0], y[0]),
+                           torch.ops.aten.addmm.out),
+                 "baddbmm": (torch.baddbmm, (c, x, y),
+                             torch.ops.aten.baddbmm.out)}
+        fn, args, out_op = calls[op]
+        want = out_op(*args, out=torch.empty(
+            args[-2].shape[:-1] + args[-1].shape[-1:], dtype=dt))
+        if dt is torch.float32:
+            with config.full_precision():
+                got = fn(*args)
+        else:
+            got = fn(*args)
+        assert torch.equal(got, want)
+    assert gemm3_cuda.launches == before
+
+
+@pytest.mark.parametrize("kind,side,flag", [
+    ("thermal A [512,93,93]", "a", gemm3_cuda.GROUP2),
+    ("thermal B, a 128-column tile", "b", gemm3_cuda.ROWS),
+    ("B [6,93,93] under a 64-column tile", "b", gemm3_cuda.GROUP2),
+    ("Taylor V [512,257,257]", "a", gemm3_cuda.GROUP2),
+    ("batch not stacked", "a", gemm3_cuda.ROWS),
+    ("one matrix of 93 lines", "a", gemm3_cuda.ROWS)])
+def test_plan_groups_lines(kind, side, flag):
+    """Lines of no whole 16 bytes go by TMA over groups of 2 or 4 when the
+    batch stacks its matrices' lines evenly, the lines fill whole groups
+    and a [k][row] box line (the tile's columns and 16 bytes) stays within
+    TMA's 256 floats; else by a bulk copy a line."""
+    c64 = torch.complex64
+    b = None
+    if kind == "thermal A [512,93,93]" or kind.startswith("thermal B"):
+        a = torch.zeros(512, 93, 93, dtype=c64)
+        b = torch.zeros(512, 93, 93, dtype=c64)
+    elif kind.startswith("B [6,93,93]"):
+        a = torch.zeros(6, 130, 93, dtype=c64).conj()
+        b = torch.zeros(6, 93, 93, dtype=c64)
+    elif kind.startswith("Taylor"):
+        a = torch.zeros(512, 257, 257, dtype=c64)
+        b = torch.zeros(512, 257, 14, dtype=c64)
+    elif kind == "batch not stacked":
+        a = torch.zeros(4, 210, 93)[:, :200, :64]
+    else:
+        a = torch.zeros(93, 93, dtype=c64)
+        b = torch.zeros(93, 60, dtype=c64)
+    if b is None:
+        b = torch.zeros(4, 64, 300)
+    pl = gemm3_cuda.plan(a, b)
+    assert not pl.transposed
+    flags = _flags(pl, side)
+    assert flags & (gemm3_cuda.GROUP2 | gemm3_cuda.GROUP4
+                    | gemm3_cuda.ROWS) == flag, (pl, kind)
+    assert bool(flags & gemm3_cuda.TMA) is (flag != gemm3_cuda.ROWS)

@@ -15,8 +15,10 @@ the wrapper and torch.matmul in the "float32" tier (cuBLAS; with torch's
 own copy of an operand it cannot read in place) on random operands of the
 same layout, five calls each. Prints the card's name and power limit,
 then one JSON line a group: the shapes and strides, the calls and their
-summed ms in the block, the plan (skinny mode, transposed, A / B staged
-k-major, A / B in 16-byte copies) and the two ms.
+summed ms in the block, the route ``plan`` picks (tile, narrow or
+skinny), its code (a tile's columns or the skinny mode), whether it
+transposes, how A and B are staged (k-major, TMA, a float32 pair) and the
+two ms.
 """
 
 from __future__ import annotations
@@ -35,12 +37,25 @@ PATHS = ("thermal_ueg", "generic", "ueg_xla")
 
 
 def like(t: torch.Tensor) -> torch.Tensor:
-    """Random operand of t's shape, strides (0 included), type and lazy
-    conjugation."""
-    extent = 1 + sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+    """Random operand of t's shape, strides (0 included), storage offset's
+    parity, type and lazy conjugation: a complex tensor's plane stays a
+    plane (its storage holds the pair of every element)."""
+    off = t.storage_offset() % 2
+    extent = 2 + off + sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
     out = torch.randn(extent, dtype=t.dtype, device=t.device).as_strided(
-        t.shape, t.stride())
+        t.shape, t.stride(), off)
     return out.conj() if t.is_conj() else out
+
+
+def staging(flags: int) -> str:
+    """An operand's staging flags in words."""
+    from pauxy_tpu_torch.ops import gemm3_cuda as g
+
+    return "+".join(name for name, bit in (
+        ("kmaj", g.KMAJ), ("tma", g.TMA), ("pair", g.PAIR),
+        ("imag", g.PLANE), ("swap", g.SWAP), ("bcast", g.BCAST),
+        ("groups of 2", g.GROUP2), ("groups of 4", g.GROUP4),
+        ("rows", g.ROWS)) if flags & bit) or "element"
 
 
 def ms_of(fn, reps: int = 5) -> float:
@@ -131,8 +146,8 @@ def census(name: str) -> None:
             "stride_a": key[1], "conj_a": key[2], "shape_b": key[3],
             "stride_b": key[4], "conj_b": key[5], "calls": g["calls"],
             "ms_in_block": round(g["ms"], 4),
-            "plan": [pl.skinny, pl.transposed, pl.a_kmaj, pl.b_kmaj,
-                     pl.vec_a, pl.vec_b],
+            "route": pl.route, "code": pl.code, "transposed": pl.transposed,
+            "staging": [staging(pl.flags_a), staging(pl.flags_b)],
             "split_ms": round(ms_of(lambda: gemm3_cuda.gemm(a, b)), 4),
             "cublas_ms": round(ms_of(lambda: torch.matmul(a, b)), 4)}),
             flush=True)

@@ -1,8 +1,8 @@
 """Where a block of the cpqr kernel, kernel A, the Cholesky-inverse
-kernel, the sweep kernel and the bf16 Taylor kernel spends its cycles, on
-one CUDA card.
+kernel, the sweep kernel, the bf16 Taylor kernel and the split GEMM's
+wgmma tiles spends its cycles, on one CUDA card.
 
-    python3 tools/kernel_stamps.py [--csrc DIR] [--only chol,sweep,taylor_bf16]
+    python3 tools/kernel_stamps.py [--csrc DIR] [--only chol,sweep,taylor_bf16,gemm3]
 
 Copies csrc/cpqr.cu, csrc/greens.cu, csrc/chol_inv.cu, csrc/sweep.cu and
 csrc/taylor_bf16.cu (or those in DIR, e.g. another build of the same
@@ -19,8 +19,17 @@ UEG bench class (M, C) = (257, 14) with w = 512 and 1 (and w = 512 in
 clusters of 4 and 8), and the golden's (33, 14) with w = 40 (there every
 CTA's thread 0 adds its phases, and the mean a CTA is printed: the V
 load, each order's products, the exchange of the term through
-distributed shared memory, the cluster barrier). --only names the
-kernels to stamp (cpqr, greens, chol, sweep, taylor_bf16). The stamps
+distributed shared memory, the cluster barrier); the split GEMM
+(csrc/gemm_bf16x3.cu, built with PAUXY_GEMM3_STAMPS, which compiles in
+its own GEMM3_STAMP markers) at the Generic VHS shape in float32, with A
+the real plane of a complex64 tensor and in complex64, the "xla" Taylor
+product and the thermal UEG's [512, 93, 93] product: the mean cycles of a
+consumer warpgroup's phases (wait for a slab, convert, fence and barrier,
+issue the products, wait for the previous slab's, drain, the epilogue's
+shared-memory and global halves, the wait for a tile's first slab, the
+barrier after the epilogue) and of the producer's (wait for a free stage,
+issue the loads), per persistent block. --only names the
+kernels to stamp (cpqr, greens, chol, sweep, taylor_bf16, gemm3). The stamps
 are inserted by matching the sources' text, so the script fails loudly
 when a phase it marks has been rewritten: adapt the markers then. A cpqr
 or kernel A stamp costs a few cycles and a global add, so their sums run
@@ -83,6 +92,15 @@ STAMP_ALL = ("__device__ unsigned long long g_prof[32];\n"
              "for (int _q = 0; _q < 16; ++_q) atomicAdd(&g_prof[_q], "
              "(unsigned long long)_acc[_q]); atomicAdd(&g_prof[31], 1ull); "
              "} } while (0)\n")
+# The split GEMM's tile route (csrc/gemm_bf16x3.cu carries its own
+# GEMM3_STAMP markers, compiled in with PAUXY_GEMM3_STAMPS): each block's
+# first thread of each consumer warpgroup and of the producer warpgroup
+# add their phases once, at their end.
+GEMM3_CONSUMER = ["wait full", "convert", "fence + barrier", "issue wgmma",
+                  "wait group", "drain", "epilogue to smem",
+                  "epilogue stores", "wait full, a tile's first slab",
+                  "end barrier"]
+GEMM3_PRODUCER = ["wait empty", "issue loads"]
 BF16_PHASES = ["V issue, phi, sums", "V load and round", "products order 1",
                "products own rows", "products other rows", "start wait",
                "cluster wait", "term to own buffer", "term to other CTAs",
@@ -225,7 +243,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--csrc", default=str(CSRC),
                     help="directory of the kernel sources to stamp")
-    ap.add_argument("--only", default="cpqr,greens,chol,sweep,taylor_bf16")
+    ap.add_argument("--only",
+                    default="cpqr,greens,chol,sweep,taylor_bf16,gemm3")
     args = ap.parse_args()
     CSRC = args.csrc
     only = set(args.only.split(","))
@@ -262,6 +281,8 @@ def main() -> None:
         stamp_sweep(run, P, I)
     if "taylor_bf16" in only:
         stamp_bf16(P, I, buf)
+    if "gemm3" in only:
+        stamp_gemm3()
 
 
 def stamp_cpqr(run, P, I) -> None:
@@ -376,6 +397,73 @@ def stamp_bf16(P, I, buf) -> None:
               f"{start.elapsed_time(end):.4f} ms, {ctas} CTAs, mean cycles "
               f"a CTA {round(sum(cycles.values()), 1)}: {cycles}",
               flush=True)
+
+
+def gemm3_cases():
+    """(label, a, b) of the split GEMM at the Generic VHS shape (float32,
+    the same with A the real plane of a complex64 tensor, complex64), the
+    "xla" Taylor product and the thermal UEG's [512, 93, 93] product."""
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, dtype=dtype, device="cuda")
+
+    c64 = torch.complex64
+    b = rnd(512, 16384)
+    return [("f32 [1024,512]x[512,16384]", rnd(1024, 512), b),
+            ("f32 A .real of c64 [1024,512]", rnd(1024, 512, dtype=c64).real,
+             b),
+            ("c64 [1024,512]x[512,16384]", rnd(1024, 512, dtype=c64),
+             rnd(512, 16384, dtype=c64)),
+            ("c64 [512,257,257]x[512,257,14]", rnd(512, 257, 257, dtype=c64),
+             rnd(512, 257, 14, dtype=c64)),
+            ("c64 [512,93,93]x[512,93,93]", rnd(512, 93, 93, dtype=c64),
+             rnd(512, 93, 93, dtype=c64))]
+
+
+def stamp_gemm3() -> None:
+    from pauxy_tpu_torch.ops import gemm3_cuda
+
+    os.makedirs(OUT, exist_ok=True)
+    so = os.path.join(OUT, "gemm3_stamped.so")
+    res = subprocess.run([cuda_build.nvcc(), *cuda_build.FLAGS,
+                          "-DPAUXY_GEMM3_STAMPS", "-shared", "-o", so,
+                          os.path.join(CSRC, "gemm_bf16x3.cu")],
+                         capture_output=True, text=True)
+    if res.returncode:
+        raise SystemExit(res.stdout + res.stderr)
+    lib = ctypes.CDLL(so)
+    saved = dict(gemm3_cuda._fns)
+    for dtype, name in gemm3_cuda._SYMBOLS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = cuda_build.SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        gemm3_cuda._fns[dtype] = fn
+    buf = (ctypes.c_ulonglong * 32)()
+    try:
+        for label, a, b in gemm3_cases():
+            pl = gemm3_cuda.plan(a, b)
+            gemm3_cuda.gemm(a, b)
+            torch.cuda.synchronize()
+            lib.prof_zero()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            gemm3_cuda.gemm(a, b)
+            end.record()
+            end.synchronize()
+            lib.prof_get(buf)
+            nc, npr = max(buf[12], 1), max(buf[28], 1)
+            cons = {k: round(v / nc) for k, v in
+                    zip(GEMM3_CONSUMER, list(buf)[:len(GEMM3_CONSUMER)])}
+            prod = {k: round(v / npr) for k, v in
+                    zip(GEMM3_PRODUCER, list(buf)[16:16 + 2])}
+            print(f"gemm3 {label} route {pl.route} {pl.code} flags "
+                  f"{pl.flags_a}/{pl.flags_b}: "
+                  f"{start.elapsed_time(end):.4f} ms (stamped), mean cycles "
+                  f"a consumer warpgroup {sum(cons.values())}: {cons}; "
+                  f"the producer: {prod}", flush=True)
+    finally:
+        gemm3_cuda._fns.clear()
+        gemm3_cuda._fns.update(saved)
 
 
 if __name__ == "__main__":
