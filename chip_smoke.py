@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ladder     # phases 1-3 and 35 only, no result
+    python3 chip_smoke.py --h5lite     # phases 1 and 36 only, no result
 
 Phases, one line each, in order; any failure raises, so the script exits
 non-zero and prints no result line:
@@ -312,7 +313,18 @@ non-zero and prints no result line:
      per tier within LADDER_BOUNDS; the split GEMM launched on each path
      under "bfloat16_3x" and under no other tier, and no cuBLAS float32 /
      complex64 GEMM in the profiled "bfloat16_3x" runs; (e) the process
-     back at "highest" without the route.
+     back at "highest" without the route;
+ 36. HDF5 without h5py (``utils/h5lite``, which ``open_file`` falls back to
+     where h5py does not import; h5py is hidden here if it does): the
+     out-of-core Cholesky (``from_pyscf.chunked_cholesky_outcore``) of a
+     synthetic rank-384 (pq|rs) at nao = 128, cmax = 10 (a [1280, 16384]
+     float64 dataset, 168 MB) in chunks of 64 rows, equal to the in-core
+     ``chunked_cholesky`` within 1e-12, its ``tracemalloc`` peak below
+     four chunks plus eight nao^2 vectors and at least 8 times below the
+     dataset; and ``tests/data/h5lite_latest_gzip.h5`` (written by h5py
+     with ``libver="latest"``: a deflated, shuffled dataset indexed by an
+     extensible array, a group of 12 links in dense storage) read equal to
+     the values it was written with.
 Phase 3 also holds the cpqr kernel on the low-rank stack's masked input
 (``check_cpqr_masked``) and kernels A and B on exactly singular matrices
 (``check_zero_pivot``: log|det| -inf, JAX's phase where JAX's is finite).
@@ -3071,6 +3083,102 @@ def ladder_phase(tier_cases: dict, counts, zero_counts) -> tuple[str, dict,
     return msg, launched, row
 
 
+class LowRankERI:
+    """(pq|rs) = sum_r F[pq, r] F[rs, r], F symmetric in p, q and drawn
+    from ``seed``: the out-of-core Cholesky's provider (``diagonal()``,
+    ``column(j, l)``), never the M^4 tensor."""
+
+    def __init__(self, nao: int, rank: int, seed: int = 0):
+        f = np.random.default_rng(seed).normal(size=(nao, nao, rank))
+        self.f = (f + f.transpose(1, 0, 2)).reshape(nao * nao, rank)
+        self.nao = nao
+
+    def diagonal(self):
+        return np.einsum("ir,ir->i", self.f, self.f)
+
+    def column(self, j: int, l: int):
+        return self.f @ self.f[j * self.nao + l]
+
+
+def h5lite_phase() -> str:
+    """Phase 36: the out-of-core Cholesky through h5lite at nao = 128 and
+    the checked-in libver="latest" gzip file (see the module docstring)."""
+    import tracemalloc
+
+    from pauxy_tpu_torch.utils import from_pyscf, h5lite
+
+    nao, rank, cmax, rows = 128, 384, 10, 64
+    chunk, dataset = rows * nao * nao * 8, cmax * nao ** 3 * 8
+    prov = LowRankERI(nao, rank)
+    work = tempfile.mkdtemp(prefix="chip_smoke_h5lite_")
+    had = "h5py" in sys.modules
+    saved = sys.modules.get("h5py")
+    try:
+        try:
+            import h5py  # noqa: F401
+            h5py_here = True
+        except ImportError:
+            h5py_here = False
+        sys.modules["h5py"] = None      # open_file falls back to h5lite
+        fn = os.path.join(work, "chol.h5")
+        tracemalloc.start()
+        t0 = time.perf_counter()
+        try:
+            n = from_pyscf.chunked_cholesky_outcore(
+                prov, fn, max_error=1e-8, cmax=cmax, chunk_rows=rows)
+            outcore_s = time.perf_counter() - t0
+            peak = tracemalloc.get_traced_memory()[1]
+        finally:
+            tracemalloc.stop()
+    finally:
+        if had:
+            sys.modules["h5py"] = saved
+        else:
+            sys.modules.pop("h5py", None)
+    t0 = time.perf_counter()
+    ref = from_pyscf.chunked_cholesky(prov, max_error=1e-8, cmax=cmax)
+    incore_s = time.perf_counter() - t0
+    with h5lite.File(fn, "r") as fh5:
+        got = fh5["chol_outcore"][()]
+        mid = fh5["chol_outcore"][100:164]
+    size = os.path.getsize(fn)
+    shutil.rmtree(work, ignore_errors=True)
+    err = float(np.abs(got - ref).max())
+    if not (n == rank == ref.shape[0] and got.shape == ref.shape
+            and err <= 1e-12 and np.array_equal(mid, got[100:164])):
+        raise AssertionError(f"out-of-core Cholesky through h5lite: {n} "
+                             f"vectors, max |d| {err:.3e} vs in-core")
+    limit = 4 * chunk + 8 * nao * nao * 8
+    if not (peak < limit and 8 * peak <= dataset):
+        raise AssertionError(f"out-of-core Cholesky traced peak {peak} B: "
+                             f"limit {limit} B, dataset {dataset} B")
+    path = os.path.join(ROOT, "tests", "data", "h5lite_latest_gzip.h5")
+    with h5lite.File(path, "r") as fh5:
+        ea = fh5["ea"][()]
+        ea_rows = fh5["ea"][5:13]
+        links = {k: fh5[f"links/{k}"][()] for k in fh5["links"].keys()}
+        filters = fh5["ea"]._node.filters
+    want = np.sin(np.arange(40 * 6)).reshape(40, 6)
+    want_links = {f"n{i:02d}": np.arange(i, i + 3) for i in range(12)}
+    if not (np.array_equal(ea, want) and np.array_equal(ea_rows, want[5:13])
+            and list(links) == list(want_links) and filters
+            and all(np.array_equal(links[k], v)
+                    for k, v in want_links.items())):
+        raise AssertionError("tests/data/h5lite_latest_gzip.h5 misread")
+    mb = 1e6
+    return (f"h5py {'present, hidden' if h5py_here else 'absent'}; "
+            f"out-of-core Cholesky through h5lite at nao {nao}, rank {rank}, "
+            f"cmax {cmax}, chunks of {rows} rows: {n} vectors in "
+            f"{outcore_s:.3f} s (in-core {incore_s:.3f} s), max |d| "
+            f"{err:.3e} <= 1e-12 vs in-core; tracemalloc peak "
+            f"{peak / mb:.3f} MB against the dataset's {dataset / mb:.3f} MB "
+            f"(a chunk {chunk / mb:.3f} MB; limit {limit / mb:.3f} MB, "
+            f"dataset / peak {dataset / peak:.2f} >= 8), file "
+            f"{size / mb:.3f} MB; h5lite_latest_gzip.h5 (deflate + shuffle, "
+            f"extensible-array index, 12 links in dense storage) read equal "
+            f"to its values")
+
+
 def main() -> None:
     seconds = {}
     t_phase = time.perf_counter()
@@ -3137,6 +3245,10 @@ def main() -> None:
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
         f"nvidia-smi: {card}" + lap("1"))
+    if "--h5lite" in sys.argv[1:]:
+        # Phases 1 and 36 only; no result line.
+        say("36 h5lite", h5lite_phase() + lap("36"))
+        return
 
     counts, zero_counts = kernel_counts, zero_kernel_counts
 
@@ -5863,6 +5975,9 @@ def main() -> None:
     msg, ladder_counts, gemm_row = ladder_phase(tier_cases, counts,
                                                 zero_counts)
     say("35 matmul ladder", msg + lap("35"))
+
+    # ---- 36. HDF5 without h5py -------------------------------------------
+    say("36 h5lite", h5lite_phase() + lap("36"))
     err["gemm_bf16x3"] = gemm_row["err"]
     times["gemm_bf16x3"] = gemm_row["times"]
     bounds["gemm_bf16x3"] = gemm_row["bound"]

@@ -170,14 +170,25 @@ def pinned() -> bool:
     return _pins > 0
 
 
+def _fp32_backends():
+    """The per-backend float32 product settings that
+    ``torch.set_float32_matmul_precision`` moves, where this torch has
+    them (``"none"`` and ``"ieee"`` both mean IEEE float32)."""
+    return [b for b in (torch.backends.cuda.matmul,
+                        torch.backends.mkldnn.matmul)
+            if hasattr(b, "fp32_precision")]
+
+
 @contextlib.contextmanager
 def full_precision():
     """IEEE float32 products in the body, whatever the tier: torch's rung
     ``"highest"`` and the split route passed by (its products go to
-    cuBLAS); both come back afterwards, also when the body raises.
+    cuBLAS); the rung and each backend's ``fp32_precision`` come back
+    exactly as they were afterwards, also when the body raises.
     Torch's counterpart of JAX's per-product ``precision=HIGHEST``."""
     global _pins
     prev = torch.get_float32_matmul_precision()
+    backends = [(b, b.fp32_precision) for b in _fp32_backends()]
     torch.set_float32_matmul_precision("highest")
     _pins += 1
     try:
@@ -185,3 +196,5 @@ def full_precision():
     finally:
         _pins -= 1
         torch.set_float32_matmul_precision(prev)
+        for backend, value in backends:
+            backend.fp32_precision = value

@@ -22,6 +22,8 @@ than the complex products (PERF.md), so the port keeps one series.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import scipy.linalg
 import torch
@@ -147,9 +149,12 @@ def make_generic_continuous(ham, trial, dt: float, exp_order: int = 6,
                             taylor_impl: str | None = None, *, device=None,
                             dtype=None) -> GenericContinuous:
     """Host-side set-up: BH1_s = expm(-dt/2 (h1e_mod_s - i sum_x mf_x
-    L_x)); ``chol`` keeps its natural type."""
+    L_x)); ``chol`` keeps its natural type. ``taylor_impl`` None reads
+    ``PAUXY_TPU_TAYLOR`` (default ``"xla"``), as JAX's does."""
     prec = config.get_precision(dtype)
     device = config.resolve_device(device)
+    if taylor_impl is None:
+        taylor_impl = os.environ.get("PAUXY_TPU_TAYLOR", "xla")
     mf_shift = construct_mean_field_shift(ham, trial)
     chol = ham.chol.cpu().numpy()
     m = chol.shape[0]

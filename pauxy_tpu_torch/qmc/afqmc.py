@@ -355,18 +355,20 @@ class AFQMC:
                 "(no multi-determinant, GHF or multi-coherent trial) and "
                 "not for the Hubbard-Holstein propagator")
         self.extras = self._extras(bp_opts, itcf_opts)
-        self.use_fast_block = hubbard_fast.eligible(
-            self.ham, self.trial, self.prop,
-            free_projection=self.free_projection,
-            pop_method=qmc.pop_control_method, nbp=self.extras.nbp,
-            nitcf=self.extras.nitcf, calc_one_rdm=self.calc_one_rdm,
-            calc_two_rdm=self.calc_two_rdm,
-        )
-        if not (self.use_fast_block
-                or qmc.pop_control_method in ("comb", "pair_branch")):
-            raise NotImplementedError(
-                "this configuration is not ported yet: the port runs "
-                "comb or pair_branch population control")
+        if qmc.pop_control_method not in ("comb", "pair_branch"):
+            raise ValueError(f"unknown population control method "
+                             f"{qmc.pop_control_method!r}")
+        # The lanes block where it is eligible; PAUXY_TPU_FAST=0 opts out,
+        # as in JAX.
+        self.use_fast_block = (
+            os.environ.get("PAUXY_TPU_FAST", "1") != "0"
+            and hubbard_fast.eligible(
+                self.ham, self.trial, self.prop,
+                free_projection=self.free_projection,
+                pop_method=qmc.pop_control_method, nbp=self.extras.nbp,
+                nitcf=self.extras.nitcf, calc_one_rdm=self.calc_one_rdm,
+                calc_two_rdm=self.calc_two_rdm,
+            ))
 
         ex = self.extras
         seed = qmc.rng_seed if qmc.rng_seed is not None else 7

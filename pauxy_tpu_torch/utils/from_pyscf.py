@@ -170,8 +170,9 @@ def chunked_cholesky_outcore(source, filename: str, max_error: float = 1e-6,
     Returns the number of vectors written (the dataset is resized to
     [nchol, nao*nao] on exit; read it back with ``h5lite.open_file``).
     The file goes through ``utils.h5lite.open_file``: h5py where it
-    imports, else the port's own writer, which holds the dataset in memory
-    until the file closes.
+    imports, else the port's own writer, which writes each row to its
+    chunk in the file as it comes and reads back only the chunks a block
+    touches, so that host memory stays a few chunks there too.
     """
     from pauxy_tpu_torch.utils import h5lite
 

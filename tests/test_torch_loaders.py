@@ -81,28 +81,27 @@ def assert_values(get):
 @pytest.mark.parametrize("libver", ["earliest", "latest"])
 def test_h5lite_reads_h5py_files(tmp_path, libver):
     fn = str(tmp_path / "p.h5")
-    # libver="latest" keeps groups of up to 8 links compact; more go to
-    # dense storage, which h5lite does not read.
     with h5py.File(fn, "w", libver=libver) as f:
         for j, (k, v) in enumerate(VALUES.items()):
             f[f"g{j % 3}/{k}"] = v
         f["s"] = "a variable-length string"
+        # A group past one B-tree node (symbol table) or in dense link
+        # storage (libver="latest", past 8 links).
+        for i in range(300):
+            f[f"many/{i:09d}"] = np.full(3, i + 0.5j)
         if libver == "earliest":
-            # A group past one B-tree node, and an object header past one
-            # chunk (attributes force a continuation block).
-            for i in range(300):
-                f[f"many/{i:09d}"] = np.full(3, i + 0.5j)
+            # An object header past one chunk (attributes force a
+            # continuation block).
             for j in range(20):
                 f["many"].attrs[f"a{j}"] = np.arange(50)
-    if libver == "earliest":
-        with h5lite.File(fn) as f:
-            keys = f["many"].keys()
-            assert keys == [f"{i:09d}" for i in range(300)]
-            for k in keys[::37]:
-                np.testing.assert_array_equal(f[f"many/{k}"][:],
-                                              np.full(3, int(k) + 0.5j))
-        with h5py.File(fn, "a") as f:
-            del f["many"]
+    with h5lite.File(fn) as f:
+        keys = f["many"].keys()
+        assert keys == [f"{i:09d}" for i in range(300)]
+        for k in keys[::37]:
+            np.testing.assert_array_equal(f[f"many/{k}"][:],
+                                          np.full(3, int(k) + 0.5j))
+    with h5py.File(fn, "a") as f:
+        del f["many"]
     with h5lite.File(fn) as f:
         assert_values(lambda k: next(f[f"g{j % 3}/{k}"][()]
                                      for j, kk in enumerate(VALUES)
