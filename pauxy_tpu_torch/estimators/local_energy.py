@@ -32,6 +32,7 @@ from pauxy_tpu_torch.ops import exx_cuda
 from pauxy_tpu_torch.ops.contract import cr_einsum, rc_einsum
 from pauxy_tpu_torch.parallel import mesh as pmesh
 from pauxy_tpu_torch.propagation.pw_fft import fft3, ifft3, neg_perm, to_cube
+from pauxy_tpu_torch.utils.tracing import span
 
 # Elements of one chunk of the dense-G exchange intermediate
 # t[w, l, k, x] = sum_i G[w, i, l] L[i, k, x] (2^26: 512 MB in complex64).
@@ -98,14 +99,16 @@ def local_energy_generic_opt(trial, Ghalfa: torch.Tensor,
     Ghalf_s [w, n_s, M] and the trial's half-rotated tensors:
       e1b = sum_{i m} rh1_s[i, m] Ghalf_s[w, i, m] + ecore,
       X_s[w, x] = sum_{i m} rchol_s[x, i, m] Ghalf_s[w, i, m],
-      e2b = 0.5 ((Xa + Xb).(Xa + Xb) - exx_a - exx_b)."""
+      e2b = 0.5 ((Xa + Xb).(Xa + Xb) - exx_a - exx_b),
+    with both spins' exchange (``_exx``) in the span ``exchange``."""
     e1b = (cr_einsum("im,wim->w", trial.rh1a, Ghalfa)
            + cr_einsum("im,wim->w", trial.rh1b, Ghalfb))
     x = (cr_einsum("xim,wim->wx", trial.rchola, Ghalfa)
          + cr_einsum("xim,wim->wx", trial.rcholb, Ghalfb))
     ecoul = torch.sum(x * x, dim=-1)
-    exx = (_exx(trial.rchola, Ghalfa, trial.exx_supera)
-           + _exx(trial.rcholb, Ghalfb, trial.exx_superb))
+    with span("exchange"):
+        exx = (_exx(trial.rchola, Ghalfa, trial.exx_supera)
+               + _exx(trial.rcholb, Ghalfb, trial.exx_superb))
     # On a [walker, chol] mesh both are partial sums over this rank's X
     # slice (the supermatrix is dropped there).
     if pmesh.chol_sharded():
@@ -140,16 +143,18 @@ def local_energy_generic_opt_multi(trial, Ghalfa: torch.Tensor,
     determinant (rchol_s [D, X, n, M], rh1_s [D, n, M], Ghalf_s
     [w, D, n, M]), averaged with the weights det_weights [w, D]. The
     per-determinant rchol is complex, so each exchange takes the einsum
-    route, chunked over the Cholesky axis (``exx_cuda.exx_plain``)."""
+    route, chunked over the Cholesky axis (``exx_cuda.exx_plain``), all of
+    them in the span ``exchange``."""
     rca, rcb = trial.rchola, trial.rcholb
     e1_d = (cr_einsum("dim,wdim->wd", trial.rh1a, Ghalfa)
             + cr_einsum("dim,wdim->wd", trial.rh1b, Ghalfb))
     x = (cr_einsum("dxim,wdim->wdx", rca, Ghalfa)
          + cr_einsum("dxim,wdim->wdx", rcb, Ghalfb))
     ecoul_d = torch.einsum("wdx,wdx->wd", x, x)
-    exx_d = torch.stack([_exx(rca[d], Ghalfa[:, d]) + _exx(rcb[d],
-                                                           Ghalfb[:, d])
-                         for d in range(rca.shape[0])], dim=1)
+    with span("exchange"):
+        exx_d = torch.stack([_exx(rca[d], Ghalfa[:, d])
+                             + _exx(rcb[d], Ghalfb[:, d])
+                             for d in range(rca.shape[0])], dim=1)
     if pmesh.chol_sharded():
         ecoul_d, exx_d = pmesh.chol_sum(torch.stack(
             [ecoul_d, exx_d.to(ecoul_d.dtype)]))

@@ -29,6 +29,7 @@ from pauxy_tpu_torch.models import ghf
 from pauxy_tpu_torch.models import multi_coherent as mcoh
 from pauxy_tpu_torch.models import multi_slater as msd
 from pauxy_tpu_torch.ops import greens
+from pauxy_tpu_torch.utils.tracing import span
 
 # Accumulator column indices.
 UWEIGHT, WEIGHT, ENUMER, EDENOM, E1B, E2B, EHYB, OVLP = range(8)
@@ -159,40 +160,45 @@ def _energies(ham, trial, state, want_g2: bool, ri_theta=None):
     """(etot, e1b, e2b, g2) of every walker: the local energies [w] and,
     with ``want_g2``, its (det- or component-weighted) Green's functions
     [w, 2, M, M] with the half-rotated factors of a single determinant
-    (None otherwise)."""
-    if isinstance(trial, mcoh.MultiCoherentTrial):
-        gi, comp_w = mcoh.mc_greens_function(trial, state.phia, state.phib,
-                                             state.X)
-        _, lap = mcoh.phonon_terms(trial, comp_w, state.X)
-        g2 = None
-        if want_g2:
-            g2 = (torch.einsum("wp,wpsmn->wsmn", comp_w, gi), None)
-        return (*le.local_energy_multi_coherent(ham, gi, comp_w, state.X,
-                                                lap), g2)
-    if isinstance(trial, ghf.GHFTrial):
-        gi, det_weights = ghf.ghf_greens_function(trial, state.phia,
-                                                  state.phib)
-        return (*le.local_energy_hubbard_ghf(ham, gi, det_weights), None)
-    if isinstance(trial, msd.MultiSlaterTrial):
-        fast = ham.name == "Generic" and trial.rchola is not None
-        md = msd.greens_function_multi_det(trial, state.phia, state.phib,
-                                           want_g=want_g2 or not fast)
-        g2 = (md.G, None) if want_g2 else None
-        if fast:
-            return (*le.local_energy_generic_opt_multi(
-                trial, md.Ghalfa, md.Ghalfb, md.det_weights, ham.ecore), g2)
-        nw, nd = md.det_weights.shape
-        m = state.nbasis
-        gi = md.Gi.reshape(nw * nd, 2, m, m)
-        per_det = energy_estimator_G(ham)(gi[:, 0], gi[:, 1])
-        return (*(torch.sum(md.det_weights * x.reshape(nw, nd), dim=-1)
-                  for x in per_det), g2)
-    want_g = needs_full_g(ham) or want_g2
-    ga = greens.greens_function(state.phia, trial.psia, want_g)
-    gb = greens.greens_function(state.phib, trial.psib, want_g)
-    g2 = (torch.stack([ga.G, gb.G], dim=1), (ga.Ghalf, gb.Ghalf)) \
-        if want_g2 else None
-    return (*energy_estimator(ham, trial, ri_theta, state.X)(ga, gb), g2)
+    (None otherwise). The span ``energy``."""
+    with span("energy"):
+        if isinstance(trial, mcoh.MultiCoherentTrial):
+            gi, comp_w = mcoh.mc_greens_function(trial, state.phia,
+                                                 state.phib, state.X)
+            _, lap = mcoh.phonon_terms(trial, comp_w, state.X)
+            g2 = None
+            if want_g2:
+                g2 = (torch.einsum("wp,wpsmn->wsmn", comp_w, gi), None)
+            return (*le.local_energy_multi_coherent(ham, gi, comp_w,
+                                                    state.X, lap), g2)
+        if isinstance(trial, ghf.GHFTrial):
+            gi, det_weights = ghf.ghf_greens_function(trial, state.phia,
+                                                      state.phib)
+            return (*le.local_energy_hubbard_ghf(ham, gi, det_weights),
+                    None)
+        if isinstance(trial, msd.MultiSlaterTrial):
+            fast = ham.name == "Generic" and trial.rchola is not None
+            md = msd.greens_function_multi_det(trial, state.phia,
+                                               state.phib,
+                                               want_g=want_g2 or not fast)
+            g2 = (md.G, None) if want_g2 else None
+            if fast:
+                return (*le.local_energy_generic_opt_multi(
+                    trial, md.Ghalfa, md.Ghalfb, md.det_weights, ham.ecore),
+                    g2)
+            nw, nd = md.det_weights.shape
+            m = state.nbasis
+            gi = md.Gi.reshape(nw * nd, 2, m, m)
+            per_det = energy_estimator_G(ham)(gi[:, 0], gi[:, 1])
+            return (*(torch.sum(md.det_weights * x.reshape(nw, nd), dim=-1)
+                      for x in per_det), g2)
+        want_g = needs_full_g(ham) or want_g2
+        ga = greens.greens_function(state.phia, trial.psia, want_g)
+        gb = greens.greens_function(state.phib, trial.psib, want_g)
+        g2 = (torch.stack([ga.G, gb.G], dim=1), (ga.Ghalf, gb.Ghalf)) \
+            if want_g2 else None
+        return (*energy_estimator(ham, trial, ri_theta, state.X)(ga, gb),
+                g2)
 
 
 def _dms_flat(ham, trial, wfac, g2, calc_one_rdm: bool,

@@ -21,6 +21,7 @@ import torch
 
 from pauxy_tpu_torch import config
 from pauxy_tpu_torch.ops import batchla_cuda
+from pauxy_tpu_torch.utils.tracing import span
 
 
 def uses_kernel_b(s: torch.Tensor) -> bool:
@@ -37,23 +38,26 @@ def _slogdet_linalg(s: torch.Tensor) -> torch.Tensor:
 
 
 def slogdet(s: torch.Tensor) -> torch.Tensor:
-    """Batched complex log-determinant (log|det| + i arg det), [...]."""
-    if s.shape[-1] == 0:
-        # det of the 0x0 matrix is 1 (fully spin-polarized blocks).
-        return torch.zeros(s.shape[:-2], dtype=s.dtype, device=s.device)
-    if not uses_kernel_b(s):
-        return _slogdet_linalg(s)
-    return batchla_cuda.slogdet_lanes(s)
+    """Batched complex log-determinant (log|det| + i arg det), [...]; the
+    span ``inv_logdet``."""
+    with span("inv_logdet"):
+        if s.shape[-1] == 0:
+            # det of the 0x0 matrix is 1 (fully spin-polarized blocks).
+            return torch.zeros(s.shape[:-2], dtype=s.dtype, device=s.device)
+        if not uses_kernel_b(s):
+            return _slogdet_linalg(s)
+        return batchla_cuda.slogdet_lanes(s)
 
 
 def inv_logdet(s: torch.Tensor):
     """(complex log det [...], inverse [..., n, n] of s.dtype), one pass
-    of kernel B over the flattened batch."""
-    if not uses_kernel_b(s):
-        return _slogdet_linalg(s), torch.linalg.inv(s)
-    flat = s.reshape((-1,) + tuple(s.shape[-2:]))
-    ld, inv = batchla_cuda.inv_logdet_lanes(flat)
-    return ld.reshape(s.shape[:-2]), inv.reshape(s.shape)
+    of kernel B over the flattened batch; the span ``inv_logdet``."""
+    with span("inv_logdet"):
+        if not uses_kernel_b(s):
+            return _slogdet_linalg(s), torch.linalg.inv(s)
+        flat = s.reshape((-1,) + tuple(s.shape[-2:]))
+        ld, inv = batchla_cuda.inv_logdet_lanes(flat)
+        return ld.reshape(s.shape[:-2]), inv.reshape(s.shape)
 
 
 def inv(s: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,7 @@ from pauxy_tpu_torch.models import multi_coherent as mcoh
 from pauxy_tpu_torch.models import multi_slater as msd
 from pauxy_tpu_torch.ops import greens
 from pauxy_tpu_torch.parallel import mesh as pmesh
+from pauxy_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,7 +174,8 @@ def _half_steps(prop: Continuous, state, generator, xi):
 def two_body_factors(prop: Continuous, trial, ga, gb, nwalkers: int,
                      generator=None, xi=None) -> TwoBodyFactors:
     """Fields x ~ N(0, 1) [w, nfields] (``xi`` if given), the force bias
-    xbar with components clamped to unit modulus, and the shift factors."""
+    xbar with components clamped to unit modulus (the span
+    ``force_bias``), and the shift factors."""
     inner = prop.inner
     mf = inner.mf_shift
     nfields = mf.shape[0]
@@ -183,10 +185,12 @@ def two_body_factors(prop: Continuous, trial, ga, gb, nwalkers: int,
             device=mf.device), (nwalkers, nfields), walker_dim=0,
             chol_dim=1 if pmesh.chol_sharded() else None)
     if prop.force_bias:
-        xbar = inner.force_bias(trial, ga, gb)
-        absx = xbar.abs()
-        xbar = torch.where(absx > 1.0,
-                           xbar / torch.where(absx == 0, 1.0, absx), xbar)
+        with span("force_bias"):
+            xbar = inner.force_bias(trial, ga, gb)
+            absx = xbar.abs()
+            xbar = torch.where(absx > 1.0,
+                               xbar / torch.where(absx == 0, 1.0, absx),
+                               xbar)
     else:
         xbar = torch.zeros((nwalkers, nfields), dtype=mf.dtype,
                            device=mf.device)

@@ -34,6 +34,7 @@ from pauxy_tpu_torch.models import multi_slater as msd
 from pauxy_tpu_torch.ops import taylor_cuda
 from pauxy_tpu_torch.ops.contract import cr_einsum
 from pauxy_tpu_torch.parallel import mesh as pmesh
+from pauxy_tpu_torch.utils.tracing import span
 
 TAYLOR_IMPLS = ("xla", "xla_3m", "pallas", "pallas_bf16")
 
@@ -63,20 +64,22 @@ def taylor_series(vhs: torch.Tensor, phi: torch.Tensor, order: int,
     ``"xla_3m"`` run the plain complex series. The kernels' plain series
     past their caps stand in for JAX's Pallas body, whose dots pin their
     precision, so they run in IEEE float32 under every matmul tier; the
-    "xla" series takes the tier, as in JAX."""
+    "xla" series takes the tier, as in JAX. Every route runs inside the
+    span ``taylor``."""
     m = vhs.shape[-1]
-    if taylor_impl == "pallas":
-        if taylor_cuda.fits(m, vhs.dtype):
-            return taylor_cuda.apply_taylor(vhs, phi, order)
-        with config.full_precision():
-            return apply_exponential_taylor(vhs, phi, order)
-    if taylor_impl == "pallas_bf16":
-        if taylor_cuda.fits(m, vhs.dtype, lowp=True):
-            return taylor_cuda.apply_taylor(vhs, phi, order, lowp=True)
-        with config.full_precision():
-            return taylor_cuda.apply_taylor_plain(vhs, phi, order,
-                                                  lowp=True)
-    return apply_exponential_taylor(vhs, phi, order)
+    with span("taylor"):
+        if taylor_impl == "pallas":
+            if taylor_cuda.fits(m, vhs.dtype):
+                return taylor_cuda.apply_taylor(vhs, phi, order)
+            with config.full_precision():
+                return apply_exponential_taylor(vhs, phi, order)
+        if taylor_impl == "pallas_bf16":
+            if taylor_cuda.fits(m, vhs.dtype, lowp=True):
+                return taylor_cuda.apply_taylor(vhs, phi, order, lowp=True)
+            with config.full_precision():
+                return taylor_cuda.apply_taylor_plain(vhs, phi, order,
+                                                      lowp=True)
+        return apply_exponential_taylor(vhs, phi, order)
 
 
 class GenericContinuous(nn.Module):
@@ -122,11 +125,13 @@ class GenericContinuous(nn.Module):
         """VHS = i sqrt(dt) sum_x L_x xshifted_x, then exp(VHS) applied to
         [phia | phib] by one Taylor series. On a [walker, chol] mesh each
         rank forms its X slice's part of VHS and the chol group sums them
-        before the series."""
-        vhs = cr_einsum("pqx,wx->wpq", self.chol,
-                        (1j * self.sqrt_dt) * xshifted).contiguous()
-        # On a [walker, chol] mesh, a partial sum over this rank's X slice.
-        vhs = pmesh.chol_sum(vhs)
+        before the series. Forming VHS is the span ``vhs``."""
+        with span("vhs"):
+            vhs = cr_einsum("pqx,wx->wpq", self.chol,
+                            (1j * self.sqrt_dt) * xshifted).contiguous()
+            # On a [walker, chol] mesh, a partial sum over this rank's X
+            # slice.
+            vhs = pmesh.chol_sum(vhs)
         na = phia.shape[-1]
         phi_in = torch.cat([phia, phib], dim=-1)
         phi = taylor_series(vhs, phi_in, self.exp_order, self.taylor_impl)

@@ -34,6 +34,7 @@ from pauxy_tpu_torch.estimators.local_energy import fft_coulomb_terms
 from pauxy_tpu_torch.ops import ueg_sparse
 from pauxy_tpu_torch.propagation.generic import (_check_taylor_impl,
                                                  taylor_series)
+from pauxy_tpu_torch.utils.tracing import span
 
 
 class PlaneWave(nn.Module):
@@ -88,11 +89,14 @@ class PlaneWave(nn.Module):
         return -self.sqrt_dt * torch.cat([vplus, vminus], dim=-1)
 
     def build_vhs(self, xshifted: torch.Tensor) -> torch.Tensor:
-        """VHS = sqrt(dt) (iA x+ + iB x-), [w, M, M] contiguous."""
-        xa = xshifted[:, :self.nq]
-        xb = xshifted[:, self.nq:]
-        vhs = ueg_sparse.assemble_vhs(self.sp, 1j * xa - xb, 1j * xa + xb)
-        return (self.sqrt_dt * vhs).contiguous()
+        """VHS = sqrt(dt) (iA x+ + iB x-), [w, M, M] contiguous; the span
+        ``vhs``."""
+        with span("vhs"):
+            xa = xshifted[:, :self.nq]
+            xb = xshifted[:, self.nq:]
+            vhs = ueg_sparse.assemble_vhs(self.sp, 1j * xa - xb,
+                                          1j * xa + xb)
+            return (self.sqrt_dt * vhs).contiguous()
 
     def apply_vhs(self, phia: torch.Tensor, phib: torch.Tensor,
                   xshifted: torch.Tensor):

@@ -31,12 +31,23 @@ mesh.shard_walkers(af.state, m)`` on every rank, and for Generic
 ITCF and the energy variants included) each rank runs both
 blocks on its own walkers; the block sums are summed over the walker group
 once a block, so every rank reports the same rows, and only rank 0 writes
-the HDF5 file and the checkpoint metadata. With ``block_mode="split"``
-(or ``PAUXY_TPU_SPLIT=1``) the orthogonalisation, propagation,
-population-control and estimator phases are timed (CUDA events on the
-card, ``time.perf_counter`` on the CPU, read once a block) and ``finalise``
-prints JAX's per-phase table; ``profile_dir`` takes a ``torch.profiler``
-trace of the whole ``run()``.
+the HDF5 file and the checkpoint metadata.
+
+Each step runs inside the spans of ``utils/tracing``: ``ortho``,
+``propagate``, ``pop_control`` and ``measure``, and inside them
+``force_bias``, ``vhs``, ``taylor``, ``inv_logdet``, ``energy`` and
+``exchange``. Off, they cost a flag test each. Under any
+``torch.profiler`` profile (``profile_dir`` takes one of the whole
+``run()``) they appear as ``pauxy.<name>`` ranges around the operations
+they hold. With the recorder on (``tracing.enable()``) every block leaves
+a record in ``tracing.blocks()``: its wall time, the host's time to issue
+its last launch, and each span's calls and device and host seconds (CUDA
+events, read while the next block runs, so the recorder adds no
+synchronisation).
+``block_mode="split"`` (or ``PAUXY_TPU_SPLIT=1``) records the driver's
+blocks whatever the recorder's switch, sums the four top-level spans'
+device seconds into ``af.timing`` and has ``finalise`` print JAX's
+per-phase table.
 """
 
 from __future__ import annotations
@@ -68,8 +79,10 @@ from pauxy_tpu_torch.propagation.pw_fft import make_pw_fft_inner
 from pauxy_tpu_torch.qmc import hubbard_fast
 from pauxy_tpu_torch.qmc.hubbard_fast import BlockNoise
 from pauxy_tpu_torch.qmc.options import QMCOpts
+from pauxy_tpu_torch.utils import tracing
 from pauxy_tpu_torch.utils.io import (H5EstimatorHelper,
                                       create_estimates_file, get_sys_info)
+from pauxy_tpu_torch.utils.tracing import span
 from pauxy_tpu_torch.walkers import pop_control as pc
 from pauxy_tpu_torch.walkers.state import init_walkers, orthogonalise
 
@@ -85,46 +98,9 @@ def check_population_alive(weight: torch.Tensor, hint: str):
         )
 
 
-class PhaseTimer:
-    """Split-mode phase times of a block: ``mark(phase)`` charges the time
-    since the previous mark to ``phase``. On the card each mark records a
-    CUDA event, and ``read()`` synchronises once, at the block's end; on
-    the CPU the marks are ``time.perf_counter`` readings."""
-
-    PHASES = ("ortho", "prop", "pop", "estim")
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks = []
-
-    def _now(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.perf_counter()
-
-    def start(self):
-        self.marks = [(None, self._now())]
-
-    def mark(self, phase: str):
-        self.marks.append((phase, self._now()))
-
-    def read(self) -> dict:
-        """Seconds per phase since ``start``."""
-        out = dict.fromkeys(self.PHASES, 0.0)
-        if self.cuda and self.marks:
-            self.marks[-1][1].synchronize()
-        for (_, t0), (phase, t1) in zip(self.marks, self.marks[1:]):
-            out[phase] += (t0.elapsed_time(t1) / 1e3 if self.cuda
-                           else t1 - t0)
-        self.marks = []
-        return out
-
-
-def _mark(timer: PhaseTimer | None, phase: str):
-    if timer is not None:
-        timer.mark(phase)
+# The split table's phases: af.timing's key and the span it reads.
+SPLIT_PHASES = (("ortho", "ortho"), ("prop", "propagate"),
+                ("pop", "pop_control"), ("estim", "measure"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,8 +148,7 @@ def run_block(ham, trial, prop, state, generator, eshift: float,
               pop_method: str, target_weight: float, energy_eval_freq: int,
               free_projection: bool = False, calc_one_rdm: bool = False,
               calc_two_rdm: str | None = None, extras: Extras = Extras(),
-              noise: BlockNoise | None = None,
-              timer: PhaseTimer | None = None):
+              noise: BlockNoise | None = None):
     """Advance ``state`` by one block of ``nsteps`` steps in the
     [w, M, n] layout, in the JAX step order
     (``pauxy_tpu/qmc/afqmc.py:117-228``): re-orthogonalise on
@@ -196,8 +171,9 @@ def run_block(ham, trial, prop, state, generator, eshift: float,
     continuous HS fields [w, X], with stochastic RI a
     ``continuous.RIDraws``, for Hubbard-Holstein a ``hirsch_dmc.DMCDraws``;
     ``noise.est[i]`` the stochastic-RI energy's probes [X, S]).
-    On a walker mesh the block sums are summed over the walker group. With
-    ``timer`` each step marks its phases.
+    On a walker mesh the block sums are summed over the walker group.
+    Each step's phases are the spans ``ortho``, ``propagate`` (the step and
+    the weight cap), ``pop_control`` and ``measure`` (``utils/tracing``).
     """
     discrete = isinstance(prop, Hirsch)
     nhist = extras.nhist
@@ -217,58 +193,59 @@ def run_block(ham, trial, prop, state, generator, eshift: float,
     for i in range(nsteps):
         step = step0 + 1 + i
         if step % nstblz == 0:
-            state = orthogonalise(state, free_projection)
-            _mark(timer, "ortho")
-        state = prop.propagate(trial, state, generator, eshift,
-                               None if noise is None else noise.xi[i],
-                               bp_ix=(step - 1) % nhist if nhist else None,
-                               ham=ham)
-        if step > 1:
-            cap = 0.10 * state.total_weight
-            state = dataclasses.replace(
-                state, weight=torch.where(state.weight.abs() > cap, cap,
-                                          state.weight))
-        _mark(timer, "prop")
+            with span("ortho"):
+                state = orthogonalise(state, free_projection)
+        with span("propagate"):
+            state = prop.propagate(trial, state, generator, eshift,
+                                   None if noise is None else noise.xi[i],
+                                   bp_ix=(step - 1) % nhist if nhist
+                                   else None, ham=ham)
+            if step > 1:
+                cap = 0.10 * state.total_weight
+                state = dataclasses.replace(
+                    state, weight=torch.where(state.weight.abs() > cap, cap,
+                                              state.weight))
         if step % npop_control == 0:
-            state = pc.pop_control(
-                state, target_weight, pop_method,
-                uniforms=None if noise is None else noise.pop[i],
-                generator=generator)
-            _mark(timer, "pop")
-        eval_energy = step % energy_eval_freq == 0
-        ri_theta = None
-        if eval_energy and getattr(ham, "stochastic_ri", False):
-            # On a [walker, chol] mesh every rank draws the whole [X, S]
-            # and keeps its X rows (ham.nchol is the local slice's).
-            ri_theta = (noise.est[i] if noise is not None
-                        and noise.est is not None
-                        else pmesh.draw_shared(
-                            lambda shape: rademacher(
-                                shape, state.weight.dtype, generator,
-                                state.weight.device),
-                            (ham.nchol, ham.nsamples), chol_dim=0))
-        accs.append(mixed.update(ham, trial, state, eval_energy,
-                                 free_projection, calc_one_rdm,
-                                 calc_two_rdm, ri_theta))
-        if extras.nbp:
-            buffcount = (step - 1) % nhist + 1
-            for k, s in enumerate(extras.splits):
-                if buffcount == s:
-                    bp_acc[k * nacc_bp:(k + 1) * nacc_bp] += back_prop.update(
-                        ham, trial, prop, state, energy_fn, nstblz=nstblz,
-                        restore_weights=extras.bp_restore,
-                        discrete=discrete, eval_ekt=extras.bp_eval_ekt,
-                        nbp_len=s, calc_two_rdm=extras.bp_two_rdm)
-            if buffcount == extras.splits[-1]:
-                state = _reset(state, "old")
-        if extras.nitcf and step % nhist == 0:
-            itcf_acc += itcf_mod.measure(
-                prop, trial, state, nmax=extras.nitcf, nstblz=nstblz,
-                stable=extras.itcf_stable,
-                restore_weights=extras.itcf_restore, discrete=discrete,
-                stack_size=extras.itcf_stack_size)
-            state = _reset(state, "right")
-        _mark(timer, "estim")
+            with span("pop_control"):
+                state = pc.pop_control(
+                    state, target_weight, pop_method,
+                    uniforms=None if noise is None else noise.pop[i],
+                    generator=generator)
+        with span("measure"):
+            eval_energy = step % energy_eval_freq == 0
+            ri_theta = None
+            if eval_energy and getattr(ham, "stochastic_ri", False):
+                # On a [walker, chol] mesh every rank draws the whole [X, S]
+                # and keeps its X rows (ham.nchol is the local slice's).
+                ri_theta = (noise.est[i] if noise is not None
+                            and noise.est is not None
+                            else pmesh.draw_shared(
+                                lambda shape: rademacher(
+                                    shape, state.weight.dtype, generator,
+                                    state.weight.device),
+                                (ham.nchol, ham.nsamples), chol_dim=0))
+            accs.append(mixed.update(ham, trial, state, eval_energy,
+                                     free_projection, calc_one_rdm,
+                                     calc_two_rdm, ri_theta))
+            if extras.nbp:
+                buffcount = (step - 1) % nhist + 1
+                for k, s in enumerate(extras.splits):
+                    if buffcount == s:
+                        part = slice(k * nacc_bp, (k + 1) * nacc_bp)
+                        bp_acc[part] += back_prop.update(
+                            ham, trial, prop, state, energy_fn,
+                            nstblz=nstblz, restore_weights=extras.bp_restore,
+                            discrete=discrete, eval_ekt=extras.bp_eval_ekt,
+                            nbp_len=s, calc_two_rdm=extras.bp_two_rdm)
+                if buffcount == extras.splits[-1]:
+                    state = _reset(state, "old")
+            if extras.nitcf and step % nhist == 0:
+                itcf_acc += itcf_mod.measure(
+                    prop, trial, state, nmax=extras.nitcf, nstblz=nstblz,
+                    stable=extras.itcf_stable,
+                    restore_weights=extras.itcf_restore, discrete=discrete,
+                    stack_size=extras.itcf_stack_size)
+                state = _reset(state, "right")
     s = torch.stack(accs).sum(dim=0)
     if pmesh.active_mesh() is not None:
         ns, nb = s.shape[0], bp_acc.shape[0]
@@ -291,8 +268,18 @@ class AFQMC:
     ``read_file`` (start from a checkpoint file or a sharded checkpoint's
     directory: walkers, step, eshift and the generator's state). The
     positional order is JAX's. ``block_mode``: None (the default block),
-    or "split" (the per-phase timers; also ``PAUXY_TPU_SPLIT=1``);
-    ``profile_dir``: where ``run()`` writes its ``torch.profiler`` trace.
+    or "split" (every block recorded by ``utils/tracing`` and the phase
+    table printed; also ``PAUXY_TPU_SPLIT=1``); ``profile_dir``: where
+    ``run()`` writes its ``torch.profiler`` trace, which holds the step's
+    ``pauxy.*`` spans.
+
+    To record blocks without split mode, turn the recorder on
+    (``from pauxy_tpu_torch.utils import tracing; tracing.enable()``) and
+    read ``tracing.blocks()``: a record a block, with ``steps``,
+    ``wall_s`` (the value ``block_seconds`` gets), ``host_issue_s`` (block
+    start to the last launch issued), ``profiled`` and, per span name, its
+    ``calls``, ``device_s`` and ``host_s``. In split mode ``timing`` sums
+    the four top-level spans over the blocks.
     """
 
     def __init__(self, ham, trial, qmc: QMCOpts,
@@ -595,35 +582,41 @@ class AFQMC:
     def run_block(self, noise: BlockNoise | None = None) -> np.ndarray:
         """Advance one block (nsteps), report, and update eshift. Draws
         come from the driver's generator unless ``noise`` is given (see
-        ``run_block`` and ``hubbard_fast.run_block_lanes``)."""
+        ``run_block`` and ``hubbard_fast.run_block_lanes``). The block is
+        recorded (``utils/tracing``) in split mode or with the recorder
+        on."""
         t0 = time.perf_counter()
-        timer = None
-        if self.block_mode == "split":
-            timer = PhaseTimer(self.state.weight.device)
-            timer.start()
         kw = dict(nsteps=self.qmc.nsteps, nstblz=self.qmc.nstblz,
                   npop_control=self.qmc.npop_control,
                   pop_method=self.qmc.pop_control_method,
                   target_weight=float(self.qmc.nwalkers),
                   energy_eval_freq=self.energy_eval_freq)
-        if self.use_fast_block:
-            self.state, acc = hubbard_fast.run_block_lanes(
-                self.ham, self.trial, self.prop, self.state, self.generator,
-                self.eshift, self.step, noise=noise, timer=timer, **kw)
-            bp_acc = itcf_acc = None
-        else:
-            self.state, acc, bp_acc, itcf_acc = run_block(
-                self.ham, self.trial, self.prop, self.state, self.generator,
-                self.eshift, self.step, free_projection=self.free_projection,
-                calc_one_rdm=self.calc_one_rdm,
-                calc_two_rdm=self.calc_two_rdm, extras=self.extras,
-                noise=noise, timer=timer, **kw)
-        acc = acc.cpu().numpy()
-        self.block_seconds.append(time.perf_counter() - t0)
+        with tracing.block(self.state.weight.device, self.qmc.nsteps, t0,
+                           always=self.block_mode == "split") as blk:
+            if self.use_fast_block:
+                self.state, acc = hubbard_fast.run_block_lanes(
+                    self.ham, self.trial, self.prop, self.state,
+                    self.generator, self.eshift, self.step, noise=noise,
+                    **kw)
+                bp_acc = itcf_acc = None
+            else:
+                self.state, acc, bp_acc, itcf_acc = run_block(
+                    self.ham, self.trial, self.prop, self.state,
+                    self.generator, self.eshift, self.step,
+                    free_projection=self.free_projection,
+                    calc_one_rdm=self.calc_one_rdm,
+                    calc_two_rdm=self.calc_two_rdm, extras=self.extras,
+                    noise=noise, **kw)
+            blk.issued()
+            acc = acc.cpu().numpy()
+            self.block_seconds.append(time.perf_counter() - t0)
+            blk.end(self.block_seconds[-1])
         self.timing["block"] += self.block_seconds[-1]
-        if timer is not None:
-            for phase, sec in timer.read().items():
-                self.timing[phase] += sec
+        if self.block_mode == "split":
+            spans = blk.record["spans"]
+            for key, name in SPLIT_PHASES:
+                if name in spans:
+                    self.timing[key] += spans[name]["device_s"]
         self.step += self.qmc.nsteps
         row = self.reporter.block_row(self.step, acc[0] + 1j * acc[1])
         if self.bp_reporter is not None:
