@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ladder     # phases 1-3 and 35 only, no result
     python3 chip_smoke.py --h5lite     # phases 1 and 36 only, no result
+    python3 chip_smoke.py --pw-force-bias   # phases 1, 2 and 37 only
 
 Phases, one line each, in order; any failure raises, so the script exits
 non-zero and prints no result line:
@@ -324,7 +325,23 @@ non-zero and prints no result line:
      dataset; and ``tests/data/h5lite_latest_gzip.h5`` (written by h5py
      with ``libver="latest"``: a deflated, shuffled dataset indexed by an
      extensible array, a group of 12 links in dense storage) read equal to
-     the values it was written with.
+     the values it was written with;
+ 37. the plane-wave force-bias kernel (``ops/pw_force_bias_cuda``,
+     ``csrc/pw_force_bias.cu``) against its plain version on the same card
+     tensors, in complex64 and complex128, within 1e-4 / 1e-10 of max|out|
+     (the order of the sums: direct DFTs against torch.fft), with a dense
+     random trial: at the UEG cells' cube (17^3, M = 257, n = 7 + 7) with
+     1024, 1536 and 37 walkers, at n = 1 + 0 and 3 + 5, and at the largest
+     cube the kernel takes (25^3 complex64, 21^3 complex128); a cube past
+     it (25^3 complex128) takes the plain version (torch.fft) in
+     PlaneWave.force_bias without a launch, equal to it within 1e-12, with
+     a device-memory peak no higher than the per-spin torch.fft chains'
+     (64 walkers); and the kernel's time (wrapper and device), its plain
+     version's and the torch.fft route's at the cells' shape, 1024 and
+     1536 walkers, beside its bound (the kernels line's row). Every path's
+     launch count holds the kernel too: one a step wherever a UEG block
+     runs (phases 21 and 22, phase 24's S(k), phase 35's UEG block), none
+     elsewhere.
 Phase 3 also holds the cpqr kernel on the low-rank stack's masked input
 (``check_cpqr_masked``) and kernels A and B on exactly singular matrices
 (``check_zero_pivot``: log|det| -inf, JAX's phase where JAX's is finite).
@@ -1926,7 +1943,8 @@ ROUTES = {"taylor_bf16": ("resident", "streaming"),
 def kernel_counts() -> dict:
     """Every kernel wrapper's launch count in this process."""
     from pauxy_tpu_torch.ops import (batchla_cuda, cpqr_cuda, exx_cuda,
-                                     gemm3_cuda, greens_cuda, sweep_cuda,
+                                     gemm3_cuda, greens_cuda,
+                                     pw_force_bias_cuda, sweep_cuda,
                                      taylor_cuda)
 
     return {"greens_lanes": greens_cuda.launches,
@@ -1941,12 +1959,14 @@ def kernel_counts() -> dict:
             "cpqr": cpqr_cuda.launches,
             "gemm_bf16x3": gemm3_cuda.launches,
             **{f"gemm_bf16x3_{r}": n
-               for r, n in gemm3_cuda.launches_by_route.items()}}
+               for r, n in gemm3_cuda.launches_by_route.items()},
+            "pw_force_bias": pw_force_bias_cuda.launches}
 
 
 def zero_kernel_counts() -> None:
     from pauxy_tpu_torch.ops import (batchla_cuda, cpqr_cuda, exx_cuda,
-                                     gemm3_cuda, greens_cuda, sweep_cuda,
+                                     gemm3_cuda, greens_cuda,
+                                     pw_force_bias_cuda, sweep_cuda,
                                      taylor_cuda)
 
     greens_cuda.launches = 0
@@ -1962,6 +1982,7 @@ def zero_kernel_counts() -> None:
     gemm3_cuda.launches = 0
     for r in gemm3_cuda.launches_by_route:
         gemm3_cuda.launches_by_route[r] = 0
+    pw_force_bias_cuda.launches = 0
 
 
 # Phase 34's runs on a [walker 1, chol 2] mesh: (a) back propagation with
@@ -3179,6 +3200,197 @@ def h5lite_phase() -> str:
             f"to its values")
 
 
+# Phase 37's cases: (ecut, na, nb, w) at the UEG cells' cube (N = 17, M =
+# 257) and the largest cube the kernel takes in each type (N = 25 complex64,
+# N = 21 complex128).
+PW_CASES = {torch.complex64: ((8.0, 7, 7, 1024), (8.0, 7, 7, 1536),
+                              (8.0, 7, 7, 37), (8.0, 1, 0, 37),
+                              (8.0, 3, 5, 37), (18.0, 7, 7, 37)),
+            torch.complex128: ((8.0, 7, 7, 1024), (8.0, 7, 7, 1536),
+                               (8.0, 7, 7, 37), (8.0, 1, 0, 37),
+                               (8.0, 3, 5, 37), (12.5, 7, 7, 37))}
+
+
+def pw_force_bias_inputs(ecut: float, na: int, nb: int, w: int, dtype,
+                         seed: int = 0, device="cuda"):
+    """(ct_f, gha, ghb, tables, ham, (psia, psib)) of the plane-wave force
+    bias on the UEG cube of ``ecut``: a dense random trial (not the
+    identity's columns) and random half-rotated Green's functions, scaled
+    as a walker's are (|Ghalf| ~ 1 on the occupied orbitals)."""
+    from pauxy_tpu_torch.config import real_dtype
+    from pauxy_tpu_torch.models.ueg import make_ueg
+    from pauxy_tpu_torch.ops import pw_force_bias_cuda as fb
+
+    ham = make_ueg(max(na, 1), max(nb, 1), rs=1.0, ecut=ecut, device=device,
+                   dtype="double")
+    m = ham.nbasis
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+
+    def cx(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.complex128)
+
+    psi = torch.linalg.qr(cx(m, na + nb))[0]
+    gh = cx(w, na + nb, m) * 0.2
+    gh[:, :, :na + nb] += torch.eye(na + nb, dtype=gh.dtype)
+    qfac = (ham.vqvec / (4.0 * ham.vol)).sqrt().to(real_dtype(dtype))
+    tab = fb.make_tables(ham.gmap, ham.qmap, ham.qmesh, qfac, 0.005 ** 0.5)
+    psi = psi.to(device, dtype)
+    psia, psib = psi[:, :na].contiguous(), psi[:, na:].contiguous()
+    ct_f = fb.trial_cubes(psia, psib, ham.gmap, ham.qmesh)
+    gh = gh.to(device, dtype)
+    return ct_f, gh[:, :na], gh[:, na:], tab, ham, (psia, psib)
+
+
+def pw_force_bias_work(n: int, ngrid: int, nq: int, m: int, w: int,
+                       dtype) -> tuple[float, float]:
+    """(bytes, operations) of the fused force bias on w walkers: Ghalf in
+    and the fields out once; each orbital's pruned passes and its product
+    into the cube, and the final transform's three full passes. A line of
+    N points with Q input pairs counts the fewer of the kernel's direct
+    DFT (6 Q adds and (N - 1) / 2 output pairs of 8 Q + 4) and an FFT's
+    5 N log2 N: the pruned lines at their direct count, the final
+    transform's full lines at an FFT's."""
+    isz = dtype.itemsize
+    s = 2 * ((ngrid - 1) // 4) + 1
+    h = (ngrid - 1) // 2
+
+    def line(q):
+        return min(6 * q + h * (8 * q + 4), 5 * ngrid * np.log2(ngrid))
+
+    orbital = ((s * s + s * ngrid + ngrid ** 2) * line((s - 1) // 2)
+               + 8 * ngrid ** 3)
+    final = 3 * ngrid ** 2 * line(h)
+    return (w * (n * m + 2 * nq) * isz, w * (n * orbital + final))
+
+
+def pw_fft_route(ct_psi, gha, ghb, tab):
+    """The torch.fft route that the kernel replaces on the card: each
+    spin's ``fft_coulomb_terms`` and the glue of ``PlaneWave.force_bias``
+    (the same function, qfac and sqrt(dt) folded into ``tab.fac``)."""
+    from pauxy_tpu_torch.estimators.local_energy import fft_coulomb_terms
+
+    psia, psib = ct_psi
+    qmap = tab.qidx[0].long()
+    ng = int(np.prod(tab.qmesh))
+    ka, pa = fft_coulomb_terms(psia, gha, tab.gmap, qmap, tab.qmesh)
+    if psib.shape[-1]:
+        kb, pb = fft_coulomb_terms(psib, ghb, tab.gmap, qmap, tab.qmesh)
+        ka, pa = ka + kb, pa + pb
+    t1, t2 = tab.fac * ng * ka, tab.fac * ng * pa
+    return -torch.cat([1j * (t1 + t2), -(t1 - t2)], dim=-1)
+
+
+def pw_force_bias_phase() -> tuple[str, dict]:
+    """Phase 37: the plane-wave force-bias kernel against its plain
+    version, its route past the largest cube it takes (and that route's
+    memory peak beside the per-spin torch.fft chains'), and its times at
+    the UEG cells' shape (see the module docstring). The line, and the
+    kernel's row of the kernels line."""
+    from pauxy_tpu_torch.models import make_ueg, rhf_identity_trial
+    from pauxy_tpu_torch.ops import pw_force_bias_cuda as fb
+    from pauxy_tpu_torch.ops.greens import SpinGreens
+    from pauxy_tpu_torch.propagation.planewave import make_planewave
+
+    errs, abs_err = [], 0.0
+    for dtype, cases in PW_CASES.items():
+        for ecut, na, nb, w in cases:
+            ct_f, gha, ghb, tab, _, _ = pw_force_bias_inputs(ecut, na, nb,
+                                                             w, dtype)
+            if not fb.fits(tab, dtype):
+                raise AssertionError(f"pw force bias: cube {tab.qmesh} in "
+                                     f"{dtype} not taken by the kernel")
+            before = fb.launches
+            got = fb.force_bias(ct_f, gha, ghb, tab)
+            torch.cuda.synchronize()
+            want = fb.force_bias_plain(ct_f, gha, ghb, tab)
+            err = float((got - want).abs().max() / want.abs().max())
+            if not (fb.launches == before + 1 and err <= TOL[dtype]):
+                raise AssertionError(f"pw force bias {dtype} N "
+                                     f"{tab.qmesh[0]} ({na}, {nb}) w {w}: "
+                                     f"relative {err:.3e} > {TOL[dtype]}")
+            errs.append(f"{str(dtype)[6:]} N{tab.qmesh[0]} ({na},{nb}) w{w} "
+                        f"{err:.2e}")
+            if dtype == torch.complex64:
+                abs_err = max(abs_err, float((got - want).abs().max()))
+            del ct_f, gha, ghb, want, got
+    # A cube past the kernel (N = 25 in complex128) takes the torch.fft
+    # route of PlaneWave.force_bias on the card, without a launch.
+    ham = make_ueg(7, 7, rs=1.0, ecut=18.0, device="cuda", dtype="double")
+    trial = rhf_identity_trial(ham, device="cuda", dtype="double")
+    prop = make_planewave(ham, trial, 0.005, device="cuda", dtype="double")
+    if fb.fits(prop.fb_tables, torch.complex128):
+        raise AssertionError("pw force bias: N = 25 complex128 fits")
+    _, gha, ghb, _, _, _ = pw_force_bias_inputs(18.0, 7, 7, 5,
+                                                torch.complex128)
+    before = fb.launches
+    big = prop.force_bias(trial, SpinGreens(None, gha, None),
+                          SpinGreens(None, ghb, None))
+    torch.cuda.synchronize()
+    want = fb.force_bias_plain(prop.trial_cubes(trial), gha, ghb,
+                               prop.fb_tables)
+    big_err = float((big - want).abs().max() / want.abs().max())
+    if fb.launches != before or big_err > 1e-12:
+        raise AssertionError(f"pw force bias past the kernel: launches "
+                             f"{fb.launches - before}, {big_err:.3e}")
+    # That route's device-memory peak above its inputs at 64 walkers,
+    # beside the per-spin torch.fft chains it stands for (one spin's
+    # orbital cubes live at a time in both).
+    ct_f, gha, ghb, tab, _, psi = pw_force_bias_inputs(18.0, 7, 7, 64,
+                                                       torch.complex128)
+    peaks = {}
+    for name, fn in (("plain", lambda: fb.force_bias_plain(ct_f, gha, ghb,
+                                                           tab)),
+                     ("per-spin", lambda: pw_fft_route(psi, gha, ghb,
+                                                       tab))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        del out
+    if peaks["plain"] > peaks["per-spin"]:
+        raise AssertionError(f"pw force bias past the kernel: peak {peaks}")
+    del prop, trial, ham, ct_f, gha, ghb
+    # Times at the cells' shape, complex64: the kernel, its plain version
+    # and the torch.fft route it replaces (the library's transforms).
+    shapes, rows = [], []
+    for w in (1024, 1536):
+        ct_f, gha, ghb, tab, ham, psi = pw_force_bias_inputs(
+            8.0, 7, 7, w, torch.complex64)
+        t = median_ms({
+            "plain": lambda: fb.force_bias_plain(ct_f, gha, ghb, tab),
+            "kernel": lambda: fb.force_bias(ct_f, gha, ghb, tab),
+            "library": lambda: pw_fft_route(psi, gha, ghb, tab)})
+        t["device"] = device_ms(lambda: fb.force_bias(ct_f, gha, ghb, tab),
+                                "pw_force_bias")
+        nbytes, flops = pw_force_bias_work(14, 17, tab.fac.shape[0],
+                                           ham.nbasis, w, torch.complex64)
+        bound = bound_ms(nbytes, flops, torch.complex64)
+        shapes.append(f"w={w}: kernel {t['kernel']:.4f} ms (device "
+                      f"{t['device']:.4f}), plain {t['plain']:.4f}, torch.fft "
+                      f"route {t['library']:.4f}, bound {bound[0]:.4f} "
+                      f"({bound[1]}: {nbytes / 1e6:.1f} MB, "
+                      f"{flops / 1e9:.3f} GFLOP)")
+        rows.append((t, bound, {
+            "shape": f"(17^3, 7+7, M=257) w={w} c64", "ms": t["kernel"],
+            "device_ms": t["device"], "plain_ms": t["plain"],
+            "library_ms": t["library"], "bound_ms": bound[0],
+            "bound_by": bound[1]}))
+        del ct_f, gha, ghb
+    row = {"err": abs_err, "times": rows[0][0], "bound": rows[0][1],
+           "at_shapes": [r[2] for r in rows]}
+    return ("kernel vs plain, relative to max|out| (order of the sums: "
+            "direct DFTs vs torch.fft), tolerance 1e-4 complex64 / 1e-10 "
+            "complex128: " + ", ".join(errs) + f"; N=25 complex128 past the "
+            f"kernel: the plain version (torch.fft), no launch, "
+            f"{big_err:.2e}; its peak above the inputs at 64 walkers "
+            f"{peaks['plain']} B, the per-spin torch.fft chains' "
+            f"{peaks['per-spin']} B; at (17^3, 7+7, M=257) complex64 "
+            + "; ".join(shapes)), row
+
+
 def main() -> None:
     seconds = {}
     t_phase = time.perf_counter()
@@ -3248,6 +3460,17 @@ def main() -> None:
     if "--h5lite" in sys.argv[1:]:
         # Phases 1 and 36 only; no result line.
         say("36 h5lite", h5lite_phase() + lap("36"))
+        return
+    if "--pw-force-bias" in sys.argv[1:]:
+        # Phases 1, 2 and 37 only; no result line.
+        path, nvcc_s = cuda_build.build()
+        cuda_build.library()
+        log = path.with_suffix(".log").read_text()
+        sec = log.split("== pw_force_bias.cu")[-1].split("\n== ")[0]
+        say("2 build", f"nvcc {nvcc_s:.1f}s; pw_force_bias.cu: " + " | ".join(
+            ln.split("ptxas info    : ")[-1] for ln in sec.splitlines()
+            if "Used" in ln or "spill" in ln) + lap("2"))
+        say("37 pw force bias", pw_force_bias_phase()[0] + lap("37"))
         return
 
     counts, zero_counts = kernel_counts, zero_kernel_counts
@@ -4679,10 +4902,11 @@ def main() -> None:
         rows = af.run()
         torch.cuda.synchronize()
         ueg_tier[impl] = counts()
-        # Per step: the Taylor kernel once; kernel B 2 for the Green's
-        # functions and 2 for the new overlaps, 2 per energy; 2 at set-up.
-        # Cholesky: 2 spins x 2 passes a re-orthogonalisation.
-        want = only(**dict.fromkeys(keys, usteps),
+        # Per step: the Taylor kernel and the plane-wave force-bias kernel
+        # once; kernel B 2 for the Green's functions and 2 for the new
+        # overlaps, 2 per energy; 2 at set-up. Cholesky: 2 spins x 2
+        # passes a re-orthogonalisation.
+        want = only(**dict.fromkeys(keys, usteps), pw_force_bias=usteps,
                     inv_logdet_lanes=2 + 4 * usteps + 2 * (usteps // 10),
                     chol_inv_lanes=4 * (usteps // uq.nstblz))
         if ueg_tier[impl] != want:
@@ -4733,7 +4957,8 @@ def main() -> None:
     gap_ueg = float((np.abs(card - host).max(axis=0)
                      / np.abs(host).max(axis=0)).max())
     if not (np.isfinite(card).all() and gap_ueg <= 1e-4
-            and inj_counts["taylor_exp"] == 20):
+            and inj_counts["taylor_exp"] == 20
+            and inj_counts["pw_force_bias"] == 20):
         raise AssertionError(f"UEG card vs host: {card.tolist()} vs "
                              f"{host.tolist()} ({gap_ueg:.3e}), launches "
                              f"{inj_counts}")
@@ -4776,7 +5001,7 @@ def main() -> None:
         torch.cuda.synchronize()
         gold_tier[impl] = counts()
         gsteps = 100 * int(g["nsteps"])
-        want = only(**dict.fromkeys(keys, gsteps),
+        want = only(**dict.fromkeys(keys, gsteps), pw_force_bias=gsteps,
                     inv_logdet_lanes=2 + 6 * gsteps,
                     chol_inv_lanes=4 * (gsteps // 10))
         et = rows[:, 5].real
@@ -5978,10 +6203,13 @@ def main() -> None:
 
     # ---- 36. HDF5 without h5py -------------------------------------------
     say("36 h5lite", h5lite_phase() + lap("36"))
-    err["gemm_bf16x3"] = gemm_row["err"]
-    times["gemm_bf16x3"] = gemm_row["times"]
-    bounds["gemm_bf16x3"] = gemm_row["bound"]
-    at_shapes["gemm_bf16x3"] = gemm_row["at_shapes"]
+
+    # ---- 37. the plane-wave force-bias kernel ----------------------------
+    msg, pw_row = pw_force_bias_phase()
+    say("37 pw force bias", msg + lap("37"))
+    for k, r in (("gemm_bf16x3", gemm_row), ("pw_force_bias", pw_row)):
+        err[k], times[k] = r["err"], r["times"]
+        bounds[k], at_shapes[k] = r["bound"], r["at_shapes"]
     say("seconds", json.dumps(seconds))
 
     # ---- result ----------------------------------------------------------
@@ -6006,6 +6234,8 @@ def main() -> None:
         # No Pallas kernel: JAX's 'bfloat16_3x' tier reaches XLA's dot.
         "gemm_bf16x3": ("pauxy_tpu_torch/csrc/gemm_bf16x3.cu",
                         "pauxy_tpu/config.py:91"),
+        # No TPU kernel: JAX's fft_coulomb_terms is plain XLA.
+        "pw_force_bias": ("pauxy_tpu_torch/csrc/pw_force_bias.cu", "none"),
     }
     by_path = {"continuous": cont, "discrete": disc, "generic": gen_counts,
                "generic_exx": exx_counts, "thermal_ueg": ueg_counts,

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pauxy_tpu_torch"
 SOURCES = ("gauss_jordan.cuh", "async_copy.cuh", "greens.cu", "batchla.cu",
            "chol_inv.cu", "sweep.cu", "taylor.cu", "taylor_bf16.cu", "exx.cu",
-           "cpqr.cu", "gemm_bf16x3.cu")
+           "cpqr.cu", "gemm_bf16x3.cu", "pw_force_bias.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +44,9 @@ _F = ctypes.c_float
 # row, column) strides, alpha and beta (re, im), A's and B's staging
 # flags, the route, stream.
 _GEMM3 = (_P,) * 4 + (_I,) * 4 + (_L,) * 12 + (_F,) * 4 + (_I,) * 3 + (_P,)
+# The plane-wave force bias: gha, ghb, ct_f, box, qidx, fac, out, w, na,
+# nb, the two spins' (walker, row) strides, nq, the cube's edge, stream.
+_PWFB = (_P,) * 7 + (_I,) * 3 + (_L,) * 4 + (_I,) * 2 + (_P,)
 # name -> argtypes; each returns the cudaError_t of its launch.
 SIGNATURES = {
     "pauxy_greens_lanes_c64": (_P,) * 4 + (_I,) * 8 + (_P,),
@@ -66,6 +69,8 @@ SIGNATURES = {
     "pauxy_cpqr_c128": (_P,) * 4 + (_I, _I, _P),
     "pauxy_gemm_bf16x3_f32": _GEMM3,
     "pauxy_gemm_bf16x3_c64": _GEMM3,
+    "pauxy_pw_force_bias_c64": _PWFB,
+    "pauxy_pw_force_bias_c128": _PWFB,
 }
 
 _lib = None

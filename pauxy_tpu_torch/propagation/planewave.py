@@ -13,6 +13,13 @@ the pseudo-spectral Coulomb correlations on the FFT cube when the system
 has its cube maps and the walkers' half-rotated G is at hand, else the
 masked gathers over the kpq map. The mean-field shift is zero.
 
+The cube route is decided by shape (``ops/pw_force_bias_cuda.fits``):
+a cube the kernel takes goes to ``pw_force_bias_cuda.force_bias``, one
+kernel for both spins on the card (its plain version on the CPU), with
+the trial's transformed orbital cubes built once a trial and kept; a
+larger cube runs the plain version (torch.fft) on any device, counted by
+the recorder as ``pw_force_bias.fft_route``.
+
 ``taylor_impl`` (None reads ``PAUXY_TPU_TAYLOR_UEG``, default ``"xla"``,
 as JAX does) selects the series as in ``propagation/generic.py``:
 ``"xla"`` six batched matmuls, ``"pallas"`` the fused kernel,
@@ -30,18 +37,21 @@ import torch
 from torch import nn
 
 from pauxy_tpu_torch import config
-from pauxy_tpu_torch.estimators.local_energy import fft_coulomb_terms
-from pauxy_tpu_torch.ops import ueg_sparse
+from pauxy_tpu_torch.ops import pw_force_bias_cuda, ueg_sparse
 from pauxy_tpu_torch.propagation.generic import (_check_taylor_impl,
                                                  taylor_series)
-from pauxy_tpu_torch.utils.tracing import span
+from pauxy_tpu_torch.utils.tracing import count, span
 
 
 class PlaneWave(nn.Module):
     """Inner propagator for the UEG. Buffers: ``BH1`` [2, M] (the diagonal
-    of expm(-dt/2 h1e_mod)), ``mf_shift`` [2 nq] zeros, and the FFT-cube
-    maps ``gmap`` [M] and ``qmap_fft`` [nq] (None without them); ``sp``
-    holds the gather metadata of the density operators."""
+    of expm(-dt/2 h1e_mod)), ``mf_shift`` [2 nq] zeros, the FFT-cube
+    map ``gmap`` [M] and the force-bias kernel's tables ``fb_box``,
+    ``fb_qidx``, ``fb_fac`` (``pw_force_bias_cuda.Tables``, made from
+    ``gmap`` and the q vectors' map ``qmap_fft`` [nq]; None without the
+    maps), and ``ct_f``, the trial's transformed orbital cubes
+    (``pw_force_bias_cuda.trial_cubes``, built at the first force bias of
+    a trial); ``sp`` holds the gather metadata of the density operators."""
 
     def __init__(self, BH1, mf_shift, sp: ueg_sparse.SparseRho, *,
                  dt: float, gmap=None, qmap_fft=None,
@@ -51,10 +61,16 @@ class PlaneWave(nn.Module):
         self.register_buffer("BH1", BH1)
         self.register_buffer("mf_shift", mf_shift)
         self.register_buffer("gmap", gmap)
-        self.register_buffer("qmap_fft", qmap_fft)
         self.sp = sp
         self.dt = float(dt)
         self.qmesh = None if qmesh is None else tuple(qmesh)
+        tab = (None if qmesh is None else pw_force_bias_cuda.make_tables(
+            gmap, qmap_fft, qmesh, sp.qfac, self.sqrt_dt))
+        for name in ("box", "qidx", "fac"):
+            self.register_buffer(f"fb_{name}",
+                                 None if tab is None else getattr(tab, name))
+        self.register_buffer("ct_f", None)
+        self._ct_of = None
         self.exp_order = int(exp_order)
         self.taylor_impl = _check_taylor_impl(taylor_impl)
 
@@ -71,19 +87,39 @@ class PlaneWave(nn.Module):
         """The gather route of the force bias reads the full G."""
         return self.qmesh is None
 
+    @property
+    def fb_tables(self) -> pw_force_bias_cuda.Tables:
+        return pw_force_bias_cuda.Tables(self.gmap, self.fb_box,
+                                         self.fb_qidx, self.fb_fac,
+                                         self.qmesh)
+
+    def trial_cubes(self, trial) -> torch.Tensor:
+        """``ct_f`` for ``trial``, rebuilt only when its orbitals are other
+        tensors than last time or were changed in place."""
+        key = [(p, p._version) for p in (trial.psia, trial.psib)]
+        if self._ct_of is None or any(
+                a is not p or v != pv
+                for (a, v), (p, pv) in zip(self._ct_of, key)):
+            self.ct_f = pw_force_bias_cuda.trial_cubes(
+                trial.psia, trial.psib, self.gmap, self.qmesh)
+            self._ct_of = key
+        return self.ct_f
+
     def force_bias(self, trial, ga, gb) -> torch.Tensor:
         """-sqrt(dt) (<iA_q>, <iB_q>) [w, 2 nq] from <rho_q> and
-        <rho_q^T>: FFT correlations of the half-rotated G, or the masked
-        gathers of the full G."""
+        <rho_q^T>: FFT correlations of the half-rotated G (the fused
+        kernel, or its plain version for a cube it does not take), or the
+        masked gathers of the full G."""
         if self.qmesh is not None and ga.Ghalf is not None:
-            ka, pa = fft_coulomb_terms(trial.psia, ga.Ghalf, self.gmap,
-                                       self.qmap_fft, self.qmesh)
-            kb, pb = fft_coulomb_terms(trial.psib, gb.Ghalf, self.gmap,
-                                       self.qmap_fft, self.qmesh)
-            t1 = self.sp.qfac * (ka + kb)
-            t2 = self.sp.qfac * (pa + pb)
-        else:
-            t1, t2 = ueg_sparse.rho_expectations(self.sp, ga.G + gb.G)
+            tab = self.fb_tables
+            ct_f = self.trial_cubes(trial)
+            if pw_force_bias_cuda.fits(tab, ga.Ghalf.dtype):
+                return pw_force_bias_cuda.force_bias(ct_f, ga.Ghalf,
+                                                     gb.Ghalf, tab)
+            count("pw_force_bias.fft_route")
+            return pw_force_bias_cuda.force_bias_plain(ct_f, ga.Ghalf,
+                                                       gb.Ghalf, tab)
+        t1, t2 = ueg_sparse.rho_expectations(self.sp, ga.G + gb.G)
         vplus = 1j * (t1 + t2)
         vminus = -(t1 - t2)
         return -self.sqrt_dt * torch.cat([vplus, vminus], dim=-1)

@@ -43,10 +43,14 @@ record is a dict: ``steps``; ``wall_s``, the block's wall time (the value
 to the moment the host had issued its last launch (just before the
 readback), so ``wall_s - host_issue_s`` is the time the host waited for
 the card; ``profiled``, whether a profiler was recording during the
-block (its host times are then the profiler's, not the program's); and
+block (its host times are then the profiler's, not the program's);
 ``spans``, for each span name ``calls``, ``device_s`` (the sum over its
 calls of the time between its two events on the card, idle gaps inside
-the span included) and ``host_s``. The last ``HISTORY`` records are kept.
+the span included) and ``host_s``; and ``counts``, the block's sums of
+the counters the step bumps with ``count(name)``:
+``pw_force_bias.launches`` (the plane-wave force-bias kernel's launches)
+and ``pw_force_bias.fft_route`` (plane-wave force-bias calls that took the
+torch.fft route). The last ``HISTORY`` records are kept.
 """
 
 from __future__ import annotations
@@ -135,6 +139,13 @@ def span(name: str):
     return _Span(name)
 
 
+def count(name: str, n: int = 1):
+    """Add ``n`` to the counter ``name`` of the block being recorded; a
+    no-op (one flag test) unless one is."""
+    if _block is not None:
+        _block.counts[name] = _block.counts.get(name, 0) + n
+
+
 class _Span:
     __slots__ = ("name", "block", "rf", "entry")
 
@@ -209,6 +220,7 @@ class _Block:
         self.host_issue_s = None
         self.wall_s = None
         self.spans = []             # [name, start, end, host start, end]
+        self.counts = {}
         self._record = None
 
     def _mark(self):
@@ -281,4 +293,5 @@ class _Block:
         self.spans = []
         self._record = {"steps": self.steps, "wall_s": self.wall_s,
                         "host_issue_s": self.host_issue_s,
-                        "profiled": self.profiled, "spans": spans}
+                        "profiled": self.profiled, "spans": spans,
+                        "counts": dict(self.counts)}

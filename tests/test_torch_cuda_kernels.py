@@ -75,18 +75,28 @@ case launched on the route ops/gemm3_cuda.plan picks for it; under
 that tier every float32 / complex64 product on the card launches it (the
 route's result equal to the wrapper's bit for bit), a full_precision()
 body and float64 products do not, and "float32" gives cuBLAS's products
-back.
+back. The plane-wave force-bias kernel agrees with its plain version
+within TOL of max|out| (its direct DFTs sum in another order than
+torch.fft) at the UEG cells' cube (17^3, M = 257, n = 7 + 7; 1024, 1536
+and 37 walkers), at n = 1 + 0 and 3 + 5 and at the largest cube it takes
+in each type, with a dense random trial; past that cube the propagator
+takes the torch.fft route without a launch (the recorder counts it), the
+wrapper refuses such a cube, and a UEG block on the card launches the
+kernel once a step.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import gemm3_cases, gemm3_tolerance, pivot_cases
+from chip_smoke import (PW_CASES, gemm3_cases, gemm3_tolerance, pivot_cases,
+                        pw_force_bias_inputs)
 from pauxy_tpu_torch import config
 from pauxy_tpu_torch.ops import (batchla_cuda, clinalg, cpqr_cuda,
                                  cuda_build, exx_cuda, gemm3_cuda,
-                                 greens_cuda, sweep_cuda, taylor_cuda)
+                                 greens_cuda, pw_force_bias_cuda, sweep_cuda,
+                                 taylor_cuda)
+from pauxy_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -1674,3 +1684,78 @@ def test_split_route_on_card(dtype):
         config.set_matmul_precision("float32", "cuda")
     assert not gemm3_cuda.route_installed()
     assert torch.equal(a[0] @ b, ieee)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", range(6))
+def test_pw_force_bias_kernel_matches_plain(dtype, case):
+    need_cuda()
+    ecut, na, nb, w = PW_CASES[dtype][case]
+    ct_f, gha, ghb, tab, _, _ = pw_force_bias_inputs(ecut, na, nb, w, dtype,
+                                                     seed=case)
+    assert pw_force_bias_cuda.fits(tab, dtype)
+    before = pw_force_bias_cuda.launches
+    got = pw_force_bias_cuda.force_bias(ct_f, gha, ghb, tab)
+    torch.cuda.synchronize()
+    assert pw_force_bias_cuda.launches == before + 1
+    want = pw_force_bias_cuda.force_bias_plain(ct_f, gha, ghb, tab)
+    assert (got - want).abs().max() <= TOL[dtype] * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_pw_force_bias_past_the_kernel_takes_the_fft_route():
+    """A 25^3 cube in complex128 does not fit a block: the propagator
+    takes the torch.fft route on the card (counted, no launch) and the
+    wrapper refuses it."""
+    need_cuda()
+    from pauxy_tpu_torch.models import make_ueg, rhf_identity_trial
+    from pauxy_tpu_torch.ops.greens import SpinGreens
+    from pauxy_tpu_torch.propagation.planewave import make_planewave
+    ham = make_ueg(7, 7, rs=1.0, ecut=18.0, device="cuda", dtype="double")
+    trial = rhf_identity_trial(ham, device="cuda", dtype="double")
+    prop = make_planewave(ham, trial, 0.005, device="cuda", dtype="double")
+    tab = prop.fb_tables
+    assert tab.qmesh == (25, 25, 25)
+    assert not pw_force_bias_cuda.fits(tab, torch.complex128)
+    assert pw_force_bias_cuda.fits(tab, torch.complex64)
+    _, gha, ghb, _, _, _ = pw_force_bias_inputs(18.0, 7, 7, 5,
+                                                torch.complex128)
+    before = pw_force_bias_cuda.launches
+    tracing.clear()
+    with tracing.block("cuda", 1, 0.0, always=True) as blk:
+        got = prop.force_bias(trial, SpinGreens(None, gha, None),
+                              SpinGreens(None, ghb, None))
+        blk.issued()
+        torch.cuda.synchronize()
+        blk.end(1.0)
+    assert pw_force_bias_cuda.launches == before
+    assert tracing.blocks()[-1]["counts"] == {"pw_force_bias.fft_route": 1}
+    want = pw_force_bias_cuda.force_bias_plain(prop.trial_cubes(trial), gha,
+                                               ghb, tab)
+    assert (got - want).abs().max() <= 1e-12 * want.abs().max()
+    with pytest.raises(ValueError):
+        pw_force_bias_cuda.force_bias(prop.trial_cubes(trial), gha, ghb, tab)
+
+
+@pytest.mark.cuda
+def test_ueg_block_on_card_launches_the_force_bias_kernel():
+    """Every force bias of a UEG block on the card goes through the kernel:
+    the recorder's counts hold a launch a step and no torch.fft route."""
+    need_cuda()
+    from pauxy_tpu_torch.models import make_ueg, rhf_identity_trial
+    from pauxy_tpu_torch.qmc import AFQMC, QMCOpts
+    ham = make_ueg(7, 7, rs=1.0, ecut=2.0, device="cuda", dtype="single")
+    trial = rhf_identity_trial(ham, device="cuda", dtype="single")
+    af = AFQMC(ham, trial, QMCOpts(nwalkers=37, dt=0.01, nsteps=5, nblocks=1,
+                                   nstblz=5, npop_control=1, rng_seed=3),
+               device="cuda")
+    tracing.enable()
+    tracing.clear()
+    try:
+        af.run_block()
+        rec = tracing.blocks()[-1]
+    finally:
+        tracing.disable()
+        tracing.clear()
+    assert rec["counts"] == {"pw_force_bias.launches": 5}

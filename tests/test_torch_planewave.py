@@ -13,6 +13,14 @@ float64 on the CPU, the same seeded numpy inputs through both packages,
     invariant under q -> -q, S(k) is not); ``local_energy_ueg_half``;
   * ``PlaneWave``: BH1, both force-bias routes (FFT and gather), build_vhs,
     apply_vhs on each ``taylor_impl`` route, bp_dagger_fields;
+  * the fused force bias (``ops/pw_force_bias_cuda``'s plain version, the
+    CPU's cube route) against the torch.fft route of ``fft_coulomb_terms``
+    and against JAX's ``fft_coulomb_terms`` / ``PlaneWave.force_bias``,
+    for the identity trial, a dense random trial, unequal nup / ndown and
+    an empty spin; the shape rule ``fits`` (cube edges, types, the basis's
+    support, any n); the trial's cached transformed cubes equal fft3 of
+    its cube and are rebuilt only for other orbitals; a cube the rule
+    refuses takes the plain version (torch.fft);
   * two blocks of qmc/afqmc.run_block against pauxy_tpu.qmc.afqmc.run_block
     with JAX's normals injected, rtol 1e-8 / atol 1e-10 on the
     accumulators, weights and walkers, for taylor_impl "xla" and "pallas"
@@ -29,6 +37,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -52,7 +61,7 @@ from pauxy_tpu_torch.estimators import local_energy as tle
 from pauxy_tpu_torch.estimators import mixed as tmixed
 from pauxy_tpu_torch.models import make_ueg, rhf_identity_trial
 from pauxy_tpu_torch.ops import greens as tgreens
-from pauxy_tpu_torch.ops import taylor_cuda
+from pauxy_tpu_torch.ops import pw_force_bias_cuda, taylor_cuda
 from pauxy_tpu_torch.propagation import pw_fft as tpw
 from pauxy_tpu_torch.propagation.continuous import Continuous
 from pauxy_tpu_torch.propagation.planewave import make_planewave
@@ -278,6 +287,169 @@ def test_planewave_setup_and_force_bias_match_jax():
     assert gather.uses_full_g and not prop.uses_full_g
     close(gather.force_bias(tt, tga, tgb), want)
     close(np.asarray(jgather.force_bias(jt, jga, jgb)), want)
+
+
+# ---------------------------------------------------- fused force bias ---
+
+FB_SPINS = {"identity": (7, 7), "dense": (7, 7), "unequal": (5, 2),
+            "empty": (3, 0)}
+
+
+def orbitals(rng, m, n):
+    """Orthonormal random complex orbitals [m, n] (n may be 0)."""
+    if n == 0:
+        return np.zeros((m, 0), dtype=complex)
+    return np.linalg.qr(rng.normal(size=(m, n))
+                        + 1j * rng.normal(size=(m, n)))[0]
+
+
+def half_greens(rng, nw, n, m):
+    """A walker-like half-rotated G [w, n, M]: the identity's rows plus
+    noise."""
+    gh = 0.3 * (rng.normal(size=(nw, n, m)) + 1j * rng.normal(size=(nw, n, m)))
+    gh[:, :, :n] += np.eye(n)
+    return gh
+
+
+@pytest.mark.parametrize("case", list(FB_SPINS))
+def test_fused_force_bias_matches_fft_route_and_jax(case):
+    nup, ndown = FB_SPINS[case]
+    jham = j_make_ueg(nup=nup, ndown=ndown, rs=1.0, ecut=1.0)
+    m = jham.nbasis
+    rng = np.random.default_rng(17)
+    if case == "identity":
+        jt = jtrial.rhf_identity_trial(jham)
+    else:
+        jt = jtrial.trial_from_orbitals(jham, np.concatenate(
+            [orbitals(rng, m, nup), orbitals(rng, m, ndown)], axis=1))
+    ham, tt = port_ueg(jham), port_trial(jt)
+    gha, ghb = half_greens(rng, 4, nup, m), half_greens(rng, 4, ndown, m)
+    jprop = j_mpw(jham, jt, 0.05, taylor_impl="xla")
+    prop = make_planewave(ham, tt, 0.05, **CPU)
+    assert pw_force_bias_cuda.fits(prop.fb_tables, torch.complex128)
+    got = prop.force_bias(tt, types.SimpleNamespace(Ghalf=t(gha)),
+                          types.SimpleNamespace(Ghalf=t(ghb)))
+    # The torch.fft route it replaces on the card, spin by spin.
+    terms = [tle.fft_coulomb_terms(psi, t(gh), ham.gmap, ham.qmap,
+                                   ham.qmesh)
+             for psi, gh in ((tt.psia, gha), (tt.psib, ghb)) if gh.shape[1]]
+    t1 = prop.sp.qfac * sum(k for k, _ in terms)
+    t2 = prop.sp.qfac * sum(p for _, p in terms)
+    route = -prop.sqrt_dt * torch.cat([1j * (t1 + t2), -(t1 - t2)], -1)
+    close(got, route)
+    want = jprop.force_bias(jt, types.SimpleNamespace(Ghalf=jnp.asarray(gha),
+                                                      G=None),
+                            types.SimpleNamespace(Ghalf=jnp.asarray(ghb),
+                                                  G=None))
+    close(got, np.asarray(want))
+    jterms = [jle.fft_coulomb_terms(psi, jnp.asarray(gh), jham.gmap,
+                                    jham.qmap, jham.qmesh)
+              for psi, gh in ((jt.psia, gha), (jt.psib, ghb)) if gh.shape[1]]
+    close(sum(k for k, _ in terms), np.asarray(sum(k for k, _ in jterms)))
+    close(sum(p for _, p in terms), np.asarray(sum(p for _, p in jterms)))
+
+
+def fb_tables(ecut, qmesh=None, dtype=torch.float64):
+    """The kernel's tables for the basis of ``ecut`` on its (4 nmax + 1)
+    cube (or ``qmesh``), a few q vectors, without building a system."""
+    from pauxy_tpu_torch.models.ueg import fft_maps, plane_wave_basis
+    _, basis, nmax = plane_wave_basis(ecut)
+    qvecs = np.array([[1, 0, 0], [0, -1, 0], [1, 1, 2]])
+    gmap, qmap, mesh = fft_maps(basis, qvecs, nmax)
+    if qmesh is not None:
+        n = np.array(qmesh)
+        w = np.mod(basis, n)
+        gmap = (w[:, 0] * n[1] + w[:, 1]) * n[2] + w[:, 2]
+        mesh = tuple(qmesh)
+    return pw_force_bias_cuda.make_tables(
+        torch.from_numpy(gmap), torch.from_numpy(qmap), mesh,
+        torch.ones(3, dtype=dtype), 0.1)
+
+
+def test_force_bias_shape_rule():
+    """The kernel takes the UEG's (4 nmax + 1)^3 cubes whose working set
+    fits a block: up to 25^3 in complex64, 21^3 in complex128; not a
+    cube of another edge or shape, a basis past the support box, or a
+    real type. The number of electrons a spin does not enter."""
+    c64, c128 = torch.complex64, torch.complex128
+    want = {0.5: (5, True, True), 2.0: (9, True, True),
+            4.5: (13, True, True), 8.0: (17, True, True),
+            12.5: (21, True, True), 18.0: (25, True, False),
+            24.5: (29, False, False)}
+    for ecut, (edge, f64, f128) in want.items():
+        tab = fb_tables(ecut)
+        assert tab.qmesh == (edge,) * 3 and tab.box is not None
+        assert pw_force_bias_cuda.fits(tab, c64) == f64, ecut
+        assert pw_force_bias_cuda.fits(tab, c128) == f128, ecut
+        assert not pw_force_bias_cuda.fits(tab, torch.float64)
+        assert (pw_force_bias_cuda.smem_bytes(edge, c128)
+                <= 232448) == f128
+    # ecut 1: |n| <= 1 on a 9-cube, inside the support |n| <= 2.
+    assert pw_force_bias_cuda.fits(fb_tables(1.0), c64)
+    # Another edge, or a box, or a basis past the support: no kernel.
+    assert not pw_force_bias_cuda.fits(fb_tables(2.0, (11, 11, 11)), c64)
+    assert not pw_force_bias_cuda.fits(fb_tables(2.0, (9, 9, 13)), c64)
+    assert not pw_force_bias_cuda.fits(fb_tables(8.0, (13, 13, 13)), c64)
+    # Any n, 0 included, takes the same route: the plain version runs.
+    tab = fb_tables(2.0)
+    rng = np.random.default_rng(2)
+    for na, nb in ((7, 7), (1, 0), (0, 3), (0, 0)):
+        m = tab.gmap.shape[0]
+        ct_f = pw_force_bias_cuda.trial_cubes(
+            t(orbitals(rng, m, na)), t(orbitals(rng, m, nb)), tab.gmap,
+            tab.qmesh)
+        out = pw_force_bias_cuda.force_bias(
+            ct_f, t(half_greens(rng, 2, na, m)),
+            t(half_greens(rng, 2, nb, m)), tab)
+        assert out.shape == (2, 6) and bool(torch.isfinite(out).all())
+        assert bool((out == 0).all()) == (na + nb == 0)
+
+
+def test_trial_cubes_are_cached_fft3_of_the_trial():
+    jham, jt, ham, tt = ueg_system(5, 2)
+    prop = make_planewave(ham, tt, 0.05, **CPU)
+    ng = int(np.prod(ham.qmesh))
+    cubes = prop.trial_cubes(tt)
+    for rows, psi in ((cubes[:5], tt.psia), (cubes[5:], tt.psib)):
+        want = tpw.fft3(tpw.to_cube(psi.conj().T, ham.gmap, ng), ham.qmesh)
+        assert torch.equal(rows, want)
+    assert prop.trial_cubes(tt) is cubes
+    # Other orbitals, or the same tensors changed in place: rebuilt.
+    other = port_trial(jtrial.trial_from_orbitals(jham, np.concatenate(
+        [orbitals(np.random.default_rng(4), ham.nbasis, n) for n in (5, 2)],
+        axis=1)))
+    assert not torch.equal(prop.trial_cubes(other), cubes)
+    again = prop.trial_cubes(tt)
+    assert torch.equal(again, cubes)
+    tt.psia.mul_(-1)
+    assert torch.equal(prop.trial_cubes(tt)[:5], -cubes[:5])
+    tt.psia.mul_(-1)
+
+
+def test_cube_past_the_kernel_takes_the_fft_route(monkeypatch):
+    """A cube ``fits`` refuses runs the plain version (torch.fft), with
+    the same force bias, and the kernel's wrapper is not called."""
+    jham, jt, ham, tt = ueg_system(5, 2)
+    prop = make_planewave(ham, tt, 0.05, **CPU)
+    rng = np.random.default_rng(8)
+    ga = types.SimpleNamespace(Ghalf=t(half_greens(rng, 3, 5, ham.nbasis)))
+    gb = types.SimpleNamespace(Ghalf=t(half_greens(rng, 3, 2, ham.nbasis)))
+    fused = prop.force_bias(tt, ga, gb)
+
+    def refuse(*args):
+        raise AssertionError("the fused force bias ran past the rule")
+
+    plain, calls = pw_force_bias_cuda.force_bias_plain, []
+
+    def counted(*args):
+        calls.append(1)
+        return plain(*args)
+
+    monkeypatch.setattr(pw_force_bias_cuda, "fits", lambda tab, dt: False)
+    monkeypatch.setattr(pw_force_bias_cuda, "force_bias", refuse)
+    monkeypatch.setattr(pw_force_bias_cuda, "force_bias_plain", counted)
+    close(prop.force_bias(tt, ga, gb), fused, 1e-12)
+    assert calls == [1]
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas", "pallas_bf16"])

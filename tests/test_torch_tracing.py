@@ -6,7 +6,10 @@ block (the Hubbard continuous path):
   entered and no block is recorded;
 * on, each block leaves one record whose span calls follow the block's
   schedule, whose host issue time is within its wall time, and whose
-  child spans take no longer than their parents;
+  child spans take no longer than their parents; its counters are empty
+  on the CPU (no kernel launches), and a UEG block whose cube the
+  force-bias kernel does not take counts each force bias's torch.fft
+  route, with the rows the same bits with the recorder off and on;
 * the output rows are the same bits with the recorder off, on and in
   split mode;
 * under ``torch.profiler`` the ``pauxy.*`` ranges nest as the step does,
@@ -115,6 +118,7 @@ def test_records_follow_the_schedule(case):
         else:
             assert calls["inv_logdet"] > NSTEPS
         assert set(calls) <= set(TOP) | set(PARENTS)
+        assert rec["counts"] == {}
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -157,6 +161,21 @@ def test_rows_are_the_same_bits_off_on_and_split(case):
                       ("pop", "pop_control"), ("estim", "measure")):
         assert split.timing[key] == pytest.approx(
             sum(r["spans"][name]["device_s"] for r in recs), rel=1e-12)
+
+
+def test_ueg_block_counts_the_force_bias_fft_route(monkeypatch):
+    """Past the kernel's rule the UEG's force bias takes the torch.fft
+    route: the block record counts one a step, and the recorder changes
+    no bit of the rows."""
+    from pauxy_tpu_torch.ops import pw_force_bias_cuda
+    monkeypatch.setattr(pw_force_bias_cuda, "fits", lambda tab, dt: False)
+    off = _blocks(_driver("ueg"))
+    tracing.enable()
+    on = _blocks(_driver("ueg"))
+    np.testing.assert_array_equal(on, off)
+    for rec in tracing.blocks():
+        assert rec["counts"] == {"pw_force_bias.fft_route": NSTEPS}
+        assert rec["spans"]["force_bias"]["calls"] == NSTEPS
 
 
 def _trace_events(tmp_path, run):
